@@ -1,0 +1,6 @@
+// Error names for the C interface: the Python wrappers raise with them.
+#include <cuda_runtime.h>
+
+extern "C" const char* ptt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -38,6 +38,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "chaos: fault-injection tests (crash/corruption "
         "simulation via paddle_tpu.testing.fault_injection)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+        "skips without one")
 
 
 @pytest.fixture(autouse=True)
