@@ -4,7 +4,8 @@ Only the flags this port reads are defined. Each is overridable from the
 environment (``FLAGS_<name>=...``) at import and mutable at runtime with
 :func:`set_flags`. There is deliberately no flag that turns the CUDA
 kernels off: on a CUDA tensor a kernel wrapper launches its kernel or
-raises.
+raises. ``pallas_fused_block`` keeps the reference's name and chooses
+between two model paths, each of which runs kernels.
 """
 
 from __future__ import annotations
@@ -69,3 +70,11 @@ define_flag("serve_prefix_cache", False)
 define_flag("serve_kv_quant", "off")
 define_flag("serve_kv_host_tier", False)
 define_flag("serve_weight_quant", False)
+
+# the fused decoder block (ops/kernels/fused_block.py) in LlamaDecoderLayer:
+# "auto" takes it (the CUDA kernel for CUDA tensors, its plain twin for CPU
+# tensors); "on" is an alias of "auto", kept for the reference's callers,
+# since the port has no interpret mode for "on" to force on the CPU; "off"
+# keeps the composed per-op path. A layer the kernel cannot take composes
+# with a one-time warning, as in the reference.
+define_flag("pallas_fused_block", "auto")

@@ -4,7 +4,9 @@
 Where the reference chose between a Pallas kernel (on TPU) and a composed
 XLA path, the port has one route per device: a CUDA tensor goes through
 the hand-written kernel, a CPU tensor through its plain PyTorch twin.
-RoPE and SwiGLU are plain tensor code in the reference and stay so.
+The kernel ops are differentiable through their autograd Functions, whose
+backward is a kernel too. RoPE and SwiGLU are plain tensor code in the
+reference and stay so.
 """
 
 from __future__ import annotations
@@ -14,18 +16,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch import flags
 from paddle_tpu_torch.ops.kernels import flash_attention as _flash
+from paddle_tpu_torch.ops.kernels import fused_block as _fb
 from paddle_tpu_torch.ops.kernels import rms_norm as _rms
 
 __all__ = ["fused_rms_norm", "fused_rotary_position_embedding", "swiglu",
-           "flash_attention_impl", "rope_tables"]
+           "flash_attention_impl", "fused_block", "fused_block_enabled",
+           "rope_tables"]
 
 
 def fused_rms_norm(x: torch.Tensor, norm_weight: torch.Tensor,
                    epsilon: float = 1e-6) -> torch.Tensor:
-    """RMSNorm through the RMSNorm forward kernel; output in ``x``'s dtype
-    (the TPU kernel's contract)."""
-    return _rms.rms_norm(x.contiguous(), norm_weight, epsilon)
+    """RMSNorm through the RMSNorm kernels (forward, and backward under
+    autograd); output in ``x``'s dtype (the TPU kernel's contract)."""
+    return _rms.RMSNormFunction.apply(x, norm_weight, float(epsilon))
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, base: float):
@@ -53,8 +58,8 @@ def fused_rotary_position_embedding(q, k=None, v=None,
                                     rotary_emb_base: float = 10000.0):
     """Neox-style RoPE on ``[batch, seq, heads, head_dim]`` tensors at
     positions ``0..seq-1``, math in fp32, results in each input's dtype.
-    Returns ``(q, k, v)`` with ``None`` where no tensor was given; ``v``
-    passes through untouched, as in the reference."""
+    Returns ``(q, k, v)`` with ``None`` where no tensor was given; each
+    tensor given is rotated, ``v`` included, as in the reference."""
     if not use_neox_rotary_style:
         raise NotImplementedError("only neox-style RoPE is ported "
                                   "(ROADMAP.md A.2: fused_ops)")
@@ -62,8 +67,8 @@ def fused_rotary_position_embedding(q, k=None, v=None,
     sin, cos = rope_tables(torch.arange(s, device=q.device), d,
                            rotary_emb_base)
     sin, cos = sin[None, :, None, :], cos[None, :, None, :]
-    return (_rotate_neox(q, sin, cos),
-            None if k is None else _rotate_neox(k, sin, cos), v)
+    return tuple(None if t is None else _rotate_neox(t, sin, cos)
+                 for t in (q, k, v))
 
 
 def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None):
@@ -74,6 +79,31 @@ def swiglu(x: torch.Tensor, y: Optional[torch.Tensor] = None):
 
 
 def flash_attention_impl(query, key, value, is_causal: bool = False):
-    """The flash-attention forward kernel on ``[b, s, h, d]`` tensors."""
-    return _flash.flash_attention(query.contiguous(), key.contiguous(),
-                                  value.contiguous(), is_causal)
+    """Flash attention on ``[b, s, h, d]`` tensors: the forward kernel,
+    and the backward kernel under autograd."""
+    return _flash.FlashAttentionFunction.apply(query, key, value,
+                                               bool(is_causal))
+
+
+def fused_block_enabled() -> bool:
+    """The ``pallas_fused_block`` flag: ``auto`` takes the fused block
+    (the kernel on CUDA tensors, its twin on CPU tensors) and ``on`` is
+    its alias; ``off`` the composed path."""
+    mode = str(flags.flag("pallas_fused_block")).lower()
+    if mode not in ("on", "off", "auto"):
+        raise ValueError(f"pallas_fused_block must be 'on', 'off' or "
+                         f"'auto', got {mode!r}")
+    return mode != "off"
+
+
+def fused_block(q, k, v, resid, wn, wo, wg, wu, wd, eps: float = 1e-6):
+    """The fused decoder block after QKV and RoPE (counterpart of
+    ``paddle_tpu/ops/pallas/__init__.py:fused_block_pallas``): causal
+    attention, o-projection and residual, RMSNorm, SwiGLU MLP and
+    residual, differentiable. q, k and v are cast to the residual's
+    dtype (autograd carries the cast). Raises for a shape the kernel
+    cannot take; callers check ``ops.kernels.fused_block.ineligible_reason``
+    first."""
+    dt = resid.dtype
+    return _fb.FusedBlockFunction.apply(float(eps), q.to(dt), k.to(dt),
+                                        v.to(dt), resid, wn, wo, wg, wu, wd)

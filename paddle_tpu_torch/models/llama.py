@@ -1,20 +1,30 @@
 """Llama-3 family decoder (port of ``paddle_tpu/models/llama.py``).
 
-The composed decoder path of the reference (``pallas_fused_block=off``):
-RMSNorm -> q/k/v projections -> neox RoPE -> causal GQA attention ->
-o-projection + residual -> RMSNorm -> SwiGLU MLP + residual. On CUDA the
-norms run the RMSNorm forward kernel and attention the flash-attention
-forward kernel; on CPU their plain twins. Weights keep Paddle's ``[in,
-out]`` layout, norm weights stay fp32 in a bf16 model, and the state-dict
-keys are the JAX model's, so :func:`paddle_tpu_torch.weights.load_jax_state`
-carries a JAX model's weights across unchanged.
+A decoder layer runs one of the reference's two paths, chosen by the
+``pallas_fused_block`` flag:
 
-Not ported yet (ROADMAP.md A): the LM loss, recompute, MoE layers,
-sequence parallelism, the fused decoder block, and the numerics taps.
+* fused (``on``/``auto``): RMSNorm -> q/k/v projections -> neox RoPE,
+  then the fused block kernel (attention, o-projection + residual,
+  RMSNorm, SwiGLU MLP + residual in one launch);
+* composed (``off``, or a layer the kernel cannot take): RMSNorm -> q/k/v
+  -> RoPE -> causal GQA attention -> o-projection + residual -> RMSNorm
+  -> SwiGLU MLP + residual.
+
+On CUDA the norms, attention and the fused block run the hand-written
+kernels, forward and backward; on CPU their plain twins. ``forward(ids,
+labels)`` returns the fp32 next-token loss. Weights keep Paddle's ``[in,
+out]`` layout and are trainable, norm weights stay fp32 in a bf16 model,
+and the state-dict keys are the JAX model's, so
+:func:`paddle_tpu_torch.weights.load_jax_state` carries a JAX model's
+weights across unchanged.
+
+Not ported yet (ROADMAP.md A): recompute, MoE layers, sequence
+parallelism and the numerics taps.
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -28,6 +38,7 @@ from paddle_tpu_torch.incubate.nn import functional as F_inc
 from paddle_tpu_torch.nn import Embedding, Linear
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.nn.initializer import Constant, Normal
+from paddle_tpu_torch.ops.kernels import fused_block as _fb
 
 __all__ = ["LlamaConfig", "LlamaRMSNorm", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
@@ -94,14 +105,28 @@ class _Init:
                       device=self.device, generator=self.generator)
 
 
+# one warning per structural reason per process, as in the reference: the
+# composed path for a layer the fused block cannot take is loud once
+_warned_fused: set = set()
+
+
+def _warn_fused_fallback(reason: str) -> None:
+    if reason in _warned_fused:
+        return
+    _warned_fused.add(reason)
+    warnings.warn(f"pallas_fused_block: falling back to the composed "
+                  f"decoder path — {reason}", RuntimeWarning, stacklevel=3)
+
+
 class LlamaRMSNorm(nn.Module):
-    """RMSNorm with an fp32 weight in every model dtype (``llama.py:241``)."""
+    """RMSNorm with a trainable fp32 weight in every model dtype
+    (``llama.py:241``)."""
 
     def __init__(self, config: LlamaConfig, init: _Init):
         super().__init__()
         self.weight = nn.Parameter(
             Constant(1.0)((config.hidden_size,), torch.float32,
-                          init.device), requires_grad=False)
+                          init.device))
         self._eps = config.rms_norm_eps
 
     def forward(self, x):
@@ -119,7 +144,9 @@ class LlamaAttention(nn.Module):
         self.v_proj = init.linear(h, nkv * d)
         self.o_proj = init.linear(nh * d, h)
 
-    def forward(self, hidden_states):
+    def qkv_rope(self, hidden_states):
+        """Projections and RoPE only: the fused block takes q, k and v
+        and runs attention in its own kernel (``llama.py:151-165``)."""
         cfg = self.config
         b, s, _ = hidden_states.shape
         q = self.q_proj(hidden_states).reshape(
@@ -131,7 +158,13 @@ class LlamaAttention(nn.Module):
         q, k, _ = F_inc.fused_rotary_position_embedding(
             q, k, use_neox_rotary_style=True,
             rotary_emb_base=cfg.rope_theta)
-        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        return q, k, v
+
+    def forward(self, hidden_states):
+        b, s, _ = hidden_states.shape
+        q, k, v = self.qkv_rope(hidden_states)
+        out = scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           training=self.training)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -149,7 +182,8 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    """The composed decoder layer (``llama.py:290-296``)."""
+    """A decoder layer: the fused block where the flag and the layer's
+    shape allow it, else the composed path (``llama.py:249-296``)."""
 
     def __init__(self, config: LlamaConfig, init: _Init):
         super().__init__()
@@ -159,7 +193,35 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = LlamaRMSNorm(config, init)
         self.mlp = LlamaMLP(config, init)
 
+    def _fused_forward(self, hidden_states):
+        """The layer through the fused block kernel when the
+        ``pallas_fused_block`` flag and the layer shape allow it, None
+        otherwise (the caller composes). The input norm and q/k/v
+        projections stay outside: they feed the kernel."""
+        if not F_inc.fused_block_enabled():
+            return None
+        cfg = self.config
+        b, s, hidden = hidden_states.shape
+        reason = _fb.ineligible_reason(
+            (b, s, cfg.num_attention_heads, cfg.head_dim),
+            (b, s, cfg.num_key_value_heads, cfg.head_dim), hidden,
+            self.mlp.gate_proj.weight.shape[-1], hidden_states.dtype,
+            hidden_states.device)
+        if reason is not None:
+            _warn_fused_fallback(reason)
+            return None
+        q, k, v = self.self_attn.qkv_rope(
+            self.input_layernorm(hidden_states))
+        return F_inc.fused_block(
+            q, k, v, hidden_states, self.post_attention_layernorm.weight,
+            self.self_attn.o_proj.weight, self.mlp.gate_proj.weight,
+            self.mlp.up_proj.weight, self.mlp.down_proj.weight,
+            cfg.rms_norm_eps)
+
     def forward(self, hidden_states):
+        fused = self._fused_forward(hidden_states)
+        if fused is not None:
+            return fused
         h = hidden_states + self.self_attn(
             self.input_layernorm(hidden_states))
         return h + self.mlp(self.post_attention_layernorm(h))
@@ -186,7 +248,9 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Causal LM: ``forward(input_ids [b, s]) -> logits [b, s, vocab]``.
+    """Causal LM: ``forward(input_ids [b, s]) -> logits [b, s, vocab]``,
+    and ``forward(input_ids, labels) -> (loss, shifted_logits)`` for
+    training.
 
     ``device`` defaults to CUDA (raising without one); weights are drawn
     from ``generator``, or from a generator seeded with ``seed``, on that
@@ -223,6 +287,30 @@ class LlamaForCausalLM(nn.Module):
             return self.lm_head(hidden)
         return hidden @ self.llama.embed_tokens.weight.to(hidden.dtype).t()
 
-    @torch.no_grad()
-    def forward(self, input_ids):
-        return self.logits(self.llama(input_ids))
+    def forward(self, input_ids, labels: Optional[torch.Tensor] = None):
+        """The logits, differentiable as the reference's are; with
+        ``labels``, the fp32 next-token loss and the shifted logits
+        (``llama.py:354-368``). Serving and scoring callers wrap the call
+        in ``torch.no_grad()``."""
+        logits = self.logits(self.llama(input_ids))
+        if labels is None:
+            return logits
+        return _shifted_lm_loss(logits, labels)
+
+
+def _shifted_lm_loss(logits: torch.Tensor, labels: torch.Tensor):
+    """Next-token LM loss (``llama.py:371-409``): the logits of positions
+    ``0..s-2`` against the labels of ``1..s-1``, an fp32 logsumexp per
+    token, ``ignore_index=-100`` tokens dropped, averaged over the valid
+    tokens (never below a count of 1). Returns ``(loss, shifted_logits)``.
+    Plain torch, as the reference leaves it to XLA."""
+    shifted = logits[:, :-1, :]
+    lb = labels[:, 1:].long()
+    valid = lb != -100
+    safe = torch.where(valid, lb, torch.zeros_like(lb))
+    lf = shifted.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    picked = lf.gather(-1, safe.unsqueeze(-1)).squeeze(-1)
+    per_tok = torch.where(valid, lse - picked, torch.zeros_like(lse))
+    denom = valid.sum().float().clamp(min=1.0)
+    return per_tok.sum() / denom, shifted

@@ -62,11 +62,13 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = False):
+                                 training: bool = True):
     """Attention on Paddle's flash layout ``[batch, seq, heads,
     head_dim]`` with GQA (``heads(query)`` a multiple of
-    ``heads(key)``). Runs the flash-attention forward kernel on CUDA
-    tensors and its plain PyTorch twin on CPU tensors."""
+    ``heads(key)``). Runs the flash-attention kernels on CUDA tensors and
+    their plain PyTorch twins on CPU tensors; differentiable (the
+    backward is the flash backward kernel). ``training`` matters only for
+    dropout, which is not ported."""
     if attn_mask is not None or (dropout_p > 0.0 and training):
         raise NotImplementedError(
             "attention masks and attention dropout are not ported yet "

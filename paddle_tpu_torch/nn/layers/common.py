@@ -2,7 +2,8 @@
 
 ``Linear`` keeps Paddle's ``[in, out]`` weight layout and computes
 ``x @ w``: state-dict keys and shapes are the JAX model's, and the
-compiled decode step multiplies the same leaves.
+compiled decode step multiplies the same leaves. Parameters are
+trainable (``requires_grad=True``), as Paddle's are.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from paddle_tpu_torch.nn.functional.common import linear
 from paddle_tpu_torch.nn.initializer import Normal
@@ -29,11 +31,9 @@ class Linear(nn.Module):
         super().__init__()
         init = initializer or Normal(0.0, 0.02)
         self.weight = nn.Parameter(
-            init((in_features, out_features), dtype, device, generator),
-            requires_grad=False)
+            init((in_features, out_features), dtype, device, generator))
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
-                                              device=device),
-                                  requires_grad=False)
+                                              device=device))
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -48,8 +48,10 @@ class Embedding(nn.Module):
         super().__init__()
         init = initializer or Normal(0.0, 1.0)
         self.weight = nn.Parameter(
-            init((num_embeddings, embedding_dim), dtype, device, generator),
-            requires_grad=False)
+            init((num_embeddings, embedding_dim), dtype, device, generator))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.weight[ids]
+        # F.embedding's CUDA backward is deterministic (indexing's
+        # index_put_ with accumulate adds with atomics), so a training
+        # step repeats bitwise
+        return F.embedding(ids, self.weight)

@@ -1,15 +1,18 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
-Each module here pairs one kernel from ``paddle_tpu_torch/csrc`` with
+Each module here pairs the kernels of one TPU module, from
+``paddle_tpu_torch/csrc``, with
 
-* a plain PyTorch twin of the same function (used for CPU tensors — the
+* a plain PyTorch twin of each kernel's function (used for CPU tensors — the
   CPU tests hold it against the JAX reference — and, on the card, only by
   ``chip_smoke.py`` to check the kernel);
 * a wrapper that, for a CUDA tensor, checks device, dtype, shape and
   contiguity, allocates the output and launches the kernel, or raises —
   it never falls back to the twin;
-* ``launches``, a plain integer the wrapper bumps once per kernel launch
-  (and nowhere else), so a run can show which kernels it went through.
+* a launch counter, a plain integer the wrapper bumps once per kernel
+  launch (and nowhere else), so a run can show which kernels it went
+  through: ``launches`` for a module's forward kernel, ``launches_bwd``
+  for its backward kernel.
 
 The mirror of ``paddle_tpu/ops/pallas/<name>.py`` is
 ``paddle_tpu_torch/ops/kernels/<name>.py``.
@@ -19,23 +22,26 @@ from __future__ import annotations
 
 from typing import Dict
 
-from paddle_tpu_torch.ops.kernels import (flash_attention,
+from paddle_tpu_torch.ops.kernels import (flash_attention, fused_block,
                                           ragged_paged_attention, rms_norm)
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
 
-#: kernel name -> wrapper module (each has an integer ``launches``)
+#: kernel name -> (wrapper module, name of its integer launch counter)
 KERNELS = {
-    "ragged_paged_attention": ragged_paged_attention,
-    "flash_attention_fwd": flash_attention,
-    "rms_norm_fwd": rms_norm,
+    "ragged_paged_attention": (ragged_paged_attention, "launches"),
+    "flash_attention_fwd": (flash_attention, "launches"),
+    "flash_attention_bwd": (flash_attention, "launches_bwd"),
+    "rms_norm_fwd": (rms_norm, "launches"),
+    "rms_norm_bwd": (rms_norm, "launches_bwd"),
+    "fused_block_fwd": (fused_block, "launches"),
 }
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNELS.values():
-        mod.launches = 0
+    for mod, attr in KERNELS.values():
+        setattr(mod, attr, 0)

@@ -148,8 +148,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     # q, kc, vc, tables, rows, valids, out, T, Hq, Hkv, D, bs, width,
     # scale, q_dtype, kv_dtype, stream
     lib.ptt_ragged_paged_attn.argtypes = [P] * 7 + [I] * 6 + [F, I, I, P]
+    # x, w, dy, dx, dw_part, dw, rows, d, eps, dtype, stream
+    lib.ptt_rms_norm_bwd.argtypes = [P] * 6 + [I, I, F, I, P]
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
+    # causal, scale, dtype, stream
+    lib.ptt_flash_attn_bwd.argtypes = [P] * 10 + [I] * 7 + [F, I, P]
+    # q, k, v, resid, wn, wo, wg, wu, wd, out, B, S, nh, nkv, D, hidden,
+    # ffn, scale, eps, dtype, stream
+    lib.ptt_fused_block_fwd.argtypes = [P] * 10 + [I] * 7 + [F, F, I, P]
+    lib.ptt_fused_block_smem_bytes.argtypes = [I, I, I]
+    lib.ptt_fused_block_smem_bytes.restype = ctypes.c_longlong
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,
-               lib.ptt_ragged_paged_attn):
+               lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
+               lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd):
         fn.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p

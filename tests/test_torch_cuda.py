@@ -16,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.incubate.nn import functional as pt_inc
 from paddle_tpu_torch.ops.kernels import flash_attention as pt_flash
+from paddle_tpu_torch.ops.kernels import fused_block as pt_fb
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as pt_ragged
 from paddle_tpu_torch.ops.kernels import rms_norm as pt_rms
 
@@ -92,3 +94,102 @@ def test_rms_norm_kernel_matches_twin(cuda_device, dtype):
     torch.cuda.synchronize()
     tol = FP32 if dtype == "float32" else BF16
     np.testing.assert_allclose(_np(out), _np(ref), **tol)
+
+
+def _rand(dev, dtype, *shape, scale=1.0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*shape, generator=g) * scale).to(dev,
+                                                        getattr(torch, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 130, 130), (False, 100, 130)])
+def test_flash_backward_kernel_matches_twin(cuda_device, dtype, causal, sq,
+                                            sk):
+    """dQ, dK, dV with GQA 4:2 and ragged lengths; a second launch on
+    the same inputs gives the same bits (no atomics). Gradients are sums
+    over up to 130 keys or 2x130 queries: atol scaled by each tensor's
+    largest magnitude."""
+    q = _rand(cuda_device, dtype, 2, sq, 4, 128, seed=1)
+    k = _rand(cuda_device, dtype, 2, sk, 2, 128, seed=2)
+    v = _rand(cuda_device, dtype, 2, sk, 2, 128, seed=3)
+    do = _rand(cuda_device, dtype, 2, sq, 4, 128, seed=4)
+    o, lse = pt_flash.flash_attention_with_lse(q, k, v, causal)
+    got = pt_flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = pt_flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = pt_flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    tol = FP32 if dtype == "float32" else BF16
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b)
+        ref = _np(c)
+        np.testing.assert_allclose(_np(a), ref, rtol=tol["rtol"],
+                                   atol=tol["atol"] * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_backward_kernel_matches_twin(cuda_device, dtype):
+    """dx and the cross-row dw (fp32 atol 1e-5: 77 rows summed in
+    another order) of a width that is no multiple of the vector; bitwise
+    repeat."""
+    x = _rand(cuda_device, dtype, 77, 200, scale=3.0, seed=5)
+    dy = _rand(cuda_device, dtype, 77, 200, seed=6)
+    w = torch.rand(200, device=cuda_device) + 0.5
+    dx, dw = pt_rms.rms_norm_bwd(x, w, dy)
+    dx2, dw2 = pt_rms.rms_norm_bwd(x, w, dy)
+    rdx, rdw = pt_rms.rms_norm_bwd_plain(x, w, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.dtype == x.dtype and dw.dtype == torch.float32
+    tol = FP32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(_np(dx), _np(rdx), **tol)
+    np.testing.assert_allclose(_np(dw), _np(rdw), rtol=1e-5,
+                               atol=1e-5 if dtype == "float32" else 1e-3)
+
+
+def _block_args(dev, dtype, b=2, s=37, nh=4, nkv=2, d=64, ffn=320):
+    hidden = nh * d
+    shapes = [(b, s, nh, d), (b, s, nkv, d), (b, s, nkv, d), (b, s, hidden)]
+    args = [_rand(dev, dtype, *sh, seed=10 + i) for i, sh in
+            enumerate(shapes)]
+    args.append(1.0 + 0.1 * _rand(dev, "float32", hidden, seed=14))
+    for i, sh in enumerate([(nh * d, hidden), (hidden, ffn), (hidden, ffn),
+                            (ffn, hidden)]):
+        args.append(_rand(dev, dtype, *sh, scale=0.05, seed=15 + i))
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_block_kernel_matches_twin(cuda_device, dtype):
+    """GQA 4:2, head_dim 64, s=37 (a ragged last 16-row tile) and ffn 320
+    (a ragged last 256-column block). Rows are sums of several products:
+    atol scaled by the output's largest magnitude."""
+    args = _block_args(cuda_device, dtype)
+    out = pt_fb.fused_block(*args, eps=1e-5)
+    ref = pt_fb.fused_block_plain(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    tol = FP32 if dtype == "float32" else BF16
+    r = _np(ref)
+    np.testing.assert_allclose(_np(out), r, rtol=tol["rtol"],
+                               atol=tol["atol"] * np.abs(r).max())
+
+
+@pytest.mark.cuda
+def test_fused_block_gradients_on_the_card_match_the_cpu_twins(cuda_device):
+    """fp32 gradients of the fused block through the CUDA kernels (flash
+    and RMSNorm, forward and backward, in the recompute) against the
+    same Function on the CPU twins."""
+    args = _block_args(cuda_device, "float32")
+    dy = _rand(cuda_device, "float32", *args[3].shape, seed=30)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        ins = [a.detach().to(dev).requires_grad_(True) for a in args]
+        out = pt_inc.fused_block(*ins, eps=1e-5)
+        grads[dev] = torch.autograd.grad(out, ins, dy.to(dev))
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        ref = _np(b)
+        np.testing.assert_allclose(_np(a), ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())

@@ -125,3 +125,40 @@ def test_unported_models_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         GenerationEngine(NotALlama())
+
+
+def test_training_modules_load_no_jax():
+    """The training slice's modules (optimizer, jit, the fused block,
+    the backward kernels' wrappers) import torch and nothing of JAX."""
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.optimizer, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.ops.kernels.fused_block, "
+            "paddle_tpu_torch.incubate.nn.functional; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"paddle_tpu_torch/optimizer/optimizers.py",
+            "paddle_tpu_torch/jit/api.py",
+            "paddle_tpu_torch/ops/kernels/fused_block.py"} <= files
+
+
+def test_fused_block_kernel_refuses_what_it_cannot_take():
+    """A CUDA-side limit raises by name: no silent twin."""
+    from paddle_tpu_torch.ops.kernels import fused_block as pt_fb
+    meta = [torch.empty(s, device="meta") for s in
+            ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16), (1, 8, 64), (64,),
+             (64, 64), (64, 96), (64, 96), (96, 64))]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pt_fb.fused_block(*meta)
+
+
+def test_unported_optimizer_options_raise():
+    from paddle_tpu_torch.optimizer import AdamW
+    p = [torch.nn.Parameter(torch.zeros(3))]
+    for kw in (dict(multi_precision=True), dict(grad_clip=object()),
+               dict(learning_rate=object())):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            AdamW(parameters=p, **kw)

@@ -108,7 +108,7 @@ def test_logits_match_jax_fp32(fp32_pair):
     jm, pm = fp32_pair
     ids = np.random.RandomState(0).randint(0, 128, size=(2, 11))
     ref = np.asarray(jm(paddle.to_tensor(ids)).numpy(), np.float64)
-    out = pm(torch.from_numpy(ids)).double().numpy()
+    out = pm(torch.from_numpy(ids)).detach().double().numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
@@ -120,7 +120,7 @@ def test_logits_match_jax_bf16(bf16_pair):
     ids = np.random.RandomState(1).randint(0, 128, size=(1, 13))
     ref = np.asarray(jm(paddle.to_tensor(ids)).astype("float32").numpy(),
                      np.float64)
-    out = pm(torch.from_numpy(ids)).double().numpy()
+    out = pm(torch.from_numpy(ids)).detach().double().numpy()
     np.testing.assert_allclose(out, ref, **BF16)
 
 
@@ -212,7 +212,8 @@ def test_engine_greedy_matches_naive_forward(fp32_pair):
     prompt = _prompts([7])[0]
     ids = list(prompt)
     for _ in range(8):
-        logits = pm(torch.tensor([ids]))
+        with torch.no_grad():
+            logits = pm(torch.tensor([ids]))
         ids.append(int(logits[0, -1].argmax()))
     out = _engine(pm).generate([GenerationRequest(0, prompt,
                                                   max_new_tokens=8)])
