@@ -14,10 +14,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gives it (serving at Llama-3-8B widths: head_dim 128, 32:8 heads,
    hidden 4096; training at the flagship widths: 4 x 2048 tokens, hidden
    1536, ffn 4096, 12:4 heads, where the flash and RMSNorm forwards are
-   checked too) held against its plain PyTorch twin on the same inputs
-   (each backward kernel also twice, bitwise), then timed
-   beside the twin, the PyTorch library call that computes the same
-   function (where one exists) and the least time the card could take;
+   checked too; the grouped GEMMs at the MoE training shapes, an
+   expert-major buffer of 65,536 rows with 32,768 live over 16 experts,
+   one empty and one full, and gmm/gmm2 also in fp32 at the MoE serving
+   shapes) held against its plain PyTorch twin on the same inputs
+   (each backward kernel, and the dx gmm, also twice, bitwise), then
+   timed beside the twin, the PyTorch library call that computes the
+   same function (where one exists: ``grouped_mm`` for gmm and gmm2,
+   ``torch.bmm`` with an fp32 output over the padded buffer for tgmm)
+   and the least time the card could take;
 4. serve, the slice-1 path, with ``pallas_fused_block=off``:
    ``GenerationEngine.generate`` serving 8 requests (prompts of 32..1024
    tokens, 32 new tokens each, 6 greedy and 2 sampled) on a
@@ -30,7 +35,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    twin, one decoder layer through the kernels equal to its plain-twin
    run at the bf16 tier, and the kernel forward no further from an fp32
    reference forward than the plain-twin forward is;
-5. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
+5. serve-moe, the slice-3 serving path: the train-moe configuration
+   (phase 7; seeded random weights), run before the training phases as
+   a serving process would, through ``GenerationEngine(max_seqs=16,
+   max_seq_len=160, block_size=64)``, 16 prompts of 64 tokens, 32 new
+   tokens each, 2 of them sampled. Checks: finish reasons, no page leak,
+   ragged, gmm2 and gmm launches == steps x layers, a second timed run
+   and a third, profiled, bitwise equal, greedy tokens >= 99% equal to
+   the plain-twin engine. Reports the host's CPU time over the wall and
+   device kernels per step (the step is issued op by op);
+6. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
    configuration (vocab 32000, hidden 1536, ffn 4096, 12 layers, GQA
    12:4, seq 2048, batch 4, bf16, ~400M parameters, seeded random
    weights, ``pallas_fused_block=auto``): AdamW(lr 1e-4, wd 0.1), the
@@ -46,7 +60,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the kernels against the plain twins and an fp32 copy, over all
    parameters and per parameter; a second run from the seed bitwise
    equal;
-6. the ``kernels`` JSON line, then the result line.
+7. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
+   configuration (``bench.py:122-129``: vocab 32000, hidden 1024, 16
+   experts of ffn 704, top-2 gshard at capacity factor 2.0, aux weight
+   0.01, 6 layers, 16:16 heads, bf16), batch 8 x seq 2048, trained as in
+   phase 6 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
+   tokens/s, ms per step, the bench's activated-parameter MFU, busy share
+   and top kernels, peak memory. Checks: finite, falling losses; per step
+   6 gmm2, 6 + 18 gmm (forward, and the dx against w^T), 18 tgmm, 6 flash
+   forward and backward and 13 of each RMSNorm kernel; one step's
+   gradients against the twins and an fp32 copy (with the share of
+   (token, k) routes the fp32 copy also takes); a second run bitwise;
+8. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -59,6 +84,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -431,6 +457,246 @@ def phase_fused(torch, timer):
                       "hidden 1536, ffn 4096")
 
 
+# the MoE slice's shapes (bench.py:122-129): 8 x 2048 tokens routed top-2
+# over 16 experts at capacity ceil(2 * 16384 / 16 * 2.0) = 4096, so the
+# expert-major buffer has 65,536 rows; the counts hold 32,768 live rows
+# with one empty and one full expert, as no drops leave them
+MOE_HIDDEN, MOE_FFN, MOE_E, MOE_CPAD = 1024, 704, 16, 4096
+MOE_COUNTS = [4096, 0] + [2048 + d for d in (
+    -1501, 1501, -1003, 1003, -707, 707, -333, 333, -111, 111, -17, 17,
+    1999, -1999)]
+# the serving step's: <= 128 packed tokens, capacity 32, c_pad 64 (the
+# kernels' row tile), 256 live rows
+MOE_SERVE_CPAD = 64
+MOE_SERVE_COUNTS = [32, 0] + [16 + d for d in (
+    -9, 9, -5, 5, -16, 16, -3, 3, -1, 1, 0, 0, -7, 7)]
+
+
+def expert_major(torch, width, counts, c_pad, dtype, std=1.0):
+    """A ``[E * c_pad, width]`` buffer whose rows past each count are 0."""
+    cnt = torch.tensor(counts, device="cuda")
+    live = torch.arange(c_pad, device="cuda")[None, :] < cnt[:, None]
+    x = torch.randn(len(counts) * c_pad, width, device="cuda") * std
+    return (x * live.reshape(-1, 1)).to(dtype), cnt.to(torch.int32)
+
+
+def grouped_mm_library(torch):
+    """The PyTorch grouped GEMM used as a yardstick (never by the port):
+    ``torch.nn.functional.grouped_mm`` where this torch has it, else
+    ``torch._grouped_mm``; ``(None, None)`` when it has neither."""
+    import torch.nn.functional as F
+    for owner, name in ((F, "grouped_mm"), (torch, "_grouped_mm")):
+        fn = getattr(owner, name, None)
+        if fn is not None:
+            return fn, f"{owner.__name__}.{name}"
+    return None, None
+
+
+def library_ms(torch, timer, fn, want, label):
+    """``fn()``'s time, after checking it computes ``want`` (bf16 tier);
+    None, with the reason logged, where the call is refused."""
+    if fn is None:
+        log(f"library {label}: no grouped GEMM in this torch")
+        return None
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as e:
+        log(f"library {label}: refused ({str(e).splitlines()[0][:120]})")
+        return None
+    got = got if isinstance(got, (list, tuple)) else [got]
+    want = want if isinstance(want, (list, tuple)) else [want]
+    err = max(max_err(g, w) for g, w in zip(got, want))
+    log(f"library {label}: max_abs_err against the kernel {err:.3g}")
+    return timer.ms(fn)
+
+
+def moe_offsets(torch, c_pad, e=MOE_E):
+    """The library's group ends: multiples of c_pad (it has no ragged
+    skip, so it computes the padding rows as well)."""
+    return (torch.arange(1, e + 1, device="cuda") * c_pad).to(torch.int32)
+
+
+def phase_gmm2(torch, timer):
+    """Gate and up of the MoE training step: x bf16 [65536, 1024] (32,768
+    live rows), w1/w2 bf16 [16, 1024, 704] at the init scale; and the
+    serving step's fp32 buffer [1024, 1024] with bf16 weights."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    x, cnt = expert_major(torch, MOE_HIDDEN, MOE_COUNTS, MOE_CPAD,
+                          torch.bfloat16)
+    w1, w2 = ((torch.randn(MOE_E, MOE_HIDDEN, MOE_FFN, device="cuda")
+               * 0.02).bfloat16() for _ in range(2))
+    got = gg.gmm2(x, w1, w2, cnt)
+    want = gg.gmm2_plain(x, w1, w2, cnt)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    for a, b in zip(got, want):
+        assert torch.allclose(a.float(), b.float(), rtol=2e-2, atol=2e-2), \
+            f"gmm2: max_abs_err {max_err(a, b)} beyond rtol/atol 2e-2"
+    del want
+    xs, cs = expert_major(torch, MOE_HIDDEN, MOE_SERVE_COUNTS, MOE_SERVE_CPAD,
+                          torch.float32)
+    sg = gg.gmm2(xs, w1, w2, cs)
+    sw = gg.gmm2_plain(xs, w1, w2, cs)
+    torch.cuda.synchronize()
+    s_err = max(max_err(a, b) for a, b in zip(sg, sw))
+    assert all(scaled_close(a, b, 1e-5, 1e-5) for a, b in zip(sg, sw)), \
+        f"gmm2 fp32 serve shape: max_abs_err {s_err}"
+    s_ms = timer.ms(lambda: gg.gmm2(xs, w1, w2, cs))
+    s_plain = timer.ms(lambda: gg.gmm2_plain(xs, w1, w2, cs))
+    s_bound = bound(w1.numel() * 2 * 2 + sum(MOE_SERVE_COUNTS) * MOE_HIDDEN
+                    * 4 + 2 * xs.shape[0] * MOE_FFN * 4,
+                    2 * 2 * sum(MOE_SERVE_COUNTS) * MOE_HIDDEN * MOE_FFN,
+                    "fp32")
+    log(f"gmm2 serve shape (fp32 x [1024, 1024], bf16 w): max_abs_err "
+        f"{s_err:.3g}, {s_ms:.4f} ms, plain {s_plain:.4f} ms, bound "
+        f"{s_bound[0]:.4f} ms ({s_bound[1]})")
+    live = sum(MOE_COUNTS)
+    flops = 2 * 2 * live * MOE_HIDDEN * MOE_FFN
+    nbytes = (live * MOE_HIDDEN * 2 + 2 * w1.numel() * 2
+              + 2 * x.shape[0] * MOE_FFN * 2)
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    fn, lib_name = grouped_mm_library(torch)
+    offs = moe_offsets(torch, MOE_CPAD)
+    lib = library_ms(torch, timer, fn and (lambda: (fn(x, w1, offs=offs),
+                                                    fn(x, w2, offs=offs))),
+                     got, f"{lib_name} x2 for gmm2")
+    return dict(name="gmm2", route="cuda",
+                source="paddle_tpu_torch/csrc/grouped_gemm.cu",
+                replaces="paddle_tpu/ops/pallas/grouped_gemm.py:303",
+                path="train-moe", counts=["gmm2"], max_abs_err=err,
+                tolerance="rtol=atol=2e-2 (bf16 output); serve fp32 rtol "
+                          "1e-5, atol 1e-5 x max|twin|",
+                ms=timer.ms(lambda: gg.gmm2(x, w1, w2, cnt)),
+                plain_ms=timer.ms(lambda: gg.gmm2_plain(x, w1, w2, cnt),
+                                  iters=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library=f"{lib_name} (two calls)", serve_ms=s_ms,
+                serve_plain_ms=s_plain, serve_bound_ms=s_bound[0],
+                serve_max_abs_err=s_err,
+                shape="x bf16 [65536, 1024] (32768 live), w1/w2 bf16 "
+                      "[16, 1024, 704]")
+
+
+def phase_gmm(torch, timer):
+    """The down projection (x bf16 [65536, 704] by [16, 704, 1024]), the dx
+    of the gate projection (dy bf16 [65536, 704] by w[e]^T for w [16,
+    1024, 704], read transposed; twice, bitwise) and the serving step's
+    fp32 down projection over bf16 weights."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    x, cnt = expert_major(torch, MOE_FFN, MOE_COUNTS, MOE_CPAD,
+                          torch.bfloat16)
+    wd = (torch.randn(MOE_E, MOE_FFN, MOE_HIDDEN, device="cuda")
+          * 0.02).bfloat16()
+    out = gg.gmm(x, wd, cnt)
+    ref = gg.gmm_plain(x, wd, cnt)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    assert torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-2), \
+        f"gmm: max_abs_err {err} beyond rtol/atol 2e-2"
+    del ref
+    wg = (torch.randn(MOE_E, MOE_HIDDEN, MOE_FFN, device="cuda")
+          * 0.02).bfloat16()
+    dx = gg.gmm_t(x, wg, cnt)
+    dx2 = gg.gmm_t(x, wg, cnt)
+    rdx = gg.gmm_plain(x, wg, cnt, trans_w=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2), "gmm dx: two launches on the same inputs differ"
+    dx_err = max_err(dx, rdx)
+    assert torch.allclose(dx.float(), rdx.float(), rtol=2e-2, atol=2e-2), \
+        f"gmm dx: max_abs_err {dx_err} beyond rtol/atol 2e-2"
+    del rdx, dx2
+    dx_ms = timer.ms(lambda: gg.gmm_t(x, wg, cnt))
+    xs, cs = expert_major(torch, MOE_FFN, MOE_SERVE_COUNTS, MOE_SERVE_CPAD,
+                          torch.float32)
+    sg, sw = gg.gmm(xs, wd, cs), gg.gmm_plain(xs, wd, cs)
+    torch.cuda.synchronize()
+    s_err = max_err(sg, sw)
+    assert scaled_close(sg, sw, 1e-5, 1e-5), \
+        f"gmm fp32 serve shape: max_abs_err {s_err}"
+    s_ms = timer.ms(lambda: gg.gmm(xs, wd, cs))
+    log(f"gmm dx (trans_w) [65536, 704] by [16, 1024, 704]^T: max_abs_err "
+        f"{dx_err:.3g}, bitwise on repeat, {dx_ms:.4f} ms; serve shape (fp32 "
+        f"x [1024, 704], bf16 w): max_abs_err {s_err:.3g}, {s_ms:.4f} ms")
+    live = sum(MOE_COUNTS)
+    flops = 2 * live * MOE_FFN * MOE_HIDDEN
+    nbytes = live * MOE_FFN * 2 + wd.numel() * 2 + x.shape[0] * MOE_HIDDEN * 2
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    fn, lib_name = grouped_mm_library(torch)
+    offs = moe_offsets(torch, MOE_CPAD)
+    lib = library_ms(torch, timer, fn and (lambda: fn(x, wd, offs=offs)),
+                     out, f"{lib_name} for gmm")
+    return dict(name="gmm", route="cuda",
+                source="paddle_tpu_torch/csrc/grouped_gemm.cu",
+                replaces="paddle_tpu/ops/pallas/grouped_gemm.py:166",
+                path="train-moe", counts=["gmm_fwd", "gmm_bwd"],
+                max_abs_err=max(err, dx_err),
+                tolerance="rtol=atol=2e-2 (bf16 output); dx bitwise on "
+                          "repeat; serve fp32 rtol 1e-5, atol 1e-5 x "
+                          "max|twin|",
+                ms=timer.ms(lambda: gg.gmm(x, wd, cnt)),
+                plain_ms=timer.ms(lambda: gg.gmm_plain(x, wd, cnt), iters=3,
+                                  warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library=lib_name, dx_ms=dx_ms, serve_ms=s_ms,
+                serve_max_abs_err=s_err,
+                shape="x bf16 [65536, 704] (32768 live), w bf16 "
+                      "[16, 704, 1024]")
+
+
+def phase_tgmm(torch, timer):
+    """The gate/up dW of the training step: x bf16 [65536, 1024] and dy
+    bf16 [65536, 704], 32,768 live rows -> fp32 [16, 1024, 704]; twice,
+    bitwise."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    x, cnt = expert_major(torch, MOE_HIDDEN, MOE_COUNTS, MOE_CPAD,
+                          torch.bfloat16)
+    dy, _ = expert_major(torch, MOE_FFN, MOE_COUNTS, MOE_CPAD,
+                         torch.bfloat16)
+    dw = gg.tgmm(x, dy, cnt)
+    dw2 = gg.tgmm(x, dy, cnt)
+    ref = gg.tgmm_plain(x, dy, cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2), "tgmm: two launches on the same inputs differ"
+    err = max_err(dw, ref)
+    # fp32 sums over up to 4096 rows in another order
+    assert scaled_close(dw, ref, 1e-4, 1e-5), f"tgmm: max_abs_err {err}"
+    assert float(dw[1].abs().max()) == 0.0, "tgmm: the empty expert's dw"
+    log(f"tgmm: max_abs_err {err:.4g} of max {float(ref.abs().max()):.4g}, "
+        f"bitwise on repeat")
+    del ref, dw2
+    live = sum(MOE_COUNTS)
+    flops = 2 * live * MOE_HIDDEN * MOE_FFN
+    nbytes = live * (MOE_HIDDEN + MOE_FFN) * 2 + dw.numel() * 4
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    # the buffers are zero past each count, so one batched product over
+    # the padded buffer computes the same fp32 dW; grouped_mm (bf16 out)
+    # only where this torch's bmm has no out_dtype
+    xe = x.view(MOE_E, MOE_CPAD, MOE_HIDDEN).transpose(1, 2)
+    dye = dy.view(MOE_E, MOE_CPAD, MOE_FFN)
+    lib_name = "torch.bmm(out_dtype=torch.float32)"
+    lib = library_ms(torch, timer, lambda: torch.bmm(
+        xe, dye, out_dtype=torch.float32), dw, f"{lib_name} for tgmm")
+    if lib is None:
+        fn, lib_name = grouped_mm_library(torch)
+        lib_name = lib_name and f"{lib_name} (bf16 output)"
+        offs = moe_offsets(torch, MOE_CPAD)
+        lib = library_ms(torch, timer, fn and (
+            lambda: fn(x.t(), dy, offs=offs)), dw, f"{lib_name} for tgmm")
+    return dict(name="tgmm", route="cuda",
+                source="paddle_tpu_torch/csrc/grouped_gemm.cu",
+                replaces="paddle_tpu/ops/pallas/grouped_gemm.py:216",
+                path="train-moe", counts=["tgmm"], max_abs_err=err,
+                tolerance="rtol 1e-4, atol 1e-5 x max|twin|; bitwise repeat",
+                ms=timer.ms(lambda: gg.tgmm(x, dy, cnt)),
+                plain_ms=timer.ms(lambda: gg.tgmm_plain(x, dy, cnt), iters=3,
+                                  warmup=1),
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                library=lib_name,
+                shape="x bf16 [65536, 1024], dy bf16 [65536, 704] (32768 "
+                      "live rows) -> fp32 [16, 1024, 704]")
+
+
 # ------------------------------------------------------------ serve phase
 def make_requests(GenerationRequest, np, rng, vocab):
     lens = [int(n) for n in np.linspace(32, 1024, 8).round()]
@@ -446,14 +712,29 @@ def make_requests(GenerationRequest, np, rng, vocab):
     return prompts, reqs
 
 
-def serve(torch, model, np, use_kernel=True):
-    """One engine run over the 8 requests; returns outputs and a record
-    of each step (wall seconds, prefill tokens, emitted tokens)."""
+def make_moe_requests(GenerationRequest, np, rng, vocab):
+    """``bench_serve_llama_moe``'s traffic (``bench.py:1537-1545``): 16
+    prompts of 64 tokens, 32 new tokens each, greedy but for the last 2,
+    which sample (T 0.8, top-p 0.95)."""
+    prompts = [rng.randint(0, vocab, 64).tolist() for _ in range(16)]
+    reqs = [GenerationRequest(i, p, max_new_tokens=32) if i < 14 else
+            GenerationRequest(i, p, max_new_tokens=32, temperature=0.8,
+                              top_p=0.95, seed=1000 + i)
+            for i, p in enumerate(prompts)]
+    return prompts, reqs
+
+
+def serve(torch, model, np, use_kernel=True, requests=make_requests,
+          **engine_kw):
+    """One engine run over the requests (the slice-1 set by default);
+    returns outputs and a record of each step (wall seconds, prefill
+    tokens, emitted tokens)."""
     from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
-    eng = GenerationEngine(model, max_seqs=8, max_seq_len=2048,
-                           block_size=64, use_kernel=use_kernel)
-    prompts, reqs = make_requests(GenerationRequest, np, np.random.RandomState(0),
-                                  model.config.vocab_size)
+    engine_kw = {"max_seqs": 8, "max_seq_len": 2048, "block_size": 64,
+                 **engine_kw}
+    eng = GenerationEngine(model, use_kernel=use_kernel, **engine_kw)
+    prompts, reqs = requests(GenerationRequest, np, np.random.RandomState(0),
+                             model.config.vocab_size)
     steps = []
     inner = eng.step
 
@@ -506,24 +787,14 @@ def phase_serve(torch, np, layers, card):
         (counts, n_steps)
     assert counts["flash_attention_fwd"] == len(prompts) * layers, counts
     assert counts["rms_norm_fwd"] == len(prompts) * (2 * layers + 1), counts
-    for name in ("flash_attention_bwd", "rms_norm_bwd", "fused_block_fwd"):
+    for name in ("flash_attention_bwd", "rms_norm_bwd", "fused_block_fwd",
+                 "gmm_fwd", "gmm_bwd", "gmm2", "tgmm"):
         assert counts[name] == 0, counts
     for p, lg, d in zip(prompts, scored, out.values()):
         assert lg.shape == (1, len(p), cfg.vocab_size)
         assert bool(torch.isfinite(lg).all()), "non-finite logits"
 
-    decode = [(dt, n) for dt, pre, n in steps if pre == 0]
-    dec_tok = sum(n for _, n in decode)
-    dec_s = sum(dt for dt, _ in decode)
-    total_tok = sum(len(d["output_ids"]) for d in out.values())
-    perf = dict(steps=n_steps, decode_only_steps=len(decode),
-                decode_rows_per_step=dec_tok / len(decode) if decode
-                else None,
-                decode_tokens_per_s=dec_tok / dec_s if dec_s else None,
-                decode_ms_per_step=1e3 * dec_s / len(decode)
-                if decode else None,
-                generate_s=wall, output_tokens_per_s=total_tok / wall,
-                prefill_tokens=eng.stats["prefill_tokens"], card=card)
+    perf = serve_perf(eng, out, steps, wall, card)
     log("serve: " + json.dumps(perf))
 
     # determinism: a second identical run, under the profiler, gives the
@@ -539,16 +810,120 @@ def phase_serve(torch, np, layers, card):
 
     # the same engine with the plain attention twin
     _, _, plain, _, _ = serve(torch, model, np, use_kernel=False)
-    same = total = 0
-    for rid in range(6):
-        a, b = out[rid]["output_ids"], plain[rid]["output_ids"]
-        same += sum(x == y for x, y in zip(a, b))
-        total += len(a)
-    agree = same / total
+    agree = greedy_agreement(out, plain, range(6))
     log(f"serve: greedy agreement with the plain-twin engine {agree:.4f}")
     assert agree >= 0.99, f"greedy agreement {agree}"
 
     check_forward(torch, model, prompts[:3], scored[:3])
+    return counts, perf
+
+
+def serve_perf(eng, out, steps, wall, card):
+    """Steps, decode-only steps (their rows, tokens/s and ms), output
+    tokens/s of the whole ``generate``."""
+    decode = [(dt, n) for dt, pre, n in steps if pre == 0]
+    dec_tok = sum(n for _, n in decode)
+    dec_s = sum(dt for dt, _ in decode)
+    total_tok = sum(len(d["output_ids"]) for d in out.values())
+    return dict(steps=eng.stats["steps"], decode_only_steps=len(decode),
+                decode_rows_per_step=dec_tok / len(decode) if decode
+                else None,
+                decode_tokens_per_s=dec_tok / dec_s if dec_s else None,
+                decode_ms_per_step=1e3 * dec_s / len(decode)
+                if decode else None,
+                generate_s=wall, output_tokens_per_s=total_tok / wall,
+                prefill_tokens=eng.stats["prefill_tokens"], card=card)
+
+
+def greedy_agreement(out, plain, ids):
+    same = total = 0
+    for rid in ids:
+        a, b = out[rid]["output_ids"], plain[rid]["output_ids"]
+        same += sum(x == y for x, y in zip(a, b))
+        total += len(a)
+    return same / total
+
+
+def phase_serve_moe(torch, np, card):
+    """The slice-3 serving path: the MoE training configuration (fresh
+    seeded weights, eval) through ``GenerationEngine(max_seqs=16,
+    max_seq_len=160, block_size=64)`` with ``bench_serve_llama_moe``'s
+    traffic."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    # the serve phase's engine and 8B model sit in reference cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    flags.set_flags({"pallas_fused_block": "auto", "moe_fused_wi": True})
+    cfg = moe_config()
+    layers = cfg.num_hidden_layers
+    log(f"serve-moe: the train-moe configuration ({layers} layers, 16 "
+        f"experts, top-2 gshard, cf 2.0, bf16), seeded random weights; 16 "
+        f"prompts of 64 tokens, 32 new tokens each, 2 sampled")
+    model = LlamaForCausalLM(cfg, seed=1).eval()
+    kw = dict(requests=make_moe_requests, max_seqs=16, max_seq_len=160,
+              block_size=64)
+
+    # ---- the path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    cpu0 = time.process_time()
+    eng, prompts, out, steps, wall = serve(torch, model, np, **kw)
+    torch.cuda.synchronize()
+    cpu = time.process_time() - cpu0
+    counts = kernels.launch_counts()
+    log(f"serve-moe: path launches {counts}")
+    reasons = {rid: d["finish_reason"] for rid, d in out.items()}
+    assert all(r == "length" for r in reasons.values()), reasons
+    assert all(len(d["output_ids"]) == 32 for d in out.values())
+    assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
+    n_steps = eng.stats["steps"]
+    for name in ("ragged_paged_attention", "gmm2", "gmm_fwd"):
+        assert counts[name] == n_steps * layers, (name, counts, n_steps)
+    for name in ("gmm_bwd", "tgmm", "flash_attention_fwd",
+                 "flash_attention_bwd", "rms_norm_fwd", "rms_norm_bwd",
+                 "fused_block_fwd"):
+        assert counts[name] == 0, (name, counts)
+    perf = serve_perf(eng, out, steps, wall, card)
+    # the step is issued op by op from Python: the host's CPU time over
+    # the wall says how far the host, not the card, sets the step time
+    perf["host_cpu_share"] = cpu / wall
+    log("serve-moe: " + json.dumps(perf))
+
+    # a second timed run of the same engine, then a third under the
+    # profiler: both must give the first run's streams bitwise
+    cpu0 = time.process_time()
+    eng2, _, out2, steps2, wall2 = serve(torch, model, np, **kw)
+    again = serve_perf(eng2, out2, steps2, wall2, card)
+    log(f"serve-moe: second timed run: decode "
+        f"{again['decode_ms_per_step']:.2f} ms per step, "
+        f"{again['output_tokens_per_s']:.1f} output tokens/s, host cpu "
+        f"share {(time.process_time() - cpu0) / wall2:.3f}")
+    assert out2 == out, "serve-moe: second run differs"
+    perf["decode_ms_per_step_second_run"] = again["decode_ms_per_step"]
+    del eng2
+
+    holder = {}
+
+    def rerun():
+        holder["out"], holder["wall"] = serve(torch, model, np, **kw)[2::2]
+    rows, busy, pwall = device_profile(torch, rerun)
+    perf["busy_share"] = report_profile("serve-moe", rows, busy, pwall, wall)
+    launched = sum(n for _, n, _ in rows)
+    log(f"serve-moe profile: {launched} device kernels in {n_steps} steps "
+        f"({launched / n_steps:.0f} a step)")
+    assert holder["out"] == out, "serve-moe: profiled run differs"
+    log("serve-moe: second and third runs bitwise equal (greedy and "
+        "seeded)")
+
+    _, _, plain, _, _ = serve(torch, model, np, use_kernel=False, **kw)
+    agree = greedy_agreement(out, plain, range(14))
+    log(f"serve-moe: greedy agreement with the plain-twin engine "
+        f"{agree:.4f}")
+    assert agree >= 0.99, f"serve-moe greedy agreement {agree}"
+    perf["greedy_agreement"] = agree
+    del model, eng
+    torch.cuda.empty_cache()
     return counts, perf
 
 
@@ -558,12 +933,16 @@ def plain_twins():
     the block (a reference, never a fallback)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_block as fb
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
     patches = [(fa, "flash_attention_with_lse", fa.flash_attention_plain),
                (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
                (rn, "rms_norm", rn.rms_norm_plain),
                (rn, "rms_norm_bwd", rn.rms_norm_bwd_plain),
-               (fb, "fused_block", fb.fused_block_plain)]
+               (fb, "fused_block", fb.fused_block_plain),
+               (gg, "gmm", gg.gmm_plain), (gg, "gmm2", gg.gmm2_plain),
+               (gg, "gmm_t", lambda dy, w, c: gg.gmm_plain(dy, w, c, True)),
+               (gg, "tgmm", gg.tgmm_plain)]
     orig = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, twin in patches:
         setattr(mod, name, twin)
@@ -595,7 +974,7 @@ def check_forward(torch, model, prompts, scored):
         with plain_twins():
             twin = [(layer(h), model(x)) for h, x in zip(emb, ids)]
         kern = [(layer(h), lg) for h, lg in zip(emb, scored)]
-        model32 = copy.deepcopy(model).float()
+        model32 = fp32_copy(model)
         with plain_twins():
             exact = [(model32.llama.layers[0](h.float()), model32(x))
                      for h, x in zip(emb, ids)]
@@ -698,6 +1077,39 @@ def loss_and_grads(torch, model, ids):
     return float(loss.detach()), grads
 
 
+def fp32_copy(model):
+    """An fp32 deep copy of ``model``. The MoE gates' aux loss of the last
+    forward (a tensor inside that forward's graph, which cannot be deep
+    copied) is dropped first."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import BaseGate
+    for m in model.modules():
+        if isinstance(m, BaseGate):
+            m._loss = None
+    return copy.deepcopy(model).float()
+
+
+@contextlib.contextmanager
+def recorded_routes(model):
+    """Inside the block, every MoE gate of ``model`` appends its expert
+    choices ``[tokens, k]`` to the returned list, layer by layer."""
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    routes = []
+    gates = [m.gate for m in model.modules() if isinstance(m, MoELayer)]
+    for g in gates:
+        inner = type(g).route_indices.__get__(g)
+
+        def record(*a, _inner=inner, **kw):
+            out = _inner(*a, **kw)
+            routes.append(out[0].detach().clone())
+            return out
+        g.route_indices = record
+    try:
+        yield routes
+    finally:
+        for g in gates:
+            del g.route_indices
+
+
 def check_train_step(torch, model, ids):
     """One step's loss and gradients from the model's current weights
     through the kernels, through the plain twins, and through the twins
@@ -705,12 +1117,15 @@ def check_train_step(torch, model, ids):
     kernel gradients (relative L2 over all parameters) are no further
     from ``exact`` than 1.25x the twin gradients are, and no parameter's
     kernel gradient is further from ``exact`` than 1.5x its twin
-    gradient."""
-    loss_k, g_k = loss_and_grads(torch, model, ids)
+    gradient. For an MoE model it also reports the share of (token, k)
+    routes of the kernel run that the fp32 copy's routing takes too."""
+    with recorded_routes(model) as routes_k:
+        loss_k, g_k = loss_and_grads(torch, model, ids)
     with plain_twins():
         loss_t, g_t = loss_and_grads(torch, model, ids)
-        model32 = copy.deepcopy(model).float()
-        loss_e, g_e = loss_and_grads(torch, model32, ids)
+        model32 = fp32_copy(model)
+        with recorded_routes(model32) as routes_e:
+            loss_e, g_e = loss_and_grads(torch, model32, ids)
     del model32
     torch.cuda.empty_cache()
 
@@ -728,43 +1143,56 @@ def check_train_step(torch, model, ids):
            f"{loss_e:.6f}; grads rel L2 vs fp32: kernel {r_k:.4g}, twin "
            f"{r_t:.4g}, kernel vs twin {r_kt:.4g}; worst parameter ratio "
            f"{worst[0]:.3f} ({worst[1]})")
+    res = dict(loss_kernel=loss_k, loss_twin=loss_t, loss_fp32=loss_e,
+               grad_rel_l2_kernel=r_k, grad_rel_l2_twin=r_t,
+               worst_param_ratio=worst[0])
+    if routes_k:
+        agree = [float((a == b).float().mean())
+                 for a, b in zip(routes_k, routes_e)]
+        res["route_agreement_fp32"] = sum(agree) / len(agree)
+        msg += (f"; (token, k) routes equal to the fp32 copy's: "
+                f"{res['route_agreement_fp32']:.5f} (by layer "
+                f"{[round(a, 5) for a in agree]})")
     log(msg)
     assert abs(loss_k - loss_t) <= 2e-2 * abs(loss_t) + 2e-2, msg
     assert r_k <= 1.25 * r_t + 1e-6, msg
     # per parameter too, so that a fault confined to a few layers'
     # gradients is not diluted by the large embedding and head gradients
     assert worst[0] <= 1.5, msg
-    return dict(loss_kernel=loss_k, loss_twin=loss_t, loss_fp32=loss_e,
-                grad_rel_l2_kernel=r_k, grad_rel_l2_twin=r_t)
+    return res
 
 
-def phase_train(torch, np, card):
-    import paddle_tpu_torch as paddle
+def run_train(torch, np, card, label, cfg, batch, seq, steps, want,
+              flops_per_token, warmup=2):
+    """``bench.py:_llama_run``'s loop for ``cfg``: warmup + 1 steps, then
+    ``steps`` timed steps with the launch counts zeroed just before and
+    read just after (``want``: launches per step of each kernel), a
+    profiled repeat of 2 steps, one step's gradients against the twins
+    and an fp32 copy, and a second run from the seed, bitwise."""
     from paddle_tpu_torch.ops import kernels
-    paddle.flags.set_flags({"pallas_fused_block": "auto"})
+    # the engines of earlier phases sit in reference cycles (a timed step
+    # closes over its engine): free them, so that this phase's memory is
+    # its own
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(True, warn_only=True)
-    layers, steps = TRAIN_LAYERS, TRAIN_STEPS
-    cfg = flagship_config()
-    batch, seq, warmup = TRAIN_B, TRAIN_S, 2
-    log(f"train: flagship Llama (bench.py:2315: vocab 32000, hidden 1536, "
-        f"ffn 4096, GQA 12:4, head_dim 128), {layers} layers, bf16, "
-        f"batch {batch} x seq {seq}, AdamW(lr 1e-4, wd 0.1), seeded random "
-        f"weights, pallas_fused_block=auto")
     model, opt, train_step = build_trainer(torch, cfg)
     rs = np.random.RandomState(0)
     ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(batch, seq))
                            .astype("int32")).cuda()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"train: {n_params / 1e6:.1f}M parameters, "
+    log(f"{label}: {n_params / 1e6:.1f}M parameters, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
 
+    torch.cuda.reset_peak_memory_stats()
     losses = []
     t0 = time.perf_counter()
     for _ in range(warmup + 1):
         losses.append(train_step(ids))
     torch.cuda.synchronize()
-    log(f"train: {warmup + 1} warmup steps in {time.perf_counter() - t0:.2f}"
-        f" s, peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    log(f"{label}: {warmup + 1} warmup steps in "
+        f"{time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
     # ---- the path: counts zeroed just before, read just after
     kernels.reset_launch_counts()
@@ -774,31 +1202,27 @@ def phase_train(torch, np, card):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    log(f"train: path launches {counts}")
-    want = dict(fused_block_fwd=layers, flash_attention_fwd=layers,
-                flash_attention_bwd=layers, rms_norm_fwd=2 * layers + 1,
-                rms_norm_bwd=2 * layers + 1, ragged_paged_attention=0)
-    for name, per_step in want.items():
-        assert counts[name] == per_step * steps, (name, counts)
+    log(f"{label}: path launches {counts}")
+    for name in kernels.KERNELS:
+        assert counts[name] == want.get(name, 0) * steps, (name, counts)
 
     vals = [float(x) for x in losses]
-    log(f"train: losses {vals}")
+    log(f"{label}: losses {vals}")
     assert all(math.isfinite(x) for x in vals), "non-finite loss"
     assert vals[-1] < vals[0], "the loss on the fixed batch did not fall"
 
     tps = batch * seq * steps / dt
-    flops_per_token = 6 * n_params + 12 * layers * cfg.hidden_size * seq
-    mfu = tps * flops_per_token / PEAK_FLOPS["bf16"]
-    perf = dict(tokens_per_s=tps, ms_per_step=1e3 * dt / steps, mfu=mfu,
+    perf = dict(tokens_per_s=tps, ms_per_step=1e3 * dt / steps,
+                mfu=tps * flops_per_token(n_params) / PEAK_FLOPS["bf16"],
                 steps=steps, n_params=n_params, loss_first=vals[0],
                 loss_last=vals[-1],
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 card=card)
-    log("train: " + json.dumps(perf))
+    log(f"{label}: " + json.dumps(perf))
 
     rows, busy, pwall = device_profile(
         torch, lambda: [train_step(ids) for _ in range(2)])
-    perf["busy_share"] = report_profile("train", rows, busy, pwall,
+    perf["busy_share"] = report_profile(label, rows, busy, pwall,
                                         2 * dt / steps, top=15)
 
     perf.update(check_train_step(torch, model, ids))
@@ -810,7 +1234,7 @@ def phase_train(torch, np, card):
     model, opt, train_step = build_trainer(torch, cfg)
     again = [train_step(ids) for _ in range(len(first))]
     same = all(torch.equal(a, b) for a, b in zip(first, again))
-    log(f"train: second run from the seed, {len(first)} steps: "
+    log(f"{label}: second run from the seed, {len(first)} steps: "
         f"{'bitwise equal' if same else 'DIFFERS'} "
         f"({[float(x) for x in again]})")
     assert same, "a second run from the seed differs"
@@ -818,6 +1242,67 @@ def phase_train(torch, np, card):
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
     return counts, perf
+
+
+def phase_train(torch, np, card):
+    import paddle_tpu_torch as paddle
+    paddle.flags.set_flags({"pallas_fused_block": "auto"})
+    layers, cfg = TRAIN_LAYERS, flagship_config()
+    log(f"train: flagship Llama (bench.py:2315: vocab 32000, hidden 1536, "
+        f"ffn 4096, GQA 12:4, head_dim 128), {layers} layers, bf16, "
+        f"batch {TRAIN_B} x seq {TRAIN_S}, AdamW(lr 1e-4, wd 0.1), seeded "
+        f"random weights, pallas_fused_block=auto")
+    want = dict(fused_block_fwd=layers, flash_attention_fwd=layers,
+                flash_attention_bwd=layers, rms_norm_fwd=2 * layers + 1,
+                rms_norm_bwd=2 * layers + 1)
+    return run_train(
+        torch, np, card, "train", cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS, want,
+        lambda n: 6 * n + 12 * layers * cfg.hidden_size * TRAIN_S)
+
+
+# the MoE training configuration (bench.py:122-129)
+MOE_B, MOE_S, MOE_LAYERS = 8, 2048, 6
+
+
+def moe_config():
+    """``bench_moe``'s on-chip config: DeepSeekMoE/Qwen2-MoE proportions,
+    16 experts of ffn 704, top-2 gshard at capacity factor 2.0."""
+    from paddle_tpu_torch.models import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=MOE_HIDDEN,
+                       intermediate_size=MOE_FFN,
+                       num_hidden_layers=MOE_LAYERS, num_attention_heads=16,
+                       num_key_value_heads=16, max_position_embeddings=2048,
+                       dtype="bfloat16", recompute=False,
+                       moe_num_experts=MOE_E, moe_gate="gshard",
+                       moe_capacity_factor=2.0, moe_aux_weight=0.01)
+
+
+def phase_train_moe(torch, np, card):
+    """The slice-3 training path: the MoE Llama at full width, 2+1 warmup
+    and 10 timed AdamW steps. MFU is ``bench_moe``'s activated-parameter
+    formula (``bench.py:139-145``) against 989 TFLOP/s bf16."""
+    import paddle_tpu_torch as paddle
+    paddle.flags.set_flags({"pallas_fused_block": "auto",
+                            "moe_fused_wi": True})
+    cfg = moe_config()
+    layers, e = cfg.num_hidden_layers, cfg.moe_num_experts
+    log(f"train-moe: bench_moe (bench.py:122: vocab 32000, hidden 1024, "
+        f"16 experts of ffn 704, top-2 gshard, cf 2.0, 16:16 heads, "
+        f"head_dim 64), {layers} layers, bf16, batch {MOE_B} x seq {MOE_S}, "
+        f"AdamW(lr 1e-4, wd 0.1), seeded random weights")
+    # per layer: gmm2 and the down gmm forward; the dx of the down gmm and
+    # two of gmm2 (gmm against w^T); three tgmm for the dW
+    want = dict(gmm2=layers, gmm_fwd=layers, gmm_bwd=3 * layers,
+                tgmm=3 * layers, flash_attention_fwd=layers,
+                flash_attention_bwd=layers, rms_norm_fwd=2 * layers + 1,
+                rms_norm_bwd=2 * layers + 1)
+    expert = 3 * cfg.hidden_size * cfg.intermediate_size * layers * e
+
+    def flops_per_token(n_params):
+        activated = n_params - int(expert * (e - 2) / e)
+        return 6 * activated + 12 * layers * cfg.hidden_size * MOE_S
+    return run_train(torch, np, card, "train-moe", cfg, MOE_B, MOE_S,
+                     TRAIN_STEPS, want, flops_per_token)
 
 
 def main() -> int:
@@ -874,7 +1359,10 @@ def main() -> int:
                       lambda: phase_rms(torch, timer),
                       lambda: phase_flash_bwd(torch, timer),
                       lambda: phase_rms_bwd(torch, timer),
-                      lambda: phase_fused(torch, timer)):
+                      lambda: phase_fused(torch, timer),
+                      lambda: phase_gmm2(torch, timer),
+                      lambda: phase_gmm(torch, timer),
+                      lambda: phase_tgmm(torch, timer)):
             r = phase()
             rows.append(r)
             log(f"kernel {r['name']}: {r['shape']}: max_abs_err "
@@ -894,11 +1382,17 @@ def main() -> int:
         counts = {"serve": phase_serve(torch, np, args.layers, card)[0]}
         torch.cuda.empty_cache()
         log(f"serve done at {time.perf_counter() - t_start:.1f} s")
+        # serving before training, as in a serving process
+        counts["serve-moe"] = phase_serve_moe(torch, np, card)[0]
+        log(f"serve-moe done at {time.perf_counter() - t_start:.1f} s")
         counts["train"] = phase_train(torch, np, card)[0]
         log(f"train done at {time.perf_counter() - t_start:.1f} s")
+        counts["train-moe"] = phase_train_moe(torch, np, card)[0]
+        log(f"train-moe done at {time.perf_counter() - t_start:.1f} s")
         for r in rows:
-            r["launches"] = counts[r["path"]][r["name"]]
-            r["launches_by_path"] = {p: c[r["name"]]
+            names = r.get("counts", [r["name"]])
+            r["launches"] = sum(counts[r["path"]][n] for n in names)
+            r["launches_by_path"] = {p: sum(c[n] for n in names)
                                      for p, c in counts.items()}
             assert r["launches"] > 0, \
                 f"{r['name']} not on the {r['path']} path"

@@ -5,7 +5,8 @@ environment (``FLAGS_<name>=...``) at import and mutable at runtime with
 :func:`set_flags`. There is deliberately no flag that turns the CUDA
 kernels off: on a CUDA tensor a kernel wrapper launches its kernel or
 raises. ``pallas_fused_block`` keeps the reference's name and chooses
-between two model paths, each of which runs kernels.
+between two model paths, each of which runs kernels; so does
+``moe_fused_wi`` (gmm2, or two gmm launches).
 """
 
 from __future__ import annotations
@@ -78,3 +79,12 @@ define_flag("serve_weight_quant", False)
 # keeps the composed per-op path. A layer the kernel cannot take composes
 # with a one-time warning, as in the reference.
 define_flag("pallas_fused_block", "auto")
+
+# the MoE expert path (ops/kernels/grouped_gemm.py): "auto" and "on" take
+# the grouped GEMMs on every device (the CUDA kernels for CUDA tensors,
+# their twins for CPU tensors); "off", the reference's index-form
+# scatter/vmap path, raises NotImplementedError until it is ported.
+define_flag("moe_grouped_gemm", "auto")
+# gate and up projections of the expert MLP through the dual-output gmm2
+# kernel (one read of the token buffer) instead of two gmm launches
+define_flag("moe_fused_wi", True)

@@ -18,27 +18,35 @@ dtype on write, so the ragged kernel sees fp32 queries over bf16 pages.
 Pad tokens have ``valids = 0`` (attention output exactly 0), write to the
 cache's sentinel row, and their sampled token is ignored by the host.
 
-Not ported yet (ROADMAP.md A): MoE layers, SSM layers, quantized KV pages
-and weight-only int8.
+MoE layers (the reference's compiled MoE step): the gate's index routing
+with the bucket-pad rows masked out of it, the sort-based dispatch into an
+expert-major buffer and the expert MLP as grouped GEMMs. The buffer is
+fp32 (``_rms`` promotes), the expert weights stay bf16 and the gmm/gmm2
+kernels widen them as they load them.
+
+Not ported yet (ROADMAP.md A): SSM layers, quantized KV pages and
+weight-only int8.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
+from paddle_tpu_torch.incubate.distributed.models.moe.gate import BaseGate
 from paddle_tpu_torch.incubate.nn.functional.fused_ops import (_rotate_neox,
                                                                rope_tables)
 from paddle_tpu_torch.inference.attention import ragged_attention_xla
 from paddle_tpu_torch.nn.functional import matmul as _mm
 from paddle_tpu_torch.nn.functional.norm import rms_norm as _rms
+from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     ragged_paged_attention)
 
-__all__ = ["bucket", "compiled_capable", "extract_params", "make_step",
-           "sample_tokens"]
+__all__ = ["bucket", "compiled_capable", "extract_params",
+           "extract_moe_specs", "make_step", "sample_tokens"]
 
 
 def bucket(n: int, floor: int = 1) -> int:
@@ -47,9 +55,17 @@ def bucket(n: int, floor: int = 1) -> int:
     return 1 << (n - 1).bit_length()
 
 
+_MOE_EXPERT_NAMES = ["down_proj.weight", "gate_proj.weight",
+                     "up_proj.weight"]
+
+
+def _is_moe(mlp) -> bool:
+    return hasattr(mlp, "gate") and hasattr(mlp, "expert_parameters")
+
+
 def compiled_capable(model):
-    """None when the step can run ``model`` (a dense Llama stack), else
-    the reason it cannot."""
+    """None when the step can run ``model`` (a Llama stack of dense or MoE
+    layers), else the reason it cannot."""
     llama = getattr(model, "llama", None)
     if llama is None or not hasattr(llama, "layers"):
         return "model has no llama-style decoder stack (model.llama)"
@@ -57,33 +73,93 @@ def compiled_capable(model):
         if hasattr(layer, "mixer"):
             return f"layer {i} is an SSM mixer (hybrid models)"
         mlp = getattr(layer, "mlp", None)
-        if not all(hasattr(mlp, a) for a in ("gate_proj", "up_proj",
-                                             "down_proj")):
-            return f"layer {i} mlp is not a swiglu gate/up/down MLP (MoE)"
+        if _is_moe(mlp):
+            names, _ = mlp.expert_parameters()
+            if sorted(names) != _MOE_EXPERT_NAMES:
+                return (f"layer {i}: MoE experts are not swiglu "
+                        f"gate/up/down MLPs (params {sorted(names)})")
+            route = getattr(type(mlp.gate), "route_indices", None)
+            if route is None or route is BaseGate.route_indices:
+                return (f"layer {i}: gate {type(mlp.gate).__name__} has no "
+                        f"index-form routing (route_indices)")
+        elif not all(hasattr(mlp, a) for a in ("gate_proj", "up_proj",
+                                               "down_proj")):
+            return f"layer {i} mlp is not a swiglu gate/up/down MLP"
     return None
 
 
 def extract_params(model) -> Dict[str, Any]:
-    """The model's own weight tensors (no copies) as the step's params."""
+    """The model's own weight tensors (no copies) as the step's params; an
+    MoE layer gives its gate weight and the stacked ``[E, ...]`` expert
+    leaves."""
     reason = compiled_capable(model)
     if reason is not None:
         raise ValueError(f"the decode step cannot run this model: {reason}")
     layers = []
     for layer in model.llama.layers:
         att, mlp = layer.self_attn, layer.mlp
-        layers.append({
+        lp = {
             "ln1": layer.input_layernorm.weight,
             "wq": att.q_proj.weight, "wk": att.k_proj.weight,
             "wv": att.v_proj.weight, "wo": att.o_proj.weight,
             "ln2": layer.post_attention_layernorm.weight,
-            "wg": mlp.gate_proj.weight, "wu": mlp.up_proj.weight,
-            "wd": mlp.down_proj.weight,
-        })
+        }
+        if _is_moe(mlp):
+            names, params = mlp.expert_parameters()
+            by_name = dict(zip(names, params))
+            lp["moe_gate_w"] = mlp.gate.weight
+            lp["moe_wg"] = by_name["gate_proj.weight"]
+            lp["moe_wu"] = by_name["up_proj.weight"]
+            lp["moe_wd"] = by_name["down_proj.weight"]
+        else:
+            lp["wg"] = mlp.gate_proj.weight
+            lp["wu"] = mlp.up_proj.weight
+            lp["wd"] = mlp.down_proj.weight
+        layers.append(lp)
     params = {"embed": model.llama.embed_tokens.weight,
               "norm": model.llama.norm.weight, "layers": layers}
     if model.lm_head is not None:
         params["lm_head"] = model.lm_head.weight
     return params
+
+
+def extract_moe_specs(model) -> Optional[List[Optional[Dict[str, Any]]]]:
+    """Per layer, the MoE routing spec (the gate object, top-k, capacity
+    factor, expert count) or None for a dense layer; None for a dense
+    model."""
+    specs = []
+    for layer in model.llama.layers:
+        mlp = layer.mlp
+        specs.append({"gate": mlp.gate,
+                      "top_k": int(getattr(mlp.gate, "top_k", 1)),
+                      "cf": float(mlp.capacity_factor),
+                      "num_experts": int(mlp.num_experts)}
+                     if _is_moe(mlp) else None)
+    return specs if any(s is not None for s in specs) else None
+
+
+def _moe_mlp(x2, lp, spec, use_kernel: bool, valid):
+    """The MoE MLP at decode shapes (``decode_step.py:352-408``): the
+    gate's index routing with ``valid [t]`` masking the bucket-pad rows out
+    of it (so that pads, which all share token 0's embedding, can take no
+    expert capacity from real tokens), the sort-based dispatch, the expert
+    MLP as grouped GEMMs (their plain twins with ``use_kernel=False``) and
+    the combine."""
+    t = x2.shape[0]
+    gate = spec["gate"]
+    num_e = spec["num_experts"]
+    capacity = gate.capacity(t, spec["cf"], spec["top_k"])
+    wg, wu, wd = lp["moe_wg"], lp["moe_wu"], lp["moe_wd"]
+    scores = torch.matmul(x2, lp["moe_gate_w"].to(x2.dtype))
+    e_idx, slot, w, keep, _aux = gate.route_indices(scores.float(), capacity,
+                                                    valid=valid)
+    ct = torch.promote_types(x2.dtype, wg.dtype)
+    gg.require_grouped_path(ct)
+    x_buf, counts, dest = gg.sorted_dispatch(x2.to(ct), e_idx, slot, keep,
+                                             num_e,
+                                             gg.padded_capacity(capacity))
+    y_buf = gg.expert_mlp(x_buf, counts, wg, wu, wd, plain=not use_kernel)
+    return gg.sorted_combine(y_buf, dest, w, keep, t).to(x2.dtype)
 
 
 def _rope(t: torch.Tensor, positions: torch.Tensor, base: float):
@@ -155,8 +231,8 @@ def sample_tokens(logits, temps, top_ks, top_ps, seeds, counters):
     return torch.where(temps <= 0.0, greedy, sampled.to(torch.int32))
 
 
-def make_step(cfg, block_size: int, use_kernel: bool = True):
-    """The dense decode step (the reference's ``make_step`` signature):
+def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None):
+    """The decode step (the reference's ``make_step`` signature):
 
     ``step(width, params, cache, ids, positions, rows, wslots, tables_full,
     row_slots, valids, out_idx, draft_next, n_spec, seeds, counters, temps,
@@ -171,9 +247,10 @@ def make_step(cfg, block_size: int, use_kernel: bool = True):
     ``draft_next [s, V-1]``/``n_spec [s]`` the speculative drafts, and
     ``accepted[r]`` the leading run of ``tokens[r, i] == draft_next[r, i]``.
 
-    ``use_kernel=False`` runs attention through the plain twin instead of
-    the ragged kernel — a reference for checking the kernel, not a
-    fallback.
+    ``moe`` is :func:`extract_moe_specs`'s list for a model with MoE
+    layers. ``use_kernel=False`` runs attention and the grouped GEMMs
+    through their plain twins instead of the kernels — a reference for
+    checking the kernels, not a fallback.
     """
     n_heads = cfg.num_attention_heads
     n_kv = cfg.num_key_value_heads
@@ -201,8 +278,13 @@ def make_step(cfg, block_size: int, use_kernel: bool = True):
             att = attend(qr, kc, vc, tables, rows, valids, block_size)
             h = h + _mm(att.reshape(t, n_heads * head_dim), lp["wo"])
             x2 = _rms(h, lp["ln2"], eps)
-            h = h + _mm(F.silu(_mm(x2, lp["wg"])) * _mm(x2, lp["wu"]),
-                        lp["wd"])
+            spec = moe[li] if moe is not None else None
+            if spec is not None:
+                # valids == 0 marks the bucket pads
+                h = h + _moe_mlp(x2, lp, spec, use_kernel, valids > 0)
+            else:
+                h = h + _mm(F.silu(_mm(x2, lp["wg"])) * _mm(x2, lp["wu"]),
+                            lp["wd"])
         return _rms(h, params["norm"], eps)
 
     def _sample_tail(h, params, out_idx, draft_next, n_spec, seeds,

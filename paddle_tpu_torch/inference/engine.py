@@ -15,7 +15,7 @@ each and reads the sampled tokens back in one sync.
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): ``mode="eager"``, speculative decode (``spec_tokens > 0``), the
 prefix cache, quantized KV pages, weight-only int8, the host KV tier,
-and non-Llama, MoE or hybrid models.
+and non-Llama or hybrid models. Dense and MoE Llama models are served.
 """
 
 from __future__ import annotations
@@ -75,8 +75,8 @@ class GenerationEngine:
         reason = _ds.compiled_capable(model)
         if reason is not None:
             raise NotImplementedError(
-                f"GenerationEngine: {reason}; only dense Llama models are "
-                f"ported (ROADMAP.md A.8/A.9)")
+                f"GenerationEngine: {reason}; only dense and MoE Llama "
+                f"models are ported (ROADMAP.md A.8/A.9)")
         for name, value, default, item in (
                 ("spec_tokens", spec_tokens, "serve_spec_tokens", "A.6"),
                 ("prefix_cache", prefix_cache, "serve_prefix_cache", "A.6"),
@@ -112,7 +112,8 @@ class GenerationEngine:
                       "prefill_tokens": 0, "occupancy_sum": 0.0,
                       "decode_rows": 0}
         self._params = _ds.extract_params(model)
-        self._dstep = _ds.make_step(cfg, block_size, use_kernel=use_kernel)
+        self._dstep = _ds.make_step(cfg, block_size, use_kernel=use_kernel,
+                                    moe=_ds.extract_moe_specs(model))
 
     # -- request lifecycle ---------------------------------------------
     def _admissible(self, request: GenerationRequest) -> bool:

@@ -10,16 +10,22 @@ A decoder layer runs one of the reference's two paths, chosen by the
   -> RoPE -> causal GQA attention -> o-projection + residual -> RMSNorm
   -> SwiGLU MLP + residual.
 
-On CUDA the norms, attention and the fused block run the hand-written
-kernels, forward and backward; on CPU their plain twins. ``forward(ids,
-labels)`` returns the fp32 next-token loss. Weights keep Paddle's ``[in,
-out]`` layout and are trainable, norm weights stay fp32 in a bf16 model,
-and the state-dict keys are the JAX model's, so
+With ``moe_num_experts > 0`` the MLP is a
+:class:`~paddle_tpu_torch.incubate.distributed.models.moe.MoELayer` over
+``LlamaMLP`` experts (the grouped-GEMM kernels); the fused block refuses
+such a layer, as the reference's does, so it composes.
+
+On CUDA the norms, attention, the fused block and the grouped GEMMs run
+the hand-written kernels, forward and backward; on CPU their plain twins.
+``forward(ids, labels)`` returns the fp32 next-token loss, plus
+``moe_aux_weight`` times each MoE layer's aux loss. Weights keep Paddle's
+``[in, out]`` layout and are trainable, norm weights stay fp32 in a bf16
+model, and the state-dict keys are the JAX model's, so
 :func:`paddle_tpu_torch.weights.load_jax_state` carries a JAX model's
 weights across unchanged.
 
-Not ported yet (ROADMAP.md A): recompute, MoE layers, sequence
-parallelism and the numerics taps.
+Not ported yet (ROADMAP.md A): recompute, sequence parallelism and the
+numerics taps.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch import nn
 from paddle_tpu_torch.framework.dtype import to_torch_dtype
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.framework.random import seed as _seed
+from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
 from paddle_tpu_torch.incubate.nn import functional as F_inc
 from paddle_tpu_torch.nn import Embedding, Linear
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
@@ -59,7 +66,12 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     initializer_range: float = 0.02
     dtype: str = "float32"
+    # MoE (DeepSeekMoE / Qwen2-MoE family): > 0 replaces the dense MLP with
+    # a MoELayer of that many LlamaMLP experts
     moe_num_experts: int = 0
+    moe_gate: str = "gshard"
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
     sequence_parallel: bool = False
     recompute: bool = False
 
@@ -191,7 +203,16 @@ class LlamaDecoderLayer(nn.Module):
         self.input_layernorm = LlamaRMSNorm(config, init)
         self.self_attn = LlamaAttention(config, init)
         self.post_attention_layernorm = LlamaRMSNorm(config, init)
-        self.mlp = LlamaMLP(config, init)
+        if config.moe_num_experts > 0:
+            self.mlp = MoELayer(
+                config.hidden_size,
+                [LlamaMLP(config, init)
+                 for _ in range(config.moe_num_experts)],
+                gate=config.moe_gate,
+                capacity_factor=config.moe_capacity_factor,
+                generator=init.generator)
+        else:
+            self.mlp = LlamaMLP(config, init)
 
     def _fused_forward(self, hidden_states):
         """The layer through the fused block kernel when the
@@ -199,6 +220,10 @@ class LlamaDecoderLayer(nn.Module):
         otherwise (the caller composes). The input norm and q/k/v
         projections stay outside: they feed the kernel."""
         if not F_inc.fused_block_enabled():
+            return None
+        if isinstance(self.mlp, MoELayer):
+            _warn_fused_fallback("MoE mlp (fused block supports dense "
+                                 "layers only)")
             return None
         cfg = self.config
         b, s, hidden = hidden_states.shape
@@ -260,8 +285,7 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  seed: int = 0):
-        for feature, on in (("moe_num_experts", config.moe_num_experts),
-                            ("sequence_parallel", config.sequence_parallel),
+        for feature, on in (("sequence_parallel", config.sequence_parallel),
                             ("recompute", config.recompute)):
             if on:
                 raise NotImplementedError(
@@ -295,7 +319,13 @@ class LlamaForCausalLM(nn.Module):
         logits = self.logits(self.llama(input_ids))
         if labels is None:
             return logits
-        return _shifted_lm_loss(logits, labels)
+        loss, shifted = _shifted_lm_loss(logits, labels)
+        # the routing load-balance penalty of every MoE layer
+        # (``llama.py:360-367``)
+        for sub in self.modules():
+            if isinstance(sub, MoELayer) and sub.gate.get_loss() is not None:
+                loss = loss + self.config.moe_aux_weight * sub.gate.get_loss()
+        return loss, shifted
 
 
 def _shifted_lm_loss(logits: torch.Tensor, labels: torch.Tensor):

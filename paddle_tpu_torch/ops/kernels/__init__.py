@@ -12,7 +12,8 @@ Each module here pairs the kernels of one TPU module, from
 * a launch counter, a plain integer the wrapper bumps once per kernel
   launch (and nowhere else), so a run can show which kernels it went
   through: ``launches`` for a module's forward kernel, ``launches_bwd``
-  for its backward kernel.
+  for its backward kernel (the grouped GEMMs also count ``gmm2`` and
+  ``tgmm`` apart).
 
 The mirror of ``paddle_tpu/ops/pallas/<name>.py`` is
 ``paddle_tpu_torch/ops/kernels/<name>.py``.
@@ -23,6 +24,7 @@ from __future__ import annotations
 from typing import Dict
 
 from paddle_tpu_torch.ops.kernels import (flash_attention, fused_block,
+                                          grouped_gemm,
                                           ragged_paged_attention, rms_norm)
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
@@ -35,6 +37,10 @@ KERNELS = {
     "rms_norm_fwd": (rms_norm, "launches"),
     "rms_norm_bwd": (rms_norm, "launches_bwd"),
     "fused_block_fwd": (fused_block, "launches"),
+    "gmm_fwd": (grouped_gemm, "launches"),
+    "gmm_bwd": (grouped_gemm, "launches_bwd"),
+    "gmm2": (grouped_gemm, "launches_gmm2"),
+    "tgmm": (grouped_gemm, "launches_tgmm"),
 }
 
 

@@ -158,9 +158,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ptt_fused_block_fwd.argtypes = [P] * 10 + [I] * 7 + [F, F, I, P]
     lib.ptt_fused_block_smem_bytes.argtypes = [I, I, I]
     lib.ptt_fused_block_smem_bytes.restype = ctypes.c_longlong
+    # x, w1, w2, o1, o2, counts, E, c_pad, K, N, trans_w, x_dtype,
+    # w_dtype, stream
+    lib.ptt_gmm.argtypes = [P] * 6 + [I] * 7 + [P]
+    # x, dy, dw, counts, E, c_pad, K, N, dtype, stream
+    lib.ptt_tgmm.argtypes = [P] * 4 + [I] * 5 + [P]
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,
                lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
-               lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd):
+               lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd,
+               lib.ptt_gmm, lib.ptt_tgmm):
         fn.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p

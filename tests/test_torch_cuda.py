@@ -19,6 +19,7 @@ import torch
 from paddle_tpu_torch.incubate.nn import functional as pt_inc
 from paddle_tpu_torch.ops.kernels import flash_attention as pt_flash
 from paddle_tpu_torch.ops.kernels import fused_block as pt_fb
+from paddle_tpu_torch.ops.kernels import grouped_gemm as pt_gg
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as pt_ragged
 from paddle_tpu_torch.ops.kernels import rms_norm as pt_rms
 
@@ -193,3 +194,89 @@ def test_fused_block_gradients_on_the_card_match_the_cpu_twins(cuda_device):
         ref = _np(b)
         np.testing.assert_allclose(_np(a), ref, rtol=1e-5,
                                    atol=1e-5 * np.abs(ref).max())
+
+
+# grouped GEMMs: 4 experts of c_pad 128 (two row tiles), one empty, one
+# full, one ending mid-tile; K 88 and N 200 are no multiples of the tiles
+_GG_COUNTS = [70, 0, 128, 3]
+
+
+def _gg_inputs(dev, x_dtype, w_dtype, k=88, n=200, c_pad=128, seed=40):
+    """Expert-major x with zero rows past each count, w [E, K, N], counts."""
+    x = _rand("cpu", "float32", len(_GG_COUNTS) * c_pad, k, seed=seed)
+    for e, c in enumerate(_GG_COUNTS):
+        x[e * c_pad + c:(e + 1) * c_pad] = 0
+    w = _rand(dev, w_dtype, len(_GG_COUNTS), k, n, scale=0.1, seed=seed + 1)
+    counts = torch.tensor(_GG_COUNTS, dtype=torch.int32, device=dev)
+    return x.to(dev, getattr(torch, x_dtype)), w, counts
+
+
+def _gg_close(got, want, tol):
+    ref = _np(want)
+    np.testing.assert_allclose(_np(got), ref, rtol=tol["rtol"],
+                               atol=tol["atol"] * max(np.abs(ref).max(), 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype,w_dtype", [
+    ("bfloat16", "bfloat16"), ("float32", "float32"),
+    ("float32", "bfloat16")])
+def test_gmm_and_gmm2_kernels_match_twins(cuda_device, x_dtype, w_dtype):
+    """gmm, gmm2 and the transposed gmm of the backward: the twin's values
+    (zeros past each count included) at the tier of x's dtype, and a
+    second launch gives the same bits."""
+    x, w, counts = _gg_inputs(cuda_device, x_dtype, w_dtype)
+    w2 = _rand(cuda_device, w_dtype, *w.shape, scale=0.1, seed=50)
+    tol = FP32 if x_dtype == "float32" else BF16
+    _gg_close(pt_gg.gmm(x, w, counts), pt_gg.gmm_plain(x, w, counts), tol)
+    for got, want in zip(pt_gg.gmm2(x, w, w2, counts),
+                         pt_gg.gmm2_plain(x, w, w2, counts)):
+        _gg_close(got, want, tol)
+    dy = pt_gg.gmm(x, w, counts)
+    dx = pt_gg.gmm_t(dy, w, counts)
+    assert torch.equal(dx, pt_gg.gmm_t(dy, w, counts))
+    _gg_close(dx, pt_gg.gmm_plain(dy, w, counts, trans_w=True), tol)
+    for e, c in enumerate(_GG_COUNTS):
+        if c < 128:
+            assert float(dy[e * 128 + c:(e + 1) * 128].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tgmm_kernel_matches_twin_bitwise_on_repeat(cuda_device, dtype):
+    """dw fp32 over each expert's live rows only: the rows past a count
+    hold noise here, which neither the kernel nor the twin may read."""
+    x, _, counts = _gg_inputs(cuda_device, dtype, dtype)
+    x = x + _rand(cuda_device, dtype, *x.shape, seed=60)
+    dy = _rand(cuda_device, dtype, x.shape[0], 200, seed=61)
+    dw = pt_gg.tgmm(x, dy, counts)
+    assert dw.dtype == torch.float32 and dw.shape == (4, 88, 200)
+    assert torch.equal(dw, pt_gg.tgmm(x, dy, counts))
+    assert float(dw[1].abs().max()) == 0.0          # the empty expert
+    ref = _np(pt_gg.tgmm_plain(x, dy, counts))
+    np.testing.assert_allclose(_np(dw), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_expert_mlp_gradients_on_the_card_match_the_cpu_twins(cuda_device):
+    """fp32 gradients of the expert MLP through gmm2, gmm, the dx gmm and
+    tgmm on the card against the same Functions on the CPU twins."""
+    from paddle_tpu_torch import flags
+    x, wg, counts = _gg_inputs(cuda_device, "float32", "float32", k=96,
+                               n=72)
+    wu = _rand(cuda_device, "float32", *wg.shape, scale=0.1, seed=70)
+    wd = _rand(cuda_device, "float32", 4, 72, 96, scale=0.1, seed=71)
+    for fused in (True, False):
+        flags.set_flags({"moe_fused_wi": fused})
+        try:
+            grads = {}
+            for dev in ("cuda", "cpu"):
+                ins = [t.detach().to(dev).requires_grad_(True)
+                       for t in (x, wg, wu, wd)]
+                y = pt_gg.expert_mlp(ins[0], counts.to(dev), *ins[1:])
+                grads[dev] = torch.autograd.grad(y.square().sum(), ins)
+        finally:
+            flags.set_flags({"moe_fused_wi": True})
+        for a, b in zip(grads["cuda"], grads["cpu"]):
+            _gg_close(a, b, dict(rtol=1e-5, atol=1e-5))

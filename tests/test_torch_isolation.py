@@ -115,8 +115,8 @@ def test_unported_flags_raise(tiny, name, value):
 
 
 def test_unported_models_raise():
-    for cfg in (llama_tiny_config(moe_num_experts=2),
-                llama_tiny_config(sequence_parallel=True)):
+    for cfg in (llama_tiny_config(sequence_parallel=True),
+                llama_tiny_config(recompute=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             LlamaForCausalLM(cfg, device="cpu")
 
@@ -143,6 +143,41 @@ def test_training_modules_load_no_jax():
     assert {"paddle_tpu_torch/optimizer/optimizers.py",
             "paddle_tpu_torch/jit/api.py",
             "paddle_tpu_torch/ops/kernels/fused_block.py"} <= files
+
+
+def test_moe_modules_load_no_jax():
+    """The MoE slice's modules (gates, MoELayer, the grouped GEMMs) import
+    torch and nothing of JAX, and an MoE Llama builds in the port."""
+    code = ("import sys, paddle_tpu_torch.incubate.distributed.models.moe, "
+            "paddle_tpu_torch.ops.kernels.grouped_gemm; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"paddle_tpu_torch/incubate/distributed/models/moe/gate.py",
+            "paddle_tpu_torch/incubate/distributed/models/moe/moe_layer.py",
+            "paddle_tpu_torch/ops/kernels/grouped_gemm.py"} <= files
+    m = LlamaForCausalLM(llama_tiny_config(moe_num_experts=2), device="cpu")
+    assert GenerationEngine(m, max_seqs=2, max_seq_len=64,
+                            block_size=16).mode == "compiled"
+
+
+def test_grouped_gemm_kernels_refuse_what_they_cannot_take():
+    """A tensor off the CPU and off CUDA, or a dtype pair the kernels do
+    not take, raises by name: no silent twin."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as pt_gg
+    x = torch.empty(8, 16, device="meta")
+    w = torch.empty(2, 16, 24, device="meta")
+    c = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pt_gg.gmm(x, w, c)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pt_gg.tgmm(x, torch.empty(8, 24, device="meta"), c)
+    with pytest.raises(ValueError, match="not taken"):
+        pt_gg.gmm2(x.bfloat16(), w, w, c)
 
 
 def test_fused_block_kernel_refuses_what_it_cannot_take():
