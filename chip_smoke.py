@@ -17,12 +17,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checked too; the grouped GEMMs at the MoE training shapes, an
    expert-major buffer of 65,536 rows with 32,768 live over 16 experts,
    one empty and one full, and gmm/gmm2 also in fp32 at the MoE serving
-   shapes) held against its plain PyTorch twin on the same inputs
-   (each backward kernel, and the dx gmm, also twice, bitwise), then
-   timed beside the twin, the PyTorch library call that computes the
-   same function (where one exists: ``grouped_mm`` for gmm and gmm2,
-   ``torch.bmm`` with an fp32 output over the padded buffer for tgmm)
-   and the least time the card could take;
+   shapes; the chunked SSD scan at the hybrid's prefill and at
+   ``bench_ssm_pretrain``'s widths; paged decode attention at the eager
+   serve step and the hybrid's) held against its plain PyTorch twin on the
+   same inputs (each backward kernel, the dx gmm and the scan also twice,
+   bitwise), then timed beside the twin, the PyTorch library call that
+   computes the same function (where one exists: ``grouped_mm`` for gmm
+   and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
+   for tgmm) and the least time the card could take;
 4. serve, the slice-1 path, with ``pallas_fused_block=off``:
    ``GenerationEngine.generate`` serving 8 requests (prompts of 32..1024
    tokens, 32 new tokens each, 6 greedy and 2 sampled) on a
@@ -35,8 +37,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    twin, one decoder layer through the kernels equal to its plain-twin
    run at the bf16 tier, and the kernel forward no further from an fp32
    reference forward than the plain-twin forward is;
-5. serve-moe, the slice-3 serving path: the train-moe configuration
-   (phase 7; seeded random weights), run before the training phases as
+5. serve-eager, the slice-4 eager engine on the serve phase's model and
+   requests (``mode="eager"``: each prompt prefilled whole at admission
+   through flash attention, then a Python layer walk per step with the
+   paged decode kernel, host numpy sampling). Checks: finish reasons, no
+   page leak, paged launches == steps x layers, flash launches == prompts
+   x layers, a second (profiled) run bitwise equal, and, with every engine
+   fed the kernel run's tokens, the kernels' logits no further from an
+   fp32 copy's than 1.25x the plain twins' are. Reports the step's time,
+   the host's CPU share and the share of the steps spent in host
+   sampling, the share of greedy tokens equal to the compiled engine's and
+   the shares the twins and the fp32 copy would choose too (not asserted:
+   32 bf16 layers of random weights differ by rounding alone);
+6. serve-moe, the slice-3 serving path: the train-moe configuration
+   (phase 9; seeded random weights), run before the training phases as
    a serving process would, through ``GenerationEngine(max_seqs=16,
    max_seq_len=160, block_size=64)``, 16 prompts of 64 tokens, 32 new
    tokens each, 2 of them sampled. Checks: finish reasons, no page leak,
@@ -44,7 +58,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and a third, profiled, bitwise equal, greedy tokens >= 99% equal to
    the plain-twin engine. Reports the host's CPU time over the wall and
    device kernels per step (the step is issued op by op);
-6. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
+7. serve-ssm, the slice-4 hybrid path: ``bench_serve_ssm``'s on-chip
+   configuration (``bench.py:1972-2078``: an fp32 hybrid of 8 layers "SA",
+   hidden 1024, ffn 2816, 8:8 heads of 128, d_state 16, SSM head dim 32,
+   seeded random weights). Checks: equal-byte KV pools admit >= 2x as many
+   1023-token prompts for the hybrid as for the attention-only Llama; then
+   8 greedy requests (32 new tokens) through the compiled and the eager
+   engine, each after a warm run: finish reasons, scan launches ==
+   admissions x SSM layers, ragged (compiled) or paged (eager) launches ==
+   steps x attention layers, no page leak, every slot's state zero after
+   the drain, a profiled repeat bitwise equal, >= 99% of greedy tokens
+   equal to the same engine on the plain twins and compiled equal to
+   eager;
+8. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
    configuration (vocab 32000, hidden 1536, ffn 4096, 12 layers, GQA
    12:4, seq 2048, batch 4, bf16, ~400M parameters, seeded random
    weights, ``pallas_fused_block=auto``): AdamW(lr 1e-4, wd 0.1), the
@@ -60,18 +86,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the kernels against the plain twins and an fp32 copy, over all
    parameters and per parameter; a second run from the seed bitwise
    equal;
-7. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
+9. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
    configuration (``bench.py:122-129``: vocab 32000, hidden 1024, 16
    experts of ffn 704, top-2 gshard at capacity factor 2.0, aux weight
    0.01, 6 layers, 16:16 heads, bf16), batch 8 x seq 2048, trained as in
-   phase 6 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
+   phase 8 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
    tokens/s, ms per step, the bench's activated-parameter MFU, busy share
    and top kernels, peak memory. Checks: finite, falling losses; per step
    6 gmm2, 6 + 18 gmm (forward, and the dx against w^T), 18 tgmm, 6 flash
    forward and backward and 13 of each RMSNorm kernel; one step's
    gradients against the twins and an fp32 copy (with the share of
    (token, k) routes the fp32 copy also takes); a second run bitwise;
-8. the ``kernels`` JSON line, then the result line.
+10. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -697,6 +723,157 @@ def phase_tgmm(torch, timer):
                       "live rows) -> fp32 [16, 1024, 704]")
 
 
+def phase_scan(torch, timer):
+    """The chunked SSD scan at serve-ssm's prefill (fp32 x [1, 1023, 64,
+    32], d_state 16, chunk 128) and at ``bench_ssm_pretrain``'s widths
+    (``bench.py:1899-1905``: bf16 x [4, 2048, 48, 64], d_state 64, chunk
+    256), each against the chunked twin (y and the final state) and a
+    second launch (bitwise). The kernel and the twin are timed on the
+    padded operands the wrapper gives them."""
+    from paddle_tpu_torch.ops.kernels import selective_scan as ss
+    out = {}
+    for tag, (b, l, h, dh, ds, dtype) in (
+            ("serve", (1, 1023, 64, 32, 16, torch.float32)),
+            ("train", (4, 2048, 48, 64, 64, torch.bfloat16))):
+        x = torch.randn(b, l, h, dh, device="cuda").to(dtype)
+        dt = torch.rand(b, l, h, device="cuda") * 0.1 + 0.01
+        A = -torch.rand(h, device="cuda") - 0.1
+        B = torch.randn(b, l, ds, device="cuda").to(dtype)
+        C = torch.randn(b, l, ds, device="cuda").to(dtype)
+        L = ss.resolve_chunk(l)
+        lp = -(-l // L) * L
+        la = torch.nn.functional.pad(dt * A, (0, 0, 0, lp - l))
+        args = (torch.nn.functional.pad((dt[..., None] * x.float()).to(dtype),
+                                        (0, 0, 0, 0, 0, lp - l)).contiguous(),
+                la.transpose(1, 2).contiguous(),
+                torch.nn.functional.pad(B, (0, 0, 0, lp - l)).contiguous(),
+                torch.nn.functional.pad(C, (0, 0, 0, lp - l)).contiguous(), L)
+        y, st = ss.scan_chunked(*args)
+        y2, st2 = ss.scan_chunked(*args)
+        ry, rst = ss._scan_reference(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(st, st2), \
+            f"scan {tag}: two launches on the same inputs differ"
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        err = max(max_err(y, ry), max_err(st, rst))
+        for what, a, c in (("y", y, ry), ("state", st, rst)):
+            log(f"scan {tag} {what}: max_abs_err {max_err(a, c):.4g} of max "
+                f"{float(c.float().abs().max()):.4g}")
+            assert scaled_close(a, c, tol, tol), f"scan {tag} {what}"
+        # bytes: dtx, la, B, C read once, y and the state written once;
+        # operations on the causal half of each chunk: C.B^T once per
+        # (batch, chunk), the decays and M @ dtx per head, the carry's
+        # two products per head
+        esz = x.element_size()
+        nbytes = (2 * b * l * h * dh * esz + b * h * l * 4
+                  + 2 * b * l * ds * esz + b * h * ds * dh * 4)
+        pairs = L * (L + 1) // 2
+        flops = (lp // L) * (b * 2 * pairs * ds + b * h * (
+            2 * pairs * dh + pairs + 4 * L * ds * dh))
+        b_ms, b_by = bound(nbytes, flops,
+                           "fp32" if dtype == torch.float32 else "bf16")
+        out[tag] = dict(err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                        ms=timer.ms(lambda: ss.scan_chunked(*args)),
+                        plain_ms=timer.ms(lambda: ss._scan_reference(*args),
+                                          iters=3, warmup=1),
+                        blocks=b * h)
+        log(f"scan {tag}: {b * h} blocks of the kernel on 132 SMs, "
+            f"{out[tag]['ms']:.4f} ms, plain {out[tag]['plain_ms']:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del x, y, y2, ry, args
+        torch.cuda.empty_cache()
+    s, t = out["serve"], out["train"]
+    return dict(name="selective_scan", route="cuda",
+                source="paddle_tpu_torch/csrc/selective_scan.cu",
+                replaces="paddle_tpu/ops/pallas/selective_scan.py:172",
+                path="serve-ssm", max_abs_err=max(s["err"], t["err"]),
+                tolerance="fp32 rtol=atol=1e-5 x max|twin|, bf16 2e-2; "
+                          "bitwise repeat",
+                ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+                bound_by=s["bound_by"], library_ms=None,
+                library="none (no single PyTorch call computes the scan)",
+                train_ms=t["ms"], train_plain_ms=t["plain_ms"],
+                train_bound_ms=t["bound_ms"], train_bound_by=t["bound_by"],
+                shape="fp32 x [1, 1023, 64, 32], d_state 16, chunk 128 "
+                      "(train shape: bf16 x [4, 2048, 48, 64], d_state 64, "
+                      "chunk 256)")
+
+
+def phase_paged(torch, np, timer, rng):
+    """Paged decode attention at the eager serve step (bf16 q [8, 32, 128]
+    over Llama-3-8B pages, kv 8, block 64, the serve phase's prompt
+    lengths 32..1024 plus 32 new tokens) and at the hybrid's (fp32 q [8,
+    8, 128], kv 8, lengths 1023..1055), each against the twin."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    out = {}
+    for tag, (hq, dtype, lens) in (
+            ("eager", (32, torch.bfloat16,
+                       [int(n) + 32
+                        for n in np.linspace(32, 1024, 8).round()])),
+            ("ssm", (8, torch.float32,
+                     [int(n) for n in np.linspace(1023, 1055, 8).round()]))):
+        hkv, d, bs, width = 8, 128, 64, 32
+        need = [-(-n // bs) for n in lens]
+        perm = rng.permutation(sum(need) + 8).astype("int32")
+        tables = torch.zeros(8, width, dtype=torch.int32)
+        off = 0
+        for i, nb in enumerate(need):
+            tables[i, :nb] = torch.from_numpy(perm[off:off + nb])
+            off += nb
+        nrows = (sum(need) + 8) * bs
+        kc = torch.randn(nrows, hkv, d, device="cuda").to(dtype)
+        vc = torch.randn(nrows, hkv, d, device="cuda").to(dtype)
+        q = torch.randn(8, hq, d, device="cuda").to(dtype)
+        args = (q, kc, vc, tables.cuda(),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"), bs)
+        got = pa.paged_decode_attention(*args)
+        want = pa.paged_decode_attention_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        if dtype == torch.float32:
+            tol = 2e-5
+            assert err <= tol, f"paged {tag}: max_abs_err {err} > {tol}"
+        else:
+            # a few bf16 ulps of each sequence's own scale: the long rows'
+            # outputs are small, so an absolute 2e-2 would pass a key too
+            # many or too few there
+            row = [max_err(got[i], want[i]) / float(want[i].float().abs().max())
+                   for i in range(len(lens))]
+            tol = 2e-2
+            assert max(row) <= tol, f"paged {tag}: per-row scaled err {row}"
+            log(f"paged {tag}: worst sequence's max_abs_err over its "
+                f"max|twin| {max(row):.3g} (limit {tol})")
+        # bytes: each sequence's visible K/V rows once, q, out; flops 4*d
+        # per (query head, key)
+        esz = kc.element_size()
+        nbytes = (sum(lens) * hkv * d * esz * 2 + 2 * q.numel() * esz
+                  + 8 * (width + 1) * 4)
+        flops = sum(lens) * hq * 4 * d
+        b_ms, b_by = bound(nbytes, flops,
+                           "fp32" if dtype == torch.float32 else "bf16")
+        out[tag] = dict(err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                        ms=timer.ms(lambda: pa.paged_decode_attention(*args)),
+                        plain_ms=timer.ms(
+                            lambda: pa.paged_decode_attention_plain(*args)))
+        log(f"paged {tag}: max_abs_err {err:.3g}, {out[tag]['ms']:.4f} ms, "
+            f"plain {out[tag]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), lengths {lens}")
+    e, m = out["eager"], out["ssm"]
+    return dict(name="paged_attention", route="cuda",
+                source="paddle_tpu_torch/csrc/paged_attention.cu",
+                replaces="paddle_tpu/ops/pallas/paged_attention.py:106",
+                path="serve-eager", max_abs_err=max(e["err"], m["err"]),
+                tolerance="bf16 2e-2 x each sequence's max|twin|, fp32 2e-5 "
+                          "(max_abs)",
+                ms=e["ms"], plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+                bound_by=e["bound_by"], library_ms=None,
+                ssm_ms=m["ms"], ssm_plain_ms=m["plain_ms"],
+                ssm_bound_ms=m["bound_ms"], ssm_bound_by=m["bound_by"],
+                shape="bf16 q [8, 32, 128] over bf16 pages (kv 8, block 64), "
+                      "lengths 64..1056 (hybrid: fp32 q [8, 8, 128], "
+                      "lengths 1023..1055)")
+
+
 # ------------------------------------------------------------ serve phase
 def make_requests(GenerationRequest, np, rng, vocab):
     lens = [int(n) for n in np.linspace(32, 1024, 8).round()]
@@ -788,7 +965,8 @@ def phase_serve(torch, np, layers, card):
     assert counts["flash_attention_fwd"] == len(prompts) * layers, counts
     assert counts["rms_norm_fwd"] == len(prompts) * (2 * layers + 1), counts
     for name in ("flash_attention_bwd", "rms_norm_bwd", "fused_block_fwd",
-                 "gmm_fwd", "gmm_bwd", "gmm2", "tgmm"):
+                 "gmm_fwd", "gmm_bwd", "gmm2", "tgmm", "paged_attention",
+                 "selective_scan"):
         assert counts[name] == 0, counts
     for p, lg, d in zip(prompts, scored, out.values()):
         assert lg.shape == (1, len(p), cfg.vocab_size)
@@ -815,7 +993,295 @@ def phase_serve(torch, np, layers, card):
     assert agree >= 0.99, f"greedy agreement {agree}"
 
     check_forward(torch, model, prompts[:3], scored[:3])
+    return counts, perf, model, out
+
+
+def phase_serve_eager(torch, np, model, layers, card, compiled):
+    """The eager engine (``mode="eager"``) on the serve phase's model and
+    requests: each prompt prefilled whole at admission through the model's
+    layers (flash attention), then one Python layer walk per step with
+    attention through the paged decode kernel, host sampling from one
+    ``RandomState(0)``."""
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve-eager: the serve model ({layers} layers) and its 8 requests "
+        f"through GenerationEngine(mode='eager')")
+
+    # ---- the path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    cpu0 = time.process_time()
+    eng, prompts, out, steps, wall = serve(torch, model, np, mode="eager")
+    torch.cuda.synchronize()
+    cpu = time.process_time() - cpu0
+    counts = kernels.launch_counts()
+    log(f"serve-eager: path launches {counts}")
+    reasons = {rid: d["finish_reason"] for rid, d in out.items()}
+    assert all(r == "length" for r in reasons.values()), reasons
+    assert all(len(d["output_ids"]) == 32 for d in out.values())
+    assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
+    n_steps = eng.stats["steps"]
+    assert counts["paged_attention"] == n_steps * layers, (counts, n_steps)
+    assert counts["flash_attention_fwd"] == len(prompts) * layers, counts
+    assert counts["rms_norm_fwd"] == (len(prompts) + n_steps) * (
+        2 * layers + 1), counts
+    for name in ("ragged_paged_attention", "flash_attention_bwd",
+                 "rms_norm_bwd", "fused_block_fwd", "gmm_fwd", "gmm_bwd",
+                 "gmm2", "tgmm", "selective_scan"):
+        assert counts[name] == 0, (name, counts)
+    perf = serve_perf(eng, out, steps, wall, card)
+    perf["host_cpu_share"] = cpu / wall
+    perf["greedy_agreement_compiled"] = greedy_agreement(out, compiled,
+                                                         range(6))
+    log("serve-eager: " + json.dumps(perf))
+    del eng
+
+    holder = {}
+
+    def rerun():
+        holder["out"], holder["wall"] = serve(torch, model, np,
+                                              mode="eager")[2::2]
+    rows, busy, pwall = device_profile(torch, rerun)
+    perf["busy_share"] = report_profile("serve-eager", rows, busy, pwall,
+                                        wall)
+    assert holder["out"] == out, "serve-eager: second run differs"
+    log("serve-eager: second run bitwise equal (greedy and seeded)")
+
+    perf.update(check_eager_decode(torch, np, model, out))
     return counts, perf
+
+
+def teacher_forced(torch, np, model, out, **engine_kw):
+    """The eager engine over the serve requests, fed the tokens of ``out``
+    (teacher forcing): the logits row behind each greedy request's
+    tokens, fp32 numpy, by request."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    eng = GenerationEngine(model, mode="eager", max_seqs=8, max_seq_len=2048,
+                           block_size=64, **engine_kw)
+    rows = {rid: [] for rid in range(6)}
+
+    def forced(req, arr):
+        if req.request_id in rows:
+            rows[req.request_id].append(arr.copy())
+        return out[req.request_id]["output_ids"][len(req.output_ids)]
+    eng._sample_host = forced
+    _, reqs = make_requests(GenerationRequest, np, np.random.RandomState(0),
+                            model.config.vocab_size)
+    eng.generate(reqs)
+    return np.concatenate([np.stack(r) for r in rows.values()])
+
+
+def check_eager_decode(torch, np, model, out):
+    """The eager path's logits through the kernels, through every plain
+    twin, and through the twins on an fp32 copy (``exact``), each engine
+    fed the kernel run's tokens so that one flip does not carry into the
+    rest of a stream. As ``check_forward`` does for the forward: the
+    kernels' logits are no further from ``exact`` than 1.25x the twins'
+    (relative L2 over the 6 greedy streams), and no further from the
+    twins' than the twins' are from ``exact`` (the kernels move the logits
+    less than bf16 rounding alone does; 0.0414 against 0.0610 on the H100).
+    Reports the share of steps whose greedy token each of the other two
+    would have chosen too."""
+    kern = teacher_forced(torch, np, model, out)
+    with plain_twins():
+        twin = teacher_forced(torch, np, model, out, use_kernel=False)
+        model32 = fp32_copy(model)
+        model32.config.dtype = "float32"       # fp32 pages too
+        exact = teacher_forced(torch, np, model32, out, use_kernel=False)
+    del model32
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    tokens = kern.argmax(-1)
+    res = dict(eager_rel_err_kernel=rel(kern, exact),
+               eager_rel_err_twin=rel(twin, exact),
+               eager_rel_err_kernel_vs_twin=rel(kern, twin),
+               greedy_agreement_twins_forced=float(
+                   (twin.argmax(-1) == tokens).mean()),
+               greedy_agreement_fp32_forced=float(
+                   (exact.argmax(-1) == tokens).mean()))
+    msg = (f"serve-eager: teacher-forced logits over {len(tokens)} steps: rel "
+           f"err vs fp32 kernel {res['eager_rel_err_kernel']:.4g}, twin "
+           f"{res['eager_rel_err_twin']:.4g}, kernel vs twin "
+           f"{res['eager_rel_err_kernel_vs_twin']:.4g}; greedy tokens the "
+           f"twins would choose too {res['greedy_agreement_twins_forced']:.4f}"
+           f", the fp32 copy {res['greedy_agreement_fp32_forced']:.4f}")
+    log(msg)
+    assert res["eager_rel_err_kernel"] <= 1.25 * res[
+        "eager_rel_err_twin"] + 1e-6, msg
+    assert res["eager_rel_err_kernel_vs_twin"] <= res[
+        "eager_rel_err_twin"], msg
+    return res
+
+
+# bench_serve_ssm's on-chip configuration and traffic (bench.py:1972-2078)
+SSM_WIDTH = dict(hidden_size=1024, intermediate_size=2816,
+                 num_attention_heads=8, num_key_value_heads=8,
+                 vocab_size=32000, max_position_embeddings=4096)
+SSM_LAYERS, SSM_PROMPT, SSM_NEW, SSM_BLOCK = 8, 1023, 32, 64
+SSM_POOL_BLOCKS, SSM_MAX_SEQS = 128, 64
+
+
+def _pool_bytes(cache) -> int:
+    """Bytes of a cache's K and V pages (the pads' spare row left out)."""
+    return sum(t.numel() * t.element_size()
+               for li in range(cache.num_layers) for t in cache.layer(li))
+
+
+def _hybrid_engine(model, num_blocks, mode, use_kernel=True):
+    from paddle_tpu_torch.inference import GenerationEngine
+    return GenerationEngine(
+        model, max_seqs=SSM_MAX_SEQS,
+        max_seq_len=SSM_PROMPT + SSM_NEW + SSM_BLOCK, block_size=SSM_BLOCK,
+        num_blocks=num_blocks, mode=mode, use_kernel=use_kernel)
+
+
+def _ssm_requests(np, tag):
+    from paddle_tpu_torch.inference import GenerationRequest
+    rs = np.random.RandomState(7)
+    return [GenerationRequest((tag, i), rs.randint(0, 64, SSM_PROMPT).tolist(),
+                              max_new_tokens=SSM_NEW) for i in range(8)]
+
+
+def phase_serve_ssm(torch, np, card):
+    """``bench_serve_ssm`` on the card: the hybrid (vocab 32000, hidden
+    1024, ffn 2816, 8 layers "SA", 8:8 heads of 128, d_state 16, SSM head
+    dim 32: d_inner 2048, 64 SSM heads, conv 4; fp32, seeded random
+    weights), the equal-byte admission headline, then 8 greedy requests of
+    1023-token prompts and 32 new tokens through the compiled and the
+    eager engine, each after a warm run."""
+    from paddle_tpu_torch.models import (HybridSSMForCausalLM,
+                                         LlamaForCausalLM, llama_tiny_config,
+                                         ssm_tiny_config)
+    from paddle_tpu_torch.inference import GenerationRequest
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    hy_cfg = ssm_tiny_config(num_hidden_layers=SSM_LAYERS, ssm_state_size=16,
+                             ssm_head_dim=32, layer_pattern="SA", **SSM_WIDTH)
+    at_cfg = llama_tiny_config(num_hidden_layers=SSM_LAYERS, **SSM_WIDTH)
+    hy_model = HybridSSMForCausalLM(hy_cfg, seed=0).eval()
+    at_model = LlamaForCausalLM(at_cfg, seed=0).eval()
+    n_ssm = hy_cfg.resolved_pattern().count("S")
+    n_attn = SSM_LAYERS - n_ssm
+    log(f"serve-ssm: hybrid {hy_cfg.resolved_pattern()} (hidden 1024, ffn "
+        f"2816, 8:8 heads of 128, d_inner {hy_cfg.ssm_d_inner}, "
+        f"{hy_cfg.ssm_num_heads} SSM heads of 32, d_state 16), fp32, "
+        f"{sum(p.numel() for p in hy_model.parameters()) / 1e6:.1f}M "
+        f"parameters")
+
+    # -- the equal-byte admission headline
+    rs = np.random.RandomState(0)
+    at_eng = _hybrid_engine(at_model, SSM_POOL_BLOCKS, "compiled")
+    pool = _pool_bytes(at_eng.cache)
+    per_block = (2 * n_attn * SSM_BLOCK * hy_cfg.num_key_value_heads
+                 * hy_cfg.head_dim * 4)
+    hy_blocks = pool // per_block
+    hy_eng = _hybrid_engine(hy_model, hy_blocks, "compiled")
+    assert _pool_bytes(hy_eng.cache) <= pool
+
+    def admissions(eng):
+        n = 0
+        while n < SSM_MAX_SEQS and eng.add_request(GenerationRequest(
+                ("adm", n), rs.randint(0, 64, SSM_PROMPT).tolist(),
+                max_new_tokens=SSM_NEW)):
+            n += 1
+        return n
+    at_adm, hy_adm = admissions(at_eng), admissions(hy_eng)
+    ratio = hy_adm / max(1, at_adm)
+    perf = dict(admission_ratio=ratio, admitted_hybrid=hy_adm,
+                admitted_attention=at_adm, pool_bytes=pool,
+                hybrid_blocks=hy_blocks,
+                ssm_state_bytes=hy_eng.ssm_state_bytes(), card=card)
+    log(f"serve-ssm: equal {pool} B pools admit {hy_adm} hybrid and "
+        f"{at_adm} attention-only {SSM_PROMPT}-token prompts ({ratio:.2f}x), "
+        f"+{hy_eng.ssm_state_bytes()} B of SSM state")
+    assert ratio >= 2.0, perf
+    del at_eng, hy_eng, at_model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- greedy requests through both modes, each after a warm run
+    counts, outs = {}, {}
+    for mode in ("compiled", "eager"):
+        eng = _hybrid_engine(hy_model, hy_blocks, mode)
+        eng.generate(_ssm_requests(np, "warm"))
+        st0 = dict(eng.stats)
+        # ---- the path: counts zeroed just before, read just after
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = eng.generate(_ssm_requests(np, "run"), return_details=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = counts[mode] = kernels.launch_counts()
+        log(f"serve-ssm {mode}: path launches {c}")
+        steps = eng.stats["steps"] - st0["steps"]
+        step_s = eng.stats["step_time_s"] - st0["step_time_s"]
+        emitted = eng.stats["decode_tokens"] - st0["decode_tokens"]
+        assert all(d["finish_reason"] == "length"
+                   and len(d["output_ids"]) == SSM_NEW for d in out.values())
+        assert c["selective_scan"] == 8 * n_ssm, c
+        assert c["flash_attention_fwd"] == 8 * n_attn, c
+        attn = ("ragged_paged_attention" if mode == "compiled"
+                else "paged_attention")
+        other = ("paged_attention" if mode == "compiled"
+                 else "ragged_paged_attention")
+        assert c[attn] == steps * n_attn and c[other] == 0, (c, steps)
+        for name in ("flash_attention_bwd", "rms_norm_bwd", "fused_block_fwd",
+                     "gmm_fwd", "gmm_bwd", "gmm2", "tgmm"):
+            assert c[name] == 0, (name, c)
+        check_drained(eng)
+        perf[mode] = dict(
+            steps=steps, decode_ms_per_step=1e3 * step_s / steps,
+            decode_tokens_per_s=(emitted - 8) / step_s,
+            tokens_per_s_generate=emitted / wall, generate_s=wall)
+        log(f"serve-ssm {mode}: " + json.dumps(perf[mode]))
+
+        holder = {}
+
+        def rerun():
+            holder["out"] = eng.generate(_ssm_requests(np, "run"),
+                                         return_details=True)
+        rows, busy, pwall = device_profile(torch, rerun)
+        perf[mode]["busy_share"] = report_profile(f"serve-ssm {mode}", rows,
+                                                  busy, pwall, wall)
+        assert holder["out"] == out, f"serve-ssm {mode}: profiled repeat"
+        check_drained(eng)
+        del eng
+        with plain_twins():
+            twin = _hybrid_engine(hy_model, hy_blocks, mode,
+                                  use_kernel=False).generate(
+                _ssm_requests(np, "run"), return_details=True)
+        perf[mode]["greedy_agreement_twins"] = greedy_agreement(
+            out, twin, out.keys())
+        log(f"serve-ssm {mode}: profiled repeat bitwise equal; greedy "
+            f"agreement with the plain-twin engine "
+            f"{perf[mode]['greedy_agreement_twins']:.4f}")
+        assert perf[mode]["greedy_agreement_twins"] >= 0.99, perf[mode]
+        outs[mode] = out
+    agree = greedy_agreement(outs["compiled"], outs["eager"],
+                             outs["compiled"].keys())
+    perf["compiled_vs_eager"] = agree
+    log(f"serve-ssm: compiled tokens equal to eager's {agree:.4f} "
+        f"(the reference asserts 1.0)")
+    assert agree >= 0.99, agree
+    both = {k: counts["compiled"][k] + counts["eager"][k]
+            for k in counts["compiled"]}
+    del hy_model
+    torch.cuda.empty_cache()
+    return both, perf
+
+
+def check_drained(eng):
+    """No page leak, and every slot's conv and SSM state zero (the pads'
+    spare row past ``max_seqs`` is no slot's)."""
+    assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
+    for st in eng._sstate:
+        if st is not None:
+            for name, t in st.items():
+                assert float(t[:eng.max_seqs].abs().sum()) == 0.0, \
+                    f"{name} state left after the drain"
 
 
 def serve_perf(eng, out, steps, wall, card):
@@ -882,7 +1348,7 @@ def phase_serve_moe(torch, np, card):
         assert counts[name] == n_steps * layers, (name, counts, n_steps)
     for name in ("gmm_bwd", "tgmm", "flash_attention_fwd",
                  "flash_attention_bwd", "rms_norm_fwd", "rms_norm_bwd",
-                 "fused_block_fwd"):
+                 "fused_block_fwd", "paged_attention", "selective_scan"):
         assert counts[name] == 0, (name, counts)
     perf = serve_perf(eng, out, steps, wall, card)
     # the step is issued op by op from Python: the host's CPU time over
@@ -934,7 +1400,9 @@ def plain_twins():
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import fused_block as fb
     from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
+    from paddle_tpu_torch.ops.kernels import selective_scan as ss
     patches = [(fa, "flash_attention_with_lse", fa.flash_attention_plain),
                (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
                (rn, "rms_norm", rn.rms_norm_plain),
@@ -942,7 +1410,9 @@ def plain_twins():
                (fb, "fused_block", fb.fused_block_plain),
                (gg, "gmm", gg.gmm_plain), (gg, "gmm2", gg.gmm2_plain),
                (gg, "gmm_t", lambda dy, w, c: gg.gmm_plain(dy, w, c, True)),
-               (gg, "tgmm", gg.tgmm_plain)]
+               (gg, "tgmm", gg.tgmm_plain),
+               (pa, "paged_decode_attention", pa.paged_decode_attention_plain),
+               (ss, "scan_chunked", ss._scan_reference)]
     orig = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     for mod, name, twin in patches:
         setattr(mod, name, twin)
@@ -1362,7 +1832,10 @@ def main() -> int:
                       lambda: phase_fused(torch, timer),
                       lambda: phase_gmm2(torch, timer),
                       lambda: phase_gmm(torch, timer),
-                      lambda: phase_tgmm(torch, timer)):
+                      lambda: phase_tgmm(torch, timer),
+                      lambda: phase_scan(torch, timer),
+                      lambda: phase_paged(torch, np, timer,
+                                          np.random.RandomState(1))):
             r = phase()
             rows.append(r)
             log(f"kernel {r['name']}: {r['shape']}: max_abs_err "
@@ -1379,12 +1852,19 @@ def main() -> int:
         del timer
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
-        counts = {"serve": phase_serve(torch, np, args.layers, card)[0]}
+        counts, _, model, compiled = phase_serve(torch, np, args.layers, card)
+        counts = {"serve": counts}
         torch.cuda.empty_cache()
         log(f"serve done at {time.perf_counter() - t_start:.1f} s")
+        counts["serve-eager"] = phase_serve_eager(
+            torch, np, model, args.layers, card, compiled)[0]
+        del model
+        log(f"serve-eager done at {time.perf_counter() - t_start:.1f} s")
         # serving before training, as in a serving process
         counts["serve-moe"] = phase_serve_moe(torch, np, card)[0]
         log(f"serve-moe done at {time.perf_counter() - t_start:.1f} s")
+        counts["serve-ssm"] = phase_serve_ssm(torch, np, card)[0]
+        log(f"serve-ssm done at {time.perf_counter() - t_start:.1f} s")
         counts["train"] = phase_train(torch, np, card)[0]
         log(f"train done at {time.perf_counter() - t_start:.1f} s")
         counts["train-moe"] = phase_train_moe(torch, np, card)[0]

@@ -2,11 +2,12 @@
 
 Only the flags this port reads are defined. Each is overridable from the
 environment (``FLAGS_<name>=...``) at import and mutable at runtime with
-:func:`set_flags`. There is deliberately no flag that turns the CUDA
-kernels off: on a CUDA tensor a kernel wrapper launches its kernel or
-raises. ``pallas_fused_block`` keeps the reference's name and chooses
-between two model paths, each of which runs kernels; so does
-``moe_fused_wi`` (gmm2, or two gmm launches).
+:func:`set_flags`. No flag makes a kernel wrapper fall back: on a CUDA
+tensor a wrapper launches its kernel or raises. ``pallas_fused_block``
+keeps the reference's name and chooses between two model paths, each of
+which runs kernels; so does ``moe_fused_wi`` (gmm2, or two gmm launches).
+``pallas_selective_scan=off`` takes the reference's associative scan on
+CPU tensors and raises on CUDA tensors, where that path has no kernel.
 """
 
 from __future__ import annotations
@@ -79,6 +80,12 @@ define_flag("serve_weight_quant", False)
 # keeps the composed per-op path. A layer the kernel cannot take composes
 # with a one-time warning, as in the reference.
 define_flag("pallas_fused_block", "auto")
+
+# the SSM mixers' prefill scan (ops/kernels/selective_scan.py): "auto" and
+# its alias "on" take the chunked form (the CUDA kernel for CUDA tensors,
+# its chunked twin for CPU tensors); "off" takes the associative-scan path
+# on CPU tensors and raises NotImplementedError on CUDA tensors
+define_flag("pallas_selective_scan", "auto")
 
 # the MoE expert path (ops/kernels/grouped_gemm.py): "auto" and "on" take
 # the grouped GEMMs on every device (the CUDA kernels for CUDA tensors,

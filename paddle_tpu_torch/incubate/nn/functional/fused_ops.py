@@ -53,20 +53,35 @@ def _rotate_neox(t: torch.Tensor, sin: torch.Tensor,
     return (tf * cos + rot * sin).to(t.dtype)
 
 
-def fused_rotary_position_embedding(q, k=None, v=None,
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
                                     use_neox_rotary_style: bool = True,
                                     rotary_emb_base: float = 10000.0):
-    """Neox-style RoPE on ``[batch, seq, heads, head_dim]`` tensors at
-    positions ``0..seq-1``, math in fp32, results in each input's dtype.
-    Returns ``(q, k, v)`` with ``None`` where no tensor was given; each
-    tensor given is rotated, ``v`` included, as in the reference."""
+    """Neox-style RoPE on ``[batch, seq, heads, head_dim]`` tensors, math
+    in fp32, results in each input's dtype. Returns ``(q, k, v)`` with
+    ``None`` where no tensor was given; each tensor given is rotated, ``v``
+    included, as in the reference.
+
+    ``sin``/``cos`` are ``[1, max_pos, 1, head_dim]`` tables (made from
+    ``rotary_emb_base`` at positions ``0..seq-1`` when not given);
+    ``position_ids [batch, seq]`` picks each token's table row, so a
+    serving step rotates at explicit positions; without it the tables'
+    first ``seq`` rows apply."""
     if not use_neox_rotary_style:
         raise NotImplementedError("only neox-style RoPE is ported "
                                   "(ROADMAP.md A.2: fused_ops)")
     s, d = q.shape[1], q.shape[-1]
-    sin, cos = rope_tables(torch.arange(s, device=q.device), d,
-                           rotary_emb_base)
-    sin, cos = sin[None, :, None, :], cos[None, :, None, :]
+    if sin is None or cos is None:
+        sin, cos = rope_tables(torch.arange(s, device=q.device), d,
+                               rotary_emb_base)
+        sin, cos = sin[None, :, None, :], cos[None, :, None, :]
+    if position_ids is not None:
+        pos = position_ids.long()
+        sin = sin[0, :, 0][pos][:, :, None, :]
+        cos = cos[0, :, 0][pos][:, :, None, :]
+    else:
+        sin, cos = sin[:, :s], cos[:, :s]
+    sin, cos = sin.float(), cos.float()
     return tuple(None if t is None else _rotate_neox(t, sin, cos)
                  for t in (q, k, v))
 

@@ -1,6 +1,6 @@
-"""Paged attention ops (port of ``paddle_tpu/inference/attention.py``, the
-ragged path). The decode-only op ``paged_attention_decode`` and the
-quantized-page arguments are not ported yet (ROADMAP.md B: kernels 9, 10).
+"""Paged attention ops (port of ``paddle_tpu/inference/attention.py``): the
+ragged op of the compiled step and the decode-only op of the eager engine.
+The quantized-page arguments are not ported yet (ROADMAP.md B: kernel 10).
 """
 
 from __future__ import annotations
@@ -9,12 +9,36 @@ from typing import Optional
 
 import torch
 
+from paddle_tpu_torch.ops.kernels import paged_attention as _paged
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     gather_paged_kv, ragged_paged_attention,
     ragged_paged_attention_plain as ragged_attention_xla)
 
 __all__ = ["gather_paged_kv", "ragged_attention_xla",
-           "paged_attention_ragged"]
+           "paged_attention_ragged", "paged_attention_decode"]
+
+
+def _idx(a, dev) -> torch.Tensor:
+    return torch.as_tensor(a, device=dev).to(torch.int32).contiguous()
+
+
+def paged_attention_decode(q, k_cache, v_cache, block_tables, seq_lens,
+                           block_size: int, scale: Optional[float] = None):
+    """Single-token decode attention over a paged cache (public op).
+
+    ``q [b, heads, d]``; ``k_cache``/``v_cache`` flat
+    ``[num_blocks*block_size, kv, d]`` (one layer); ``block_tables [b,
+    max_blocks]``; ``seq_lens [b]``, the valid cached tokens of each
+    sequence including the one just written. Returns ``[b, heads, d]``.
+    The paged decode kernel on CUDA — where the reference sends a shape
+    the kernel refuses, or a query that needs gradients, to the composed
+    path, the port raises — and its plain twin on the CPU. Index arrays
+    are cast to int32 on the query's device.
+    """
+    dev = q.device
+    return _paged.paged_decode_attention(
+        q.contiguous(), k_cache, v_cache, _idx(block_tables, dev),
+        _idx(seq_lens, dev), block_size, scale)
 
 
 def paged_attention_ragged(q, k_cache, v_cache, block_tables, rows, valids,
@@ -28,10 +52,6 @@ def paged_attention_ragged(q, k_cache, v_cache, block_tables, rows, valids,
     cast to int32 on the query's device.
     """
     dev = q.device
-
-    def idx(a):
-        return torch.as_tensor(a, device=dev).to(torch.int32).contiguous()
-
     return ragged_paged_attention(q.contiguous(), k_cache, v_cache,
-                                  idx(block_tables), idx(rows), idx(valids),
-                                  block_size, scale)
+                                  _idx(block_tables, dev), _idx(rows, dev),
+                                  _idx(valids, dev), block_size, scale)

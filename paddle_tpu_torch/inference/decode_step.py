@@ -1,5 +1,5 @@
 """Continuous-batching decode step (port of
-``paddle_tpu/inference/decode_step.py``, dense attention-only Llama).
+``paddle_tpu/inference/decode_step.py``).
 
 One call runs the whole serving step over packed ragged tokens — decode
 tokens and prompt chunks mixed — : paged-cache writes, ragged paged
@@ -24,8 +24,16 @@ expert-major buffer and the expert MLP as grouped GEMMs. The buffer is
 fp32 (``_rms`` promotes), the expert weights stay bf16 and the gmm/gmm2
 kernels widen them as they load them.
 
-Not ported yet (ROADMAP.md A): SSM layers, quantized KV pages and
-weight-only int8.
+SSM layers of a hybrid model (:func:`ssm_layer_step`, shared with the
+eager engine): one recurrence step per token from the slot's O(1) state —
+the conv window and the fp32 SSD state — read at ``sslots`` and written
+back in place. Attention layers index the KV cache by their running count,
+so a hybrid cache holds only its attention layers. Pad tokens carry the
+sentinel slot ``max_seqs``: the state tensors have one spare row there,
+as the KV cache has, which no request owns (the reference drops those
+writes with ``mode="drop"``).
+
+Not ported yet (ROADMAP.md A): quantized KV pages and weight-only int8.
 """
 
 from __future__ import annotations
@@ -44,9 +52,11 @@ from paddle_tpu_torch.nn.functional.norm import rms_norm as _rms
 from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     ragged_paged_attention)
+from paddle_tpu_torch.ops.kernels.selective_scan import selective_scan_update
 
 __all__ = ["bucket", "compiled_capable", "extract_params",
-           "extract_moe_specs", "make_step", "sample_tokens"]
+           "extract_moe_specs", "extract_ssm_specs", "make_step",
+           "sample_tokens", "ssm_layer_step", "ssm_params"]
 
 
 def bucket(n: int, floor: int = 1) -> int:
@@ -63,15 +73,32 @@ def _is_moe(mlp) -> bool:
     return hasattr(mlp, "gate") and hasattr(mlp, "expert_parameters")
 
 
+_SSM_MIXER_ATTRS = ("in_proj", "conv_weight", "conv_bias", "dt_bias",
+                    "A_log", "D", "norm_weight", "out_proj")
+
+
+def _is_ssm_layer(layer) -> bool:
+    """A hybrid stack's SSM layer: a ``mixer`` instead of ``self_attn``;
+    it holds O(1) per-slot state and writes no KV pages."""
+    return hasattr(layer, "mixer")
+
+
 def compiled_capable(model):
     """None when the step can run ``model`` (a Llama stack of dense or MoE
-    layers), else the reason it cannot."""
+    layers, or a hybrid one with Mamba-2 mixers), else the reason it
+    cannot."""
     llama = getattr(model, "llama", None)
     if llama is None or not hasattr(llama, "layers"):
         return "model has no llama-style decoder stack (model.llama)"
     for i, layer in enumerate(llama.layers):
-        if hasattr(layer, "mixer"):
-            return f"layer {i} is an SSM mixer (hybrid models)"
+        if _is_ssm_layer(layer):
+            if not hasattr(layer, "input_layernorm"):
+                return f"layer {i} has no input_layernorm"
+            for attr in _SSM_MIXER_ATTRS:
+                if not hasattr(layer.mixer, attr):
+                    return (f"layer {i} mixer is not a Mamba2-style gated "
+                            f"SSD block (no {attr})")
+            continue
         mlp = getattr(layer, "mlp", None)
         if _is_moe(mlp):
             names, _ = mlp.expert_parameters()
@@ -97,6 +124,9 @@ def extract_params(model) -> Dict[str, Any]:
         raise ValueError(f"the decode step cannot run this model: {reason}")
     layers = []
     for layer in model.llama.layers:
+        if _is_ssm_layer(layer):
+            layers.append(ssm_params(layer))
+            continue
         att, mlp = layer.self_attn, layer.mlp
         lp = {
             "ln1": layer.input_layernorm.weight,
@@ -129,12 +159,43 @@ def extract_moe_specs(model) -> Optional[List[Optional[Dict[str, Any]]]]:
     model."""
     specs = []
     for layer in model.llama.layers:
-        mlp = layer.mlp
+        mlp = getattr(layer, "mlp", None)
         specs.append({"gate": mlp.gate,
                       "top_k": int(getattr(mlp.gate, "top_k", 1)),
                       "cf": float(mlp.capacity_factor),
                       "num_experts": int(mlp.num_experts)}
                      if _is_moe(mlp) else None)
+    return specs if any(s is not None for s in specs) else None
+
+
+def ssm_params(layer) -> Dict[str, Any]:
+    """An SSM layer's weights (no copies) under the names
+    :func:`ssm_layer_step` reads."""
+    m = layer.mixer
+    return {"ln1": layer.input_layernorm.weight, "ssm_win": m.in_proj.weight,
+            "conv_w": m.conv_weight, "conv_b": m.conv_bias,
+            "dt_bias": m.dt_bias, "A_log": m.A_log, "D": m.D,
+            "norm_w": m.norm_weight, "wout": m.out_proj.weight}
+
+
+def extract_ssm_specs(model) -> Optional[List[Optional[Dict[str, Any]]]]:
+    """Per layer, the SSM geometry (shape constants; the weights ride the
+    params) or None for an attention layer; None for a model with no SSM
+    layer. The engine sizes the per-slot state from it."""
+    specs = []
+    for layer in model.llama.layers:
+        if not _is_ssm_layer(layer):
+            specs.append(None)
+            continue
+        mcfg = layer.mixer.config
+        specs.append({
+            "d_inner": int(mcfg.ssm_d_inner),
+            "d_state": int(mcfg.ssm_state_size),
+            "nheads": int(mcfg.ssm_num_heads),
+            "head_dim": int(mcfg.ssm_head_dim),
+            "conv_kernel": int(mcfg.ssm_conv_kernel),
+            "conv_dim": int(mcfg.ssm_d_inner + 2 * mcfg.ssm_state_size),
+        })
     return specs if any(s is not None for s in specs) else None
 
 
@@ -160,6 +221,40 @@ def _moe_mlp(x2, lp, spec, use_kernel: bool, valid):
                                              gg.padded_capacity(capacity))
     y_buf = gg.expert_mlp(x_buf, counts, wg, wu, wd, plain=not use_kernel)
     return gg.sorted_combine(y_buf, dest, w, keep, t).to(x2.dtype)
+
+
+def ssm_layer_step(h, lp, spec, conv_state, ssm_state, eps):
+    """One single-token step of an SSM mixer layer on packed rows
+    (``decode_step.py:411-449``), shared by the compiled step and the
+    eager engine. ``h [s, hidden]``; ``conv_state [s, k-1, conv_dim]`` the
+    raw conv window tail; ``ssm_state [s, nheads, d_state, head_dim]``
+    fp32. Returns ``(h', conv_state', ssm_state')``."""
+    s = h.shape[0]
+    di, ds = spec["d_inner"], spec["d_state"]
+    nh, hd = spec["nheads"], spec["head_dim"]
+    cdim = spec["conv_dim"]
+    x = _rms(h, lp["ln1"], eps)
+    zxbcdt = _mm(x, lp["ssm_win"])                  # [s, 2di+2ds+nh]
+    z = zxbcdt[:, :di]
+    xbc = zxbcdt[:, di:di + cdim]
+    dt_raw = zxbcdt[:, di + cdim:di + cdim + nh]
+    # causal depthwise conv: slide the carried window one position
+    window = torch.cat([conv_state.to(xbc.dtype), xbc[:, None, :]], dim=1)
+    conv = ((window * lp["conv_w"].t().to(xbc.dtype)[None]).sum(dim=1)
+            + lp["conv_b"].to(xbc.dtype))
+    xconv = F.silu(conv)                            # [s, conv_dim]
+    x_t = xconv[:, :di].reshape(s, nh, hd)
+    b_t = xconv[:, di:di + ds]
+    c_t = xconv[:, di + ds:]
+    a = dt_raw.float() + lp["dt_bias"].float()
+    dt = torch.logaddexp(a, torch.zeros_like(a))    # jax.nn.softplus
+    A = -torch.exp(lp["A_log"].float())
+    y, ssm_new = selective_scan_update(ssm_state, x_t, dt, A, b_t, c_t)
+    y = y + x_t * lp["D"].to(y.dtype)[None, :, None]
+    y = y.reshape(s, di)
+    y = _rms(y * F.silu(z), lp["norm_w"], eps)
+    h = h + _mm(y.to(lp["wout"].dtype), lp["wout"]).to(h.dtype)
+    return h, window[:, 1:, :], ssm_new
 
 
 def _rope(t: torch.Tensor, positions: torch.Tensor, base: float):
@@ -231,12 +326,15 @@ def sample_tokens(logits, temps, top_ks, top_ps, seeds, counters):
     return torch.where(temps <= 0.0, greedy, sampled.to(torch.int32))
 
 
-def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None):
-    """The decode step (the reference's ``make_step`` signature):
+def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None,
+              ssm=None):
+    """The decode step (the reference's hybrid ``make_step`` signature,
+    with ``cache`` for its ``kc, vc``):
 
-    ``step(width, params, cache, ids, positions, rows, wslots, tables_full,
-    row_slots, valids, out_idx, draft_next, n_spec, seeds, counters, temps,
-    top_ks, top_ps) -> (tokens [s, V], accepted [s])``
+    ``step(width, params, cache, sstate, ids, positions, rows, wslots,
+    sslots, tables_full, row_slots, valids, out_idx, draft_next, n_spec,
+    seeds, counters, temps, top_ks, top_ps) -> (tokens [s, V],
+    accepted [s])``
 
     ``cache`` is the :class:`~paddle_tpu_torch.inference.paged_cache
     .PagedKVCache`, written in place (it stands for the reference's donated
@@ -251,6 +349,13 @@ def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None):
     layers. ``use_kernel=False`` runs attention and the grouped GEMMs
     through their plain twins instead of the kernels — a reference for
     checking the kernels, not a fallback.
+
+    ``ssm`` is :func:`extract_ssm_specs`'s list for a hybrid model. Its
+    per-slot state ``sstate`` (a list over layers: ``{"conv": [max_seqs +
+    1, k-1, conv_dim], "ssm": [max_seqs + 1, nheads, d_state, head_dim]}``
+    for an SSM layer, None for an attention layer; the last row is the
+    pads' sentinel) is read at the per-token state slots ``sslots [t]`` and
+    updated in place. A model with no SSM layer passes None for both.
     """
     n_heads = cfg.num_attention_heads
     n_kv = cfg.num_key_value_heads
@@ -260,21 +365,31 @@ def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None):
     tied = cfg.tie_word_embeddings
     attend = ragged_paged_attention if use_kernel else ragged_attention_xla
 
-    def _forward(width, params, cache, ids, positions, rows, wslots,
-                 tables_full, row_slots, valids):
+    def _forward(width, params, cache, sstate, ids, positions, rows, wslots,
+                 sslots, tables_full, row_slots, valids):
         t = ids.shape[0]
         tables = tables_full[:, :width][row_slots.long()]
         h = params["embed"][ids.long()]
         wsl = wslots.long()     # pad tokens aim at the sentinel row
+        kv_li = 0               # attention layers index the cache in order
         for li, lp in enumerate(params["layers"]):
+            sspec = ssm[li] if ssm is not None else None
+            if sspec is not None:
+                st, sl = sstate[li], sslots.long()
+                h, conv_new, ssm_new = ssm_layer_step(
+                    h, lp, sspec, st["conv"][sl], st["ssm"][sl], eps)
+                st["conv"].index_copy_(0, sl, conv_new.to(st["conv"].dtype))
+                st["ssm"].index_copy_(0, sl, ssm_new)
+                continue
             x = _rms(h, lp["ln1"], eps)
             q = _mm(x, lp["wq"]).reshape(t, n_heads, head_dim)
             k = _mm(x, lp["wk"]).reshape(t, n_kv, head_dim)
             v = _mm(x, lp["wv"]).reshape(t, n_kv, head_dim)
             qr = _rope(q, positions, rope_base)
             kr = _rope(k, positions, rope_base)
-            cache.write(li, kr, v, wsl)
-            kc, vc = cache.layer(li)
+            cache.write(kv_li, kr, v, wsl)
+            kc, vc = cache.layer(kv_li)
+            kv_li += 1
             att = attend(qr, kc, vc, tables, rows, valids, block_size)
             h = h + _mm(att.reshape(t, n_heads * head_dim), lp["wo"])
             x2 = _rms(h, lp["ln2"], eps)
@@ -310,11 +425,11 @@ def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None):
         return tokens, accepted.to(torch.int32)
 
     @torch.no_grad()
-    def step(width, params, cache, ids, positions, rows, wslots,
-             tables_full, row_slots, valids, out_idx, draft_next, n_spec,
-             seeds, counters, temps, top_ks, top_ps):
-        h = _forward(width, params, cache, ids, positions, rows, wslots,
-                     tables_full, row_slots, valids)
+    def step(width, params, cache, sstate, ids, positions, rows, wslots,
+             sslots, tables_full, row_slots, valids, out_idx, draft_next,
+             n_spec, seeds, counters, temps, top_ks, top_ps):
+        h = _forward(width, params, cache, sstate, ids, positions, rows,
+                     wslots, sslots, tables_full, row_slots, valids)
         return _sample_tail(h, params, out_idx, draft_next, n_spec, seeds,
                             counters, temps, top_ks, top_ps)
 

@@ -1,26 +1,50 @@
 """Generation engine: continuous batching over a paged KV cache (port of
-``paddle_tpu/inference/engine.py``, the compiled mode).
+``paddle_tpu/inference/engine.py``).
 
 Host side: the request queue, slot and block allocation, chunked-prefill
-scheduling and finish bookkeeping. Device side: one call of the decode
-step (:mod:`paddle_tpu_torch.inference.decode_step`) per engine step over
-packed ragged tokens — each decoding sequence contributes its pending
-token, the remaining token budget goes to prompt chunks — padded to
-power-of-two buckets (token count, row count, output count, table width)
-as in the reference, so a step's shapes depend only on its bucket.
+scheduling and finish bookkeeping. Two modes share it:
 
-Per step the host uploads the packed int32 and float32 inputs in one copy
-each and reads the sampled tokens back in one sync.
+* ``mode="compiled"``: one call of the decode step
+  (:mod:`paddle_tpu_torch.inference.decode_step`) per engine step over
+  packed ragged tokens — each decoding sequence contributes its pending
+  token, the remaining token budget goes to prompt chunks — padded to
+  power-of-two buckets (token count, row count, output count, table width)
+  as in the reference, so a step's shapes depend only on its bucket. Per
+  step the host uploads the packed int32 and float32 inputs in one copy
+  each and reads the sampled tokens back in one sync.
+* ``mode="eager"``: the reference's parity oracle. Each prompt is
+  prefilled whole at admission through the model's own layers (flash
+  attention), then every step walks the layers in Python for one token per
+  sequence, attention through ``paged_attention_decode`` (the paged decode
+  kernel), and samples on the host with numpy from one
+  ``RandomState(0)`` per engine, as the reference does.
+
+``mode="auto"`` takes the compiled step when it can run the model and
+warns once and walks eagerly otherwise. ``use_kernel=False`` puts the
+attention kernel's plain twin in the step (ragged attention when
+compiled, paged decode attention when eager): a reference for checking
+the kernels, not a fallback.
+
+Hybrid attention+SSM models (``models/ssm.py``) run in both modes. Their
+KV cache holds only the attention layers; each SSM layer keeps per-slot
+recurrent state (the conv window in the model dtype, the SSD state in
+fp32), one spare row past ``max_seqs`` taking the pad tokens' writes. Both
+modes prefill a hybrid request at admission — the chunked scan over the
+whole prompt installs the final state at the slot — and sample its first
+token there; every later step is a single-token recurrence, and a slot's
+state is zeroed when its request finishes or is evicted.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``mode="eager"``, speculative decode (``spec_tokens > 0``), the
-prefix cache, quantized KV pages, weight-only int8, the host KV tier,
-and non-Llama or hybrid models. Dense and MoE Llama models are served.
+item, in both modes and for hybrids): speculative decode
+(``spec_tokens > 0``), the prefix cache, quantized KV pages, weight-only
+int8, the host KV tier; the SSM state handoff waits for the KV handoff
+(A.11).
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -28,10 +52,27 @@ import torch
 
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.framework.dtype import to_torch_dtype
+from paddle_tpu_torch.incubate.nn import functional as F_inc
+from paddle_tpu_torch.incubate.nn.functional.fused_ops import rope_tables
 from paddle_tpu_torch.inference import decode_step as _ds
+from paddle_tpu_torch.inference.attention import paged_attention_decode
 from paddle_tpu_torch.inference.paged_cache import PagedKVCache
+from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.ops.kernels import paged_attention as _paged
 
 __all__ = ["GenerationEngine", "GenerationRequest"]
+
+# one warning per distinct reason per process, as in the reference: the
+# eager fallback of mode="auto" is loud exactly once
+_warned_fallbacks: set = set()
+
+
+def _warn_fallback(what: str, reason: str) -> None:
+    if (what, reason) in _warned_fallbacks:
+        return
+    _warned_fallbacks.add((what, reason))
+    warnings.warn(f"{what}: falling back to the eager path — {reason}",
+                  RuntimeWarning, stacklevel=3)
 
 
 class GenerationRequest:
@@ -49,7 +90,8 @@ class GenerationRequest:
         self.output_ids: List[int] = []
         self.slot: Optional[int] = None
         self.finished = False
-        # "eos" | "length" | "cache_exhausted" | "rejected" | None
+        # "eos" | "length" | "cache_exhausted" | "rejected" | an eviction
+        # reason given to evict() | None
         self.finish_reason: Optional[str] = None
         self.error: Optional[str] = None
         self._prompt_pos = 0           # prompt tokens written
@@ -67,16 +109,24 @@ class GenerationEngine:
                  max_tokens_per_step=None, token_bucket_floor=8,
                  spec_tokens=None, prefix_cache=None, kv_quant=None,
                  weight_quant=None, host_tier=None, use_kernel=True):
-        if mode == "eager":
-            raise _unported("mode='eager'", "A.6")
-        if mode not in ("auto", "compiled"):
+        if mode not in ("auto", "compiled", "eager"):
             raise ValueError(f"mode must be 'auto', 'compiled' or 'eager', "
                              f"got {mode!r}")
-        reason = _ds.compiled_capable(model)
-        if reason is not None:
+        llama = getattr(model, "llama", None)
+        if llama is None or not hasattr(llama, "layers"):
             raise NotImplementedError(
-                f"GenerationEngine: {reason}; only dense and MoE Llama "
-                f"models are ported (ROADMAP.md A.8/A.9)")
+                "GenerationEngine: model has no llama-style decoder stack "
+                "(model.llama); only Llama and hybrid SSM models are ported "
+                "(ROADMAP.md A.8/A.9)")
+        reason = _ds.compiled_capable(model)
+        if mode == "auto":
+            mode = "compiled" if reason is None else "eager"
+            if reason is not None:
+                _warn_fallback("compiled decode", reason)
+        elif mode == "compiled" and reason is not None:
+            raise NotImplementedError(
+                f"GenerationEngine(mode='compiled'): {reason} (ROADMAP.md "
+                f"A.8/A.9)")
         for name, value, default, item in (
                 ("spec_tokens", spec_tokens, "serve_spec_tokens", "A.6"),
                 ("prefix_cache", prefix_cache, "serve_prefix_cache", "A.6"),
@@ -90,18 +140,47 @@ class GenerationEngine:
         self.model = model
         cfg = model.config
         self.cfg = cfg
-        self.mode = "compiled"
+        self.mode = mode
         self.device = model.device
+        self.use_kernel = use_kernel
         blocks_per_seq = -(-max_seq_len // block_size)
         num_blocks = num_blocks or max_seqs * blocks_per_seq
         self.max_seq_len = max_seq_len
+        # hybrid stacks: SSM layers hold per-slot state instead of KV
+        # pages, so the paged cache is sized by the attention layers only
+        self._ssm_specs = _ds.extract_ssm_specs(model)
+        self.is_hybrid = self._ssm_specs is not None
+        n_kv_layers = cfg.num_hidden_layers
+        if self.is_hybrid:
+            n_kv_layers = sum(1 for sp in self._ssm_specs if sp is None)
+        dtype = to_torch_dtype(cfg.dtype)
         self.cache = PagedKVCache(
-            cfg.num_hidden_layers, num_blocks, block_size,
-            cfg.num_key_value_heads, cfg.head_dim, max_seqs,
-            dtype=to_torch_dtype(cfg.dtype),
+            n_kv_layers, num_blocks, block_size,
+            cfg.num_key_value_heads, cfg.head_dim, max_seqs, dtype=dtype,
             blocks_per_seq=_ds.bucket(blocks_per_seq), device=self.device)
+        # per-slot recurrent state, [max_seqs + 1, ...]: the conv window in
+        # the model dtype, the SSD state fp32; the last row is the pads'
+        self._sstate = None
+        if self.is_hybrid:
+            self._sstate = [
+                None if sp is None else {
+                    "conv": torch.zeros(
+                        (max_seqs + 1, sp["conv_kernel"] - 1,
+                         sp["conv_dim"]), dtype=dtype, device=self.device),
+                    "ssm": torch.zeros(
+                        (max_seqs + 1, sp["nheads"], sp["d_state"],
+                         sp["head_dim"]), dtype=torch.float32,
+                        device=self.device)}
+                for sp in self._ssm_specs]
+        # sin/cos [1, max_seq_len, 1, head_dim] for RoPE at explicit
+        # positions (engine.py:130-141): the training model's table,
+        # extended to the serving max length
+        sin, cos = rope_tables(torch.arange(max_seq_len, device=self.device),
+                               cfg.head_dim, cfg.rope_theta)
+        self._sin, self._cos = sin[None, :, None, :], cos[None, :, None, :]
         self._requests: Dict[object, GenerationRequest] = {}
         self._slot_req: Dict[int, GenerationRequest] = {}
+        self._rng = np.random.RandomState(0)   # eager host sampling
         self.max_seqs = max_seqs
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.max_tokens_per_step = int(max_tokens_per_step
@@ -111,9 +190,12 @@ class GenerationEngine:
         self.stats = {"steps": 0, "step_time_s": 0.0, "decode_tokens": 0,
                       "prefill_tokens": 0, "occupancy_sum": 0.0,
                       "decode_rows": 0}
-        self._params = _ds.extract_params(model)
-        self._dstep = _ds.make_step(cfg, block_size, use_kernel=use_kernel,
-                                    moe=_ds.extract_moe_specs(model))
+        if mode == "compiled":
+            self._params = _ds.extract_params(model)
+            self._dstep = _ds.make_step(cfg, block_size,
+                                        use_kernel=use_kernel,
+                                        moe=_ds.extract_moe_specs(model),
+                                        ssm=self._ssm_specs)
 
     # -- request lifecycle ---------------------------------------------
     def _admissible(self, request: GenerationRequest) -> bool:
@@ -144,15 +226,34 @@ class GenerationEngine:
         self._slot_req[slot] = request
         request._prompt_pos = 0
         self.cache.seq_lens[slot] = 0
+        if self.is_hybrid:
+            # both modes: the chunked scan over the whole prompt installs
+            # the final state at the slot; decode is then a recurrence
+            self._prefill(request)
+        elif self.mode == "eager":
+            self._prefill(request)
         return True
 
     def _finish(self, req: GenerationRequest, reason: str) -> None:
         req.finished = True
         if req.finish_reason is None:
             req.finish_reason = reason
+        if self._sstate is not None:
+            # completions and evictions alike hand the slot back zeroed: a
+            # readmitted slot never sees an earlier request's history
+            self._zero_slot_state(req.slot)
         self.cache.free_slot(req.slot)
         del self._slot_req[req.slot]
         self._requests.pop(req.request_id, None)
+
+    def evict(self, request_id, reason: str = "evicted") -> bool:
+        """Finish an active request now and free its pages (and zero its
+        SSM state); False for an unknown id."""
+        req = self._requests.get(request_id)
+        if req is None:
+            return False
+        self._finish(req, reason)
+        return True
 
     def _emit_token(self, req: GenerationRequest, tok: int) -> bool:
         """Append a sampled token and settle eos/length; True when the
@@ -175,7 +276,175 @@ class GenerationEngine:
                 req.slot, int(self.cache.seq_lens[req.slot]) + 1):
             self._finish(req, "cache_exhausted")
 
-    # -- the step -------------------------------------------------------
+    # -- hybrid SSM state ----------------------------------------------
+    def _zero_slot_state(self, slot: int) -> None:
+        for st in self._sstate:
+            if st is not None:
+                st["conv"][slot].zero_()
+                st["ssm"][slot].zero_()
+
+    def ssm_state_bytes(self) -> int:
+        """Bytes of per-slot SSM state (conv windows and SSD states over
+        the SSM layers and the ``max_seqs`` slots; the pads' spare row is
+        not counted); 0 for an attention-only model."""
+        if self._sstate is None:
+            return 0
+        return sum(a[0].numel() * a.element_size() * self.max_seqs
+                   for st in self._sstate if st is not None
+                   for a in st.values())
+
+    # -- the model walk (eager mode, and every hybrid prefill) ----------
+    def _rope(self, q, k, positions):
+        """The training model's fused RoPE op at explicit positions."""
+        return F_inc.fused_rotary_position_embedding(
+            q, k, sin=self._sin, cos=self._cos, position_ids=positions,
+            use_neox_rotary_style=True,
+            rotary_emb_base=self.cfg.rope_theta)[:2]
+
+    def _layer_kv(self, layer, h):
+        cfg = self.cfg
+        b, s, _ = h.shape
+        x = layer.input_layernorm(h)
+        att = layer.self_attn
+        q = att.q_proj(x).reshape(b, s, cfg.num_attention_heads,
+                                  cfg.head_dim)
+        k = att.k_proj(x).reshape(b, s, cfg.num_key_value_heads,
+                                  cfg.head_dim)
+        v = att.v_proj(x).reshape(b, s, cfg.num_key_value_heads,
+                                  cfg.head_dim)
+        return q, k, v
+
+    def _finish_layer(self, layer, h, att_out):
+        b, s = att_out.shape[0], att_out.shape[1]
+        h = h + layer.self_attn.o_proj(att_out.reshape(
+            b, s, self.cfg.num_attention_heads * self.cfg.head_dim))
+        return h + layer.mlp(layer.post_attention_layernorm(h))
+
+    @torch.no_grad()
+    def _prefill(self, req: GenerationRequest) -> None:
+        """Run the whole prompt at admission (``engine.py:551-575`` and,
+        for hybrids, :653-698): attention layers write their K/V pages and
+        attend causally through flash attention; SSM layers run the
+        chunked scan and install the final (conv, SSD) state at the slot.
+        The first token samples here."""
+        slot = req.slot
+        n = len(req.input_ids)
+        dev = self.device
+        ids = torch.tensor([req.input_ids], dtype=torch.long, device=dev)
+        positions = torch.arange(n, device=dev)[None, :]
+        slots = torch.from_numpy(self.cache.slot_mapping(slot, 0, n)).to(dev)
+        model = self.model.llama
+        h = model.embed_tokens(ids)
+        kv_li = 0
+        for li, layer in enumerate(model.layers):
+            if self._sstate is not None and self._sstate[li] is not None:
+                out, conv_st, ssm_st = layer.mixer.forward_with_state(
+                    layer.input_layernorm(h))
+                st = self._sstate[li]
+                st["conv"][slot] = conv_st[0].to(st["conv"].dtype)
+                st["ssm"][slot] = ssm_st[0]
+                h = h + out
+                continue
+            q, k, v = self._layer_kv(layer, h)
+            qr, kr = self._rope(q, k, positions)
+            self.cache.write(kv_li, kr[0], v[0], slots)
+            kv_li += 1
+            out = scaled_dot_product_attention(qr, kr, v, is_causal=True,
+                                               training=False)
+            h = self._finish_layer(layer, h, out)
+        logits = self.model.logits(model.norm(h)[:, -1])
+        self.cache.seq_lens[slot] = n
+        req._prompt_pos = n
+        self.stats["prefill_tokens"] += n
+        if not self._emit(req, logits[0]):
+            self._reserve_next(req)
+
+    def _sample_host(self, req: GenerationRequest, arr: np.ndarray) -> int:
+        """Host numpy sampling (``engine.py:700-722``): temperature, top-k
+        and top-p per request, drawn from the engine's ``RandomState(0)``,
+        so that the same logits draw what the JAX eager engine draws."""
+        if req.temperature and req.temperature > 0:
+            z = arr / req.temperature
+            if req.top_k and req.top_k < len(z):
+                kth = np.partition(z, -req.top_k)[-req.top_k]
+                z = np.where(z < kth, -np.inf, z)
+            z = z - z.max()
+            p = np.exp(z) / np.exp(z).sum()
+            if req.top_p < 1.0:
+                # nucleus: the smallest prefix of sorted probabilities
+                # whose mass reaches top_p (always >= 1 token)
+                order = np.argsort(-p)
+                csum = np.cumsum(p[order])
+                cut = int(np.searchsorted(csum, req.top_p)) + 1
+                keep = np.zeros_like(p, dtype=bool)
+                keep[order[:cut]] = True
+                p = np.where(keep, p, 0.0)
+                p /= p.sum()
+            return int(self._rng.choice(len(p), p=p))
+        return int(arr.argmax())
+
+    def _emit(self, req: GenerationRequest, logits) -> bool:
+        arr = logits.float().cpu().numpy().reshape(-1)
+        return self._emit_token(req, self._sample_host(req, arr))
+
+    @torch.no_grad()
+    def _step_eager(self) -> None:
+        """One token for every active sequence through the Python layer
+        walk (``engine.py:1210-1275``); attention reads the pages through
+        ``paged_attention_decode``, SSM layers run ``ssm_layer_step``."""
+        active = sorted(self._slot_req)
+        if not active:
+            return
+        cfg, cache, dev = self.cfg, self.cache, self.device
+        lens = [int(cache.seq_lens[s]) for s in active]
+        ids = torch.tensor([[self._slot_req[s].output_ids[-1]]
+                            for s in active], dtype=torch.long, device=dev)
+        positions = torch.tensor(lens, device=dev)[:, None]
+        # write slots of each sequence's new token
+        wslots = torch.from_numpy(np.concatenate(
+            [cache.slot_mapping(s, l, 1) for s, l in zip(active, lens)])
+            ).to(dev)
+        tables = cache.tables_array(active)
+        new_lens = torch.tensor([l + 1 for l in lens], dtype=torch.int32,
+                                device=dev)
+        sl = torch.tensor(active, dtype=torch.long, device=dev)
+        attend = (paged_attention_decode if self.use_kernel
+                  else _paged.paged_decode_attention_plain)
+
+        model = self.model.llama
+        h = model.embed_tokens(ids)
+        kv_li = 0
+        for li, layer in enumerate(model.layers):
+            if self._sstate is not None and self._sstate[li] is not None:
+                st = self._sstate[li]
+                # the compiled step's own recurrence, on the same weights
+                h2, conv_new, ssm_new = _ds.ssm_layer_step(
+                    h[:, 0, :], _ds.ssm_params(layer), self._ssm_specs[li],
+                    st["conv"][sl], st["ssm"][sl], cfg.rms_norm_eps)
+                st["conv"].index_copy_(0, sl, conv_new.to(st["conv"].dtype))
+                st["ssm"].index_copy_(0, sl, ssm_new)
+                h = h2[:, None, :]
+                continue
+            q, k, v = self._layer_kv(layer, h)
+            qr, kr = self._rope(q, k, positions)
+            cache.write(kv_li, kr[:, 0], v[:, 0], wslots)
+            kc, vc = cache.layer(kv_li)
+            out = attend(qr[:, 0], kc, vc, tables, new_lens,
+                         cache.block_size)
+            kv_li += 1
+            h = self._finish_layer(layer, h, out[:, None])
+        logits = self.model.logits(model.norm(h)[:, 0])
+        rows = logits.float().cpu().numpy()         # the step's host sync
+        survivors = []
+        for i, s in enumerate(active):
+            cache.seq_lens[s] = lens[i] + 1
+            req = self._slot_req[s]
+            if not self._emit_token(req, self._sample_host(req, rows[i])):
+                survivors.append(req)
+        for req in survivors:
+            self._reserve_next(req)
+
+    # -- the compiled step ----------------------------------------------
     def _plan_step(self):
         """This step's packed work: every decoding sequence contributes its
         pending token, then the remaining token budget goes to prompt
@@ -223,6 +492,7 @@ class GenerationEngine:
         if not entries:
             return
         ids, positions, rows, wslots, valids, out_rows = [], [], [], [], [], []
+        sslots = []             # per-token SSM state slots (hybrids)
         n_prefill = 0
         v_b = _ds.bucket(max(max(e[3] for e in entries), 1))
         for row, (req, start, chunk, n_out) in enumerate(entries):
@@ -232,6 +502,7 @@ class GenerationEngine:
             positions.extend(range(start, start + n))
             rows.extend([row] * n)
             wslots.extend(cache.slot_mapping(req.slot, start, n).tolist())
+            sslots.extend([req.slot] * n)
             valids.extend(range(start + 1, start + n + 1))
             m = max(n_out, 1)
             first = base + n - m
@@ -250,6 +521,8 @@ class GenerationEngine:
             "positions": np.asarray(positions + [0] * pad_t, np.int32),
             "rows": np.asarray(rows + [0] * pad_t, np.int32),
             "wslots": np.asarray(wslots + [cache.sentinel] * pad_t, np.int32),
+            # pad tokens update the state's spare row past max_seqs
+            "sslots": np.asarray(sslots + [self.max_seqs] * pad_t, np.int32),
             "valids": np.asarray(valids + [0] * pad_t, np.int32),
             "row_slots": np.zeros((s_b,), np.int32),
             "out_idx": np.zeros((s_b, v_b), np.int32),
@@ -272,10 +545,12 @@ class GenerationEngine:
         a = self._upload(ints)
         f = self._upload(floats)
         tokens, accepted = self._dstep(
-            int(w_b), self._params, cache, a["ids"], a["positions"],
-            a["rows"], a["wslots"], cache.tables_device(), a["row_slots"],
-            a["valids"], a["out_idx"], a["draft_next"], a["n_spec"],
-            a["seeds"], a["counters"], f["temps"], a["top_ks"], f["top_ps"])
+            int(w_b), self._params, cache, self._sstate, a["ids"],
+            a["positions"], a["rows"], a["wslots"], a["sslots"],
+            cache.tables_device(),
+            a["row_slots"], a["valids"], a["out_idx"], a["draft_next"],
+            a["n_spec"], a["seeds"], a["counters"], f["temps"], a["top_ks"],
+            f["top_ps"])
         toks = tokens.cpu().numpy()            # the step's one host sync
         self.stats["prefill_tokens"] += n_prefill
 
@@ -298,13 +573,16 @@ class GenerationEngine:
 
     def step(self) -> None:
         """One continuous-batching step: decoding sequences advance one
-        token, prefilling sequences one prompt chunk, in one batched
-        forward."""
+        token, prefilling sequences one prompt chunk (compiled mode), in
+        one batched forward."""
         if not self._slot_req:
             return
         t0 = time.perf_counter()
         occupancy = len(self._slot_req) / max(1, self.max_seqs)
-        self._step_compiled()
+        if self.mode == "compiled":
+            self._step_compiled()
+        else:
+            self._step_eager()
         self.stats["steps"] += 1
         self.stats["step_time_s"] += time.perf_counter() - t0
         self.stats["occupancy_sum"] += occupancy

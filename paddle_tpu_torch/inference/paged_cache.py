@@ -15,7 +15,9 @@ arrays and donates them through the jitted step instead.
 
 The allocator is host-side Python (a free list); the block table is also
 kept device-resident (:meth:`tables_device`) with host mutations queued as
-``(slot, index, block)`` deltas and applied in one scatter per step.
+``(slot, index, block)`` deltas and applied in one scatter per step. A
+hybrid attention+SSM engine sizes the cache by its attention layers only
+(``num_layers``); its SSM layers keep per-slot state instead of pages.
 Prefix sharing (and with it block refcounts and copy-on-write) and the
 host-RAM tier are not ported yet (ROADMAP.md A.7).
 """
@@ -135,6 +137,15 @@ class PagedKVCache:
                 0, idx.to(self.device), val.to(self.device))
             self._dirty.clear()
         return self._tables_dev
+
+    def tables_array(self, slots) -> torch.Tensor:
+        """The dense block-table rows of ``slots`` ``[len(slots),
+        blocks_per_seq]`` on the cache's device (the reference's
+        ``tables_array()[slots]``): the device table after the queued
+        deltas, where entries past a sequence's length are stale and masked
+        by its length downstream."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        return self.tables_device()[idx]
 
     # -- device writes --------------------------------------------------
     def write(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,

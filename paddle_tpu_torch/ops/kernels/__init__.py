@@ -24,8 +24,9 @@ from __future__ import annotations
 from typing import Dict
 
 from paddle_tpu_torch.ops.kernels import (flash_attention, fused_block,
-                                          grouped_gemm,
-                                          ragged_paged_attention, rms_norm)
+                                          grouped_gemm, paged_attention,
+                                          ragged_paged_attention, rms_norm,
+                                          selective_scan)
 
 __all__ = ["KERNELS", "launch_counts", "reset_launch_counts"]
 
@@ -41,6 +42,8 @@ KERNELS = {
     "gmm_bwd": (grouped_gemm, "launches_bwd"),
     "gmm2": (grouped_gemm, "launches_gmm2"),
     "tgmm": (grouped_gemm, "launches_tgmm"),
+    "paged_attention": (paged_attention, "launches"),
+    "selective_scan": (selective_scan, "launches"),
 }
 
 

@@ -163,10 +163,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ptt_gmm.argtypes = [P] * 6 + [I] * 7 + [P]
     # x, dy, dw, counts, E, c_pad, K, N, dtype, stream
     lib.ptt_tgmm.argtypes = [P] * 4 + [I] * 5 + [P]
+    # q, kc, vc, tables, lens, out, B, Hq, Hkv, D, bs, max_blocks, scale,
+    # q_dtype, kv_dtype, stream
+    lib.ptt_paged_decode_attn.argtypes = [P] * 6 + [I] * 6 + [F, I, I, P]
+    # dtx, la, B, C, y, state, batch, lp, H, dh, ds, L, dtype, stream
+    lib.ptt_selective_scan.argtypes = [P] * 6 + [I] * 7 + [P]
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,
                lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
                lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd,
-               lib.ptt_gmm, lib.ptt_tgmm):
+               lib.ptt_gmm, lib.ptt_tgmm, lib.ptt_paged_decode_attn,
+               lib.ptt_selective_scan):
         fn.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p

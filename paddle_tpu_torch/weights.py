@@ -4,7 +4,9 @@
 numpy arrays (``{name: np.asarray(p.numpy())}``) and copies each into the
 port's parameter of the same name. Keys, shapes (Paddle's ``[in, out]``
 Linear layout) and dtypes match one to one; norm weights are fp32, the
-rest in the config dtype. Nothing is transposed or cast.
+rest in the config dtype. Nothing is transposed or cast, but for the one
+exact widening :func:`load_jax_state` names. Hybrid SSM models
+(``models/ssm.py``) cross the same way.
 
 JAX bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects, so they cross as their raw 16 bits:
@@ -36,7 +38,11 @@ def load_jax_state(model: torch.nn.Module,
 
     Raises on a missing or unexpected key, a shape mismatch or a dtype
     mismatch — a silently cast or transposed weight would make every
-    later comparison meaningless."""
+    later comparison meaningless. The one exception is exact: a bf16
+    array widens into an fp32 parameter, value for value (a JAX bf16
+    hybrid keeps its mixer's ``dt_bias``, ``A_log``, ``D`` and
+    ``norm_weight`` in bf16 where the port keeps them fp32; ROADMAP.md
+    section C)."""
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(np_state))
     extra = sorted(set(np_state) - set(params))
@@ -46,9 +52,12 @@ def load_jax_state(model: torch.nn.Module,
     with torch.no_grad():
         for name, p in params.items():
             src = to_torch(np.asarray(np_state[name]))
-            if tuple(src.shape) != tuple(p.shape) or src.dtype != p.dtype:
+            widen = (src.dtype == torch.bfloat16
+                     and p.dtype == torch.float32)
+            if tuple(src.shape) != tuple(p.shape) or (
+                    src.dtype != p.dtype and not widen):
                 raise ValueError(
                     f"{name}: JAX {tuple(src.shape)} {src.dtype} vs port "
                     f"{tuple(p.shape)} {p.dtype}")
-            p.copy_(src)
+            p.copy_(src.to(p.dtype))
     return model

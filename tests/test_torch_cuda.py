@@ -20,8 +20,10 @@ from paddle_tpu_torch.incubate.nn import functional as pt_inc
 from paddle_tpu_torch.ops.kernels import flash_attention as pt_flash
 from paddle_tpu_torch.ops.kernels import fused_block as pt_fb
 from paddle_tpu_torch.ops.kernels import grouped_gemm as pt_gg
+from paddle_tpu_torch.ops.kernels import paged_attention as pt_paged
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as pt_ragged
 from paddle_tpu_torch.ops.kernels import rms_norm as pt_rms
+from paddle_tpu_torch.ops.kernels import selective_scan as pt_ss
 
 FP32 = dict(rtol=1e-5, atol=1e-6)
 BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -280,3 +282,129 @@ def test_expert_mlp_gradients_on_the_card_match_the_cpu_twins(cuda_device):
             flags.set_flags({"moe_fused_wi": True})
         for a, b in zip(grads["cuda"], grads["cpu"]):
             _gg_close(a, b, dict(rtol=1e-5, atol=1e-5))
+
+
+# paged decode attention: 5 sequences over 16-token blocks, one empty, one
+# ending mid-block, one filling its last block; 12-wide tables whose tails
+# name blocks the kernel must not read
+_PAGED_LENS = [13, 0, 48, 1, 170]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("d,hq,kv", [(128, 8, 2), (64, 4, 4)])
+def test_paged_decode_kernel_matches_twin(cuda_device, q_dtype, kv_dtype, d,
+                                          hq, kv):
+    g = torch.Generator().manual_seed(80)
+    bs, nb = 16, 64
+    kc = torch.randn(nb * bs, kv, d, generator=g)
+    vc = torch.randn(nb * bs, kv, d, generator=g)
+    tables = torch.randperm(nb, generator=g)[:60].reshape(5, 12)
+    q = torch.randn(5, hq, d, generator=g)
+    kvt, qt = getattr(torch, kv_dtype), getattr(torch, q_dtype)
+    args = [q.to(cuda_device, qt), kc.to(cuda_device, kvt),
+            vc.to(cuda_device, kvt), tables.to(cuda_device, torch.int32),
+            torch.tensor(_PAGED_LENS, dtype=torch.int32, device=cuda_device),
+            bs]
+    out = pt_paged.paged_decode_attention(*args)
+    ref = pt_paged.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == (5, hq, d)
+    if q_dtype == "float32":
+        np.testing.assert_allclose(_np(out), _np(ref), **FP32)
+    else:
+        # a few bf16 ulps of each sequence's own scale (the long row's
+        # outputs are small)
+        for o, r in zip(_np(out), _np(ref)):
+            np.testing.assert_allclose(o, r, rtol=BF16["rtol"],
+                                       atol=BF16["atol"] * np.abs(r).max())
+    assert float(out[1].abs().max()) == 0.0          # the empty sequence
+
+
+def _scan_inputs(dev, dtype, b, l, h, dh, ds, seed=90):
+    rs = np.random.RandomState(seed)
+    t = getattr(torch, dtype)
+    x = torch.from_numpy(rs.randn(b, l, h, dh).astype(np.float32)).to(dev, t)
+    dt = torch.from_numpy((np.abs(rs.randn(b, l, h)) * 0.1 + 0.01)
+                          .astype(np.float32)).to(dev)
+    A = torch.from_numpy((-np.abs(rs.randn(h)) - 0.1).astype(np.float32)
+                         ).to(dev)
+    B = torch.from_numpy(rs.randn(b, l, ds).astype(np.float32)).to(dev, t)
+    C = torch.from_numpy(rs.randn(b, l, ds).astype(np.float32)).to(dev, t)
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,dh,ds,chunk", [(100, 32, 16, 32), (300, 64, 64,
+                                                               None)])
+def test_selective_scan_kernel_matches_twin(cuda_device, dtype, l, dh, ds,
+                                            chunk):
+    """y and the final state against the chunked twin at the same chunk,
+    for lengths that are no multiple of it; a second launch gives the
+    same bits. y's elements are sums over the chunk and the state: atol
+    scaled by each tensor's largest magnitude."""
+    x, dt, A, B, C = _scan_inputs(cuda_device, dtype, 2, l, 3, dh, ds)
+    with torch.no_grad():
+        pt_ss.launches = 0
+        y, s = pt_ss.selective_scan(x, dt, A, B, C, chunk=chunk)
+        y2, s2 = pt_ss.selective_scan(x, dt, A, B, C, chunk=chunk)
+        assert pt_ss.launches == 2
+        L = chunk or pt_ss.resolve_chunk(l)
+        lp = -(-l // L) * L
+        dtf = dt.float()
+        la = torch.nn.functional.pad(dtf * A, (0, 0, 0, lp - l))
+        dtx = torch.nn.functional.pad((dtf[..., None] * x.float()).to(x.dtype),
+                                      (0, 0, 0, 0, 0, lp - l))
+        pad = (0, 0, 0, lp - l)
+        ry, rs = pt_ss._scan_reference(
+            dtx, la.transpose(1, 2), torch.nn.functional.pad(B, pad),
+            torch.nn.functional.pad(C, pad), L)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    assert y.dtype == x.dtype and s.dtype == torch.float32
+    tol = FP32 if dtype == "float32" else BF16
+    for got, want in ((y, ry[:, :l]), (s, rs)):
+        ref = _np(want)
+        np.testing.assert_allclose(_np(got), ref, rtol=tol["rtol"],
+                                   atol=10 * tol["atol"] * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_hybrid_engine_on_the_card(cuda_device):
+    """A small fp32 hybrid (head_dim 64, the flash kernel's) served on the
+    card in both modes: the scan, flash, ragged and paged kernels each
+    launch, compiled and eager agree, every slot's state is zero and every
+    page free after the drain."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.models import HybridSSMForCausalLM, ssm_tiny_config
+    from paddle_tpu_torch.ops import kernels
+    cfg = ssm_tiny_config(hidden_size=256, num_attention_heads=4,
+                          num_key_value_heads=2, num_hidden_layers=4,
+                          layer_pattern="SA", ssm_head_dim=32)
+    model = HybridSSMForCausalLM(cfg, seed=3)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6] * 5, [2, 7, 1, 8], list(range(70))]
+    outs = {}
+    for mode in ("compiled", "eager"):
+        kernels.reset_launch_counts()
+        eng = GenerationEngine(model, max_seqs=4, max_seq_len=128,
+                               block_size=16, mode=mode)
+        outs[mode] = eng.generate([GenerationRequest(i, p, max_new_tokens=9)
+                                   for i, p in enumerate(prompts)])
+        counts = kernels.launch_counts()
+        assert counts["selective_scan"] == 3 * 2
+        assert counts["flash_attention_fwd"] == 3 * 2
+        steps = eng.stats["steps"]
+        attn = "ragged_paged_attention" if mode == "compiled" \
+            else "paged_attention"
+        assert counts[attn] == steps * 2, (mode, counts, steps)
+        assert eng.cache.free_blocks == eng.cache.num_blocks
+        for st in eng._sstate:    # the pads' spare row is no slot's
+            if st is not None:
+                assert float(st["conv"][:4].abs().sum()) == 0.0
+                assert float(st["ssm"][:4].abs().sum()) == 0.0
+    same = sum(a == b for i in outs["eager"] for a, b in
+               zip(outs["eager"][i], outs["compiled"][i]))
+    assert same >= 0.9 * 27, outs

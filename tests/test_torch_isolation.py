@@ -91,7 +91,8 @@ def tiny():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mode="eager"), dict(spec_tokens=2), dict(prefix_cache=True),
+    dict(mode="eager", spec_tokens=2), dict(spec_tokens=2),
+    dict(prefix_cache=True),
     dict(kv_quant="int8"), dict(weight_quant=True), dict(host_tier=True)])
 def test_unported_engine_options_raise(tiny, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -197,3 +198,62 @@ def test_unported_optimizer_options_raise():
                dict(learning_rate=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             AdamW(parameters=p, **kw)
+
+
+def test_ssm_and_eager_modules_load_no_jax():
+    """The hybrid slice's modules (the SSM model, the scan and paged
+    decode wrappers, the engine) import torch and nothing of JAX, and a
+    hybrid model serves in both modes on the CPU."""
+    code = ("import sys, paddle_tpu_torch.models.ssm, "
+            "paddle_tpu_torch.ops.kernels.selective_scan, "
+            "paddle_tpu_torch.ops.kernels.paged_attention, "
+            "paddle_tpu_torch.inference.engine; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"paddle_tpu_torch/models/ssm.py",
+            "paddle_tpu_torch/ops/kernels/selective_scan.py",
+            "paddle_tpu_torch/ops/kernels/paged_attention.py"} <= files
+    from paddle_tpu_torch.models import HybridSSMForCausalLM, ssm_tiny_config
+    m = HybridSSMForCausalLM(ssm_tiny_config(), device="cpu")
+    for mode in ("auto", "eager"):
+        eng = GenerationEngine(m, max_seqs=2, max_seq_len=64, block_size=16,
+                               mode=mode)
+        assert eng.is_hybrid and eng.mode == mode.replace("auto",
+                                                          "compiled")
+
+
+def test_scan_and_paged_kernels_refuse_what_they_cannot_take():
+    """Off the CPU and off CUDA, with a query or an input that needs
+    gradients, or at a shape the kernels do not take, the wrappers raise
+    by name: no silent twin."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as pt_pa
+    from paddle_tpu_torch.ops.kernels import selective_scan as pt_ss
+    meta = dict(device="meta")
+    q = torch.empty(2, 8, 128, **meta)
+    kc = torch.empty(64, 2, 128, **meta)
+    tables = torch.empty(2, 4, dtype=torch.int32, **meta)
+    lens = torch.empty(2, dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pt_pa.paged_decode_attention(q, kc, kc, tables, lens, 16)
+    with pytest.raises(ValueError, match="no backward"):
+        pt_pa.paged_decode_attention(q.requires_grad_(True), kc, kc, tables,
+                                     lens, 16)
+    assert not pt_pa.eligible((2, 8, 96), 2, 96)
+    x = torch.empty(1, 40, 4, 16, **meta)
+    dt = torch.empty(1, 40, 4, **meta)
+    a = torch.empty(4, **meta)
+    b = torch.empty(1, 40, 16, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pt_ss.selective_scan(x, dt, a, b, b)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
+        pt_ss.selective_scan(x.requires_grad_(True), dt, a, b, b)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pt_ss.scan_chunked(torch.empty(1, 48, 4, 12, **meta),
+                           torch.empty(1, 4, 48, **meta), b, b, 16)
+    assert "multiples of 8" in pt_ss.ineligible_reason((1, 48, 4, 12), 16,
+                                                       16, torch.float32)

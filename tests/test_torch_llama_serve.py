@@ -180,8 +180,9 @@ def test_step_bf16_dtype_flow_matches_jax(bf16_pair, monkeypatch):
     ptail = [torch.as_tensor(np.asarray(v), dtype=torch.float32
                              if k in ("temps", "top_ps") else torch.int32)
              for k, v in tail.items()]
-    ptok, _ = pstep(1, pt_ds.extract_params(pm), cache, *pargs[:4],
-                    torch.from_numpy(tables), ptail[0], pargs[4], *ptail[1:])
+    ptok, _ = pstep(1, pt_ds.extract_params(pm), cache, None, *pargs[:4],
+                    None, torch.from_numpy(tables), ptail[0], pargs[4],
+                    *ptail[1:])
 
     assert seen["jax"].dtype == jnp.float32
     assert seen["port"].dtype == torch.float32
