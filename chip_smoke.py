@@ -17,13 +17,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    checked too; the grouped GEMMs at the MoE training shapes, an
    expert-major buffer of 65,536 rows with 32,768 live over 16 experts,
    one empty and one full, and gmm/gmm2 also in fp32 at the MoE serving
-   shapes; the chunked SSD scan at the hybrid's prefill and at
-   ``bench_ssm_pretrain``'s widths; paged decode attention at the eager
-   serve step and the hybrid's) held against its plain PyTorch twin on the
-   same inputs (each backward kernel, the dx gmm and the scan also twice,
-   bitwise), then timed beside the twin, the PyTorch library call that
-   computes the same function (where one exists: ``grouped_mm`` for gmm
-   and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
+   shapes, gmm2 beside the unfused route's two gmm launches; the chunked
+   SSD scan at the hybrid's prefill and at ``bench_ssm_pretrain``'s
+   widths; paged decode attention at the eager serve step and the
+   hybrid's; ragged attention over quantized pages at #8's shape over int8
+   and fp8 pages, with a bf16 q and pads, and at the serve-quant step's)
+   held against its plain PyTorch twin on the same inputs (each backward
+   kernel, the dx gmm, the scan and the quantized ragged kernel also
+   twice, bitwise), then timed beside the twin, the PyTorch library call
+   that computes the same function (where one exists: ``grouped_mm`` for
+   gmm and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
    for tgmm) and the least time the card could take;
 4. serve, the slice-1 path, with ``pallas_fused_block=off``:
    ``GenerationEngine.generate`` serving 8 requests (prompts of 32..1024
@@ -37,7 +40,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    twin, one decoder layer through the kernels equal to its plain-twin
    run at the bf16 tier, and the kernel forward no further from an fp32
    reference forward than the plain-twin forward is;
-5. serve-eager, the slice-4 eager engine on the serve phase's model and
+5. serve-int8, the serve phase once more with ``kv_quant="int8"`` (the
+   same model and requests over int8 pages). Checks: no page leak,
+   quantized ragged launches == steps x layers and no other kernel, greedy
+   tokens >= 99% equal to the int8 engine on the plain twins. Reports the
+   step's time and tokens/s beside the bf16-page run's and the share of
+   greedy tokens equal to it (not asserted: bf16 random weights);
+6. serve-eager, the slice-4 eager engine on the serve phase's model and
    requests (``mode="eager"``: each prompt prefilled whole at admission
    through flash attention, then a Python layer walk per step with the
    paged decode kernel, host numpy sampling). Checks: finish reasons, no
@@ -49,16 +58,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sampling, the share of greedy tokens equal to the compiled engine's and
    the shares the twins and the fp32 copy would choose too (not asserted:
    32 bf16 layers of random weights differ by rounding alone);
-6. serve-moe, the slice-3 serving path: the train-moe configuration
-   (phase 9; seeded random weights), run before the training phases as
+7. serve-quant, the quantized memory plane: ``bench_serve_llama_quant``'s
+   configuration and traffic (``bench.py:1758-1884``: 8 layers, hidden
+   1024, ffn 2816, 16:8 heads of 64, vocab 32000, block 64, ``max_seqs``
+   64, seeded random weights), nothing cut. Checks: equal-byte KV pools
+   (a bf16 engine at 128 blocks, an int8 one sized by
+   ``bytes_per_block``) admit >= 1.8x as many 511-token prompts over int8
+   pages; then 8 greedy requests (16 new tokens) through an fp32 copy
+   (seed 0), unquantized and over int8 pages: top-1 agreement >= 0.99, no
+   leak in either, quantized ragged launches == steps x layers and the
+   full-width ragged kernel none, a profiled repeat bitwise equal, >= 99%
+   of greedy tokens equal to the plain twins, with weight-only int8 too;
+8. serve-moe, the slice-3 serving path: the train-moe configuration
+   (phase 11; seeded random weights), run before the training phases as
    a serving process would, through ``GenerationEngine(max_seqs=16,
    max_seq_len=160, block_size=64)``, 16 prompts of 64 tokens, 32 new
    tokens each, 2 of them sampled. Checks: finish reasons, no page leak,
    ragged, gmm2 and gmm launches == steps x layers, a second timed run
    and a third, profiled, bitwise equal, greedy tokens >= 99% equal to
-   the plain-twin engine. Reports the host's CPU time over the wall and
-   device kernels per step (the step is issued op by op);
-7. serve-ssm, the slice-4 hybrid path: ``bench_serve_ssm``'s on-chip
+   the plain-twin engine; then once more with ``moe_fused_wi=False``
+   (gmm2 launches 0, gmm == steps x layers x 3, greedy tokens >= 99%
+   equal to the fused run's). Reports the host's CPU time over the wall
+   and device kernels per step (the step is issued op by op);
+9. serve-ssm, the slice-4 hybrid path: ``bench_serve_ssm``'s on-chip
    configuration (``bench.py:1972-2078``: an fp32 hybrid of 8 layers "SA",
    hidden 1024, ffn 2816, 8:8 heads of 128, d_state 16, SSM head dim 32,
    seeded random weights). Checks: equal-byte KV pools admit >= 2x as many
@@ -70,7 +92,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the drain, a profiled repeat bitwise equal, >= 99% of greedy tokens
    equal to the same engine on the plain twins and compiled equal to
    eager;
-8. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
+10. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
    configuration (vocab 32000, hidden 1536, ffn 4096, 12 layers, GQA
    12:4, seq 2048, batch 4, bf16, ~400M parameters, seeded random
    weights, ``pallas_fused_block=auto``): AdamW(lr 1e-4, wd 0.1), the
@@ -86,18 +108,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the kernels against the plain twins and an fp32 copy, over all
    parameters and per parameter; a second run from the seed bitwise
    equal;
-9. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
+11. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
    configuration (``bench.py:122-129``: vocab 32000, hidden 1024, 16
    experts of ffn 704, top-2 gshard at capacity factor 2.0, aux weight
    0.01, 6 layers, 16:16 heads, bf16), batch 8 x seq 2048, trained as in
-   phase 8 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
+   phase 10 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
    tokens/s, ms per step, the bench's activated-parameter MFU, busy share
    and top kernels, peak memory. Checks: finite, falling losses; per step
    6 gmm2, 6 + 18 gmm (forward, and the dx against w^T), 18 tgmm, 6 flash
    forward and backward and 13 of each RMSNorm kernel; one step's
    gradients against the twins and an fp32 copy (with the share of
    (token, k) routes the fp32 copy also takes); a second run bitwise;
-10. the ``kernels`` JSON line, then the result line.
+12. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -185,6 +207,13 @@ def scaled_close(got, want, rtol, atol) -> bool:
 
 
 # --------------------------------------------------------- kernel phases
+# #8's timing shape (#10 is timed at it too): 7 decode rows, one
+# 64-token prompt chunk and a pad row over 8 sequences of 32 blocks
+RAGGED_LENS = [130, 257, 385, 512, 640, 771, 1000]
+RAGGED_ROWS = list(range(7)) + [7] * 64 + [0]
+RAGGED_VALIDS = RAGGED_LENS + list(range(449, 513)) + [0]
+
+
 def phase_ragged(torch, timer, rng):
     """fp32 q [72, 32, 128] over bf16 pages of 64-token blocks, as the
     compiled step feeds it: 7 decode rows, one 64-token prompt chunk and a
@@ -196,9 +225,8 @@ def phase_ragged(torch, timer, rng):
     tables = perm.reshape(seqs, width).cuda()
     kc = torch.randn(nblocks * bs, hkv, d, device="cuda").bfloat16()
     vc = torch.randn(nblocks * bs, hkv, d, device="cuda").bfloat16()
-    lens = [130, 257, 385, 512, 640, 771, 1000]        # decode rows
-    rows = list(range(7)) + [7] * 64 + [0]
-    valids = lens + list(range(449, 513)) + [0]        # chunk at 448..511
+    # 7 decode rows, a chunk at positions 448..511, a pad
+    rows, valids = RAGGED_ROWS, RAGGED_VALIDS
     t = len(rows)
     q = torch.randn(t, hq, d, device="cuda")
     r = torch.tensor(rows, dtype=torch.int32, device="cuda")
@@ -582,6 +610,15 @@ def phase_gmm2(torch, timer):
     nbytes = (live * MOE_HIDDEN * 2 + 2 * w1.numel() * 2
               + 2 * x.shape[0] * MOE_FFN * 2)
     b_ms, b_by = bound(nbytes, flops, "bf16")
+    # the unfused route (moe_fused_wi=False): two gmm launches on the same
+    # inputs, each reading x
+    unfused = (gg.gmm(x, w1, cnt), gg.gmm(x, w2, cnt))
+    torch.cuda.synchronize()
+    u_err = max(max_err(a, b) for a, b in zip(unfused, got))
+    u_ms = timer.ms(lambda: (gg.gmm(x, w1, cnt), gg.gmm(x, w2, cnt)))
+    log(f"gmm2 unfused (two gmm launches): max_abs_err against gmm2 "
+        f"{u_err:.3g}, {u_ms:.4f} ms")
+    del unfused
     fn, lib_name = grouped_mm_library(torch)
     offs = moe_offsets(torch, MOE_CPAD)
     lib = library_ms(torch, timer, fn and (lambda: (fn(x, w1, offs=offs),
@@ -597,7 +634,8 @@ def phase_gmm2(torch, timer):
                 plain_ms=timer.ms(lambda: gg.gmm2_plain(x, w1, w2, cnt),
                                   iters=3, warmup=1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library=f"{lib_name} (two calls)", serve_ms=s_ms,
+                library=f"{lib_name} (two calls)", unfused_ms=u_ms,
+                unfused_max_abs_err=u_err, serve_ms=s_ms,
                 serve_plain_ms=s_plain, serve_bound_ms=s_bound[0],
                 serve_max_abs_err=s_err,
                 shape="x bf16 [65536, 1024] (32768 live), w1/w2 bf16 "
@@ -874,6 +912,103 @@ def phase_paged(torch, np, timer, rng):
                       "lengths 1023..1055)")
 
 
+def phase_quant(torch, np, timer, rng):
+    """Ragged paged attention over quantized pages (#10) against its twin:
+    (a) #8's timing shape (fp32 q [72, 32, 128], kv 8, block 64) over int8
+    pages; (b) the serve-quant step's shape (fp32 q [128, 16, 64], kv 8: 64
+    decode rows of lengths up to 527 and a 64-token prompt chunk) over int8
+    pages; (c) shape (a) over fp8 e4m3 pages; (d) shape (a) with a bf16 q
+    and four pad tokens. Each twice, bitwise; pads exactly 0."""
+    from paddle_tpu_torch.ops.kernels import quant as pq
+    from paddle_tpu_torch.quantization import kv as kvq
+    bs = 64
+
+    def case(hq, hkv, d, rows, valids, seqs, width, mode, q_dtype):
+        nblocks = seqs * width
+        perm = torch.from_numpy(rng.permutation(nblocks).astype("int32"))
+        tables = perm.reshape(seqs, width).cuda()
+        kq, ks = kvq.quantize_kv(torch.randn(nblocks * bs, hkv, d,
+                                             device="cuda"), mode)
+        vq, vs = kvq.quantize_kv(torch.randn(nblocks * bs, hkv, d,
+                                             device="cuda"), mode)
+        t = len(rows)
+        q = torch.randn(t, hq, d, device="cuda").to(q_dtype)
+        args = (q, kq, vq, ks, vs, tables,
+                torch.tensor(rows, dtype=torch.int32, device="cuda"),
+                torch.tensor(valids, dtype=torch.int32, device="cuda"), bs)
+        out = pq.ragged_paged_attention_quant(*args)
+        again = pq.ragged_paged_attention_quant(*args)
+        ref = pq.ragged_paged_attention_quant_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), "quant: two launches differ"
+        err, top = max_err(out, ref), float(ref.float().abs().max())
+        if q_dtype == torch.float32:
+            # the scales fold into scores and weights in the kernel, into
+            # the pages in the twin; sums in another order
+            tol = 1e-4 * top
+            assert err <= tol, f"quant {mode}: max_abs_err {err} > {tol}"
+        else:
+            tol = "rtol=atol=2e-2"
+            assert torch.allclose(out.float(), ref.float(), rtol=2e-2,
+                                  atol=2e-2), f"quant bf16: {err}"
+        pads = [i for i, v in enumerate(valids) if v == 0]
+        assert not pads or float(out[pads].abs().max()) == 0.0, \
+            "quant: a pad token is not 0"
+        # bytes: each visible page and its scale columns once, q read
+        # once, out written once, rows/valids; flops 4*d per (query
+        # head, key), as phase_ragged counts #8's
+        blocks = {(row, j) for row, val in zip(rows, valids)
+                  for j in range(-(-val // bs))}
+        page = bs * hkv * d * 2 * kq.element_size() + bs * hkv * 4 * 2
+        esz = q.element_size()
+        nbytes = len(blocks) * page + q.numel() * esz * 2 + t * 8
+        flops = sum(valids) * hq * 4 * d
+        b_ms, b_by = bound(nbytes, flops, "fp32")
+        res = dict(err=err, top=top, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                   ms=timer.ms(lambda: pq.ragged_paged_attention_quant(*args)),
+                   plain_ms=timer.ms(
+                       lambda: pq.ragged_paged_attention_quant_plain(*args)))
+        log(f"quant {mode} q {str(q_dtype)[6:]} [{t}, {hq}, {d}]: max_abs_err "
+            f"{err:.3g} of max {top:.3g} (tol {tol}), bitwise on repeat, "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        return res
+
+    a = case(32, 8, 128, RAGGED_ROWS, RAGGED_VALIDS, 8, 32, "int8",
+             torch.float32)
+    srs = np.random.RandomState(2)
+    lens = srs.randint(1, 528, size=64).tolist()
+    lens[17] = 527
+    b = case(16, 8, 64, list(range(64)) + [64] * 64,
+             lens + list(range(449, 513)), 65, 16, "int8", torch.float32)
+    c = case(32, 8, 128, RAGGED_ROWS, RAGGED_VALIDS, 8, 32, "fp8",
+             torch.float32)
+    pad_valids = [0 if i in (3, 40, 70) else v
+                  for i, v in enumerate(RAGGED_VALIDS)]
+    dd = case(32, 8, 128, RAGGED_ROWS, pad_valids, 8, 32, "int8",
+              torch.bfloat16)
+    return dict(name="ragged_paged_attention_quant", route="cuda",
+                source="paddle_tpu_torch/csrc/quant.cu",
+                replaces="paddle_tpu/ops/pallas/quant.py:110",
+                path="serve-quant",
+                max_abs_err=max(a["err"], b["err"], c["err"], dd["err"]),
+                tolerance="fp32 output 1e-4 x max|twin|, bf16 rtol=atol=2e-2;"
+                          " bitwise repeat; pads exactly 0",
+                ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                bound_by=a["bound_by"], library_ms=None,
+                library="none (no single PyTorch call computes it)",
+                serve_quant_ms=b["ms"], serve_quant_plain_ms=b["plain_ms"],
+                serve_quant_bound_ms=b["bound_ms"],
+                serve_quant_bound_by=b["bound_by"], fp8_ms=c["ms"],
+                fp8_plain_ms=c["plain_ms"], fp8_bound_ms=c["bound_ms"],
+                bf16_ms=dd["ms"], bf16_plain_ms=dd["plain_ms"],
+                bf16_bound_ms=dd["bound_ms"],
+                shape="(a) fp32 q [72, 32, 128] over int8 pages (kv 8, block "
+                      "64), #8's lengths; (b) fp32 q [128, 16, 64] int8, "
+                      "lengths up to 527; (c) (a) over fp8 pages; (d) (a) "
+                      "with bf16 q and 4 pads")
+
+
 # ------------------------------------------------------------ serve phase
 def make_requests(GenerationRequest, np, rng, vocab):
     lens = [int(n) for n in np.linspace(32, 1024, 8).round()]
@@ -966,13 +1101,14 @@ def phase_serve(torch, np, layers, card):
     assert counts["rms_norm_fwd"] == len(prompts) * (2 * layers + 1), counts
     for name in ("flash_attention_bwd", "rms_norm_bwd", "fused_block_fwd",
                  "gmm_fwd", "gmm_bwd", "gmm2", "tgmm", "paged_attention",
-                 "selective_scan"):
+                 "selective_scan", "ragged_paged_attention_quant"):
         assert counts[name] == 0, counts
     for p, lg, d in zip(prompts, scored, out.values()):
         assert lg.shape == (1, len(p), cfg.vocab_size)
         assert bool(torch.isfinite(lg).all()), "non-finite logits"
 
     perf = serve_perf(eng, out, steps, wall, card)
+    perf["kv_bytes_per_block"] = eng.cache.bytes_per_block
     log("serve: " + json.dumps(perf))
 
     # determinism: a second identical run, under the profiler, gives the
@@ -1027,7 +1163,8 @@ def phase_serve_eager(torch, np, model, layers, card, compiled):
         2 * layers + 1), counts
     for name in ("ragged_paged_attention", "flash_attention_bwd",
                  "rms_norm_bwd", "fused_block_fwd", "gmm_fwd", "gmm_bwd",
-                 "gmm2", "tgmm", "selective_scan"):
+                 "gmm2", "tgmm", "selective_scan",
+                 "ragged_paged_attention_quant"):
         assert counts[name] == 0, (name, counts)
     perf = serve_perf(eng, out, steps, wall, card)
     perf["host_cpu_share"] = cpu / wall
@@ -1126,7 +1263,7 @@ SSM_POOL_BLOCKS, SSM_MAX_SEQS = 128, 64
 def _pool_bytes(cache) -> int:
     """Bytes of a cache's K and V pages (the pads' spare row left out)."""
     return sum(t.numel() * t.element_size()
-               for li in range(cache.num_layers) for t in cache.layer(li))
+               for li in range(cache.num_layers) for t in cache.layer(li)[:2])
 
 
 def _hybrid_engine(model, num_blocks, mode, use_kernel=True):
@@ -1229,7 +1366,8 @@ def phase_serve_ssm(torch, np, card):
                  else "ragged_paged_attention")
         assert c[attn] == steps * n_attn and c[other] == 0, (c, steps)
         for name in ("flash_attention_bwd", "rms_norm_bwd", "fused_block_fwd",
-                     "gmm_fwd", "gmm_bwd", "gmm2", "tgmm"):
+                     "gmm_fwd", "gmm_bwd", "gmm2", "tgmm",
+                     "ragged_paged_attention_quant"):
             assert c[name] == 0, (name, c)
         check_drained(eng)
         perf[mode] = dict(
@@ -1271,6 +1409,320 @@ def phase_serve_ssm(torch, np, card):
     del hy_model
     torch.cuda.empty_cache()
     return both, perf
+
+
+def phase_serve_int8(torch, np, model, layers, card, bf16, compiled):
+    """The serve phase once more with ``kv_quant="int8"``: the same 8B-width
+    model and requests over int8 pages, attention through #10 at head_dim
+    128 in every layer. ``bf16`` is the serve phase's perf, ``compiled``
+    its outputs."""
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve-int8: the serve model ({layers} layers) and its 8 requests "
+        f"through GenerationEngine(kv_quant='int8')")
+
+    # ---- the path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    cpu0 = time.process_time()
+    eng, _, out, steps, wall = serve(torch, model, np, kv_quant="int8")
+    torch.cuda.synchronize()
+    cpu = time.process_time() - cpu0
+    counts = kernels.launch_counts()
+    log(f"serve-int8: path launches {counts}")
+    assert eng.kv_quant == "int8" and eng.cache.k.dtype == torch.int8
+    assert all(d["finish_reason"] == "length" and len(d["output_ids"]) == 32
+               for d in out.values()), out
+    assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
+    n_steps = eng.stats["steps"]
+    assert counts["ragged_paged_attention_quant"] == n_steps * layers, \
+        (counts, n_steps)
+    for name in kernels.KERNELS:
+        if name != "ragged_paged_attention_quant":
+            assert counts[name] == 0, (name, counts)
+    perf = serve_perf(eng, out, steps, wall, card)
+    perf["host_cpu_share"] = cpu / wall
+    perf["kv_bytes_per_block"] = eng.cache.bytes_per_block
+    del eng
+    _, _, twin, _, _ = serve(torch, model, np, use_kernel=False,
+                             kv_quant="int8")
+    perf["greedy_agreement_twins"] = greedy_agreement(out, twin, range(6))
+    # not asserted: 32 bf16 layers of random weights (see PERF.md, PR 4)
+    perf["greedy_agreement_bf16_pages"] = greedy_agreement(out, compiled,
+                                                           range(6))
+    log(f"serve-int8: decode {perf['decode_ms_per_step']:.2f} ms per step, "
+        f"{perf['decode_tokens_per_s']:.1f} decode tokens/s, "
+        f"{perf['output_tokens_per_s']:.1f} output tokens/s (bf16 pages: "
+        f"{bf16['decode_ms_per_step']:.2f} ms, "
+        f"{bf16['decode_tokens_per_s']:.1f}, "
+        f"{bf16['output_tokens_per_s']:.1f}); {perf['kv_bytes_per_block']} "
+        f"B a block against {bf16['kv_bytes_per_block']}; greedy agreement "
+        f"with the twins {perf['greedy_agreement_twins']:.4f}, with the "
+        f"bf16-page run {perf['greedy_agreement_bf16_pages']:.4f}")
+    log("serve-int8: " + json.dumps(perf))
+    assert perf["greedy_agreement_twins"] >= 0.99, perf
+    return counts, perf
+
+
+# bench_serve_llama_quant's on-chip configuration and traffic
+# (bench.py:1758-1884), nothing cut
+QUANT_WIDTH = dict(hidden_size=1024, intermediate_size=2816,
+                   num_attention_heads=16, num_key_value_heads=8,
+                   vocab_size=32000, max_position_embeddings=2048)
+QUANT_LAYERS, QUANT_PROMPT, QUANT_NEW, QUANT_BLOCK = 8, 511, 16, 64
+QUANT_POOL_BLOCKS, QUANT_MAX_SEQS = 128, 64
+
+
+def make_quant_requests(GenerationRequest, np, rng, vocab):
+    """``bench_serve_llama_quant``'s parity traffic: 8 greedy 511-token
+    prompts (``RandomState(7)``, ids below 64), 16 new tokens each."""
+    rs = np.random.RandomState(7)
+    prompts = [rs.randint(0, 64, QUANT_PROMPT).tolist() for _ in range(8)]
+    return prompts, [GenerationRequest(("run", i), p,
+                                       max_new_tokens=QUANT_NEW)
+                     for i, p in enumerate(prompts)]
+
+
+QUANT_ENGINE = dict(max_seqs=QUANT_MAX_SEQS,
+                    max_seq_len=QUANT_PROMPT + QUANT_NEW + QUANT_BLOCK,
+                    block_size=QUANT_BLOCK, mode="compiled")
+
+
+def _quant_serve(torch, model, np, num_blocks, **kw):
+    return serve(torch, model, np, requests=make_quant_requests,
+                 num_blocks=num_blocks, **QUANT_ENGINE, **kw)
+
+
+def forced_logits(torch, np, model, ref, num_blocks, **kw):
+    """The engine fed ``ref``'s tokens (teacher forcing) over the quant
+    requests: at every greedy step, its own choice and the logits row it
+    chose from, given the reference's prefix, in ``ref``'s (request,
+    position) order. Free-running streams cannot tell one near-tie flip
+    from many: a flip changes every later token of its stream."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.inference import decode_step as ds
+    eng = GenerationEngine(model, num_blocks=num_blocks, **QUANT_ENGINE, **kw)
+    last, rec = {}, {}
+    plan, emit, sample = eng._plan_step, eng._emit_token, ds.sample_tokens
+
+    def planned():
+        last["entries"] = plan()
+        return last["entries"]
+
+    def sampled(logits, *rest):
+        last["logits"] = logits
+        return sample(logits, *rest)
+
+    def forced(req, tok):     # rows follow the step's entries
+        row = [e[0] for e in last["entries"]].index(req)
+        rec.setdefault(req.request_id, []).append(
+            (tok, last["logits"][row].float().cpu()))
+        return emit(req, ref[req.request_id]["output_ids"][len(req.output_ids)])
+    eng._plan_step, eng._emit_token = planned, forced
+    ds.sample_tokens = sampled
+    try:
+        eng.generate(make_quant_requests(GenerationRequest, np, None, None)[1])
+    finally:
+        ds.sample_tokens = sample
+    assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
+    choices = np.array([t for rid in ref for t, _ in rec[rid]])
+    logits = torch.stack([lg for rid in ref for _, lg in rec[rid]]).numpy()
+    return choices, logits
+
+
+def check_quant_logits(torch, np, model, fp_out, q_blocks, perf):
+    """Top-1 agreement with the unquantized stream, judged with every engine
+    fed that stream's tokens: the unquantized engine itself, the int8
+    engine through the kernel (``kern``) and through the plain twins
+    (``twin``), the same quantized pages. Relative L2 over the logits rows
+    of all greedy steps: the int8 pages move the logits less than the bf16
+    tier (2e-2), the kernel moves them no further than 1.25x the twins do,
+    and kernel and twin are closer to each other than either is to the
+    unquantized logits. The top-1 agreement is reported."""
+    fp_tok, fp = forced_logits(torch, np, model, fp_out, QUANT_POOL_BLOCKS)
+    want = np.array([t for d in fp_out.values() for t in d["output_ids"]])
+    assert (fp_tok == want).all(), "unquantized engine fed its own stream"
+    k_tok, kern = forced_logits(torch, np, model, fp_out, q_blocks,
+                                kv_quant="int8")
+    _, twin = forced_logits(torch, np, model, fp_out, q_blocks,
+                            kv_quant="int8", use_kernel=False)
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    res = dict(top1_agreement=float((k_tok == want).mean()),
+               logits_rel_err_kernel=rel(kern, fp),
+               logits_rel_err_twin=rel(twin, fp),
+               logits_rel_err_kernel_vs_twin=rel(kern, twin))
+    msg = (f"serve-quant: fed the unquantized stream's tokens over "
+           f"{len(want)} steps: int8 top-1 agreement "
+           f"{res['top1_agreement']:.4f}; logits rel err vs unquantized "
+           f"kernel {res['logits_rel_err_kernel']:.4g}, twin "
+           f"{res['logits_rel_err_twin']:.4g}, kernel vs twin "
+           f"{res['logits_rel_err_kernel_vs_twin']:.4g}")
+    log(msg)
+    assert res["logits_rel_err_twin"] <= 2e-2, msg
+    assert res["logits_rel_err_kernel"] <= 1.25 * res[
+        "logits_rel_err_twin"] + 1e-6, msg
+    assert res["logits_rel_err_kernel_vs_twin"] <= res[
+        "logits_rel_err_twin"], msg
+    perf.update(res)
+    w_tok, wq = forced_logits(torch, np, model, fp_out, q_blocks,
+                              kv_quant="int8", weight_quant=True)
+    perf["weight_quant_top1_agreement"] = float((w_tok == want).mean())
+    perf["weight_quant_logits_rel_err"] = rel(wq, fp)
+    log(f"serve-quant: with weight-only int8 too, fed the same tokens: top-1 "
+        f"agreement {perf['weight_quant_top1_agreement']:.4f}, logits rel "
+        f"err vs unquantized {perf['weight_quant_logits_rel_err']:.4g} (not "
+        f"asserted)")
+
+
+def phase_serve_quant(torch, np, card):
+    """``bench_serve_llama_quant`` on the card: the equal-byte admission
+    headline (a bf16 engine at 128 blocks against an int8 one sized by
+    ``bytes_per_block``), then its 8 greedy requests through an fp32 copy
+    (seed 0), unquantized and over int8 pages, and the int8 engine with
+    weight-only int8 too."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.inference.paged_cache import PagedKVCache
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_tiny_config(num_hidden_layers=QUANT_LAYERS, dtype="bfloat16",
+                            **QUANT_WIDTH)
+    model = LlamaForCausalLM(cfg, seed=0).eval()
+    log(f"serve-quant: bench_serve_llama_quant (8 layers, hidden 1024, ffn "
+        f"2816, 16:8 heads of {cfg.head_dim}, vocab 32000), bf16, seeded "
+        f"random weights")
+
+    # -- the equal-byte admission headline
+    def engine(num_blocks, kv_quant):
+        return GenerationEngine(
+            model, max_seqs=QUANT_MAX_SEQS,
+            max_seq_len=QUANT_PROMPT + QUANT_NEW + QUANT_BLOCK,
+            block_size=QUANT_BLOCK, num_blocks=num_blocks, mode="compiled",
+            kv_quant=kv_quant)
+    fp_eng = engine(QUANT_POOL_BLOCKS, None)
+    pool = QUANT_POOL_BLOCKS * fp_eng.cache.bytes_per_block
+    probe = PagedKVCache(QUANT_LAYERS, 1, QUANT_BLOCK,
+                         cfg.num_key_value_heads, cfg.head_dim, 1,
+                         quant="int8")
+    q_blocks = pool // probe.bytes_per_block
+    q_eng = engine(q_blocks, "int8")
+    assert q_eng.cache.quant == "int8"
+    assert q_blocks * q_eng.cache.bytes_per_block <= pool
+    rs = np.random.RandomState(0)
+
+    def admissions(eng):
+        n = 0
+        while n < QUANT_MAX_SEQS and eng.add_request(GenerationRequest(
+                ("adm", n), rs.randint(0, 64, QUANT_PROMPT).tolist(),
+                max_new_tokens=QUANT_NEW)):
+            n += 1
+        return n
+    fp_adm, q_adm = admissions(fp_eng), admissions(q_eng)
+    ratio = q_adm / max(1, fp_adm)
+    def row(cache):      # bytes a token row costs in one layer
+        return cache.bytes_per_block // (QUANT_BLOCK * QUANT_LAYERS)
+    perf = dict(admission_ratio=ratio, admitted_int8=q_adm,
+                admitted_bf16=fp_adm, pool_bytes=pool, int8_blocks=q_blocks,
+                row_bytes_bf16=row(fp_eng.cache), row_bytes_int8=row(
+                    q_eng.cache), card=card)
+    log(f"serve-quant: equal {pool} B pools ({QUANT_POOL_BLOCKS} bf16 blocks, "
+        f"{q_blocks} int8 blocks; {perf['row_bytes_int8']} against "
+        f"{perf['row_bytes_bf16']} B a row and layer) admit {q_adm} int8 and "
+        f"{fp_adm} bf16 {QUANT_PROMPT}-token prompts ({ratio:.3f}x)")
+    assert ratio >= 1.8, perf
+    del fp_eng, q_eng, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- greedy parity on an fp32 copy (seed 0), as the bench runs it
+    cfg32 = llama_tiny_config(num_hidden_layers=QUANT_LAYERS,
+                              dtype="float32", **QUANT_WIDTH)
+    model = LlamaForCausalLM(cfg32, seed=0).eval()
+    fp_eng, _, fp_out, fp_steps, fp_wall = _quant_serve(
+        torch, model, np, QUANT_POOL_BLOCKS)
+    assert fp_eng.cache.free_blocks == fp_eng.cache.num_blocks, "page leak"
+    perf["unquantized"] = serve_perf(fp_eng, fp_out, fp_steps, fp_wall, card)
+    del fp_eng
+
+    # ---- the path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    cpu0 = time.process_time()
+    eng, _, out, steps, wall = _quant_serve(torch, model, np, q_blocks,
+                                            kv_quant="int8")
+    torch.cuda.synchronize()
+    cpu = time.process_time() - cpu0
+    counts = kernels.launch_counts()
+    log(f"serve-quant: path launches {counts}")
+    assert all(d["finish_reason"] == "length"
+               and len(d["output_ids"]) == QUANT_NEW for d in out.values())
+    assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
+    n_steps = eng.stats["steps"]
+    assert counts["ragged_paged_attention_quant"] == n_steps * QUANT_LAYERS, \
+        (counts, n_steps)
+    assert counts["ragged_paged_attention"] == 0, counts
+    for name in kernels.KERNELS:
+        if name != "ragged_paged_attention_quant":
+            assert counts[name] == 0, (name, counts)
+    perf["int8"] = serve_perf(eng, out, steps, wall, card)
+    perf["int8"]["host_cpu_share"] = cpu / wall
+    del eng
+    # free-running agreement with the unquantized stream, reported: one
+    # near-tie flip on random weights derails the rest of a stream
+    # (check_quant_logits judges the steps one by one)
+    perf["top1_agreement_free_running"] = greedy_agreement(out, fp_out,
+                                                           out.keys())
+
+    # a profiled repeat, bitwise
+    holder = {}
+
+    def rerun():
+        holder["out"], holder["wall"] = _quant_serve(
+            torch, model, np, q_blocks, kv_quant="int8")[2::2]
+    rows, busy, pwall = device_profile(torch, rerun)
+    perf["int8"]["busy_share"] = report_profile("serve-quant", rows, busy,
+                                                pwall, wall)
+    assert holder["out"] == out, "serve-quant: profiled repeat differs"
+
+    _, _, twin, _, _ = _quant_serve(torch, model, np, q_blocks,
+                                    kv_quant="int8", use_kernel=False)
+    perf["greedy_agreement_twins"] = greedy_agreement(out, twin, out.keys())
+    perf["top1_agreement_free_running_twins"] = greedy_agreement(
+        twin, fp_out, twin.keys())
+    assert perf["greedy_agreement_twins"] >= 0.99, perf
+    check_quant_logits(torch, np, model, fp_out, q_blocks, perf)
+
+    # int8 pages and weight-only int8 together
+    weng, _, wout, wsteps, wwall = _quant_serve(
+        torch, model, np, q_blocks, kv_quant="int8", weight_quant=True)
+    assert weng.weight_quant and weng.cache.free_blocks == \
+        weng.cache.num_blocks
+    perf["int8_weight_int8"] = serve_perf(weng, wout, wsteps, wwall, card)
+    del weng
+    _, _, wtwin, _, _ = _quant_serve(torch, model, np, q_blocks,
+                                     kv_quant="int8", weight_quant=True,
+                                     use_kernel=False)
+    perf["weight_quant_agreement_twins"] = greedy_agreement(wout, wtwin,
+                                                            wout.keys())
+    perf["weight_quant_top1_agreement_free_running"] = greedy_agreement(
+        wout, fp_out, wout.keys())
+    log(f"serve-quant: profiled repeat bitwise equal; free-running greedy "
+        f"agreement of the int8 engine with the twins "
+        f"{perf['greedy_agreement_twins']:.4f}, with the unquantized stream "
+        f"{perf['top1_agreement_free_running']:.4f} (twins "
+        f"{perf['top1_agreement_free_running_twins']:.4f}); with weight-only "
+        f"int8 too: with the twins "
+        f"{perf['weight_quant_agreement_twins']:.4f}, with the unquantized "
+        f"stream {perf['weight_quant_top1_agreement_free_running']:.4f} "
+        f"(not asserted)")
+    assert perf["weight_quant_agreement_twins"] >= 0.99, perf
+    log("serve-quant: " + json.dumps(perf))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, perf
 
 
 def check_drained(eng):
@@ -1348,7 +1800,8 @@ def phase_serve_moe(torch, np, card):
         assert counts[name] == n_steps * layers, (name, counts, n_steps)
     for name in ("gmm_bwd", "tgmm", "flash_attention_fwd",
                  "flash_attention_bwd", "rms_norm_fwd", "rms_norm_bwd",
-                 "fused_block_fwd", "paged_attention", "selective_scan"):
+                 "fused_block_fwd", "paged_attention", "selective_scan",
+                 "ragged_paged_attention_quant"):
         assert counts[name] == 0, (name, counts)
     perf = serve_perf(eng, out, steps, wall, card)
     # the step is issued op by op from Python: the host's CPU time over
@@ -1388,9 +1841,34 @@ def phase_serve_moe(torch, np, card):
         f"{agree:.4f}")
     assert agree >= 0.99, f"serve-moe greedy agreement {agree}"
     perf["greedy_agreement"] = agree
-    del model, eng
+
+    # the unfused expert MLP (moe_fused_wi=False): gate and up as two gmm
+    # launches where the fused route launches one gmm2
+    flags.set_flags({"moe_fused_wi": False})
+    try:
+        kernels.reset_launch_counts()
+        ueng, _, uout, usteps, uwall = serve(torch, model, np, **kw)
+        torch.cuda.synchronize()
+        ucounts = kernels.launch_counts()
+    finally:
+        flags.set_flags({"moe_fused_wi": True})
+    u_steps = ueng.stats["steps"]
+    log(f"serve-moe unfused: path launches {ucounts}")
+    assert ueng.cache.free_blocks == ueng.cache.num_blocks, "page leak"
+    assert ucounts["gmm2"] == 0, ucounts
+    assert ucounts["gmm_fwd"] == u_steps * layers * 3, (ucounts, u_steps)
+    assert ucounts["ragged_paged_attention"] == u_steps * layers, ucounts
+    perf["unfused"] = serve_perf(ueng, uout, usteps, uwall, card)
+    perf["unfused"]["greedy_agreement_fused"] = greedy_agreement(
+        uout, out, range(14))
+    log(f"serve-moe unfused: decode "
+        f"{perf['unfused']['decode_ms_per_step']:.2f} ms per step (fused "
+        f"{perf['decode_ms_per_step']:.2f}), greedy tokens equal to the "
+        f"fused run's {perf['unfused']['greedy_agreement_fused']:.4f}")
+    assert perf["unfused"]["greedy_agreement_fused"] >= 0.99, perf
+    del model, eng, ueng
     torch.cuda.empty_cache()
-    return counts, perf
+    return counts, perf, ucounts
 
 
 @contextlib.contextmanager
@@ -1835,7 +2313,9 @@ def main() -> int:
                       lambda: phase_tgmm(torch, timer),
                       lambda: phase_scan(torch, timer),
                       lambda: phase_paged(torch, np, timer,
-                                          np.random.RandomState(1))):
+                                          np.random.RandomState(1)),
+                      lambda: phase_quant(torch, np, timer,
+                                          np.random.RandomState(3))):
             r = phase()
             rows.append(r)
             log(f"kernel {r['name']}: {r['shape']}: max_abs_err "
@@ -1852,16 +2332,23 @@ def main() -> int:
         del timer
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
-        counts, _, model, compiled = phase_serve(torch, np, args.layers, card)
+        counts, serve_stats, model, compiled = phase_serve(torch, np,
+                                                           args.layers, card)
         counts = {"serve": counts}
         torch.cuda.empty_cache()
         log(f"serve done at {time.perf_counter() - t_start:.1f} s")
+        counts["serve-int8"] = phase_serve_int8(
+            torch, np, model, args.layers, card, serve_stats, compiled)[0]
+        log(f"serve-int8 done at {time.perf_counter() - t_start:.1f} s")
         counts["serve-eager"] = phase_serve_eager(
             torch, np, model, args.layers, card, compiled)[0]
         del model
         log(f"serve-eager done at {time.perf_counter() - t_start:.1f} s")
+        counts["serve-quant"] = phase_serve_quant(torch, np, card)[0]
+        log(f"serve-quant done at {time.perf_counter() - t_start:.1f} s")
         # serving before training, as in a serving process
-        counts["serve-moe"] = phase_serve_moe(torch, np, card)[0]
+        moe = phase_serve_moe(torch, np, card)
+        counts["serve-moe"], counts["serve-moe-unfused"] = moe[0], moe[2]
         log(f"serve-moe done at {time.perf_counter() - t_start:.1f} s")
         counts["serve-ssm"] = phase_serve_ssm(torch, np, card)[0]
         log(f"serve-ssm done at {time.perf_counter() - t_start:.1f} s")

@@ -7,8 +7,9 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-// dtype codes used across the C interface (see ops/kernels/_build.py)
-enum PttDtype { PTT_F32 = 0, PTT_BF16 = 1 };
+// dtype codes used across the C interface (see ops/kernels/_launch.py; the
+// one-byte page types of quantized KV caches in ops/kernels/quant.py)
+enum PttDtype { PTT_F32 = 0, PTT_BF16 = 1, PTT_I8 = 2, PTT_F8E4M3 = 3 };
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }

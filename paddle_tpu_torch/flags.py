@@ -65,8 +65,10 @@ def set_flags(values: Dict[str, Any]) -> None:
         _FLAGS[name] = value
 
 
-# serving options the engine reads; the port raises NotImplementedError
-# for every non-default value until its ROADMAP item lands
+# serving options the engine reads. serve_kv_quant ("off", "int8", "fp8",
+# "auto"/"on" = int8) and serve_weight_quant (weight-only int8 projections)
+# are ported; the port raises NotImplementedError for every non-default
+# value of the others until its ROADMAP item lands
 define_flag("serve_spec_tokens", 0)
 define_flag("serve_prefix_cache", False)
 define_flag("serve_kv_quant", "off")

@@ -1,4 +1,5 @@
 from paddle_tpu_torch.inference.attention import (gather_paged_kv,
+                                                  gather_paged_scales,
                                                   paged_attention_decode,
                                                   paged_attention_ragged,
                                                   ragged_attention_xla)
@@ -7,5 +8,5 @@ from paddle_tpu_torch.inference.engine import (GenerationEngine,
 from paddle_tpu_torch.inference.paged_cache import PagedKVCache
 
 __all__ = ["GenerationEngine", "GenerationRequest", "PagedKVCache",
-           "gather_paged_kv", "paged_attention_decode",
+           "gather_paged_kv", "gather_paged_scales", "paged_attention_decode",
            "paged_attention_ragged", "ragged_attention_xla"]

@@ -33,7 +33,15 @@ sentinel slot ``max_seqs``: the state tensors have one spare row there,
 as the KV cache has, which no request owns (the reference drops those
 writes with ``mode="drop"``).
 
-Not ported yet (ROADMAP.md A): quantized KV pages and weight-only int8.
+Quantized KV pages (``kv_quant="int8"`` or ``"fp8"``, attention-only
+models): the cache quantizes K and V rows on the write, with their per-row,
+per-head scales landing at the same ``wslots``, and attention reads the
+quantized pages through the quantized ragged kernel (its plain twin with
+``use_kernel=False``). Weight-only int8 (``extract_params(model,
+weight_quant=True)``): the seven dense projections of each attention layer
+become ``{"q": int8 [in, out], "s": fp32 [out]}`` and :func:`_mm` computes
+``(x @ q) * s``, the int8 weight cast to x's dtype for the product as the
+reference writes it (``torch.matmul``, outside any kernel).
 """
 
 from __future__ import annotations
@@ -47,12 +55,15 @@ from paddle_tpu_torch.incubate.distributed.models.moe.gate import BaseGate
 from paddle_tpu_torch.incubate.nn.functional.fused_ops import (_rotate_neox,
                                                                rope_tables)
 from paddle_tpu_torch.inference.attention import ragged_attention_xla
-from paddle_tpu_torch.nn.functional import matmul as _mm
+from paddle_tpu_torch.nn.functional import matmul as _matmul
 from paddle_tpu_torch.nn.functional.norm import rms_norm as _rms
 from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+from paddle_tpu_torch.ops.kernels.quant import (
+    ragged_paged_attention_quant, ragged_paged_attention_quant_plain)
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import (
     ragged_paged_attention)
 from paddle_tpu_torch.ops.kernels.selective_scan import selective_scan_update
+from paddle_tpu_torch.quantization import kv as _kvq
 
 __all__ = ["bucket", "compiled_capable", "extract_params",
            "extract_moe_specs", "extract_ssm_specs", "make_step",
@@ -115,10 +126,30 @@ def compiled_capable(model):
     return None
 
 
-def extract_params(model) -> Dict[str, Any]:
+#: Dense projection leaves that weight-only int8 serving quantizes. The
+#: embedding, LM head, final norm, MoE expert stacks and SSM mixers stay
+#: full width, as in the reference.
+_WQ_NAMES = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
+
+
+def _mm(x, w):
+    """``x @ w`` with JAX's promotion; an int8 leaf ``{"q": int8 [in, out],
+    "s": fp32 [out]}`` computes ``(x @ q) * s`` in x's dtype: the
+    per-output-channel dequant after the product, as the reference's
+    ``_mm`` does."""
+    if isinstance(w, dict):
+        y = x @ w["q"].to(x.dtype)
+        return (y.float() * w["s"]).to(x.dtype)
+    return _matmul(x, w)
+
+
+def extract_params(model, weight_quant: bool = False) -> Dict[str, Any]:
     """The model's own weight tensors (no copies) as the step's params; an
     MoE layer gives its gate weight and the stacked ``[E, ...]`` expert
-    leaves."""
+    leaves. ``weight_quant=True`` replaces each dense projection of an
+    attention layer (:data:`_WQ_NAMES`) with ``{"q": int8, "s": fp32
+    [out]}``, per-output-channel abs-max int8
+    (:func:`~paddle_tpu_torch.quantization.kv.quantize_weight_int8`)."""
     reason = compiled_capable(model)
     if reason is not None:
         raise ValueError(f"the decode step cannot run this model: {reason}")
@@ -145,6 +176,12 @@ def extract_params(model) -> Dict[str, Any]:
             lp["wg"] = mlp.gate_proj.weight
             lp["wu"] = mlp.up_proj.weight
             lp["wd"] = mlp.down_proj.weight
+        if weight_quant:
+            with torch.no_grad():
+                for name in _WQ_NAMES:
+                    if name in lp:
+                        q, s = _kvq.quantize_weight_int8(lp[name])
+                        lp[name] = {"q": q, "s": s}
         layers.append(lp)
     params = {"embed": model.llama.embed_tokens.weight,
               "norm": model.llama.norm.weight, "layers": layers}
@@ -327,7 +364,7 @@ def sample_tokens(logits, temps, top_ks, top_ps, seeds, counters):
 
 
 def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None,
-              ssm=None):
+              ssm=None, kv_quant: Optional[str] = None):
     """The decode step (the reference's hybrid ``make_step`` signature,
     with ``cache`` for its ``kc, vc``):
 
@@ -356,7 +393,17 @@ def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None,
     for an SSM layer, None for an attention layer; the last row is the
     pads' sentinel) is read at the per-token state slots ``sslots [t]`` and
     updated in place. A model with no SSM layer passes None for both.
+
+    ``kv_quant`` (``"int8"`` or ``"fp8"``, attention-only models) says the
+    cache is quantized (``cache.quant`` must agree): its write quantizes K
+    and V right before the scatter, the scales riding the same ``wslots``,
+    and attention reads the pages and scales through the quantized ragged
+    kernel (its twin with ``use_kernel=False``). It does not compose with
+    ``ssm``, as in the reference, where the engine turns it off first.
     """
+    if kv_quant is not None and ssm is not None:
+        raise ValueError("kv_quant does not compose with hybrid-SSM steps; "
+                         "the engine disables it first")
     n_heads = cfg.num_attention_heads
     n_kv = cfg.num_key_value_heads
     head_dim = cfg.head_dim
@@ -364,6 +411,8 @@ def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None,
     eps = cfg.rms_norm_eps
     tied = cfg.tie_word_embeddings
     attend = ragged_paged_attention if use_kernel else ragged_attention_xla
+    attend_quant = (ragged_paged_attention_quant if use_kernel
+                    else ragged_paged_attention_quant_plain)
 
     def _forward(width, params, cache, sstate, ids, positions, rows, wslots,
                  sslots, tables_full, row_slots, valids):
@@ -387,10 +436,14 @@ def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None,
             v = _mm(x, lp["wv"]).reshape(t, n_kv, head_dim)
             qr = _rope(q, positions, rope_base)
             kr = _rope(k, positions, rope_base)
-            cache.write(kv_li, kr, v, wsl)
-            kc, vc = cache.layer(kv_li)
+            cache.write(kv_li, kr, v, wsl)   # quantizes when kv_quant
+            kc, vc, ksc, vsc = cache.layer(kv_li)
             kv_li += 1
-            att = attend(qr, kc, vc, tables, rows, valids, block_size)
+            if kv_quant is not None:
+                att = attend_quant(qr, kc, vc, ksc, vsc, tables, rows,
+                                   valids, block_size)
+            else:
+                att = attend(qr, kc, vc, tables, rows, valids, block_size)
             h = h + _mm(att.reshape(t, n_heads * head_dim), lp["wo"])
             x2 = _rms(h, lp["ln2"], eps)
             spec = moe[li] if moe is not None else None
@@ -428,6 +481,9 @@ def make_step(cfg, block_size: int, use_kernel: bool = True, moe=None,
     def step(width, params, cache, sstate, ids, positions, rows, wslots,
              sslots, tables_full, row_slots, valids, out_idx, draft_next,
              n_spec, seeds, counters, temps, top_ks, top_ps):
+        if cache.quant != kv_quant:
+            raise ValueError(f"the step was made for kv_quant={kv_quant!r} "
+                             f"but the cache holds quant={cache.quant!r}")
         h = _forward(width, params, cache, sstate, ids, positions, rows,
                      wslots, sslots, tables_full, row_slots, valids)
         return _sample_tail(h, params, out_idx, draft_next, n_spec, seeds,

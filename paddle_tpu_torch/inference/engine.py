@@ -34,11 +34,20 @@ whole prompt installs the final state at the slot — and sample its first
 token there; every later step is a single-token recurrence, and a slot's
 state is zeroed when its request finishes or is evicted.
 
+The quantized memory plane, as in the reference: ``kv_quant`` (``"int8"``,
+``"fp8"``, ``"auto"``/``"on"`` = int8; default the ``serve_kv_quant`` flag)
+stores the KV pages in one byte with per-row, per-head fp32 scales, which
+the compiled step reads through the quantized ragged kernel;
+``weight_quant`` (default ``serve_weight_quant``) runs the compiled step's
+dense projections from per-output-channel int8 weights. Both are features
+of the compiled step: eager mode turns both off, and a hybrid model turns
+``kv_quant`` off, each with a one-time warning, and serves on. The engine
+exposes ``kv_quant``, ``weight_quant`` and ``cache.quant``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item, in both modes and for hybrids): speculative decode
-(``spec_tokens > 0``), the prefix cache, quantized KV pages, weight-only
-int8, the host KV tier; the SSM state handoff waits for the KV handoff
-(A.11).
+(``spec_tokens > 0``), the prefix cache, the host KV tier; the SSM state
+handoff waits for the KV handoff (A.11).
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from paddle_tpu_torch.inference.attention import paged_attention_decode
 from paddle_tpu_torch.inference.paged_cache import PagedKVCache
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops.kernels import paged_attention as _paged
+from paddle_tpu_torch.quantization import kv as _kvq
 
 __all__ = ["GenerationEngine", "GenerationRequest"]
 
@@ -67,12 +77,17 @@ __all__ = ["GenerationEngine", "GenerationRequest"]
 _warned_fallbacks: set = set()
 
 
-def _warn_fallback(what: str, reason: str) -> None:
-    if (what, reason) in _warned_fallbacks:
+def _warn_once(what: str, message: str) -> None:
+    """One warning per distinct (feature, message) per process: the eager
+    fallback of ``mode="auto"``, and an option the engine turns off."""
+    if (what, message) in _warned_fallbacks:
         return
-    _warned_fallbacks.add((what, reason))
-    warnings.warn(f"{what}: falling back to the eager path — {reason}",
-                  RuntimeWarning, stacklevel=3)
+    _warned_fallbacks.add((what, message))
+    warnings.warn(f"{what}: {message}", RuntimeWarning, stacklevel=3)
+
+
+def _warn_fallback(what: str, reason: str) -> None:
+    _warn_once(what, f"falling back to the eager path — {reason}")
 
 
 class GenerationRequest:
@@ -130,13 +145,17 @@ class GenerationEngine:
         for name, value, default, item in (
                 ("spec_tokens", spec_tokens, "serve_spec_tokens", "A.6"),
                 ("prefix_cache", prefix_cache, "serve_prefix_cache", "A.6"),
-                ("kv_quant", kv_quant, "serve_kv_quant", "A.7"),
-                ("weight_quant", weight_quant, "serve_weight_quant", "A.7"),
                 ("host_tier", host_tier, "serve_kv_host_tier", "A.7")):
             if value is None:
                 value = flags.flag(default)
             if value not in (None, False, 0, "off", "none"):
                 raise _unported(f"{name}={value!r}", item)
+        if kv_quant is None:
+            kv_quant = flags.flag("serve_kv_quant")
+        self.kv_quant = _kvq.resolve_mode(kv_quant)
+        if weight_quant is None:
+            weight_quant = flags.flag("serve_weight_quant")
+        self.weight_quant = bool(weight_quant)
         self.model = model
         cfg = model.config
         self.cfg = cfg
@@ -153,11 +172,35 @@ class GenerationEngine:
         n_kv_layers = cfg.num_hidden_layers
         if self.is_hybrid:
             n_kv_layers = sum(1 for sp in self._ssm_specs if sp is None)
+            if self.kv_quant is not None:
+                _warn_once(
+                    "kv quant",
+                    "hybrid-SSM steps carry recurrent state beside the KV "
+                    "pools and their scan state is full-width; disabling "
+                    "quantized KV pages for hybrid models")
+                self.kv_quant = None
+        if mode == "eager":
+            # quantized pools and int8 weights are compiled-step features
+            if self.kv_quant is not None:
+                _warn_once(
+                    "kv quant",
+                    "eager decode reads full-width pages "
+                    "(paged_attention_decode has no fused dequant); "
+                    "disabling quantized KV pages in eager mode")
+                self.kv_quant = None
+            if self.weight_quant:
+                _warn_once(
+                    "weight quant",
+                    "weight-only int8 lives in the compiled step's "
+                    "extracted params; the eager walk uses the model's own "
+                    "full-width weights — disabling")
+                self.weight_quant = False
         dtype = to_torch_dtype(cfg.dtype)
         self.cache = PagedKVCache(
             n_kv_layers, num_blocks, block_size,
             cfg.num_key_value_heads, cfg.head_dim, max_seqs, dtype=dtype,
-            blocks_per_seq=_ds.bucket(blocks_per_seq), device=self.device)
+            blocks_per_seq=_ds.bucket(blocks_per_seq), device=self.device,
+            quant=self.kv_quant)
         # per-slot recurrent state, [max_seqs + 1, ...]: the conv window in
         # the model dtype, the SSD state fp32; the last row is the pads'
         self._sstate = None
@@ -191,11 +234,13 @@ class GenerationEngine:
                       "prefill_tokens": 0, "occupancy_sum": 0.0,
                       "decode_rows": 0}
         if mode == "compiled":
-            self._params = _ds.extract_params(model)
+            self._params = _ds.extract_params(
+                model, weight_quant=self.weight_quant)
             self._dstep = _ds.make_step(cfg, block_size,
                                         use_kernel=use_kernel,
                                         moe=_ds.extract_moe_specs(model),
-                                        ssm=self._ssm_specs)
+                                        ssm=self._ssm_specs,
+                                        kv_quant=self.kv_quant)
 
     # -- request lifecycle ---------------------------------------------
     def _admissible(self, request: GenerationRequest) -> bool:
@@ -428,7 +473,7 @@ class GenerationEngine:
             q, k, v = self._layer_kv(layer, h)
             qr, kr = self._rope(q, k, positions)
             cache.write(kv_li, kr[:, 0], v[:, 0], wslots)
-            kc, vc = cache.layer(kv_li)
+            kc, vc, _, _ = cache.layer(kv_li)    # eager pages are full width
             out = attend(qr[:, 0], kc, vc, tables, new_lens,
                          cache.block_size)
             kv_li += 1

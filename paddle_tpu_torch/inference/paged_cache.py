@@ -18,8 +18,14 @@ kept device-resident (:meth:`tables_device`) with host mutations queued as
 ``(slot, index, block)`` deltas and applied in one scatter per step. A
 hybrid attention+SSM engine sizes the cache by its attention layers only
 (``num_layers``); its SSM layers keep per-slot state instead of pages.
+
+Quantized pages (``quant="int8"`` or ``"fp8"``): the pages hold int8 or
+fp8 e4m3 values and two fp32 arrays ``k_scale``/``v_scale [layers, rows +
+1, kv_heads]`` hold each token row's per-head abs-max scale, laid out
+parallel to the pages (sentinel row included), so a write lands the scales
+at the same slots as the rows and freeing a block frees both.
 Prefix sharing (and with it block refcounts and copy-on-write) and the
-host-RAM tier are not ported yet (ROADMAP.md A.7).
+host-RAM tier are not ported yet (ROADMAP.md A.6, A.7).
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from paddle_tpu_torch.quantization import kv as _kvq
+
 __all__ = ["PagedKVCache"]
 
 
@@ -37,7 +45,8 @@ class PagedKVCache:
                  num_kv_heads: int, head_dim: int, max_seqs: int,
                  dtype: torch.dtype = torch.float32,
                  blocks_per_seq: Optional[int] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None,
+                 quant: Optional[str] = None):
         self.num_layers = num_layers
         self.num_blocks = num_blocks
         self.block_size = block_size
@@ -45,8 +54,22 @@ class PagedKVCache:
         self.device = torch.device(device or "cpu")
         rows = num_blocks * block_size
         shape = (num_layers, rows + 1, num_kv_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.quant = quant
+        self.k_scale = self.v_scale = None
+        if quant is None:
+            self.k = torch.zeros(shape, dtype=dtype, device=self.device)
+            self.v = torch.zeros(shape, dtype=dtype, device=self.device)
+        else:
+            # int8 or fp8 pages, made, written and gathered through byte
+            # views (every torch has those kernels for uint8)
+            dtype = _kvq.storage_dtype(quant)
+            self.k = torch.zeros(shape, dtype=torch.uint8,
+                                 device=self.device).view(dtype)
+            self.v = torch.zeros(shape, dtype=torch.uint8,
+                                 device=self.device).view(dtype)
+            self.k_scale = torch.zeros(shape[:-1], dtype=_kvq.scale_dtype(),
+                                       device=self.device)
+            self.v_scale = torch.zeros_like(self.k_scale)
         # host-side bookkeeping
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))
         self._tables: List[List[int]] = [[] for _ in range(max_seqs)]
@@ -64,11 +87,18 @@ class PagedKVCache:
         """Write slot of pad tokens: the spare row past the last block."""
         return self.num_blocks * self.block_size
 
-    def layer(self, li: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Layer ``li``'s pages ``[num_blocks*block_size, kv, d]`` (views
-        without the sentinel row)."""
+    def layer(self, li: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                      Optional[torch.Tensor],
+                                      Optional[torch.Tensor]]:
+        """Layer ``li``'s pages ``[num_blocks*block_size, kv, d]`` and, for a
+        quantized pool, their scales ``[num_blocks*block_size, kv]`` (None
+        otherwise): ``(k, v, k_scale, v_scale)``, views without the
+        sentinel row."""
         rows = self.sentinel
-        return self.k[li, :rows], self.v[li, :rows]
+        if self.quant is None:
+            return self.k[li, :rows], self.v[li, :rows], None, None
+        return (self.k[li, :rows], self.v[li, :rows],
+                self.k_scale[li, :rows], self.v_scale[li, :rows])
 
     # -- allocator ------------------------------------------------------
     @property
@@ -152,7 +182,30 @@ class PagedKVCache:
               slots: torch.Tensor) -> None:
         """Write ``k_new``/``v_new [n, kv, d]`` at flat positions ``slots
         [n]`` of one layer, in place; pad tokens aimed at
-        :attr:`sentinel` land in the spare row."""
+        :attr:`sentinel` land in the spare row. A quantized pool quantizes
+        the full-width rows on scatter and writes their scales at the same
+        slots."""
         slots = slots.to(device=self.device, dtype=torch.long)
+        if self.quant is not None:
+            kq, ks = _kvq.quantize_kv(k_new, self.quant)
+            vq, vs = _kvq.quantize_kv(v_new, self.quant)
+            self.k[layer].view(torch.uint8).index_copy_(
+                0, slots, kq.view(torch.uint8))
+            self.v[layer].view(torch.uint8).index_copy_(
+                0, slots, vq.view(torch.uint8))
+            self.k_scale[layer].index_copy_(0, slots, ks)
+            self.v_scale[layer].index_copy_(0, slots, vs)
+            return
         self.k[layer].index_copy_(0, slots, k_new.to(self.k.dtype))
         self.v[layer].index_copy_(0, slots, v_new.to(self.v.dtype))
+
+    # -- sizing ---------------------------------------------------------
+    @property
+    def bytes_per_block(self) -> int:
+        """Device bytes one block costs across all layers: its pages and,
+        for a quantized pool, their scales (:func:`~paddle_tpu_torch.
+        quantization.kv.page_row_bytes`; the sentinel row is no block's).
+        Equal-byte pool sizing reads this."""
+        kv, d = self.k.shape[-2], self.k.shape[-1]
+        return (self.block_size * self.num_layers
+                * _kvq.page_row_bytes(kv, d, self.k.dtype, self.quant))

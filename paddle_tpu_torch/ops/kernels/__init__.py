@@ -24,7 +24,7 @@ from __future__ import annotations
 from typing import Dict
 
 from paddle_tpu_torch.ops.kernels import (flash_attention, fused_block,
-                                          grouped_gemm, paged_attention,
+                                          grouped_gemm, paged_attention, quant,
                                           ragged_paged_attention, rms_norm,
                                           selective_scan)
 
@@ -44,6 +44,7 @@ KERNELS = {
     "tgmm": (grouped_gemm, "launches_tgmm"),
     "paged_attention": (paged_attention, "launches"),
     "selective_scan": (selective_scan, "launches"),
+    "ragged_paged_attention_quant": (quant, "launches"),
 }
 
 

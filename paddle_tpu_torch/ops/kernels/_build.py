@@ -168,11 +168,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ptt_paged_decode_attn.argtypes = [P] * 6 + [I] * 6 + [F, I, I, P]
     # dtx, la, B, C, y, state, batch, lp, H, dh, ds, L, dtype, stream
     lib.ptt_selective_scan.argtypes = [P] * 6 + [I] * 7 + [P]
+    # q, kc, vc, k_scale, v_scale, tables, rows, valids, out, T, Hq, Hkv, D,
+    # bs, width, scale, q_dtype, page_dtype, stream
+    lib.ptt_ragged_paged_attn_quant.argtypes = [P] * 9 + [I] * 6 + [F, I, I, P]
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,
                lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
                lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd,
                lib.ptt_gmm, lib.ptt_tgmm, lib.ptt_paged_decode_attn,
-               lib.ptt_selective_scan):
+               lib.ptt_selective_scan, lib.ptt_ragged_paged_attn_quant):
         fn.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p

@@ -21,6 +21,7 @@ from paddle_tpu_torch.ops.kernels import flash_attention as pt_flash
 from paddle_tpu_torch.ops.kernels import fused_block as pt_fb
 from paddle_tpu_torch.ops.kernels import grouped_gemm as pt_gg
 from paddle_tpu_torch.ops.kernels import paged_attention as pt_paged
+from paddle_tpu_torch.ops.kernels import quant as pt_quant
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as pt_ragged
 from paddle_tpu_torch.ops.kernels import rms_norm as pt_rms
 from paddle_tpu_torch.ops.kernels import selective_scan as pt_ss
@@ -407,4 +408,100 @@ def test_hybrid_engine_on_the_card(cuda_device):
                 assert float(st["ssm"][:4].abs().sum()) == 0.0
     same = sum(a == b for i in outs["eager"] for a, b in
                zip(outs["eager"][i], outs["compiled"][i]))
+    assert same >= 0.9 * 27, outs
+
+
+# #10 at the chip smoke's four shapes: (a) #8's timing shape over int8
+# pages, (b) the serve-quant step's, (c) (a) over fp8 pages, (d) (a) with a
+# bf16 q and pads
+_RAGGED_ROWS = list(range(7)) + [7] * 64 + [0]
+_RAGGED_VALIDS = [130, 257, 385, 512, 640, 771, 1000] + list(
+    range(449, 513)) + [0]
+_SERVE_LENS = np.random.RandomState(2).randint(1, 528, size=64).tolist()
+_QUANT_CASES = {
+    "a_int8": (32, 8, 128, _RAGGED_ROWS, _RAGGED_VALIDS, 8, 32, "int8",
+               "float32"),
+    "b_serve_quant": (16, 8, 64, list(range(64)) + [64] * 64,
+                      _SERVE_LENS + list(range(449, 513)), 65, 16, "int8",
+                      "float32"),
+    "c_fp8": (32, 8, 128, _RAGGED_ROWS, _RAGGED_VALIDS, 8, 32, "fp8",
+              "float32"),
+    "d_bf16_pads": (32, 8, 128, _RAGGED_ROWS,
+                    [0 if i in (3, 40, 70) else v
+                     for i, v in enumerate(_RAGGED_VALIDS)], 8, 32, "int8",
+                    "bfloat16")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_QUANT_CASES))
+def test_quant_ragged_kernel_matches_twin(cuda_device, case):
+    """Ragged attention over quantized pages (#10) against its twin: an
+    fp32 output to 1e-4 x the twin's largest magnitude (the kernel folds
+    the scales into scores and softmax weights, the twin into the pages),
+    a bf16 one at the bf16 tier; pads exactly 0; a second launch gives the
+    same bits."""
+    from paddle_tpu_torch.quantization import kv as kvq
+    hq, hkv, d, rows, valids, seqs, width, mode, q_dtype = _QUANT_CASES[case]
+    g = torch.Generator().manual_seed(100)
+    bs = 64
+    tables = torch.randperm(seqs * width, generator=g).reshape(seqs, width)
+    kq, ks = kvq.quantize_kv(torch.randn(seqs * width * bs, hkv, d,
+                                         generator=g).to(cuda_device), mode)
+    vq, vs = kvq.quantize_kv(torch.randn(seqs * width * bs, hkv, d,
+                                         generator=g).to(cuda_device), mode)
+    q = torch.randn(len(rows), hq, d, generator=g).to(
+        cuda_device, getattr(torch, q_dtype))
+    args = [q, kq, vq, ks, vs, tables.to(cuda_device, torch.int32),
+            torch.tensor(rows, dtype=torch.int32, device=cuda_device),
+            torch.tensor(valids, dtype=torch.int32, device=cuda_device), bs]
+    pt_quant.launches = 0
+    out = pt_quant.ragged_paged_attention_quant(*args)
+    again = pt_quant.ragged_paged_attention_quant(*args)
+    ref = pt_quant.ragged_paged_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert pt_quant.launches == 2
+    assert out.dtype == q.dtype and out.shape == q.shape
+    assert torch.equal(out, again)
+    top = np.abs(_np(ref)).max()
+    if q_dtype == "float32":
+        assert np.abs(_np(out) - _np(ref)).max() <= 1e-4 * top
+    else:
+        np.testing.assert_allclose(_np(out), _np(ref), **BF16)
+    pads = [i for i, v in enumerate(valids) if v == 0]
+    assert not pads or float(out[pads].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", ["int8", "fp8"])
+def test_quantized_engine_on_the_card(cuda_device, kv_quant):
+    """A small fp32 Llama (head_dim 64) served on the card with quantized
+    pages and int8 weights: the quantized kernel launches steps x layers
+    times and the full-width ragged kernel never, the greedy streams equal
+    the plain-twin engine's, every page is free after the drain."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops import kernels
+    cfg = llama_tiny_config(hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, num_hidden_layers=2,
+                            intermediate_size=512, vocab_size=512)
+    model = LlamaForCausalLM(cfg, seed=4)
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6] * 5, [2, 7, 1, 8], list(range(70))]
+    outs = {}
+    for use_kernel in (True, False):
+        kernels.reset_launch_counts()
+        eng = GenerationEngine(model, max_seqs=4, max_seq_len=128,
+                               block_size=16, kv_quant=kv_quant,
+                               weight_quant=True, use_kernel=use_kernel)
+        outs[use_kernel] = eng.generate(
+            [GenerationRequest(i, p, max_new_tokens=9)
+             for i, p in enumerate(prompts)])
+        counts = kernels.launch_counts()
+        want = eng.stats["steps"] * 2 if use_kernel else 0
+        assert counts["ragged_paged_attention_quant"] == want, counts
+        assert counts["ragged_paged_attention"] == 0, counts
+        assert eng.cache.k.dtype == (torch.int8 if kv_quant == "int8"
+                                     else torch.float8_e4m3fn)
+        assert eng.cache.free_blocks == eng.cache.num_blocks
+    same = sum(a == b for i in outs[True] for a, b in
+               zip(outs[True][i], outs[False][i]))
     assert same >= 0.9 * 27, outs

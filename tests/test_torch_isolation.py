@@ -47,6 +47,10 @@ def _imported_modules(path):
 def test_no_jax_or_reference_import_in_the_port():
     files = list(_port_files())
     assert len(files) > 20 and all(os.path.exists(f) for f in files)
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {"paddle_tpu_torch/quantization/kv.py",
+            "paddle_tpu_torch/quantization/observers.py",
+            "paddle_tpu_torch/ops/kernels/quant.py"} <= rel
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -55,7 +59,8 @@ def test_no_jax_or_reference_import_in_the_port():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, paddle_tpu_torch.inference, paddle_tpu_torch.models,"
-            " paddle_tpu_torch.weights, paddle_tpu_torch.ops.kernels; "
+            " paddle_tpu_torch.weights, paddle_tpu_torch.ops.kernels, "
+            "paddle_tpu_torch.quantization; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -92,8 +97,7 @@ def tiny():
 
 @pytest.mark.parametrize("kwargs", [
     dict(mode="eager", spec_tokens=2), dict(spec_tokens=2),
-    dict(prefix_cache=True),
-    dict(kv_quant="int8"), dict(weight_quant=True), dict(host_tier=True)])
+    dict(prefix_cache=True), dict(host_tier=True)])
 def test_unported_engine_options_raise(tiny, kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         GenerationEngine(tiny, max_seqs=2, max_seq_len=64, block_size=16,
@@ -102,7 +106,6 @@ def test_unported_engine_options_raise(tiny, kwargs):
 
 @pytest.mark.parametrize("name,value", [
     ("serve_spec_tokens", 2), ("serve_prefix_cache", True),
-    ("serve_kv_quant", "fp8"), ("serve_weight_quant", True),
     ("serve_kv_host_tier", True)])
 def test_unported_flags_raise(tiny, name, value):
     old = flags.flag(name)

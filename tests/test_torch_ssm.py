@@ -308,11 +308,12 @@ def test_hybrid_eager_sampled_matches_jax(fp32_pair):
 
 
 def test_unported_options_raise_for_hybrids(fp32_pair):
-    """Where the reference warns and turns an option off for hybrids, the
-    port refuses it by name, in both modes."""
+    """Where the reference warns and turns an option off for hybrids and
+    the port has not ported the option, the port refuses it by name, in
+    both modes. (``kv_quant``, ported, is turned off with the reference's
+    warning: ``tests/test_torch_kv_quant.py``.)"""
     _, pm = fp32_pair
     for mode in ("compiled", "eager"):
-        for kw in (dict(spec_tokens=2), dict(prefix_cache=True),
-                   dict(kv_quant="int8")):
+        for kw in (dict(spec_tokens=2), dict(prefix_cache=True)):
             with pytest.raises(NotImplementedError, match="ROADMAP.md"):
                 GenerationEngine(pm, mode=mode, **ENGINE, **kw)
