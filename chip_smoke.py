@@ -21,13 +21,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    SSD scan at the hybrid's prefill and at ``bench_ssm_pretrain``'s
    widths; paged decode attention at the eager serve step and the
    hybrid's; ragged attention over quantized pages at #8's shape over int8
-   and fp8 pages, with a bf16 q and pads, and at the serve-quant step's)
+   and fp8 pages, with a bf16 q and pads, and at the serve-quant step's;
+   the segment-causal flash forward and backward at every zig-zag
+   descriptor of sp 2 and 4 over a global 4096, 16:8 heads of 64, bf16
+   and fp32, with splits no tile divides, then each rank's pieces at the
+   train-cp path's global 32768, merged by lse against the flash forward
+   over the whole causal sequence and summed against the flash backward)
    held against its plain PyTorch twin on the same inputs (each backward
    kernel, the dx gmm, the scan and the quantized ragged kernel also
    twice, bitwise), then timed beside the twin, the PyTorch library call
    that computes the same function (where one exists: ``grouped_mm`` for
    gmm and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
-   for tgmm) and the least time the card could take;
+   for tgmm, memory-efficient ``scaled_dot_product_attention`` with the
+   segment mask for the segment-causal pair) and the least time the card
+   could take;
 4. serve, the slice-1 path, with ``pallas_fused_block=off``:
    ``GenerationEngine.generate`` serving 8 requests (prompts of 32..1024
    tokens, 32 new tokens each, 6 greedy and 2 sampled) on a
@@ -119,7 +126,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward and backward and 13 of each RMSNorm kernel; one step's
    gradients against the twins and an fp32 copy (with the share of
    (token, k) routes the fp32 copy also takes); a second run bitwise;
-12. the ``kernels`` JSON line, then the result line.
+12. train-cp, the slice-6 context-parallel path: ``bench_cp_long_context``
+   (``bench.py:323-371``: vocab 32000, hidden 1024, ffn 2816, 4 layers,
+   16:8 heads of 64, bf16, ``sequence_parallel=True``, ``sep_mode="auto"``,
+   seq 32768, batch 1, seeded random weights; the bench's 64k row is left
+   out), trained as ``_llama_run`` trains it (1 + 1 warmup and 2 timed
+   AdamW steps): (a) in this process without a mesh (flash forward and
+   backward over the whole causal sequence), (b) as two
+   ``distributed.spawn`` ranks sharing this one card over a gloo group
+   (NCCL refuses two ranks on one GPU) on a ``["sep"]`` mesh, where
+   attention is the zig-zag ring: its KV and dk/dv hops go device to
+   device through the IPC hop kernel (``ring_kv_rotate``, first held
+   against its twin, a gloo ``ppermute`` through the host, bit for bit at
+   the path's shape and timed beside it), its all-gathers through the
+   host. Checks: falling finite losses; both ranks the same loss and
+   parameter bits; per step and rank 4 segment-causal forwards, 8
+   segment-causal backwards, 4 flash forwards, 32 hop launches (16 hops),
+   no flash backward and no fused block; step 1's loss within 2e-2 of
+   (a)'s, the model's gradients within 2e-2 rel L2 of (a)'s and every
+   parameter's within ``CP_LEAF_LIMIT``, a limit a planted ring fault
+   (rank 0 drops one backward step's dk/dv) must exceed; a second (b) from the seed bitwise equal.
+   Reports tokens/s, ms per step and MFU of both (one card's peak: the
+   ranks share it, so this is not context-parallel scaling) and the
+   shares of (b)'s step spent in the host-staged all-gathers and in the
+   IPC hops;
+13. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -410,6 +441,373 @@ def phase_flash_bwd(torch, timer):
                     lib_out, lib_in, lib_do, retain_graph=True)),
                 shape="causal bf16 q [4, 2048, 12, 128], k/v [4, 2048, 4, 128]",
                 fwd_checks={"flash_attention_fwd": fwd_err})
+
+
+# the context-parallel path's attention (bench_cp_long_context,
+# bench.py:323-371): 16:8 heads of 64, bf16; each rank of sp=2 holds
+# 16,384 of the 32,768 tokens
+CP_SEQ, CP_SP, CP_HQ, CP_HKV, CP_D = 32768, 2, 16, 8, 64
+
+
+def _zigzag_rows(s, sp, idx):
+    """Global rows of rank ``idx``'s zig-zag chunks ``(idx, 2sp-1-idx)``."""
+    c = s // (2 * sp)
+    return list(range(idx * c, (idx + 1) * c)) + list(
+        range((2 * sp - 1 - idx) * c, (2 * sp - idx) * c))
+
+
+def _seg_qkv(torch, s, dtype, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(1, s, h, CP_D, device="cuda", generator=g).to(dtype)
+            for h in (CP_HQ, CP_HKV, CP_HKV, CP_HQ)]
+
+
+def _lse_err(torch, a, b) -> float:
+    """max |a - b| over finite entries; the -inf entries (rows with
+    nothing visible) must agree exactly."""
+    ia, ib = torch.isneginf(a), torch.isneginf(b)
+    assert torch.equal(ia, ib), "lse: the rows with nothing visible differ"
+    return max_err(a[~ia], b[~ib]) if bool((~ia).any()) else 0.0
+
+
+def _seg_cases(s_list=((4096, 2), (4096, 4), (4000, 2))):
+    """Every descriptor the zig-zag ring issues at sp 2 and 4 over a
+    global 4096, and at sp 2 over 4000 (chunks of 1000 rows: tiles of 64
+    straddle every split)."""
+    from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
+    for s, sp in s_list:
+        c = s // (2 * sp)
+        for idx in range(sp):
+            for src in range(sp):
+                yield s, sp, idx, src, _zigzag_seg(idx, src, c, sp)
+
+
+def _row_scaled_err(torch, got, want) -> float:
+    """The worst row's max |got - want| over that row's max |want| (rows
+    along the last axis): a key too many or too few on a long row moves
+    its output by far more than rounding, while an absolute limit is
+    several times the output itself there. A row whose twin is all zero
+    must be zero too."""
+    g, w = got.float(), want.float()
+    scale = w.abs().amax(dim=-1, keepdim=True)
+    diff = (g - w).abs()
+    zero = scale == 0
+    assert not bool(diff.masked_fill(~zero, 0).any()), \
+        "a row the twin leaves at zero is not zero"
+    return float((diff / scale.masked_fill(zero, 1)).amax())
+
+
+def _live_pairs(torch, seg, sq, sk) -> int:
+    """(row, col) pairs the segment mask keeps: the work #3/#4 must do."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    gq = fa.seg_positions(*seg[:3], sq, "cuda")
+    gk = fa.seg_positions(*seg[3:], sk, "cuda")
+    return int(torch.searchsorted(gk, gq, right=True).sum())
+
+
+def _sdpa_seg_lib(torch, q, k, v, seg):
+    """``scaled_dot_product_attention`` (memory-efficient backend) with
+    the segment mask as an additive ``attn_mask`` and K/V repeated to the
+    query heads, on [b, h, s, d] views: the library call that computes
+    #3's function. Returns ``(fn, args)`` or None where the backend
+    refuses it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    sq, sk = q.shape[1], k.shape[1]
+    keep = fa._seg_keep(seg, sq, sk, "cuda")
+    mask = torch.zeros(sq, sk, dtype=q.dtype, device="cuda").masked_fill(
+        ~keep, float("-inf"))
+    del keep
+    g = q.shape[2] // k.shape[2]
+    args = (q.transpose(1, 2), k.repeat_interleave(g, dim=2).transpose(1, 2),
+            v.repeat_interleave(g, dim=2).transpose(1, 2))
+
+    def fn(a, b_, c):
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(a, b_, c, attn_mask=mask)
+    try:
+        fn(*args)
+    except RuntimeError as e:
+        log(f"flash seg: the library call was refused ({e}); library_ms "
+            f"null")
+        return None
+    return fn, args
+
+
+def phase_flash_seg(torch, timer):
+    """#3, the segment-causal forward. (1) Against its twin, bf16 and
+    fp32, for every zig-zag descriptor at sp 2 and 4 over a global 4096
+    (16:8 heads of 64) and at sp 2 over 4000 (straddling splits). (2) The
+    single-process ring check at the path's global 32768, bf16: for sp 2
+    and 4 each rank's pieces over every source, merged by their lse as
+    the ring merges them, against #1 over the whole causal sequence.
+    (3) Against its twin at the path's shape, q [1, 16384, 16, 64], kv
+    [1, 16384, 8, 64], bf16, both ranks' t=0 descriptors at sp 2, one kv
+    head at a time, each output row to 2e-2 of its own max|twin|. (4)
+    Timed at that shape, rank 0's t=0 descriptor."""
+    from paddle_tpu_torch.distributed.sequence_parallel import (_merge,
+                                                                _zigzag_seg)
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    worst = {}
+    for dtype, tol, ltol in ((torch.bfloat16, 2e-2, 1e-4),
+                             (torch.float32, 2e-5, 1e-5)):
+        qkv = {}
+        for s, sp, idx, src, seg in _seg_cases():
+            if s not in qkv:
+                qkv = {s: _seg_qkv(torch, s, dtype, seed=s)}
+            q, k, v, _ = qkv[s]
+            rq, rk = _zigzag_rows(s, sp, idx), _zigzag_rows(s, sp, src)
+            ql, kl, vl = q[:, rq], k[:, rk], v[:, rk]
+            o, lse = fa.flash_attention_seg_with_lse(ql, kl, vl, seg)
+            ro, rlse = fa.flash_attention_seg_plain(ql, kl, vl, seg)
+            torch.cuda.synchronize()
+            err, lerr = max_err(o, ro), _lse_err(torch, lse, rlse)
+            assert err <= tol and lerr <= ltol, \
+                f"flash seg {dtype} s={s} sp={sp} seg={seg}: max_abs_err " \
+                f"{err} (lse {lerr})"
+            key = f"{str(dtype)[6:]}"
+            worst[key] = max(worst.get(key, 0.0), err)
+        log(f"flash seg vs twin, {key}: {len(list(_seg_cases()))} "
+            f"descriptors, worst max_abs_err {worst[key]:.3g}")
+    # (2) the ring's pieces at the path's sequence, merged
+    q, k, v, _ = _seg_qkv(torch, CP_SEQ, torch.bfloat16, seed=1)
+    o_ref, lse_ref = fa.flash_attention_with_lse(q, k, v, True)
+    ring_err = 0.0
+    for sp in (2, 4):
+        c = CP_SEQ // (2 * sp)
+        for idx in range(sp):
+            rq = _zigzag_rows(CP_SEQ, sp, idx)
+            o_acc = torch.zeros(1, 2 * c, CP_HQ, CP_D, device="cuda")
+            lse_acc = torch.full((1, CP_HQ, 2 * c), float("-inf"),
+                                 device="cuda")
+            for src in range(sp):
+                rk = _zigzag_rows(CP_SEQ, sp, src)
+                o_t, lse_t = fa.flash_attention_seg_with_lse(
+                    q[:, rq], k[:, rk], v[:, rk], _zigzag_seg(idx, src, c, sp))
+                o_acc, lse_acc = _merge(o_acc, lse_acc, o_t, lse_t)
+            err = max_err(o_acc.bfloat16(), o_ref[:, rq])
+            lerr = _lse_err(torch, lse_acc, lse_ref[:, :, rq])
+            assert err <= 2e-2 and lerr <= 1e-4, \
+                f"flash seg ring sp={sp} rank {idx}: merged pieces vs #1 " \
+                f"max_abs_err {err} (lse {lerr})"
+            ring_err = max(ring_err, err)
+    log(f"flash seg ring check (global {CP_SEQ}, sp 2 and 4): merged pieces "
+        f"vs #1 over the whole causal sequence, max_abs_err {ring_err:.3g}")
+    del o_ref, lse_ref
+    # (3) the path's t=0 descriptors against the twin at the path's shape,
+    # one GQA group (2 q heads, 1 kv head) at a time: a group's fp32
+    # scores are 2 GiB at 16384 rows, all 16 heads' 17 GB
+    c = CP_SEQ // (2 * CP_SP)
+    grp = CP_HQ // CP_HKV
+    path_err = path_row = 0.0
+    for idx in range(CP_SP):
+        seg = _zigzag_seg(idx, idx, c, CP_SP)
+        rq = _zigzag_rows(CP_SEQ, CP_SP, idx)
+        ql, kl, vl = (x[:, rq].contiguous() for x in (q, k, v))
+        o, lse = fa.flash_attention_seg_with_lse(ql, kl, vl, seg)
+        for h in range(CP_HKV):
+            qs = slice(grp * h, grp * (h + 1))
+            ro, rlse = fa.flash_attention_seg_plain(
+                ql[:, :, qs].contiguous(), kl[:, :, h:h + 1].contiguous(),
+                vl[:, :, h:h + 1].contiguous(), seg)
+            row = _row_scaled_err(torch, o[:, :, qs], ro)
+            lerr = _lse_err(torch, lse[:, qs], rlse)
+            assert row <= 2e-2 and lerr <= 1e-4, \
+                f"flash seg at the path's shape, seg {seg}, kv head {h}: " \
+                f"worst row error {row} of the row's max|twin| (lse {lerr})"
+            path_err = max(path_err, max_err(o[:, :, qs], ro))
+            path_row = max(path_row, row)
+            del ro, rlse
+        del o, lse
+    log(f"flash seg vs twin at the path's shape (q [1, {2 * c}, 16, 64], "
+        f"the t=0 descriptors of both ranks, per kv head): max_abs_err "
+        f"{path_err:.3g}, worst row {path_row:.3g} x its max|twin| (limit "
+        f"2e-2; lse 1e-4)")
+    # (4) timed at the path's shape
+    seg = _zigzag_seg(0, 0, c, CP_SP)
+    rq = _zigzag_rows(CP_SEQ, CP_SP, 0)
+    ql, kl, vl = (x[:, rq].contiguous() for x in (q, k, v))
+    del q, k, v
+    pairs = _live_pairs(torch, seg, 2 * c, 2 * c)
+    flops = 4 * CP_D * CP_HQ * pairs
+    nbytes = (2 * ql.numel() * 2 + 2 * kl.numel() * 2
+              + CP_HQ * 2 * c * 4)
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    ms = timer.ms(lambda: fa.flash_attention_seg_with_lse(ql, kl, vl, seg))
+    lib = _sdpa_seg_lib(torch, ql, kl, vl, seg)
+    lib_ms = timer.ms(lambda: lib[0](*lib[1]), iters=3, warmup=1) \
+        if lib else None
+    del lib
+    # the twin at a quarter of the path's rows: its fp32 scores at 16384
+    # rows would take 17 GB a matrix
+    pc = c // 4
+    pq, pk, pv, _ = _seg_qkv(torch, 2 * pc, torch.bfloat16, seed=2)
+    pseg = _zigzag_seg(0, 0, pc, CP_SP)
+    plain = timer.ms(lambda: fa.flash_attention_seg_plain(pq, pk, pv, pseg),
+                     iters=3, warmup=1)
+    return dict(name="flash_attention_seg_fwd", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_attention_seg.cu",
+                replaces="paddle_tpu/ops/pallas/flash_attention.py:458",
+                path="train-cp", max_abs_err=max(max(worst.values()),
+                                                 ring_err, path_err),
+                tolerance="bf16 2e-2, fp32 2e-5 (lse 1e-4, 1e-5); at the "
+                          "path's shape each row 2e-2 x its max|twin|; ring "
+                          "pieces merged vs #1 2e-2",
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, live_pairs=pairs,
+                shape=f"bf16 q [1, {2 * c}, 16, 64], kv [1, {2 * c}, 8, 64], "
+                      f"seg {seg} ({pairs} live pairs a head); plain at q "
+                      f"[1, {2 * pc}, 16, 64], seg {pseg}")
+
+
+def phase_flash_seg_bwd(torch, timer):
+    """#4, the segment-causal backward: against its twin (bf16 and fp32,
+    every descriptor of ``phase_flash_seg``, each launch twice, bitwise);
+    the single-process ring check at global 32768, bf16: o and lse from
+    #1 over the whole causal sequence (what the ring's merge gives each
+    rank's rows), each (rank, source) piece of sp 2 and 4, dQ summed over
+    the sources and dK/dV over the ranks in fp32, as the ring sums them,
+    against #2; every (rank, source) descriptor of sp 2 against the twin
+    at the path's shape, one kv head at a time; timed at that shape."""
+    from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    worst = {}
+    for dtype, rtol, atol in ((torch.bfloat16, 2e-2, 2e-2),
+                              (torch.float32, 1e-4, 1e-5)):
+        qkv = {}
+        for s, sp, idx, src, seg in _seg_cases():
+            if s not in qkv:
+                qkv = {s: _seg_qkv(torch, s, dtype, seed=s)}
+            q, k, v, do = qkv[s]
+            rq, rk = _zigzag_rows(s, sp, idx), _zigzag_rows(s, sp, src)
+            ql, kl, vl, dol = q[:, rq], k[:, rk], v[:, rk], do[:, rq]
+            o, lse = fa.flash_attention_seg_plain(ql, kl, vl, seg)
+            args = (ql, kl, vl, o.contiguous(), lse, dol, seg)
+            got = fa.flash_attention_seg_bwd(*args)
+            again = fa.flash_attention_seg_bwd(*args)
+            want = fa.flash_attention_seg_bwd_plain(*args)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                f"flash seg bwd {seg}: two launches on the same inputs differ"
+            for name, a, c_ in zip(("dq", "dk", "dv"), got, want):
+                assert a.dtype == c_.dtype, (name, a.dtype, c_.dtype)
+                assert scaled_close(a, c_, rtol, atol), \
+                    f"flash seg bwd {dtype} s={s} {seg} {name}: max_abs_err " \
+                    f"{max_err(a, c_)} of max {float(c_.float().abs().max())}"
+            key = f"{str(dtype)[6:]}"
+            worst[key] = max(worst.get(key, 0.0),
+                             max(max_err(a, c_) for a, c_ in zip(got, want)))
+        log(f"flash seg bwd vs twin, {key}: {len(list(_seg_cases()))} "
+            f"descriptors, bitwise repeats, worst max_abs_err "
+            f"{worst[key]:.3g}")
+    q, k, v, do = _seg_qkv(torch, CP_SEQ, torch.bfloat16, seed=3)
+    o, lse = fa.flash_attention_with_lse(q, k, v, True)
+    ref = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    ring_err = 0.0
+    for sp in (2, 4):
+        c = CP_SEQ // (2 * sp)
+        rows = [_zigzag_rows(CP_SEQ, sp, r) for r in range(sp)]
+        dq = [torch.zeros(1, 2 * c, CP_HQ, CP_D, device="cuda")
+              for _ in range(sp)]
+        dkv = [[torch.zeros(1, 2 * c, CP_HKV, CP_D, device="cuda")
+                for _ in range(2)] for _ in range(sp)]
+        for idx in range(sp):
+            for src in range(sp):
+                rq, rk = rows[idx], rows[src]
+                g = fa.flash_attention_seg_bwd(
+                    q[:, rq], k[:, rk], v[:, rk], o[:, rq], lse[:, :, rq],
+                    do[:, rq], _zigzag_seg(idx, src, c, sp))
+                dq[idx] += g[0].float()
+                dkv[src][0] += g[1].float()
+                dkv[src][1] += g[2].float()
+        for r in range(sp):
+            for name, got, want in (("dq", dq[r], ref[0][:, rows[r]]),
+                                    ("dk", dkv[r][0], ref[1][:, rows[r]]),
+                                    ("dv", dkv[r][1], ref[2][:, rows[r]])):
+                assert scaled_close(got, want, 2e-2, 2e-2), \
+                    f"flash seg bwd ring sp={sp} rank {r} {name}: summed " \
+                    f"pieces vs #2 max_abs_err {max_err(got, want)} of max " \
+                    f"{float(want.float().abs().max())}"
+                ring_err = max(ring_err, max_err(got, want))
+    log(f"flash seg bwd ring check (global {CP_SEQ}, sp 2 and 4): summed "
+        f"pieces vs #2, max_abs_err {ring_err:.3g}")
+    del ref
+    # every (rank, source) descriptor of the path against the twin at the
+    # path's shape, one GQA group at a time (its fp32 score-sized
+    # intermediates are ~10 GiB at 16384 rows)
+    c = CP_SEQ // (2 * CP_SP)
+    grp = CP_HQ // CP_HKV
+    path_err = 0.0
+    for idx in range(CP_SP):
+        for src in range(CP_SP):
+            seg = _zigzag_seg(idx, src, c, CP_SP)
+            rq = _zigzag_rows(CP_SEQ, CP_SP, idx)
+            rk = _zigzag_rows(CP_SEQ, CP_SP, src)
+            ql, kl, vl = q[:, rq], k[:, rk], v[:, rk]
+            ol, lsel, dol = o[:, rq], lse[:, :, rq].contiguous(), do[:, rq]
+            got = fa.flash_attention_seg_bwd(ql, kl, vl, ol, lsel, dol, seg)
+            for h in range(CP_HKV):
+                qs, ks = slice(grp * h, grp * (h + 1)), slice(h, h + 1)
+                want = fa.flash_attention_seg_bwd_plain(
+                    ql[:, :, qs].contiguous(), kl[:, :, ks].contiguous(),
+                    vl[:, :, ks].contiguous(), ol[:, :, qs].contiguous(),
+                    lsel[:, qs].contiguous(), dol[:, :, qs].contiguous(),
+                    seg)
+                for name, a, w in (("dq", got[0][:, :, qs], want[0]),
+                                   ("dk", got[1][:, :, ks], want[1]),
+                                   ("dv", got[2][:, :, ks], want[2])):
+                    assert scaled_close(a, w, 2e-2, 2e-2), \
+                        f"flash seg bwd at the path's shape, seg {seg}, kv " \
+                        f"head {h} {name}: max_abs_err {max_err(a, w)} of " \
+                        f"max {float(w.float().abs().max())}"
+                    path_err = max(path_err, max_err(a, w))
+                del want
+            del got
+    log(f"flash seg bwd vs twin at the path's shape (q [1, {2 * c}, 16, "
+        f"64], every (rank, source) descriptor of sp 2, per kv head): "
+        f"max_abs_err {path_err:.3g}")
+    seg = _zigzag_seg(0, 0, c, CP_SP)
+    rq = _zigzag_rows(CP_SEQ, CP_SP, 0)
+    ql, kl, vl, dol = (x[:, rq].contiguous() for x in (q, k, v, do))
+    del q, k, v, do, o, lse
+    ol, lsel = fa.flash_attention_seg_with_lse(ql, kl, vl, seg)
+    args = (ql, kl, vl, ol, lsel, dol, seg)
+    pairs = _live_pairs(torch, seg, 2 * c, 2 * c)
+    flops = 10 * CP_D * CP_HQ * pairs
+    # reads q, o, dO, k, v and lse; writes dq, dk and dv
+    nbytes = 4 * ql.numel() * 2 + 4 * kl.numel() * 2 + lsel.numel() * 4
+    b_ms, b_by = bound(nbytes, flops, "bf16")
+    ms = timer.ms(lambda: fa.flash_attention_seg_bwd(*args), iters=5)
+    lib = _sdpa_seg_lib(torch, ql, kl, vl, seg)
+    lib_ms = None
+    if lib:
+        lib_in = [t.detach().requires_grad_(True) for t in lib[1]]
+        lib_out = lib[0](*lib_in)
+        lib_ms = timer.ms(lambda: torch.autograd.grad(
+            lib_out, lib_in, dol.transpose(1, 2), retain_graph=True),
+            iters=3, warmup=1)
+        del lib_in, lib_out
+    del lib
+    pc = c // 4
+    pq, pk, pv, pdo = _seg_qkv(torch, 2 * pc, torch.bfloat16, seed=4)
+    pseg = _zigzag_seg(0, 0, pc, CP_SP)
+    po, plse = fa.flash_attention_seg_plain(pq, pk, pv, pseg)
+    plain = timer.ms(lambda: fa.flash_attention_seg_bwd_plain(
+        pq, pk, pv, po, plse, pdo, pseg), iters=3, warmup=1)
+    return dict(name="flash_attention_seg_bwd", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_attention_seg.cu",
+                replaces="paddle_tpu/ops/pallas/flash_attention.py:622",
+                path="train-cp", max_abs_err=max(max(worst.values()),
+                                                 ring_err, path_err),
+                tolerance="bf16 rtol 2e-2, atol 2e-2 x max|twin| (at the "
+                          "path's shape per kv head too); fp32 rtol 1e-4, "
+                          "atol 1e-5 x max|twin|; bitwise repeat; ring sums "
+                          "vs #2 at the bf16 tier",
+                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, live_pairs=pairs,
+                shape=f"bf16 q [1, {2 * c}, 16, 64], kv [1, {2 * c}, 8, 64], "
+                      f"seg {seg}; plain at q [1, {2 * pc}, 16, 64], seg {pseg}")
 
 
 def phase_rms_bwd(torch, timer):
@@ -1883,6 +2281,10 @@ def plain_twins():
     from paddle_tpu_torch.ops.kernels import selective_scan as ss
     patches = [(fa, "flash_attention_with_lse", fa.flash_attention_plain),
                (fa, "flash_attention_bwd", fa.flash_attention_bwd_plain),
+               (fa, "flash_attention_seg_with_lse",
+                fa.flash_attention_seg_plain),
+               (fa, "flash_attention_seg_bwd",
+                fa.flash_attention_seg_bwd_plain),
                (rn, "rms_norm", rn.rms_norm_plain),
                (rn, "rms_norm_bwd", rn.rms_norm_bwd_plain),
                (fb, "fused_block", fb.fused_block_plain),
@@ -2253,6 +2655,347 @@ def phase_train_moe(torch, np, card):
                      TRAIN_STEPS, want, flops_per_token)
 
 
+# the context-parallel training path: bench_cp_long_context's
+# configuration (bench.py:323-371) at seq 32768, as _llama_run runs it
+CP_LAYERS = 4
+CP_STEPS = 2            # timed steps after 1 + 1 warmup, as the bench times
+
+
+def cp_config():
+    from paddle_tpu_torch.models import LlamaConfig
+    return LlamaConfig(vocab_size=32000, hidden_size=1024,
+                       intermediate_size=2816, num_hidden_layers=CP_LAYERS,
+                       num_attention_heads=CP_HQ, num_key_value_heads=CP_HKV,
+                       max_position_embeddings=CP_SEQ, dtype="bfloat16",
+                       sequence_parallel=True, sep_mode="auto")
+
+
+def _cp_flops_per_token(n_params):
+    return 6 * n_params + 12 * CP_LAYERS * cp_config().hidden_size * CP_SEQ
+
+
+def _digest(model) -> str:
+    """A hash of every parameter's bits (bf16 widens to fp32 exactly)."""
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def timed_hops(torch):
+    """Inside the block, the ring's hops add their wall time to the
+    returned dict: ``gloo`` for the collectives staged through the host
+    (the all-gathers), ``ipc`` for the KV and dk/dv hops of
+    ``ring_kv_rotate``; each is bracketed by device synchronisations, so
+    the time is the hop's own."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    spent = dict(gloo=0.0, ipc=0.0)
+    targets = [(collective, "ppermute", "gloo"),
+               (collective, "all_gather", "gloo"),
+               (hops, "ring_kv_rotate", "ipc")]
+    orig = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
+
+    def wrap(fn, kind):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t0
+            return out
+        return timed
+    for mod, name, kind in targets:
+        setattr(mod, name, wrap(getattr(mod, name), kind))
+    try:
+        yield spent
+    finally:
+        for mod, name, fn in orig:
+            setattr(mod, name, fn)
+
+
+def cp_run(torch, np, label, want, hops=False, profile=False):
+    """``_llama_run``'s loop at the cp configuration in this process:
+    the first step's loss and gradients (before any update), 1 + 1
+    warmup steps, then ``CP_STEPS`` timed steps with the launch counts
+    zeroed just before and read just after (``want``: per step); with
+    ``profile``, one more step under the profiler."""
+    from paddle_tpu_torch.ops import kernels
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model, opt, train_step = build_trainer(torch, cp_config())
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 32000, size=(1, CP_SEQ)).astype("int32")).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    loss0, grads = loss_and_grads(torch, model, ids)
+    grads = [g.bfloat16().cpu() for g in grads]     # bf16 grads: exact
+    losses = [train_step(ids) for _ in range(2)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ctx = timed_hops(torch) if hops else contextlib.nullcontext(
+        dict(gloo=0.0, ipc=0.0))
+    with ctx as spent:
+        t0 = time.perf_counter()
+        for _ in range(CP_STEPS):
+            losses.append(train_step(ids))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for name in kernels.KERNELS:
+        assert counts[name] == want.get(name, 0) * CP_STEPS, \
+            (label, name, counts)
+    vals = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in vals), (label, vals)
+    assert vals[-1] < vals[0], f"{label}: the loss did not fall: {vals}"
+    tps = CP_SEQ * CP_STEPS / dt
+    busy = None
+    if profile:
+        rows, dev_s, pwall = device_profile(torch, lambda: train_step(ids))
+        busy = report_profile(label, rows, dev_s, pwall, dt / CP_STEPS)
+    res = dict(loss0=loss0, losses=vals, busy_share=busy,
+               loss_bits=[x.cpu().numpy().tobytes() for x in losses],
+               counts=counts, ms_per_step=1e3 * dt / CP_STEPS,
+               tokens_per_s=tps, n_params=n_params,
+               mfu=tps * _cp_flops_per_token(n_params) / PEAK_FLOPS["bf16"],
+               hop_share=spent["gloo"] / dt, ipc_share=spent["ipc"] / dt,
+               names=[n for n, _ in model.named_parameters()],
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               digest=_digest(model))
+    del model, opt, train_step
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    return res, grads
+
+
+def _hop_check(torch):
+    """#16's port in a rank of train-cp (b), before the path runs: the
+    KV hop at the path's shape (bf16 K and V [1, 16384, 8, 64]) and the
+    dk/dv hop (fp32, the same shape), each against its twin (a gloo
+    ``ppermute`` through the host) bit for bit, then each timed beside
+    the twin; the bound moves K and V in once and out once."""
+    from paddle_tpu_torch.distributed import get_mesh
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    mesh = get_mesh()
+    group, me = mesh.group("sep"), mesh.axis_index("sep")
+    perm = [(j, (j + 1) % CP_SP) for j in range(CP_SP)]
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(100 + me)
+    out = {}
+    for label, dtype in (("kv", torch.bfloat16), ("dkv", torch.float32)):
+        k, v = (torch.randn(1, CP_SEQ // CP_SP, CP_HKV, CP_D, device="cuda",
+                            generator=gen).to(dtype) for _ in range(2))
+        got = hops.ring_kv_rotate(k, v, perm, group)
+        want = hops.ring_kv_rotate_plain(k, v, perm, group)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"ring_kv_rotate {label}: the kernel's hop differs from the twin's"
+        assert not torch.equal(got[0], k), \
+            f"ring_kv_rotate {label}: nothing moved"
+        b_ms, b_by = bound(4 * k.numel() * k.element_size(), 0, "bf16")
+        out[label] = dict(
+            ms=timer.ms(lambda: hops.ring_kv_rotate(k, v, perm, group)),
+            plain_ms=timer.ms(lambda: hops.ring_kv_rotate_plain(
+                k, v, perm, group), iters=5),
+            bound_ms=b_ms, bound_by=b_by,
+            shape=f"{str(dtype)[6:]} K and V [1, {CP_SEQ // CP_SP}, "
+                  f"{CP_HKV}, {CP_D}]")
+    del timer
+    return out
+
+
+def _cp_rank(rank, work_dir, want):
+    """One rank of ``train-cp`` (b): a gloo group with its peer on the
+    same card, a ``["sep"]`` mesh of two ranks, the KV hop's check, the
+    step of ``cp_run``; writes its results, and rank 0 its first step's
+    gradients."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch.distributed as dist
+    env = dist.init_parallel_env(backend="gloo")
+    dist.set_mesh(dist.ProcessMesh(list(range(CP_SP)), ["sep"]))
+    hop = _hop_check(torch)
+    res, grads = cp_run(torch, np, f"train-cp rank {rank}", want, hops=True)
+    res.update(rank=rank, device=str(env.device), hop=hop,
+               kind=torch.cuda.get_device_name(env.device))
+    if rank == 0:
+        torch.save(grads, os.path.join(work_dir, "grads0.pt"))
+    torch.save(res, os.path.join(work_dir, f"rank{rank}.pt"))
+
+
+def _cp_rank_control(rank, work_dir):
+    """train-cp's planted ring fault, the control of its gradient check:
+    (b)'s ranks and model, where rank 0 drops the dk/dv of its t=1
+    backward step (the K/V rotated in from rank 1) in every layer; rank 0
+    writes the first step's gradients."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    dist.init_parallel_env(backend="gloo")
+    dist.set_mesh(dist.ProcessMesh(list(range(CP_SP)), ["sep"]))
+    kept = fa.flash_attention_seg_bwd
+
+    def dropped(q, k, v, o, lse, d_out, seg):
+        dq, dk, dv = kept(q, k, v, o, lse, d_out, seg)
+        if rank == 0 and seg[0] != seg[3]:
+            dk, dv = torch.zeros_like(dk), torch.zeros_like(dv)
+        return dq, dk, dv
+    fa.flash_attention_seg_bwd = dropped
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model, _, _ = build_trainer(torch, cp_config())
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 32000, size=(1, CP_SEQ)).astype("int32")).cuda()
+    _, grads = loss_and_grads(torch, model, ids)
+    if rank == 0:
+        torch.save([g.bfloat16().cpu() for g in grads],
+                   os.path.join(work_dir, "grads0.pt"))
+
+
+def _leaf_rels(a, b):
+    """Each parameter's gradient rel L2 of ``a`` against ``b``."""
+    return [math.sqrt(float((x.float() - y.float()).square().sum())
+                      / float(y.float().square().sum()))
+            for x, y in zip(a, b)]
+
+
+#: train-cp's limit on the worst parameter's gradient rel L2 of (b)
+#: against (a), set between the sound run's reading and the planted
+#: fault's (PERF.md, train-cp)
+CP_LEAF_LIMIT = 5e-2
+
+
+def phase_train_cp(torch, np, card):
+    """The slice-6 path, ``bench_cp_long_context`` (``bench.py:323-371``:
+    vocab 32000, hidden 1024, ffn 2816, 4 layers, 16:8 heads of 64, bf16,
+    ``sequence_parallel=True``, ``sep_mode="auto"``, seq 32768, batch 1,
+    seeded random weights), trained as ``_llama_run`` trains it. (a) One
+    process without a mesh: #1 and #2 over the whole causal sequence. (b)
+    ``distributed.spawn`` of two ranks sharing this one card over a gloo
+    group (NCCL refuses two ranks on one GPU), a ``["sep"]`` mesh: the
+    zig-zag ring, #3 at each layer's t=0, #1 on half slices at t=1, #4 at
+    every backward step, the KV and dk/dv hops through #16's port. Checks:
+    falling finite losses; both ranks the same loss and parameter bits;
+    per step and rank #3 == 4, #4 == 8, #1 == 4, #16 == 32, #2 == 0, fused
+    block == 0; step 1's loss of (b) within 2e-2 of (a)'s, its gradients
+    within 2e-2 rel L2 of (a)'s over the model and each parameter's within
+    ``CP_LEAF_LIMIT``, which
+    the planted fault of ``_cp_rank_control`` must exceed; a second (b)
+    from the seed bitwise equal. Returns the launch counts and #16's row
+    of the ``kernels`` line."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    paddle.flags.set_flags({"pallas_fused_block": "auto"})
+    layers = CP_LAYERS
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"train-cp: bench_cp_long_context (bench.py:323: vocab 32000, "
+        f"hidden 1024, ffn 2816, 16:8 heads of 64), {layers} layers, bf16, "
+        f"seq {CP_SEQ}, batch 1, AdamW(lr 1e-4, wd 0.1), seeded random "
+        f"weights; compute mode {mode}")
+    norms = dict(rms_norm_fwd=2 * layers + 1, rms_norm_bwd=2 * layers + 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    one, grads_a = cp_run(torch, np, "train-cp (a)",
+                          dict(flash_attention_fwd=layers,
+                               flash_attention_bwd=layers, **norms),
+                          profile=True)
+    log(f"train-cp (a) one process, no mesh: " + json.dumps(
+        {k: one[k] for k in ("ms_per_step", "tokens_per_s", "mfu",
+                             "peak_gib", "losses", "n_params")}))
+    # hops a layer: sp-1 KV hops forward, sp-1 KV hops and sp dk/dv hops
+    # backward; two launches a hop (stage and pull)
+    want = dict(flash_attention_seg_fwd=layers,
+                flash_attention_seg_bwd=layers * CP_SP,
+                flash_attention_fwd=layers * (CP_SP - 1),
+                ring_kv_rotate=2 * layers * (3 * CP_SP - 2), **norms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = []
+    for attempt in range(2):
+        with tempfile.TemporaryDirectory() as work:
+            t0 = time.perf_counter()
+            dist.spawn(_cp_rank, (work, want), nprocs=CP_SP, timeout=900)
+            ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                                weights_only=False) for r in range(CP_SP)]
+            if attempt == 0:
+                grads_b = torch.load(os.path.join(work, "grads0.pt"))
+            log(f"train-cp (b) run {attempt + 1}: {CP_SP} ranks in "
+                f"{time.perf_counter() - t0:.1f} s on "
+                f"{[r['device'] + ' ' + r['kind'] for r in ranks]}")
+        for r in ranks:
+            log(f"train-cp (b) rank {r['rank']}: " + json.dumps(
+                {k: r[k] for k in ("ms_per_step", "tokens_per_s", "mfu",
+                                   "hop_share", "ipc_share", "peak_gib",
+                                   "losses")}))
+            for label, h in r["hop"].items():
+                log(f"train-cp (b) rank {r['rank']} ring_kv_rotate "
+                    f"{label}: {h['shape']}: equal to the twin bit for bit, "
+                    f"{h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, bound "
+                    f"{h['bound_ms']:.4f} ms ({h['bound_by']}) on {card}")
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            assert r["loss_bits"] == r0["loss_bits"], \
+                "train-cp (b): the ranks' losses differ"
+            assert r["digest"] == r0["digest"], \
+                "train-cp (b): the ranks' parameters differ"
+        runs.append(r0)
+    assert runs[1]["loss_bits"] == runs[0]["loss_bits"] and \
+        runs[1]["digest"] == runs[0]["digest"], \
+        "train-cp (b): a second run from the seed differs"
+    b = runs[0]
+    with tempfile.TemporaryDirectory() as work:
+        dist.spawn(_cp_rank_control, (work,), nprocs=CP_SP, timeout=600)
+        grads_c = torch.load(os.path.join(work, "grads0.pt"))
+    leaf_b, leaf_c = _leaf_rels(grads_b, grads_a), _leaf_rels(grads_c, grads_a)
+    worst_b, worst_c = max(leaf_b), max(leaf_c)
+    names = one["names"]
+    rel = math.sqrt(sum(float((x.float() - y.float()).square().sum())
+                        for x, y in zip(grads_b, grads_a))
+                    / sum(float(y.float().square().sum()) for y in grads_a))
+    msg = (f"train-cp: step 1 of (b) against (a): loss {b['loss0']:.6f} vs "
+           f"{one['loss0']:.6f}; gradients rel L2 {rel:.4g} over the model, "
+           f"worst parameter {names[leaf_b.index(worst_b)]} {worst_b:.4g}; "
+           f"the planted fault (rank 0 drops its t=1 dk/dv) worst "
+           f"{names[leaf_c.index(worst_c)]} {worst_c:.4g}; limit "
+           f"{CP_LEAF_LIMIT:g} (the model's 2e-2)")
+    log(msg)
+    assert abs(b["loss0"] - one["loss0"]) <= 2e-2 * abs(one["loss0"]), msg
+    assert rel <= 2e-2 and worst_b <= CP_LEAF_LIMIT < worst_c, msg
+    perf = dict(one_process=dict(ms_per_step=one["ms_per_step"],
+                                 tokens_per_s=one["tokens_per_s"],
+                                 mfu=one["mfu"],
+                                 busy_share=one["busy_share"]),
+                two_ranks_one_card=dict(ms_per_step=b["ms_per_step"],
+                                        tokens_per_s=b["tokens_per_s"],
+                                        mfu=b["mfu"],
+                                        hop_share=b["hop_share"],
+                                        ipc_share=b["ipc_share"]),
+                grad_rel_l2_vs_one_process=rel, worst_leaf_rel_l2=worst_b,
+                planted_fault_worst_leaf_rel_l2=worst_c, card=card)
+    log("train-cp: " + json.dumps(perf) + " (MFU by the bench's 6N + "
+        "12*L*h*s against one card's 989 TFLOP/s; the two ranks share one "
+        "card, so (b) is not context-parallel scaling)")
+    hop = b["hop"]["kv"]
+    row = dict(name="ring_kv_rotate", route="cuda",
+               source="paddle_tpu_torch/csrc/async_collectives.cu",
+               replaces="paddle_tpu/ops/pallas/async_collectives.py:294",
+               path="train-cp", max_abs_err=0.0, tolerance="bitwise",
+               ms=hop["ms"], plain_ms=hop["plain_ms"],
+               bound_ms=hop["bound_ms"], bound_by=hop["bound_by"],
+               library_ms=None, shape=hop["shape"] + ", rank 0 of 2 on one "
+               "card; plain: a gloo ppermute through the host")
+    return {"train-cp": b["counts"],
+            "train-cp-one-process": one["counts"]}, row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -2306,6 +3049,8 @@ def main() -> int:
                       lambda: phase_flash(torch, timer),
                       lambda: phase_rms(torch, timer),
                       lambda: phase_flash_bwd(torch, timer),
+                      lambda: phase_flash_seg(torch, timer),
+                      lambda: phase_flash_seg_bwd(torch, timer),
                       lambda: phase_rms_bwd(torch, timer),
                       lambda: phase_fused(torch, timer),
                       lambda: phase_gmm2(torch, timer),
@@ -2356,6 +3101,10 @@ def main() -> int:
         log(f"train done at {time.perf_counter() - t_start:.1f} s")
         counts["train-moe"] = phase_train_moe(torch, np, card)[0]
         log(f"train-moe done at {time.perf_counter() - t_start:.1f} s")
+        cp_counts, hop_row = phase_train_cp(torch, np, card)
+        counts.update(cp_counts)
+        rows.append(hop_row)
+        log(f"train-cp done at {time.perf_counter() - t_start:.1f} s")
         for r in rows:
             names = r.get("counts", [r["name"]])
             r["launches"] = sum(counts[r["path"]][n] for n in names)

@@ -18,14 +18,21 @@ such a layer, as the reference's does, so it composes.
 On CUDA the norms, attention, the fused block and the grouped GEMMs run
 the hand-written kernels, forward and backward; on CPU their plain twins.
 ``forward(ids, labels)`` returns the fp32 next-token loss, plus
-``moe_aux_weight`` times each MoE layer's aux loss. Weights keep Paddle's
+``moe_aux_weight`` times each MoE layer's aux loss. With
+``sequence_parallel`` and a mesh that has the ``sep_axis`` axis,
+attention runs the context-parallel ring over that axis
+(:func:`~paddle_tpu_torch.distributed.ring_attention`: the zig-zag ring
+over the segment-causal kernels when ``sep_mode`` is ``auto`` and the
+sequence divides ``2*sp``); the rest of the layer runs replicated on
+every rank of the axis, and such a layer never takes the fused block.
+Weights keep Paddle's
 ``[in, out]`` layout and are trainable, norm weights stay fp32 in a bf16
 model, and the state-dict keys are the JAX model's, so
 :func:`paddle_tpu_torch.weights.load_jax_state` carries a JAX model's
 weights across unchanged.
 
-Not ported yet (ROADMAP.md A): recompute, sequence parallelism and the
-numerics taps.
+Not ported yet (ROADMAP.md A): recompute, Ulysses sequence parallelism
+and the numerics taps.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from paddle_tpu_torch import distributed as dist
 from paddle_tpu_torch.framework.dtype import to_torch_dtype
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.framework.random import seed as _seed
@@ -73,6 +81,11 @@ class LlamaConfig:
     moe_capacity_factor: float = 2.0
     moe_aux_weight: float = 0.01
     sequence_parallel: bool = False
+    # the mesh axis the ring runs over, and how: "auto" (the zig-zag ring
+    # when seq % (2*sp) == 0, else the contiguous ring), "ring", "zigzag"
+    # or "ulysses" (not ported: ROADMAP.md A.10)
+    sep_axis: str = "sep"
+    sep_mode: str = "auto"
     recompute: bool = False
 
     @property
@@ -173,10 +186,35 @@ class LlamaAttention(nn.Module):
         return q, k, v
 
     def forward(self, hidden_states):
+        """``llama.py:171-200``: with ``sequence_parallel`` and a mesh
+        that has the sep axis, the ring over that axis; else the flash
+        kernels."""
+        cfg = self.config
         b, s, _ = hidden_states.shape
         q, k, v = self.qkv_rope(hidden_states)
-        out = scaled_dot_product_attention(q, k, v, is_causal=True,
-                                           training=self.training)
+        mesh = dist.get_mesh() if cfg.sequence_parallel else None
+        if mesh is not None and cfg.sep_axis in mesh.dim_names:
+            mode = cfg.sep_mode
+            if mode not in ("auto", "ring", "zigzag", "ulysses"):
+                raise ValueError(
+                    f"sep_mode must be 'auto', 'ring', 'zigzag' or "
+                    f"'ulysses', got {cfg.sep_mode!r}")
+            if mode == "auto":
+                # causal decoder attention: the balanced zig-zag ring
+                # whenever the sequence admits it
+                sp = mesh.get_dim_size(cfg.sep_axis)
+                mode = "zigzag" if int(s) % (2 * sp) == 0 else "ring"
+            if mode == "ulysses":
+                out = dist.ulysses_attention(q, k, v, causal=True,
+                                             mesh=mesh,
+                                             sp_axis=cfg.sep_axis)
+            else:
+                out = dist.ring_attention(
+                    q, k, v, causal=True, mesh=mesh, sp_axis=cfg.sep_axis,
+                    layout="zigzag" if mode == "zigzag" else "contig")
+        else:
+            out = scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               training=self.training)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -221,11 +259,17 @@ class LlamaDecoderLayer(nn.Module):
         projections stay outside: they feed the kernel."""
         if not F_inc.fused_block_enabled():
             return None
+        cfg = self.config
         if isinstance(self.mlp, MoELayer):
             _warn_fused_fallback("MoE mlp (fused block supports dense "
                                  "layers only)")
             return None
-        cfg = self.config
+        if cfg.sequence_parallel:
+            # the kernel's attention is single-device: the layer would
+            # silently skip the ring (``llama.py:263-264``)
+            _warn_fused_fallback("sequence-parallel attention runs over "
+                                 "the mesh")
+            return None
         b, s, hidden = hidden_states.shape
         reason = _fb.ineligible_reason(
             (b, s, cfg.num_attention_heads, cfg.head_dim),
@@ -285,12 +329,9 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  seed: int = 0):
-        for feature, on in (("sequence_parallel", config.sequence_parallel),
-                            ("recompute", config.recompute)):
-            if on:
-                raise NotImplementedError(
-                    f"LlamaConfig.{feature} is not ported yet "
-                    f"(ROADMAP.md A)")
+        if config.recompute:
+            raise NotImplementedError(
+                "LlamaConfig.recompute is not ported yet (ROADMAP.md A.3)")
         super().__init__()
         dev = resolve_device(device)
         if generator is None:

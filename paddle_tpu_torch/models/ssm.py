@@ -256,11 +256,14 @@ class HybridSSMForCausalLM(nn.Module):
     def __init__(self, config: SSMConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  seed: int = 0):
-        for feature, on in (("sequence_parallel", config.sequence_parallel),
-                            ("recompute", config.recompute)):
+        for feature, on, item in (
+                ("sequence_parallel", config.sequence_parallel,
+                 "A.9 and A.10"),
+                ("recompute", config.recompute, "A.3")):
             if on:
                 raise NotImplementedError(
-                    f"SSMConfig.{feature} is not ported yet (ROADMAP.md A)")
+                    f"SSMConfig.{feature} is not ported yet (ROADMAP.md "
+                    f"{item})")
         super().__init__()
         dev = resolve_device(device)
         if generator is None:

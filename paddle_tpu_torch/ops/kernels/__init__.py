@@ -23,8 +23,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from paddle_tpu_torch.ops.kernels import (flash_attention, fused_block,
-                                          grouped_gemm, paged_attention, quant,
+from paddle_tpu_torch.ops.kernels import (async_collectives, flash_attention,
+                                          fused_block, grouped_gemm,
+                                          paged_attention, quant,
                                           ragged_paged_attention, rms_norm,
                                           selective_scan)
 
@@ -45,6 +46,9 @@ KERNELS = {
     "paged_attention": (paged_attention, "launches"),
     "selective_scan": (selective_scan, "launches"),
     "ragged_paged_attention_quant": (quant, "launches"),
+    "flash_attention_seg_fwd": (flash_attention, "launches_seg"),
+    "flash_attention_seg_bwd": (flash_attention, "launches_seg_bwd"),
+    "ring_kv_rotate": (async_collectives, "launches"),
 }
 
 

@@ -171,11 +171,29 @@ def _declare(lib: ctypes.CDLL) -> None:
     # q, kc, vc, k_scale, v_scale, tables, rows, valids, out, T, Hq, Hkv, D,
     # bs, width, scale, q_dtype, page_dtype, stream
     lib.ptt_ragged_paged_attn_quant.argtypes = [P] * 9 + [I] * 6 + [F, I, I, P]
+    # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, the six seg ints, scale,
+    # dtype, stream
+    lib.ptt_flash_attn_fwd_seg.argtypes = [P] * 5 + [I] * 12 + [F, I, P]
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, the
+    # six seg ints, scale, dtype, stream
+    lib.ptt_flash_attn_bwd_seg.argtypes = [P] * 10 + [I] * 12 + [F, I, P]
+    # device, bytes, &ptr, handle (64 bytes) / device, ptr / device,
+    # handle, &ptr / device, ptr
+    L, PP = ctypes.c_longlong, ctypes.POINTER(P)
+    lib.ptt_ipc_alloc.argtypes = [I, L, PP, ctypes.c_char_p]
+    lib.ptt_ipc_free.argtypes = [I, P]
+    lib.ptt_ipc_open.argtypes = [I, ctypes.c_char_p, PP]
+    lib.ptt_ipc_close.argtypes = [I, P]
+    # src0, dst0, bytes0, src1, dst1, bytes1, segments, stream
+    lib.ptt_ring_copy.argtypes = [P, P, L, P, P, L, I, P]
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,
                lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
                lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd,
                lib.ptt_gmm, lib.ptt_tgmm, lib.ptt_paged_decode_attn,
-               lib.ptt_selective_scan, lib.ptt_ragged_paged_attn_quant):
+               lib.ptt_selective_scan, lib.ptt_ragged_paged_attn_quant,
+               lib.ptt_flash_attn_fwd_seg, lib.ptt_flash_attn_bwd_seg,
+               lib.ptt_ipc_alloc, lib.ptt_ipc_free, lib.ptt_ipc_open,
+               lib.ptt_ipc_close, lib.ptt_ring_copy):
         fn.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p

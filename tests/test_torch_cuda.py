@@ -505,3 +505,62 @@ def test_quantized_engine_on_the_card(cuda_device, kv_quant):
     same = sum(a == b for i in outs[True] for a, b in
                zip(outs[True][i], outs[False][i]))
     assert same >= 0.9 * 27, outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk,seg", [
+    (200, 200, [0, 300, 100, 0, 300, 100]),     # a ring's t=0 step
+    (200, 200, [100, 200, 100, 0, 300, 100]),   # KV from an earlier rank
+    (150, 130, [5, 190, 77, 0, 140, 61]),       # straddling splits
+    (96, 96, [0, 48, 48, 20, 500, 96])])        # rows with nothing visible
+def test_segment_causal_kernels_match_twins(cuda_device, dtype, d, sq, sk,
+                                            seg):
+    """#3 and #4 against their twins: GQA 4:2, splits no tile divides, a
+    query tile that straddles its split, rows that see no column (o = 0,
+    lse = -inf); the backward twice, bitwise. lse at atol 1e-5, the
+    gradients with atol scaled by each tensor's largest magnitude."""
+    q = _rand(cuda_device, dtype, 2, sq, 4, d, seed=21)
+    k = _rand(cuda_device, dtype, 2, sk, 2, d, seed=22)
+    v = _rand(cuda_device, dtype, 2, sk, 2, d, seed=23)
+    do = _rand(cuda_device, dtype, 2, sq, 4, d, seed=24)
+    o, lse = pt_flash.flash_attention_seg_with_lse(q, k, v, seg)
+    ro, rlse = pt_flash.flash_attention_seg_plain(q, k, v, seg)
+    ro = ro.contiguous()
+    got = pt_flash.flash_attention_seg_bwd(q, k, v, ro, rlse, do, seg)
+    again = pt_flash.flash_attention_seg_bwd(q, k, v, ro, rlse, do, seg)
+    want = pt_flash.flash_attention_seg_bwd_plain(q, k, v, ro, rlse, do, seg)
+    torch.cuda.synchronize()
+    tol = FP32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(_np(o), _np(ro), **tol)
+    np.testing.assert_array_equal(torch.isneginf(lse).cpu().numpy(),
+                                  torch.isneginf(rlse).cpu().numpy())
+    fin = ~torch.isneginf(rlse)
+    np.testing.assert_allclose(_np(lse[fin]), _np(rlse[fin]), rtol=1e-5,
+                               atol=1e-5)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and a.dtype == c.dtype
+        ref = _np(c)
+        np.testing.assert_allclose(_np(a), ref, rtol=tol["rtol"],
+                                   atol=tol["atol"] * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_ring_kv_rotate_matches_twin_between_ranks_on_one_card(cuda_device,
+                                                                tmp_path):
+    """#16's port: two spawned ranks share the card over gloo; each hop
+    of the IPC copy kernel equals the twin's gloo ``ppermute`` bit for bit,
+    with two launches a hop, across growing slots, both slot parities and
+    a size the 16-byte vectors do not divide."""
+    import _torch_cp_ranks
+    from paddle_tpu_torch import distributed as pt_dist
+    cases = [((1, 64, 2, 64), torch.bfloat16), ((1, 256, 4, 64), torch.float32),
+             ((1, 64, 2, 64), torch.bfloat16), ((3, 5, 7), torch.bfloat16)]
+    torch.save(cases, tmp_path / "hops.pt")
+    pt_dist.spawn(_torch_cp_ranks.hop_run, (str(tmp_path),), nprocs=2,
+                  timeout=300)
+    for r in range(2):
+        got = torch.load(tmp_path / f"hop{r}.pt")
+        assert [g["equal"] for g in got] == [True] * len(cases), got
+        assert all(g["moved"] and g["launches"] == 2 for g in got), got

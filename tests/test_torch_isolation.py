@@ -119,10 +119,14 @@ def test_unported_flags_raise(tiny, name, value):
 
 
 def test_unported_models_raise():
-    for cfg in (llama_tiny_config(sequence_parallel=True),
-                llama_tiny_config(recompute=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LlamaForCausalLM(cfg, device="cpu")
+    """recompute and a sequence-parallel hybrid are not ported; a
+    sequence-parallel Llama is (``test_sep_llama_at_sp1_equals_plain``)."""
+    from paddle_tpu_torch.models import HybridSSMForCausalLM, ssm_tiny_config
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
+        LlamaForCausalLM(llama_tiny_config(recompute=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9 and A.10"):
+        HybridSSMForCausalLM(ssm_tiny_config(sequence_parallel=True),
+                             device="cpu")
 
     class NotALlama(torch.nn.Module):
         config = llama_tiny_config()
@@ -260,3 +264,81 @@ def test_scan_and_paged_kernels_refuse_what_they_cannot_take():
                            torch.empty(1, 4, 48, **meta), b, b, 16)
     assert "multiples of 8" in pt_ss.ineligible_reason((1, 48, 4, 12), 16,
                                                        16, torch.float32)
+
+
+def _sep_pair(**cfg):
+    """A plain tiny Llama and a ``sequence_parallel`` one with the same
+    weights, on the CPU."""
+    plain = LlamaForCausalLM(llama_tiny_config(**cfg), device="cpu", seed=3)
+    sep = LlamaForCausalLM(llama_tiny_config(sequence_parallel=True, **cfg),
+                           device="cpu", seed=3)
+    sep.load_state_dict(plain.state_dict())
+    return plain, sep
+
+
+def test_sep_llama_at_sp1_equals_plain():
+    """``sequence_parallel=True`` without a mesh, and on a mesh whose sep
+    axis has one rank, runs plain attention: loss and gradients equal the
+    plain model's bit for bit."""
+    import paddle_tpu_torch.distributed as dist
+    plain, sep = _sep_pair(num_hidden_layers=2)
+    ids = torch.randint(0, 256, (2, 16), generator=torch.Generator()
+                        .manual_seed(0))
+    want, _ = plain(ids, labels=ids)
+    want.backward()
+    for mesh in (None, dist.ProcessMesh([[0]], ["dp", "sep"])):
+        dist.set_mesh(mesh)
+        try:
+            got, _ = sep(ids, labels=ids)
+            got.backward()
+        finally:
+            dist.set_mesh(None)
+        assert torch.equal(got, want)
+        for a, b in zip(sep.parameters(), plain.parameters()):
+            assert torch.equal(a.grad, b.grad)
+        sep.zero_grad(set_to_none=True)
+
+
+def test_fused_block_refuses_sequence_parallel_layers(recwarn):
+    """A sequence-parallel layer never takes the fused block: its
+    attention would skip the ring. With ``pallas_fused_block=on`` it
+    composes (as ``off`` does), with one warning naming the reason."""
+    from paddle_tpu_torch.models import llama as pt_llama
+    plain, sep = _sep_pair(num_hidden_layers=1)
+    h = torch.randn(1, 8, 64, generator=torch.Generator().manual_seed(1))
+    layer, plain_layer = sep.llama.layers[0], plain.llama.layers[0]
+    old = flags.flag("pallas_fused_block")
+    pt_llama._warned_fused.discard("sequence-parallel attention runs over "
+                                   "the mesh")
+    try:
+        flags.set_flags({"pallas_fused_block": "on"})
+        assert layer._fused_forward(h) is None
+        assert plain_layer._fused_forward(h) is not None
+        got = layer(h)
+        flags.set_flags({"pallas_fused_block": "off"})
+        want = plain_layer(h)
+    finally:
+        flags.set_flags({"pallas_fused_block": old})
+    assert torch.equal(got, want)
+    msgs = [str(w.message) for w in recwarn.list]
+    assert sum("sequence-parallel attention runs over the mesh" in m
+               for m in msgs) == 1, msgs
+
+
+def test_distributed_modules_load_no_jax():
+    """The context-parallel slice's modules (env, spawn, mesh, the
+    collectives and the ring) import torch and nothing of JAX."""
+    code = ("import sys, paddle_tpu_torch.distributed, "
+            "paddle_tpu_torch.distributed.sequence_parallel; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"paddle_tpu_torch/distributed/env.py",
+            "paddle_tpu_torch/distributed/spawn.py",
+            "paddle_tpu_torch/distributed/process_mesh.py",
+            "paddle_tpu_torch/distributed/collective.py",
+            "paddle_tpu_torch/distributed/sequence_parallel.py"} <= files
