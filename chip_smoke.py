@@ -150,7 +150,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ranks share it, so this is not context-parallel scaling) and the
    shares of (b)'s step spent in the host-staged all-gathers and in the
    IPC hops;
-13. the ``kernels`` JSON line, then the result line.
+13. train-moe-ep, the slice-7 expert-parallel path: the train-moe model
+   and batch (phase 11) trained with AdamW on an ``["ep"]`` mesh of two
+   ``distributed.spawn`` ranks sharing this card over gloo, each rank
+   holding the replicated model with 8 of the 16 experts (``shard_layer``
+   with ``llama_shard_fn``) and dispatching 8,192 of the 16,384 tokens
+   through the ragged all-to-all. Each rank first holds the tiled
+   all-to-all kernel (#15) bit for bit against its twin (a gloo exchange
+   through the host) at the path's payloads (bf16 [32768, 1024], its int32
+   ids, a chunk pair [16384, 1024]) and the comm-fused dispatch + expert
+   MLP kernel (#17) against its twin (the exchange, the inv gather, the
+   grouped-GEMM twins) on the path's packed inputs at one and two chunks,
+   in fp32, and at cf 1.0 with an expert no token routes to (a second
+   launch bitwise), and against the TPU kernel's arithmetic (gate and up
+   kept in fp32, where #17 and its twin round them to the compute dtype)
+   at the same tiers, and times each beside its twin, #17 also beside a
+   gather and ``grouped_mm`` for gate, up and down. Then three modes from
+   the seed, 1 + 1 warmup and 3 timed steps each: (b1) the default flags
+   (#17 at one chunk), (b2) ``moe_a2a_overlap`` (#17 owns both chunks),
+   (b3) ``moe_a2a_fused_kernel=off`` (the composed pipelined path). Checks:
+   launches per step and rank as the code makes them (``ep_want``);
+   falling finite losses; both ranks the same loss bits and the same bits
+   in every parameter (the experts gathered back); step 1's loss within
+   the bf16 tier of one process at the same seed and batch, its gradients
+   within 2e-2 rel L2 over the model and each parameter's within
+   ``EP_LEAF_LIMIT``, which a planted fault (a second spawn: rank 0 drops
+   its peer's block of every combine) must exceed. Reports ms per step,
+   tokens/s, the activated-parameter MFU against one card and the shares
+   of the step in the host-staged all-gathers and in #15/#17. Last, (c),
+   ``bench_moe_overlap_efficiency`` (``bench.py:176-260``: an fp32
+   ``MoELayer``, hidden 1024, 16 experts of ffn 2816, gshard cf 2.0, 16
+   tokens a rank) as four ranks sharing the card on an ``["ep"]`` mesh of
+   four, so that #15 and #17 run with three peers: its output against the
+   one-device layer, then fwd + bwd + AdamW with ``moe_a2a_overlap`` off
+   and on (the ratio reported, not asserted);
+14. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -2397,11 +2431,15 @@ def flagship_config():
                        recompute=False)
 
 
-def build_trainer(torch, cfg):
-    """``_llama_run``'s model, optimizer and step (``bench.py:62-90``)."""
+def build_trainer(torch, cfg, prepare=None):
+    """``_llama_run``'s model, optimizer and step (``bench.py:62-90``);
+    ``prepare(model)`` runs before the optimizer is built (placing the
+    parameters over a mesh)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import LlamaForCausalLM
     model = LlamaForCausalLM(cfg, seed=0)
+    if prepare is not None:
+        prepare(model)
     opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.1,
                                  parameters=model.parameters())
 
@@ -2676,27 +2714,26 @@ def _cp_flops_per_token(n_params):
 
 def _digest(model) -> str:
     """A hash of every parameter's bits (bf16 widens to fp32 exactly)."""
+    return _digest_of(dict(model.named_parameters()))
+
+
+def _digest_of(tensors) -> str:
+    """A hash of named tensors' bits, in order."""
     import hashlib
     h = hashlib.sha256()
-    for name, p in model.named_parameters():
+    for name, t in tensors.items():
         h.update(name.encode())
-        h.update(p.detach().float().cpu().numpy().tobytes())
+        h.update(t.detach().float().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
 @contextlib.contextmanager
-def timed_hops(torch):
-    """Inside the block, the ring's hops add their wall time to the
-    returned dict: ``gloo`` for the collectives staged through the host
-    (the all-gathers), ``ipc`` for the KV and dk/dv hops of
-    ``ring_kv_rotate``; each is bracketed by device synchronisations, so
-    the time is the hop's own."""
-    from paddle_tpu_torch.distributed import collective
-    from paddle_tpu_torch.ops.kernels import async_collectives as hops
-    spent = dict(gloo=0.0, ipc=0.0)
-    targets = [(collective, "ppermute", "gloo"),
-               (collective, "all_gather", "gloo"),
-               (hops, "ring_kv_rotate", "ipc")]
+def timed_calls(torch, targets):
+    """Inside the block, each ``(module, function name, kind)`` of
+    ``targets`` adds its calls' wall time to the returned dict under
+    ``kind``; each call is bracketed by device synchronisations, so the
+    time is the call's own."""
+    spent = {kind: 0.0 for _, _, kind in targets}
     orig = [(mod, name, getattr(mod, name)) for mod, name, _ in targets]
 
     def wrap(fn, kind):
@@ -2715,6 +2752,17 @@ def timed_hops(torch):
     finally:
         for mod, name, fn in orig:
             setattr(mod, name, fn)
+
+
+def timed_hops(torch):
+    """The ring's hops: ``gloo`` for the collectives staged through the
+    host (the all-gathers), ``ipc`` for the KV and dk/dv hops of
+    ``ring_kv_rotate``."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    return timed_calls(torch, [(collective, "ppermute", "gloo"),
+                               (collective, "all_gather", "gloo"),
+                               (hops, "ring_kv_rotate", "ipc")])
 
 
 def cp_run(torch, np, label, want, hops=False, profile=False):
@@ -2996,6 +3044,605 @@ def phase_train_cp(torch, np, card):
             "train-cp-one-process": one["counts"]}, row
 
 
+# the expert-parallel MoE training path: bench_moe's configuration
+# (bench.py:122-129) trained on an ["ep"] mesh of two ranks sharing the card
+EP = 2
+EP_STEPS = 3            # timed steps after 1 + 1 warmup
+EP_FLAGS = dict(moe_a2a_dispatch="auto", pallas_async_a2a="auto",
+                moe_a2a_fused_kernel="auto", moe_a2a_overlap=False,
+                moe_a2a_chunks=2)
+# the three dispatch modes of the reference: (b1) the default flags, the
+# fused kernel at one chunk; (b2) overlap, the fused kernel owning both
+# chunks; (b3) the pipelined composed path
+EP_MODES = {"b1": {}, "b2": dict(moe_a2a_overlap=True),
+            "b3": dict(moe_a2a_fused_kernel="off")}
+EP_PATHS = {"b1": "train-moe-ep", "b2": "train-moe-ep-overlap",
+            "b3": "train-moe-ep-composed"}
+#: train-moe-ep's limit on the worst parameter's gradient rel L2 of a mode
+#: against one process, set between the sound runs' readings (worst 0.00285,
+#: (b2)'s per-chunk bf16 dW sums) and the planted fault's (1.06) (PERF.md,
+#: train-moe-ep)
+EP_LEAF_LIMIT = 1e-2
+# the layer-level run (c): bench_moe_overlap_efficiency (bench.py:176-260)
+EPC_RANKS, EPC_HIDDEN, EPC_FFN, EPC_E, EPC_TOKENS, EPC_STEPS = (
+    4, 1024, 2816, 16, 16, 6)
+
+
+def ep_want(mode, layers):
+    """Launches per step and rank of a mode, as the code makes them."""
+    chunks = 2 if mode == "b2" else 1
+    fused = mode != "b3"
+    # per layer and chunk: gmm2 and the down gmm forward (in the fused
+    # modes, the backward's recompute of the composed reference), three
+    # gmm against w^T and three tgmm. #15: the fused modes exchange the
+    # ids, the combine and its mirror, the recomputed dispatch and its
+    # transpose; the composed mode the payload, the ids, the combine, and
+    # the mirrors of the combine and of the payload. #17 once a layer,
+    # both chunks in one launch.
+    return dict(gmm2=layers * chunks, gmm_fwd=layers * chunks,
+                gmm_bwd=3 * layers * chunks, tgmm=3 * layers * chunks,
+                tiled_a2a=5 * layers * chunks,
+                fused_a2a_expert_mlp=layers if fused else 0,
+                flash_attention_fwd=layers, flash_attention_bwd=layers,
+                rms_norm_fwd=2 * layers + 1, rms_norm_bwd=2 * layers + 1)
+
+
+def ep_inputs(torch, mesh, tokens, experts, hidden, ffn, cf, chunks, dtype,
+              seed=0, empty_expert=None):
+    """#17's inputs as the path makes them on this rank: global tokens and
+    their gshard routing (``empty_expert``: no token routes there), this
+    rank's rows packed for each chunk (``moe_a2a._pack_chunks``), this
+    rank's block of random experts at the init scale. Returns ``(x_send,
+    counts, inv, wg, wu, wd, plan)``."""
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_a2a
+    r = mesh.axis_index("ep")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(tokens, hidden, generator=g, device="cuda")
+    gate = moe.GShardGate(hidden, experts, device="cuda", generator=g)
+    scores = (x @ gate.weight).float()
+    if empty_expert is not None:
+        scores[:, empty_expert] = -1e9
+    capacity = gate.capacity(tokens, cf, 2)
+    e_idx, _, _, keep, _ = gate.route_indices(scores, capacity)
+    plan = moe_a2a._plan(mesh, "ep", experts, tokens, 2, capacity,
+                         chunks=chunks)
+    rows = slice(r * plan.n_l, (r + 1) * plan.n_l)
+    x_send, counts, inv, _ = moe_a2a._pack_chunks(
+        x[rows].to(dtype), e_idx[rows], keep[rows], plan)
+    e_l = plan.e_local
+    wg, wu = (torch.randn(experts, hidden, ffn, generator=g, device="cuda")
+              [r * e_l:(r + 1) * e_l].mul(0.02).to(dtype) for _ in range(2))
+    wd = torch.randn(experts, ffn, hidden, generator=g, device="cuda")[
+        r * e_l:(r + 1) * e_l].mul(0.02).to(dtype)
+    return x_send, counts, inv, wg, wu, wd, plan
+
+
+def _fused_library(torch, x_send, counts, inv, wg, wu, wd, plan):
+    """The PyTorch calls that compute #17's chunk on this rank's inputs
+    once the exchange has landed: the inv gather, then ``grouped_mm`` for
+    gate, up and down over the padded buffer (no ragged skip). The
+    exchange runs once, outside the timed function. Returns the function
+    (None without a grouped GEMM in this torch) and its name."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    fn, name = grouped_mm_library(torch)
+    if fn is None:
+        return None, None
+    recv = hops.tiled_a2a_plain(x_send, plan.group)
+    idx = inv.long()
+    live = (idx < recv.shape[0]).to(recv.dtype)[:, None]
+    idx = torch.where(idx < recv.shape[0], idx, torch.zeros_like(idx))
+    offs = (torch.arange(1, plan.e_local + 1, device="cuda")
+            * plan.c_pad).to(torch.int32)
+
+    def lib():
+        xb = F.embedding(idx, recv) * live
+        act = F.silu(fn(xb, wg, offs=offs)) * fn(xb, wu, offs=offs)
+        return fn(act, wd, offs=offs)
+    return lib, f"embedding gather + {name} x3"
+
+
+def _fused_tpu_numerics(torch, x_send, counts, inv, wg, wu, wd, plan):
+    """#17 with the TPU kernel's arithmetic (``_fused_kernel``,
+    ``paddle_tpu/ops/pallas/async_collectives.py:464-476``) on this rank's
+    inputs: the twin's exchange and ``inv`` gather, then gate and up kept
+    in fp32, ``silu(g) * u`` rounded once to the compute dtype, the down
+    projection accumulated in fp32 and rounded on the store. #17 rounds
+    gate and up to the compute dtype first, as the composed path's gmm2
+    does (ROADMAP.md C); this measures that departure."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    wb, rows = plan.ep * plan.bucket, plan.e_local * plan.c_pad
+    ys = []
+    for c in range(plan.chunks):
+        recv = hops.tiled_a2a_plain(x_send[c * wb:(c + 1) * wb], plan.group)
+        ic = inv[c * rows:(c + 1) * rows].long()
+        live = ic < wb
+        xb = (F.embedding(torch.where(live, ic, torch.zeros_like(ic)), recv)
+              * live.to(recv.dtype)[:, None]).float().reshape(
+                  plan.e_local, plan.c_pad, -1)
+        act = (F.silu(torch.bmm(xb, wg.float()))
+               * torch.bmm(xb, wu.float())).to(x_send.dtype)
+        ys.append(torch.bmm(act.float(), wd.float()).to(x_send.dtype)
+                  .reshape(rows, -1))
+        del xb, act
+    return ys[0] if plan.chunks == 1 else torch.cat(ys)
+
+
+def _ep_kernel_checks(torch, mesh):
+    """#15 and #17 between the ranks on the card, before the path runs, at
+    the path's shapes: #15 on (b1)'s payload x_send [32768, 1024] bf16, its
+    int32 ids and (b2)'s chunk-pair payload [16384, 1024], each bit for bit
+    against the twin (the gloo exchange through the host); #17 on the
+    path's packed inputs at (b1) (bf16, one chunk) and (b2) (two chunks),
+    in fp32, and at cf 1.0 (drops) with an expert no token routes to, each
+    against its twin at the op-harness tier scaled by max|twin| with a
+    second launch bitwise, and against the TPU kernel's arithmetic
+    (``_fused_tpu_numerics``) at the same tier scaled by its max. Each
+    timed beside its twin, #17 also beside the library calls; bounds from
+    this run's inputs."""
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    group = mesh.group("ep")
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(200 + mesh.axis_index(
+        "ep"))
+    n = MOE_B * MOE_S
+    cases = []
+    for shape, dtype in (((EP * n, MOE_HIDDEN), torch.bfloat16),
+                         ((EP * n,), torch.int32),
+                         ((EP * n // 2, MOE_HIDDEN), torch.bfloat16)):
+        x = (torch.randn(shape, device="cuda", generator=gen) * 100).to(dtype)
+        got = hops.tiled_a2a(x, group)
+        want = hops.tiled_a2a_plain(x, group)
+        assert torch.equal(got, want), \
+            f"tiled_a2a {shape} {dtype}: the kernel differs from the twin"
+        assert not torch.equal(got, x), f"tiled_a2a {shape}: nothing moved"
+        cases.append(f"{str(dtype)[6:]} {list(shape)}")
+    x = torch.randn(EP * n, MOE_HIDDEN, device="cuda",
+                    generator=gen).bfloat16()
+    b_ms, b_by = bound(2 * x.numel() * 2, 0, "bf16")
+    a2a = dict(ms=timer.ms(lambda: hops.tiled_a2a(x, group)),
+               plain_ms=timer.ms(lambda: hops.tiled_a2a_plain(x, group),
+                                 iters=3, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, checked=cases,
+               shape=f"bf16 x_send [{EP * n}, {MOE_HIDDEN}] on rank 0 of "
+                     f"{EP} on one card; plain: a gloo all_to_all through "
+                     f"the host")
+    del x
+    fused, worst = [], 0.0
+    for label, kw in (("b1 bf16", dict(chunks=1, dtype=torch.bfloat16)),
+                      ("b2 bf16", dict(chunks=2, dtype=torch.bfloat16)),
+                      ("fp32", dict(chunks=1, dtype=torch.float32)),
+                      ("cf 1.0 bf16, expert 5 empty",
+                       dict(chunks=1, dtype=torch.bfloat16, cf=1.0,
+                            empty_expert=5))):
+        kw = dict(dict(cf=2.0), **kw)
+        args = ep_inputs(torch, mesh, n, MOE_E, MOE_HIDDEN, MOE_FFN, **kw)
+        x_send, counts, _, wg, _, _, plan = args
+        call = dict(group=group, chunks=plan.chunks, bucket=plan.bucket,
+                    c_pad=plan.c_pad)
+        got = hops.fused_a2a_expert_mlp(*args[:6], **call)
+        again = hops.fused_a2a_expert_mlp(*args[:6], **call)
+        want = hops.fused_a2a_expert_mlp_plain(*args[:6], **call)
+        tpu = _fused_tpu_numerics(torch, *args)
+        torch.cuda.synchronize()
+        tol = (1e-5, 1e-5) if kw["dtype"] == torch.float32 else (2e-2, 2e-2)
+        err = max_err(got, want)
+        ok = scaled_close(got, want, *tol)
+        tpu_ok = scaled_close(got, tpu, *tol)
+        scale = float(want.float().abs().max())
+        t_scale = float(tpu.float().abs().max())
+        fused.append(dict(case=label, max_abs_err=err, max_twin=scale,
+                          tpu_gap=max_err(got, tpu) / t_scale,
+                          twin_tpu_gap=max_err(want, tpu) / t_scale,
+                          bitwise=torch.equal(got, again),
+                          live=int(counts.sum()),
+                          empty=int((counts == 0).sum()),
+                          bucket=plan.bucket, c_pad=plan.c_pad))
+        assert ok, f"fused_a2a_expert_mlp {label}: max_abs_err {err} " \
+                   f"(max|twin| {scale}) beyond rtol {tol[0]}, atol " \
+                   f"{tol[1]} x max|twin|"
+        assert fused[-1]["bitwise"], \
+            f"fused_a2a_expert_mlp {label}: a second launch differs"
+        assert tpu_ok, f"fused_a2a_expert_mlp {label}: " \
+                       f"{fused[-1]['tpu_gap']} x max|y| from the TPU " \
+                       f"kernel's arithmetic, beyond rtol {tol[0]}, atol " \
+                       f"{tol[1]} x max|y|"
+        if kw["dtype"] == torch.bfloat16:
+            worst = max(worst, err)
+        if label == "b1 bf16":
+            live = int(counts.sum())
+            nbytes = (x_send.numel() + 3 * wg.numel() + got.numel()) * 2
+            f_ms, f_by = bound(nbytes, 6 * live * MOE_HIDDEN * MOE_FFN,
+                               "bf16")
+            lib, lib_name = _fused_library(torch, *args)
+            lib_ms = None
+            if lib is not None:
+                l_err = max_err(lib(), got)
+                lib_ms = timer.ms(lib)
+                log(f"library {lib_name}: max_abs_err against the kernel "
+                    f"{l_err:.3g}")
+            timed = dict(
+                ms=timer.ms(lambda: hops.fused_a2a_expert_mlp(
+                    *args[:6], **call)),
+                plain_ms=timer.ms(lambda: hops.fused_a2a_expert_mlp_plain(
+                    *args[:6], **call), iters=3, warmup=1),
+                bound_ms=f_ms, bound_by=f_by, library_ms=lib_ms,
+                library=lib_name, live_rows=live,
+                shape=f"bf16 x_send {list(x_send.shape)}, {plan.e_local} "
+                      f"local experts of ffn {MOE_FFN}, {live} live rows, "
+                      f"bucket {plan.bucket}, c_pad {plan.c_pad}, rank 0 "
+                      f"of {EP} on one card")
+        del args, x_send, got, again, want, tpu
+        torch.cuda.empty_cache()
+    timed.update(cases=fused, max_abs_err=worst)
+    del timer
+    return dict(a2a=a2a, fused=timed)
+
+
+def ep_run(torch, np, mesh, mode, want):
+    """One mode of train-moe-ep on this rank: the model from the seed with
+    its experts sharded over ep (``llama_shard_fn``), step 1's loss and
+    gradients (the experts' gathered back to ``[E, ...]``), 1 + 1 warmup
+    steps, then ``EP_STEPS`` timed steps with the launch counts zeroed just
+    before and read just after (``want``: per step), the host-staged
+    all-gathers and the #15/#17 calls timed apart."""
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.models import llama_shard_fn
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    from paddle_tpu_torch.weights import gather_experts
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model, opt, train_step = build_trainer(
+        torch, moe_config(),
+        prepare=lambda m: dist.shard_layer(m, mesh, llama_shard_fn(mesh)))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 32000, size=(MOE_B, MOE_S)).astype("int32")).cuda()
+    names = [n for n, _ in model.named_parameters()]
+    loss0, grads = loss_and_grads(torch, model, ids)
+    grads = gather_experts(model, dict(zip(names, grads)))
+    grads = [grads[n].bfloat16().cpu() for n in names]
+    torch.cuda.reset_peak_memory_stats()
+    losses = [train_step(ids) for _ in range(2)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with timed_calls(torch, [(collective, "all_gather", "gloo"),
+                             (hops, "tiled_a2a", "a2a"),
+                             (hops, "fused_a2a_expert_mlp", "a2a")]) as spent:
+        t0 = time.perf_counter()
+        for _ in range(EP_STEPS):
+            losses.append(train_step(ids))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    for name in kernels.KERNELS:
+        assert counts[name] == want.get(name, 0) * EP_STEPS, \
+            (mode, name, counts)
+    vals = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in vals), (mode, vals)
+    assert vals[-1] < vals[0], f"train-moe-ep {mode}: the loss did not " \
+                               f"fall: {vals}"
+    full = gather_experts(model)
+    shards = {n for n, p in model.named_parameters()
+              if full[n].shape != p.shape}
+    res = dict(loss0=loss0, losses=vals, counts=counts,
+               loss_bits=[x.cpu().numpy().tobytes() for x in losses],
+               ms_per_step=1e3 * dt / EP_STEPS,
+               tokens_per_s=MOE_B * MOE_S * EP_STEPS / dt,
+               gather_share=spent["gloo"] / dt, a2a_share=spent["a2a"] / dt,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               replicated_digest=_digest_of(
+                   {n: t for n, t in full.items() if n not in shards}),
+               digest=_digest_of(full), names=names)
+    del model, opt, train_step, full
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    return res, grads
+
+
+def _ep_setup():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    env = dist.init_parallel_env(backend="gloo")
+    mesh = dist.ProcessMesh(list(range(dist.get_world_size())), ["ep"])
+    dist.set_mesh(mesh)
+    paddle.flags.set_flags(dict(EP_FLAGS, pallas_fused_block="auto",
+                                moe_fused_wi=True))
+    return torch, paddle, env, mesh
+
+
+def _ep_rank(rank, work_dir):
+    """One rank of train-moe-ep's first spawn: a gloo group with its peer
+    on the same card, an ``["ep"]`` mesh of two ranks, the #15/#17 kernel
+    checks, then (b1), (b2) and (b3) from the seed; writes its results,
+    and rank 0 each mode's first-step gradients."""
+    import numpy as np
+    torch, paddle, env, mesh = _ep_setup()
+    out = dict(rank=rank, device=str(env.device),
+               kind=torch.cuda.get_device_name(env.device),
+               kernels=_ep_kernel_checks(torch, mesh))
+    layers = moe_config().num_hidden_layers
+    for mode, values in EP_MODES.items():
+        paddle.flags.set_flags(dict(EP_FLAGS, **values))
+        out[mode], grads = ep_run(torch, np, mesh, mode,
+                                  ep_want(mode, layers))
+        if rank == 0:
+            torch.save(grads, os.path.join(work_dir, f"grads_{mode}.pt"))
+    torch.save(out, os.path.join(work_dir, f"rank{rank}.pt"))
+
+
+def _ep_rank_control(rank, work_dir):
+    """train-moe-ep's planted fault, the control of its gradient check:
+    (b1)'s ranks and model, where rank 0 drops its peer's block of every
+    layer's combine (the outputs its peer's experts computed for its
+    tokens); rank 0 writes the first step's gradients."""
+    import numpy as np
+    torch, paddle, env, mesh = _ep_setup()
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_a2a
+    from paddle_tpu_torch.models import llama_shard_fn
+    from paddle_tpu_torch.weights import gather_experts
+    kept, exchange = moe_a2a.combine_local, coll.ragged_all_to_all
+
+    def dropped(y_buf, state, w, keep, *, group, ep):
+        def faulty(x, dest=None, **kw):
+            out = exchange(x, dest, **kw)
+            if rank == 0:
+                rows = out.shape[0] // ep
+                mask = torch.ones(out.shape[0], 1, dtype=out.dtype,
+                                  device=out.device)
+                mask[rows:2 * rows] = 0
+                out = out * mask
+            return out
+        coll.ragged_all_to_all = faulty
+        try:
+            return kept(y_buf, state, w, keep, group=group, ep=ep)
+        finally:
+            coll.ragged_all_to_all = exchange
+    moe_a2a.combine_local = dropped
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model, _, _ = build_trainer(
+        torch, moe_config(),
+        prepare=lambda m: dist.shard_layer(m, mesh, llama_shard_fn(mesh)))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 32000, size=(MOE_B, MOE_S)).astype("int32")).cuda()
+    names = [n for n, _ in model.named_parameters()]
+    _, grads = loss_and_grads(torch, model, ids)
+    grads = gather_experts(model, dict(zip(names, grads)))
+    if rank == 0:
+        torch.save([grads[n].bfloat16().cpu() for n in names],
+                   os.path.join(work_dir, "grads_fault.pt"))
+
+
+def _ep_layer_rank(rank, work_dir):
+    """One rank of the layer-level run (c): ``bench_moe_overlap_efficiency``
+    (bench.py:176-260) as four ranks sharing the card, an ``["ep"]`` mesh
+    of four: an fp32 ``MoELayer`` (hidden 1024, 16 SwiGLU experts of ffn
+    2816, gshard cf 2.0) over 16 tokens a rank, its first output against
+    the same layer on the one-device path, then fwd + bwd + AdamW under
+    ``to_static``, one step then 6 timed, ``moe_a2a_overlap`` off and on.
+    Writes tokens/s and the launches of each."""
+    import numpy as np
+    torch, paddle, env, mesh = _ep_setup()
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.incubate.distributed.models.moe import MoELayer
+    from paddle_tpu_torch.models import llama as L
+    from paddle_tpu_torch.ops import kernels
+    cfg = L.LlamaConfig(hidden_size=EPC_HIDDEN, intermediate_size=EPC_FFN)
+    n = EPC_TOKENS * EPC_RANKS
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        n, EPC_HIDDEN).astype("float32")).cuda()
+
+    def layer_of(sharded):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        init = L._Init(cfg, torch.device("cuda"), gen)
+        layer = MoELayer(EPC_HIDDEN, [L.LlamaMLP(cfg, init)
+                                      for _ in range(EPC_E)], gate="gshard",
+                         capacity_factor=2.0, generator=gen,
+                         mesh=mesh if sharded else None)
+        return layer.shard_experts(mesh) if sharded else layer
+
+    out = {}
+    for overlap in (False, True):
+        paddle.flags.set_flags(dict(EP_FLAGS, moe_a2a_overlap=overlap))
+        layer = layer_of(True)
+        with torch.no_grad():
+            y = layer(x)
+            dist.set_mesh(None)             # the one-device path
+            y_one = layer_of(False)(x)
+            dist.set_mesh(mesh)
+        ok = scaled_close(y, y_one, 1e-5, 1e-5)
+        opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                     parameters=layer.parameters())
+
+        @paddle.jit.to_static
+        def step(inp):
+            yy = layer(inp)
+            loss = (yy * yy).mean() + 0.01 * layer.gate.get_loss()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        step(x)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [step(x) for _ in range(EPC_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["on" if overlap else "off"] = dict(
+            tokens_per_s=n * EPC_STEPS / dt, ms_per_step=1e3 * dt / EPC_STEPS,
+            counts=kernels.launch_counts(), y_close=ok,
+            y_err=max_err(y, y_one), losses=[float(v) for v in losses])
+        del layer, opt, step
+    torch.save(out, os.path.join(work_dir, f"layer{rank}.pt"))
+
+
+def phase_train_moe_ep(torch, np, card):
+    """The slice-7 path, train-moe-ep: ``bench_moe``'s configuration
+    (``bench.py:122-129``) trained with AdamW on an ``["ep"]`` mesh of two
+    ``distributed.spawn`` ranks sharing this one card over gloo (NCCL
+    refuses two ranks on one GPU), the fixed batch 8 x 2048 of train-moe,
+    each rank holding the replicated model, its 8 of the 16 experts and
+    8,192 of the 16,384 tokens' dispatch. Checks: #15/#17 against their
+    twins at the path's shapes (``_ep_kernel_checks``); in each of (b1),
+    (b2), (b3): launches per step and rank as ``ep_want`` derives them,
+    falling finite losses, both ranks the same loss bits and the same bits
+    in every replicated parameter (and the gathered experts), step 1's
+    loss within the bf16 tier of one process at the same seed and batch,
+    its gradients within 2e-2 rel L2 over the model and each parameter's
+    within ``EP_LEAF_LIMIT``, which a planted combine fault must exceed.
+    Then the layer-level run (c) at ep 4. Returns the launch counts by path
+    and the #15 and #17 rows of the ``kernels`` line."""
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    paddle.flags.set_flags(dict(EP_FLAGS, pallas_fused_block="auto",
+                                moe_fused_wi=True))
+    cfg = moe_config()
+    layers, e = cfg.num_hidden_layers, cfg.moe_num_experts
+    log(f"train-moe-ep: bench_moe (bench.py:122: vocab 32000, hidden 1024, "
+        f"16 experts of ffn 704, top-2 gshard, cf 2.0, 16:16 heads), "
+        f"{layers} layers, bf16, batch {MOE_B} x seq {MOE_S}, AdamW(lr 1e-4, "
+        f"wd 0.1), seeded random weights, {EP} ranks sharing one card on an "
+        f"['ep'] mesh (gloo)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model, _, _ = build_trainer(torch, cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(MOE_B, MOE_S)).astype("int32")).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    names = [n for n, _ in model.named_parameters()]
+    loss_one, grads_one = loss_and_grads(torch, model, ids)
+    grads_one = [g.bfloat16().cpu() for g in grads_one]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    expert = 3 * cfg.hidden_size * cfg.intermediate_size * layers * e
+    flops_per_token = (6 * (n_params - int(expert * (e - 2) / e))
+                       + 12 * layers * cfg.hidden_size * MOE_S)
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        dist.spawn(_ep_rank, (work,), nprocs=EP, timeout=900)
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            weights_only=False) for r in range(EP)]
+        grads = {m: torch.load(os.path.join(work, f"grads_{m}.pt"))
+                 for m in EP_MODES}
+        log(f"train-moe-ep: {EP} ranks in {time.perf_counter() - t0:.1f} s "
+            f"on {[r['device'] + ' ' + r['kind'] for r in ranks]}; kernels "
+            f"(rank 0): {json.dumps(ranks[0]['kernels'])}")
+    with tempfile.TemporaryDirectory() as work:
+        dist.spawn(_ep_rank_control, (work,), nprocs=EP, timeout=600)
+        grads_fault = torch.load(os.path.join(work, "grads_fault.pt"))
+    counts, perf, checks = {}, dict(card=card, one_process_loss=loss_one), []
+    leaf_c = _leaf_rels(grads_fault, grads_one)
+    worst_c = max(leaf_c)
+    for mode in EP_MODES:
+        r0 = ranks[0][mode]
+        for r in ranks[1:]:
+            assert r[mode]["loss_bits"] == r0["loss_bits"], \
+                f"train-moe-ep {mode}: the ranks' losses differ"
+            assert r[mode]["replicated_digest"] == r0["replicated_digest"] \
+                and r[mode]["digest"] == r0["digest"], \
+                f"train-moe-ep {mode}: the ranks' parameters differ"
+        leaf = _leaf_rels(grads[mode], grads_one)
+        worst = max(leaf)
+        rel = math.sqrt(sum(float((x.float() - y.float()).square().sum())
+                            for x, y in zip(grads[mode], grads_one))
+                        / sum(float(y.float().square().sum())
+                              for y in grads_one))
+        tps = r0["tokens_per_s"]
+        perf[mode] = dict(
+            ms_per_step=r0["ms_per_step"], tokens_per_s=tps,
+            mfu=tps * flops_per_token / PEAK_FLOPS["bf16"],
+            gather_share=r0["gather_share"], a2a_share=r0["a2a_share"],
+            peak_gib=r0["peak_gib"], losses=r0["losses"],
+            loss0=r0["loss0"], grad_rel_l2_vs_one_process=rel,
+            worst_leaf=worst, worst_leaf_name=names[leaf.index(worst)],
+            ms_per_step_rank1=ranks[1][mode]["ms_per_step"])
+        msg = (f"train-moe-ep {mode}: step 1 against one process: loss "
+               f"{r0['loss0']:.6f} vs {loss_one:.6f}; gradients rel L2 "
+               f"{rel:.4g} over the model, worst parameter "
+               f"{names[leaf.index(worst)]} {worst:.4g}; the planted fault "
+               f"worst {names[leaf_c.index(worst_c)]} {worst_c:.4g}; limit "
+               f"{EP_LEAF_LIMIT:g}")
+        log(msg)
+        log(f"train-moe-ep {mode}: " + json.dumps(perf[mode]))
+        checks.append((abs(r0["loss0"] - loss_one) <= 2e-2 * abs(loss_one)
+                       and rel <= 2e-2 and worst <= EP_LEAF_LIMIT < worst_c,
+                       msg))
+        counts[EP_PATHS[mode]] = r0["counts"]
+    for ok, msg in checks:
+        assert ok, msg
+    perf["planted_fault_worst_leaf"] = worst_c
+    log("train-moe-ep: " + json.dumps(perf) + " (MFU by bench_moe's "
+        "activated-parameter formula against one card's 989 TFLOP/s; the "
+        "two ranks share one card, so this is not expert-parallel scaling)")
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        dist.spawn(_ep_layer_rank, (work,), nprocs=EPC_RANKS, timeout=600)
+        layer = [torch.load(os.path.join(work, f"layer{r}.pt"))
+                 for r in range(EPC_RANKS)]
+    for r, res in enumerate(layer):
+        for key, run in res.items():
+            assert run["y_close"], \
+                f"train-moe-ep (c) rank {r} overlap {key}: the layer's " \
+                f"output is {run['y_err']} from the one-device layer's"
+    off, on = layer[0]["off"], layer[0]["on"]
+    log(f"train-moe-ep (c): bench_moe_overlap_efficiency (hidden "
+        f"{EPC_HIDDEN}, {EPC_E} experts of ffn {EPC_FFN}, {EPC_TOKENS} tokens "
+        f"a rank, ep {EPC_RANKS} on one card, fp32): overlap off "
+        f"{off['tokens_per_s']:.1f} tok/s ({off['ms_per_step']:.2f} ms), on "
+        f"{on['tokens_per_s']:.1f} tok/s ({on['ms_per_step']:.2f} ms), ratio "
+        f"{on['tokens_per_s'] / off['tokens_per_s']:.4f} (not asserted); "
+        f"output against the one-device layer {off['y_err']:.3g}; in "
+        f"{time.perf_counter() - t0:.1f} s on {card}")
+    counts["train-moe-ep-layer"] = off["counts"]
+    counts["train-moe-ep-layer-overlap"] = on["counts"]
+
+    k = ranks[0]["kernels"]
+    for c in k["fused"]["cases"]:
+        log(f"kernel fused_a2a_expert_mlp {c['case']}: max_abs_err "
+            f"{c['max_abs_err']:.3g} (max|twin| {c['max_twin']:.3g}), "
+            f"second launch bitwise, {c['live']} live rows, {c['empty']} "
+            f"empty experts, bucket {c['bucket']}, c_pad {c['c_pad']}; "
+            f"from the TPU kernel's arithmetic (gate and up in fp32): the "
+            f"kernel {c['tpu_gap']:.4g}, the twin {c['twin_tpu_gap']:.4g} "
+            f"x max|y|")
+    rows = [dict(name="tiled_a2a", route="cuda",
+                 source="paddle_tpu_torch/csrc/async_collectives.cu",
+                 replaces="paddle_tpu/ops/pallas/async_collectives.py:187",
+                 path="train-moe-ep", max_abs_err=0.0, tolerance="bitwise",
+                 library_ms=None, **{x: k["a2a"][x] for x in (
+                     "ms", "plain_ms", "bound_ms", "bound_by", "shape")}),
+            dict(name="fused_a2a_expert_mlp", route="cuda",
+                 source="paddle_tpu_torch/csrc/async_collectives.cu",
+                 replaces="paddle_tpu/ops/pallas/async_collectives.py:480",
+                 path="train-moe-ep",
+                 tolerance="bf16 rtol=atol=2e-2 x max|twin|; fp32 rtol "
+                           "1e-5, atol 1e-5 x max|twin|",
+                 **{x: k["fused"][x] for x in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms", "shape")})]
+    for row in rows:
+        log(f"kernel {row['name']}: {row['shape']}: max_abs_err "
+            f"{row['max_abs_err']:.3g} (tol {row['tolerance']}), "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['library_ms']}, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}) on {card}")
+    return counts, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=32,
@@ -3105,6 +3752,10 @@ def main() -> int:
         counts.update(cp_counts)
         rows.append(hop_row)
         log(f"train-cp done at {time.perf_counter() - t_start:.1f} s")
+        ep_counts, ep_rows = phase_train_moe_ep(torch, np, card)
+        counts.update(ep_counts)
+        rows.extend(ep_rows)
+        log(f"train-moe-ep done at {time.perf_counter() - t_start:.1f} s")
         for r in rows:
             names = r.get("counts", [r["name"]])
             r["launches"] = sum(counts[r["path"]][n] for n in names)

@@ -2,16 +2,18 @@
 that context-parallel training needs, over ``torch.distributed``.
 
 The bootstrap (:func:`init_parallel_env`, :func:`spawn`), the named mesh
-of ranks (:class:`ProcessMesh`, :func:`set_mesh`), the collectives the
-ring uses (:func:`ppermute`, :func:`all_gather`, :func:`barrier`) and the
-ring itself (:func:`ring_attention`, the zig-zag layout over the
-segment-causal flash kernels). Ulysses, placements and resharding, data
-parallel, sharding, the pipeline and the MoE all-to-all are ROADMAP.md
-A.10 and raise or are absent.
+of ranks (:class:`ProcessMesh`, :func:`set_mesh`), :func:`shard_layer`,
+the collectives of the ring and of the MoE dispatch (:func:`ppermute`,
+:func:`all_gather`, :func:`barrier`, :func:`all_to_all`,
+:func:`ragged_all_to_all`) and the ring itself (:func:`ring_attention`,
+the zig-zag layout over the segment-causal flash kernels). Ulysses,
+placements and resharding, data parallel, sharding and the pipeline are
+ROADMAP.md A.10 and raise or are absent.
 """
 
+from paddle_tpu_torch.distributed.api import shard_layer  # noqa: F401
 from paddle_tpu_torch.distributed.collective import (  # noqa: F401
-    all_gather, barrier, ppermute,
+    all_gather, all_to_all, barrier, ppermute, ragged_all_to_all,
 )
 from paddle_tpu_torch.distributed.env import (  # noqa: F401
     ParallelEnv, get_rank, get_world_size, init_parallel_env, is_initialized,

@@ -8,6 +8,10 @@ keeps the reference's name and chooses between two model paths, each of
 which runs kernels; so does ``moe_fused_wi`` (gmm2, or two gmm launches).
 ``pallas_selective_scan=off`` takes the reference's associative scan on
 CPU tensors and raises on CUDA tensors, where that path has no kernel.
+``pallas_async_a2a=off`` likewise takes the backend's exchange (the
+reference's ``lax.all_to_all``) on CPU tensors and raises on CUDA tensors;
+``moe_a2a_fused_kernel=off`` takes the composed pipelined path, whose
+exchanges and GEMMs are kernels again.
 """
 
 from __future__ import annotations
@@ -97,3 +101,29 @@ define_flag("moe_grouped_gemm", "auto")
 # gate and up projections of the expert MLP through the dual-output gmm2
 # kernel (one read of the token buffer) instead of two gmm launches
 define_flag("moe_fused_wi", True)
+
+# expert parallelism (incubate/distributed/models/moe/moe_a2a.py,
+# ops/kernels/async_collectives.py), with the reference's defaults
+# (paddle_tpu/flags.py:173-210). moe_a2a_dispatch: "auto" and its alias
+# "on" take the capacity-bucketed ragged all-to-all on a mesh with an ep
+# axis of size > 1 (the reference's "auto" follows the grouped-GEMM path,
+# the port's only expert path, so the two agree); "off" keeps each rank on
+# the one-device grouped path over replicated experts.
+define_flag("moe_a2a_dispatch", "auto")
+# split each rank's tokens into moe_a2a_chunks independent pipelines
+# (clamped to the largest divisor of the rank's token count)
+define_flag("moe_a2a_overlap", False)
+define_flag("moe_a2a_chunks", 2)
+# the tiled exchange inside ragged_all_to_all: "auto" and its alias "on"
+# take the tiled all-to-all kernel on CUDA tensors (its twin, the collective
+# exchange, on CPU tensors); "off" takes the collective exchange, the
+# reference's lax.all_to_all, on CPU tensors and raises NotImplementedError
+# on CUDA tensors, where the exchange is the kernel's
+define_flag("pallas_async_a2a", "auto")
+# the comm-fused dispatch + expert MLP kernel: "auto" and its alias "on"
+# take it (the
+# kernel on CUDA tensors, its composed twin on CPU tensors) at any chunk
+# count; "off" takes the composed pipelined path. The reference's flag text
+# says the kernel needs moe_a2a_overlap, but its code never checks it
+# (ROADMAP.md C), and the port follows the code.
+define_flag("moe_a2a_fused_kernel", "auto")

@@ -1,5 +1,5 @@
 """MoELayer (port of
-``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``, one device).
+``paddle_tpu/incubate/distributed/models/moe/moe_layer.py``).
 
 The experts' parameters are stacked into one ``[E, ...]`` leaf per weight
 on a submodule ``stacked`` (``gate_proj__weight``, ``up_proj__weight``,
@@ -11,20 +11,32 @@ buffer, the expert MLP as grouped GEMMs (the CUDA kernels on CUDA
 tensors, their twins on CPU tensors) and the weighted combine. The aux
 loss of the routing is left on ``gate._loss``.
 
+Expert parallelism (``moe_layer.py:231-264``): on a mesh (``mesh=``, else
+the global mesh) with an ``ep`` axis of size > 1, the layer takes the
+ragged all-to-all dispatch of :mod:`.moe_a2a` while ``moe_a2a_dispatch``
+is on; :meth:`MoELayer.shard_experts` keeps this rank's ``E/ep`` experts.
+A mesh the a2a path cannot take warns once per reason and runs the
+one-device path over all experts, as the reference falls back to its
+all-gather path; a layer without a mesh, or whose mesh has no ``ep``
+axis, is a one-device layer and does not warn.
+
 Not ported yet, each raising ``NotImplementedError`` by ROADMAP.md item:
-expert parallelism (a mesh, ``shard_experts``, the all-to-all dispatch;
-A.10), recompute (A.3), and, A.8, experts other than bias-free SwiGLU
-MLPs, gates without index routing, and the index-form and dense paths
-(``moe_grouped_gemm=off``).
+mesh axes beside ``ep``, ``moe_group``/``mp_group`` and the all-gather
+path over sharded experts (A.10), recompute (A.3), and, A.8, experts other
+than bias-free SwiGLU MLPs, gates without index routing, and the
+index-form and dense paths (``moe_grouped_gemm=off``).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
+from paddle_tpu_torch.distributed.process_mesh import get_mesh
+from paddle_tpu_torch.incubate.distributed.models.moe import moe_a2a
 from paddle_tpu_torch.incubate.distributed.models.moe.gate import (
     BaseGate, GShardGate, NaiveGate, SwitchGate)
 from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
@@ -33,6 +45,19 @@ __all__ = ["MoELayer"]
 
 _GATES = {"gshard": GShardGate, "switch": SwitchGate, "naive": NaiveGate}
 _SWIGLU = ["down_proj.weight", "gate_proj.weight", "up_proj.weight"]
+
+
+# one warning per distinct structural reason per process
+_warned_fallbacks: set = set()
+
+
+def _warn_fallback(what: str, reason: str) -> None:
+    key = (what, reason)
+    if key in _warned_fallbacks:
+        return
+    _warned_fallbacks.add(key)
+    warnings.warn(f"{what}: falling back to the slow path — {reason}",
+                  RuntimeWarning, stacklevel=3)
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -48,7 +73,10 @@ class MoELayer(nn.Module):
     their device, its weight drawn from ``generator``.
 
     ``forward(x [..., M])`` returns the combined expert output in x's
-    shape; ``layer.gate.get_loss()`` is the routing's aux loss."""
+    shape; ``layer.gate.get_loss()`` is the routing's aux loss. With
+    ``mesh`` (a mesh of the ``ep_axis`` axis alone) the layer runs expert
+    parallel over that mesh; without it, over the global mesh if that has
+    the axis."""
 
     def __init__(self, d_model: int, experts: Sequence[nn.Module],
                  gate="gshard", capacity_factor: Optional[float] = None,
@@ -58,9 +86,11 @@ class MoELayer(nn.Module):
         super().__init__()
         if not experts:
             raise ValueError("MoELayer needs at least one expert")
-        if mesh is not None or moe_group is not None or mp_group is not None:
-            raise _unported("expert parallelism (mesh, moe_group, mp_group)",
-                            "A.10")
+        if moe_group is not None or mp_group is not None:
+            raise _unported("moe_group and mp_group (the reference's "
+                            "communicator groups)", "A.10")
+        if mesh is not None:
+            moe_a2a.require_ep_only(mesh, ep_axis, "MoELayer")
         if recompute_interval > 0:
             raise _unported("recompute_interval", "A.3")
         template = experts[0]
@@ -97,6 +127,10 @@ class MoELayer(nn.Module):
             self.stacked.register_parameter(
                 name.replace(".", "__"), nn.Parameter(torch.stack(leaves)))
         self._param_names = names
+        self._mesh = mesh
+        self._ep_axis = ep_axis
+        # (rank on the ep axis, ep) once shard_experts kept a block
+        self.expert_shard: Optional[tuple] = None
 
     def expert_parameters(self):
         """``(names, stacked [E, ...] parameters)``."""
@@ -105,7 +139,34 @@ class MoELayer(nn.Module):
         return list(self._param_names), params
 
     def shard_experts(self, mesh, ep_axis: Optional[str] = None):
-        raise _unported("shard_experts (expert parallelism)", "A.10")
+        """Keep this rank's block of the stacked experts, ``Shard(0)`` over
+        the ep axis (``moe_layer.py:192``): rank ``r`` keeps experts
+        ``r*E/ep`` to ``(r+1)*E/ep - 1``. Each leaf becomes a new
+        parameter, so build the optimizer after this call."""
+        ep_axis = ep_axis or self._ep_axis
+        moe_a2a.require_ep_only(mesh, ep_axis, "MoELayer.shard_experts")
+        if ep_axis not in mesh.dim_names:
+            raise ValueError(f"shard_experts: mesh {mesh} has no "
+                             f"{ep_axis!r} axis")
+        ep, rank = mesh.get_dim_size(ep_axis), mesh.axis_index(ep_axis)
+        if self.num_experts % ep:
+            raise ValueError(f"shard_experts: {self.num_experts} experts do "
+                             f"not split over ep={ep}")
+        if self.expert_shard is not None:
+            if self.expert_shard != (rank, ep):
+                raise ValueError(f"shard_experts: already sharded as "
+                                 f"{self.expert_shard}, not {(rank, ep)}")
+            return self
+        e_l = self.num_experts // ep
+        for name in self._param_names:
+            key = name.replace(".", "__")
+            p = getattr(self.stacked, key)
+            block = p.detach()[rank * e_l:(rank + 1) * e_l].clone()
+            self.stacked.register_parameter(
+                key, nn.Parameter(block, requires_grad=p.requires_grad))
+        self._mesh, self._ep_axis = mesh, ep_axis
+        self.expert_shard = (rank, ep)
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate = self.gate
@@ -118,13 +179,29 @@ class MoELayer(nn.Module):
         wg = stacked.gate_proj__weight
         wu = stacked.up_proj__weight
         wd = stacked.down_proj__weight
-        num_e = wg.shape[0]
+        num_e = self.num_experts
         capacity = gate.capacity(n, self.capacity_factor, top_k)
         scores = torch.matmul(tokens, gate.weight.to(tokens.dtype))
-        e_idx, slot, w, keep, aux = gate.route_indices(scores.float(),
-                                                       capacity)
+        routed = gate.route_indices(scores.float(), capacity)
+        e_idx, slot, w, keep, aux = routed
         ct = torch.promote_types(tokens.dtype, wg.dtype)
         gg.require_grouped_path(ct)
+        mesh = self._mesh if self._mesh is not None else get_mesh()
+        ep_axis = self._ep_axis
+        if (mesh is not None and ep_axis in mesh.dim_names
+                and moe_a2a.a2a_enabled()):
+            reason = moe_a2a.a2a_ineligible_reason(mesh, ep_axis, num_e, n,
+                                                   ffn=wg.shape[-1])
+            if reason is None:
+                y, gate._loss = moe_a2a.a2a_grouped_forward(
+                    tokens, routed, wg, wu, wd, capacity, mesh, ep_axis,
+                    shape, ct, num_experts=num_e)
+                return y
+            _warn_fallback("moe_a2a_dispatch", reason)
+        if self.expert_shard is not None:
+            raise _unported("the all-gather expert path over sharded experts "
+                            "(moe_a2a_dispatch=off, or a mesh the a2a "
+                            "dispatch cannot take)", "A.10")
         x_buf, counts, dest = gg.sorted_dispatch(
             tokens.to(ct), e_idx, slot, keep, num_e,
             gg.padded_capacity(capacity))

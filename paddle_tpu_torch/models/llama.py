@@ -25,6 +25,9 @@ attention runs the context-parallel ring over that axis
 over the segment-causal kernels when ``sep_mode`` is ``auto`` and the
 sequence divides ``2*sp``); the rest of the layer runs replicated on
 every rank of the axis, and such a layer never takes the fused block.
+With a global mesh that has an ``ep`` axis, every MoE layer takes the
+expert-parallel a2a dispatch; :func:`llama_shard_fn` (for
+``distributed.shard_layer``) keeps each rank's block of the experts.
 Weights keep Paddle's
 ``[in, out]`` layout and are trainable, norm weights stay fp32 in a bf16
 model, and the state-dict keys are the JAX model's, so
@@ -57,7 +60,7 @@ from paddle_tpu_torch.ops.kernels import fused_block as _fb
 
 __all__ = ["LlamaConfig", "LlamaRMSNorm", "LlamaAttention", "LlamaMLP",
            "LlamaDecoderLayer", "LlamaModel", "LlamaForCausalLM",
-           "llama_tiny_config", "llama3_8b_config"]
+           "llama_tiny_config", "llama3_8b_config", "llama_shard_fn"]
 
 
 @dataclass
@@ -385,3 +388,24 @@ def _shifted_lm_loss(logits: torch.Tensor, labels: torch.Tensor):
     per_tok = torch.where(valid, lse - picked, torch.zeros_like(lse))
     denom = valid.sum().float().clamp(min=1.0)
     return per_tok.sum() / denom, shifted
+
+
+def llama_shard_fn(mesh, dp_axis: str = "dp", mp_axis: str = "mp",
+                   ep_axis: str = "ep"):
+    """The placement table of ``paddle_tpu/models/llama.py:526-575`` for
+    ``distributed.shard_layer``, its expert-parallel part: every MoE
+    layer's stacked expert leaves ``Shard(0)`` over ``ep_axis``
+    (:meth:`MoELayer.shard_experts`); every other parameter stays
+    replicated. The Megatron tensor-parallel placements over ``mp_axis``
+    and data parallelism over ``dp_axis`` are ROADMAP.md A.10."""
+    for axis in (dp_axis, mp_axis):
+        if axis in mesh.dim_names:
+            raise NotImplementedError(
+                f"llama_shard_fn: the {axis!r} axis (data and tensor "
+                f"parallel placements) is not ported yet (ROADMAP.md A.10)")
+
+    def shard_fn(name, sub, mesh_):
+        if isinstance(sub, MoELayer) and ep_axis in mesh_.dim_names:
+            sub.shard_experts(mesh_, ep_axis)
+
+    return shard_fn

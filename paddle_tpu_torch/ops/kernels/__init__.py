@@ -13,7 +13,7 @@ Each module here pairs the kernels of one TPU module, from
   launch (and nowhere else), so a run can show which kernels it went
   through: ``launches`` for a module's forward kernel, ``launches_bwd``
   for its backward kernel (the grouped GEMMs also count ``gmm2`` and
-  ``tgmm`` apart).
+  ``tgmm`` apart, and the exchanges their three kernels).
 
 The mirror of ``paddle_tpu/ops/pallas/<name>.py`` is
 ``paddle_tpu_torch/ops/kernels/<name>.py``.
@@ -49,6 +49,8 @@ KERNELS = {
     "flash_attention_seg_fwd": (flash_attention, "launches_seg"),
     "flash_attention_seg_bwd": (flash_attention, "launches_seg_bwd"),
     "ring_kv_rotate": (async_collectives, "launches"),
+    "tiled_a2a": (async_collectives, "launches_a2a"),
+    "fused_a2a_expert_mlp": (async_collectives, "launches_fused"),
 }
 
 

@@ -186,6 +186,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ptt_ipc_close.argtypes = [I, P]
     # src0, dst0, bytes0, src1, dst1, bytes1, segments, stream
     lib.ptt_ring_copy.argtypes = [P, P, L, P, P, L, I, P]
+    # srcs (host array of w pointers), out, block bytes, w, rank, stream
+    lib.ptt_a2a_pull.argtypes = [PP, P, L, I, I, P]
+    # peers (host array of w pointers), w, rank, bucket, inv, counts, wg,
+    # wu, wd, act, y, chunks, e_local, c_pad, M, F, dtype, stream
+    lib.ptt_fused_a2a_mlp.argtypes = [PP] + [I] * 3 + [P] * 7 + [I] * 6 + [P]
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,
                lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
                lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd,
@@ -193,7 +198,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.ptt_selective_scan, lib.ptt_ragged_paged_attn_quant,
                lib.ptt_flash_attn_fwd_seg, lib.ptt_flash_attn_bwd_seg,
                lib.ptt_ipc_alloc, lib.ptt_ipc_free, lib.ptt_ipc_open,
-               lib.ptt_ipc_close, lib.ptt_ring_copy):
+               lib.ptt_ipc_close, lib.ptt_ring_copy, lib.ptt_a2a_pull,
+               lib.ptt_fused_a2a_mlp):
         fn.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p

@@ -564,3 +564,80 @@ def test_ring_kv_rotate_matches_twin_between_ranks_on_one_card(cuda_device,
         got = torch.load(tmp_path / f"hop{r}.pt")
         assert [g["equal"] for g in got] == [True] * len(cases), got
         assert all(g["moved"] and g["launches"] == 2 for g in got), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_tiled_a2a_matches_twin_between_ranks_on_one_card(cuda_device,
+                                                          tmp_path, world):
+    """#15's port: ranks share the card over gloo; each exchange of the
+    IPC pull kernel equals the twin's gloo exchange bit for bit, with one
+    launch an exchange, in bf16, int32 (the expert ids) and fp32, at a
+    block size the 16-byte vectors do not divide, with a KV hop (#16)
+    between exchanges on the same slots."""
+    import _torch_ep_ranks
+    from paddle_tpu_torch import distributed as pt_dist
+    cases = [((64, 32), torch.bfloat16), ((256,), torch.int32),
+             ((128, 16), torch.float32), ((12, 5, 3), torch.bfloat16),
+             ((64, 32), torch.bfloat16)]
+    torch.save(cases, tmp_path / "a2a.pt")
+    pt_dist.spawn(_torch_ep_ranks.a2a_cuda_run, (str(tmp_path),),
+                  nprocs=world, timeout=300)
+    for r in range(world):
+        got = torch.load(tmp_path / f"a2a{r}.pt")
+        assert all(g["equal"] and g["hop_equal"] and g["moved"]
+                   and g["launches"] == 1 for g in got), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 4])
+def test_fused_a2a_expert_mlp_matches_twin_between_ranks_on_one_card(
+        cuda_device, tmp_path, world):
+    """#17's port on the path's own packed inputs (global gshard routing,
+    each rank's rows packed per chunk): against its twin (the gloo exchange,
+    the inv gather, the grouped-GEMM twins) at the op-harness tiers scaled
+    by the twin's largest magnitude, fp32 and bf16, one and two chunks,
+    ragged K/N edges, a capacity that drops (cf 1.0) and an expert no
+    token routes to; against the TPU kernel's arithmetic (gate and up in
+    fp32) within the same tiers; a second launch bitwise, one launch a
+    call."""
+    import _torch_ep_ranks
+    from paddle_tpu_torch import distributed as pt_dist
+    cases = [dict(tokens=256, experts=8, hidden=64, ffn=96, cf=2.0,
+                  chunks=1, dtype=torch.float32),
+             dict(tokens=256, experts=8, hidden=64, ffn=96, cf=2.0,
+                  chunks=2, dtype=torch.bfloat16),
+             dict(tokens=256, experts=16, hidden=128, ffn=176, cf=1.0,
+                  chunks=1, dtype=torch.bfloat16, empty_expert=3)]
+    torch.save(cases, tmp_path / "fused.pt")
+    pt_dist.spawn(_torch_ep_ranks.fused_cuda_run, (str(tmp_path),),
+                  nprocs=world, timeout=300)
+    empty = 0
+    for r in range(world):
+        got = torch.load(tmp_path / f"fused{r}.pt")
+        for case, g in zip(cases, got):
+            tol = 1e-5 if case["dtype"] == torch.float32 else 2e-2
+            assert g["err"] <= tol and g["bitwise"] and g["launches"] == 2 \
+                and g["live"] > 0 and g["tpu_gap"] <= tol, (case, g)
+        empty += got[2]["empty"]
+    assert empty >= 1      # the rank that owns expert 3 has it empty
+
+
+@pytest.mark.cuda
+def test_async_a2a_off_refuses_cuda_tensors(cuda_device):
+    """``pallas_async_a2a=off`` names the collective exchange, which moves
+    CPU tensors: on a CUDA tensor the exchange raises rather than staging
+    through the host, and ``auto`` launches the kernel (a world of one)."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.distributed import collective as coll
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    x = torch.arange(12., device=cuda_device).reshape(4, 3)
+    flags.set_flags({"pallas_async_a2a": "off"})
+    try:
+        with pytest.raises(NotImplementedError, match="pallas_async_a2a=off"):
+            coll.ragged_all_to_all(x)
+    finally:
+        flags.set_flags({"pallas_async_a2a": "auto"})
+    before = hops.launches_a2a
+    assert torch.equal(coll.ragged_all_to_all(x), x)
+    assert hops.launches_a2a == before + 1

@@ -342,3 +342,33 @@ def test_distributed_modules_load_no_jax():
             "paddle_tpu_torch/distributed/process_mesh.py",
             "paddle_tpu_torch/distributed/collective.py",
             "paddle_tpu_torch/distributed/sequence_parallel.py"} <= files
+
+
+def test_expert_parallel_modules_load_no_jax():
+    """The expert-parallel slice's modules (the a2a dispatch, the exchange
+    kernels' wrappers, shard_layer) import torch and nothing of JAX, and
+    the exchange wrappers refuse a tensor neither on the CPU (the twins)
+    nor on a card (the kernels)."""
+    code = ("import sys, paddle_tpu_torch.incubate.distributed.models.moe."
+            "moe_a2a, paddle_tpu_torch.ops.kernels.async_collectives, "
+            "paddle_tpu_torch.distributed.api; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {"paddle_tpu_torch/incubate/distributed/models/moe/moe_a2a.py",
+            "paddle_tpu_torch/ops/kernels/async_collectives.py",
+            "paddle_tpu_torch/distributed/api.py"} <= files
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    meta = torch.empty(8, 4, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        hops.tiled_a2a(meta)
+    counts = torch.empty(2, dtype=torch.int32, device="meta")
+    w = torch.empty(2, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        hops.fused_a2a_expert_mlp(meta, counts, counts, w, w,
+                                  torch.empty(2, 8, 4, device="meta"),
+                                  group=None, chunks=1, bucket=8, c_pad=64)

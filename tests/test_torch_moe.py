@@ -172,11 +172,16 @@ def test_moe_layer_matches_jax(gate, cf, jax_mode):
 
 
 def test_moe_layer_refuses_what_is_not_ported():
+    from paddle_tpu_torch import distributed as pt_dist
     pcfg = LlamaConfig(hidden_size=16, intermediate_size=32)
     init = pt_llama._Init(pcfg, torch.device("cpu"), torch.Generator())
     experts = [pt_llama.LlamaMLP(pcfg, init) for _ in range(2)]
-    for kw in (dict(mesh=object()), dict(recompute_interval=1),
-               dict(moe_group=object())):
+    # expert parallelism is ported over an ["ep"] mesh; data and tensor
+    # axes beside it, and the reference's communicator groups, are not
+    dp_ep = pt_dist.ProcessMesh([[0, 1], [2, 3]], ["dp", "ep"])
+    ep_mp = pt_dist.ProcessMesh([[0, 1], [2, 3]], ["ep", "mp"])
+    for kw in (dict(mesh=dp_ep), dict(mesh=ep_mp), dict(recompute_interval=1),
+               dict(moe_group=object()), dict(mp_group=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             pt_moe.MoELayer(16, experts, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
@@ -185,8 +190,11 @@ def test_moe_layer_refuses_what_is_not_ported():
         pt_moe.MoELayer(16, experts,
                         gate=pt_moe.BaseGate(16, 2, device="cpu"))
     layer = pt_moe.MoELayer(16, experts)
+    for mesh in (dp_ep, ep_mp):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
+            layer.shard_experts(mesh)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
-        layer.shard_experts(None)
+        pt_llama.llama_shard_fn(dp_ep)
     with flag_values(pt_values={"moe_grouped_gemm": "off"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
             layer(torch.zeros(4, 16))
