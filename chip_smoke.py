@@ -65,7 +65,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sampling, the share of greedy tokens equal to the compiled engine's and
    the shares the twins and the fp32 copy would choose too (not asserted:
    32 bf16 layers of random weights differ by rounding alone);
-7. serve-quant, the quantized memory plane: ``bench_serve_llama_quant``'s
+7. serve-fleet, the slice-8 path, right after serve-eager: the
+   disaggregated fleet at the serve phase's widths and depth. First #18 (the
+   KV-page remote copy) in two ``distributed.spawn`` ranks sharing the card
+   over gloo: the path's largest record (bf16 K and V [32768, 8, 128], a
+   1024-token prompt at 32 layers) and an int8 page segment with its fp32
+   scales moved from rank 0 to rank 1 by the kernel and by its twin (a gloo
+   ``ppermute`` through the host), bit for bit, one launch a call; then the
+   bf16 segment timed (the kernel's pull from the peer's mapped slot, the
+   library's ``Tensor.copy_`` of the same view, the twin, the whole SPMD
+   call) beside its bound. Then the serve model rebuilt from its seed serves
+   every request of the phase one at a time through a one-process
+   ``GenerationServer`` (the baselines) and leaves this process; a master,
+   a ``FleetSupervisor`` and a ``FleetRouter`` bring up three
+   ``serve_host`` processes on the card from the reference's spec schema
+   (``pf0`` prefill, ``dc0`` and ``dc1`` decode; ``max_seqs`` 8,
+   ``max_seq_len`` 2048, block 64; no TF32 and a fixed cuBLAS workspace
+   through their environment), each reporting a parameter digest equal to
+   the baseline model's. Legs: (a) the serve requests one at a time, each
+   prompt prefilled on ``pf0`` and its pages pulled by a decode host with
+   #18 from ``pf0``'s exported buffer, every stream bit for bit the
+   one-process run's, #18 launches == handoffs x 2 (K and V), no page leak,
+   no IPC buffer left held; (b) the hosts respawned with
+   ``FLAGS_use_pallas_kernels=0``, the same requests over packed bytes, bit
+   for bit again, no #18 launch; (c) the hosts respawned on the device
+   route, 8 requests from another seed at once, ``dc1`` SIGKILLed while it
+   decodes one: every request finishes ``length`` with 32 tokens, every
+   stream append-only and equal to the journal's, ``failovers >= 1``, no
+   leak on the live hosts, no IPC buffer held on ``pf0``, the master's
+   incident closed with a finite MTTR; the share of greedy tokens equal to
+   the one-process runs is reported, not asserted (concurrent batches
+   round bf16 differently); (d) ``ensure`` respawns ``dc1``, which serves
+   one more request bit for bit its one-process run. Reports TTFT and
+   end-to-end latency (p50, p99), goodput and the handoff's time split
+   (export gather, stage or pack, transport, install) for each leg;
+8. serve-quant, the quantized memory plane: ``bench_serve_llama_quant``'s
    configuration and traffic (``bench.py:1758-1884``: 8 layers, hidden
    1024, ffn 2816, 16:8 heads of 64, vocab 32000, block 64, ``max_seqs``
    64, seeded random weights), nothing cut. Checks: equal-byte KV pools
@@ -76,8 +110,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    leak in either, quantized ragged launches == steps x layers and the
    full-width ragged kernel none, a profiled repeat bitwise equal, >= 99%
    of greedy tokens equal to the plain twins, with weight-only int8 too;
-8. serve-moe, the slice-3 serving path: the train-moe configuration
-   (phase 11; seeded random weights), run before the training phases as
+9. serve-moe, the slice-3 serving path: the train-moe configuration
+   (phase 12; seeded random weights), run before the training phases as
    a serving process would, through ``GenerationEngine(max_seqs=16,
    max_seq_len=160, block_size=64)``, 16 prompts of 64 tokens, 32 new
    tokens each, 2 of them sampled. Checks: finish reasons, no page leak,
@@ -87,7 +121,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (gmm2 launches 0, gmm == steps x layers x 3, greedy tokens >= 99%
    equal to the fused run's). Reports the host's CPU time over the wall
    and device kernels per step (the step is issued op by op);
-9. serve-ssm, the slice-4 hybrid path: ``bench_serve_ssm``'s on-chip
+10. serve-ssm, the slice-4 hybrid path: ``bench_serve_ssm``'s on-chip
    configuration (``bench.py:1972-2078``: an fp32 hybrid of 8 layers "SA",
    hidden 1024, ffn 2816, 8:8 heads of 128, d_state 16, SSM head dim 32,
    seeded random weights). Checks: equal-byte KV pools admit >= 2x as many
@@ -99,7 +133,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the drain, a profiled repeat bitwise equal, >= 99% of greedy tokens
    equal to the same engine on the plain twins and compiled equal to
    eager;
-10. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
+11. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
    configuration (vocab 32000, hidden 1536, ffn 4096, 12 layers, GQA
    12:4, seq 2048, batch 4, bf16, ~400M parameters, seeded random
    weights, ``pallas_fused_block=auto``): AdamW(lr 1e-4, wd 0.1), the
@@ -115,18 +149,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the kernels against the plain twins and an fp32 copy, over all
    parameters and per parameter; a second run from the seed bitwise
    equal;
-11. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
+12. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
    configuration (``bench.py:122-129``: vocab 32000, hidden 1024, 16
    experts of ffn 704, top-2 gshard at capacity factor 2.0, aux weight
    0.01, 6 layers, 16:16 heads, bf16), batch 8 x seq 2048, trained as in
-   phase 10 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
+   phase 11 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
    tokens/s, ms per step, the bench's activated-parameter MFU, busy share
    and top kernels, peak memory. Checks: finite, falling losses; per step
    6 gmm2, 6 + 18 gmm (forward, and the dx against w^T), 18 tgmm, 6 flash
    forward and backward and 13 of each RMSNorm kernel; one step's
    gradients against the twins and an fp32 copy (with the share of
    (token, k) routes the fp32 copy also takes); a second run bitwise;
-12. train-cp, the slice-6 context-parallel path: ``bench_cp_long_context``
+13. train-cp, the slice-6 context-parallel path: ``bench_cp_long_context``
    (``bench.py:323-371``: vocab 32000, hidden 1024, ffn 2816, 4 layers,
    16:8 heads of 64, bf16, ``sequence_parallel=True``, ``sep_mode="auto"``,
    seq 32768, batch 1, seeded random weights; the bench's 64k row is left
@@ -138,7 +172,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    attention is the zig-zag ring: its KV and dk/dv hops go device to
    device through the IPC hop kernel (``ring_kv_rotate``, first held
    against its twin, a gloo ``ppermute`` through the host, bit for bit at
-   the path's shape and timed beside it), its all-gathers through the
+   the path's shape and timed beside it and beside the library's
+   ``Tensor.copy_`` of K and V from the peer's mapped slot), its
+   all-gathers through the
    host. Checks: falling finite losses; both ranks the same loss and
    parameter bits; per step and rank 4 segment-causal forwards, 8
    segment-causal backwards, 4 flash forwards, 32 hop launches (16 hops),
@@ -150,8 +186,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ranks share it, so this is not context-parallel scaling) and the
    shares of (b)'s step spent in the host-staged all-gathers and in the
    IPC hops;
-13. train-moe-ep, the slice-7 expert-parallel path: the train-moe model
-   and batch (phase 11) trained with AdamW on an ``["ep"]`` mesh of two
+14. train-moe-ep, the slice-7 expert-parallel path: the train-moe model
+   and batch (phase 12) trained with AdamW on an ``["ep"]`` mesh of two
    ``distributed.spawn`` ranks sharing this card over gloo, each rank
    holding the replicated model with 8 of the 16 experts (``shard_layer``
    with ``llama_shard_fn``) and dispatching 8,192 of the 16,384 tokens
@@ -184,7 +220,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    four, so that #15 and #17 run with three peers: its output against the
    one-device layer, then fwd + bwd + AdamW with ``moe_a2a_overlap`` off
    and on (the ratio reported, not asserted);
-14. the ``kernels`` JSON line, then the result line.
+15. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -1620,6 +1656,476 @@ def phase_serve_eager(torch, np, model, layers, card, compiled):
     return counts, perf
 
 
+# ------------------------------------------------------ serve-fleet phase
+# the disaggregated fleet at the serve phase's widths and depth: one
+# prefill host and two decode hosts, each its own process on the card
+FLEET_ENGINE = {"max_seqs": 8, "max_seq_len": 2048, "block_size": 64}
+# numerics of every host process, as this process runs: a fixed cuBLAS
+# workspace (bitwise repeats), the serve phase's composed blocks (the hosts
+# turn TF32 off themselves)
+FLEET_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+             "FLAGS_pallas_fused_block": "off"}
+FLEET_ROWS = 32768          # the path's largest record: 1024 tokens x 32
+
+
+def fleet_spec(layers):
+    """The hosts' spec in the reference's schema
+    (``serve_host.py:64-92``): the serve phase's model (Llama-3-8B widths,
+    seed 0) and engine."""
+    cfg = dict(vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+               num_hidden_layers=layers, num_attention_heads=32,
+               num_key_value_heads=8, max_position_embeddings=8192,
+               rope_theta=500000.0, dtype="bfloat16")
+    return {"model": "llama_tiny", "seed": 0, "device": "cuda",
+            "config": cfg, "engine": dict(FLEET_ENGINE),
+            "server": {"max_queue": 64}}
+
+
+def fleet_requests(np, seed, tag, n=8):
+    """``make_requests``' traffic from ``seed`` as ``(id, prompt, kwargs)``
+    (a fresh ``GenerationRequest`` each time one is submitted)."""
+    from paddle_tpu_torch.inference import GenerationRequest
+    _, reqs = make_requests(GenerationRequest, np, np.random.RandomState(seed),
+                            128256)
+    return [(f"{tag}{r.request_id}", r.input_ids,
+             dict(max_new_tokens=r.max_new_tokens, temperature=r.temperature,
+                  top_p=r.top_p, seed=r.seed)) for r in reqs[:n]]
+
+
+def _request(spec):
+    from paddle_tpu_torch.inference import GenerationRequest
+    rid, prompt, kw = spec
+    return GenerationRequest(rid, list(prompt), **kw)
+
+
+def fleet_baseline(torch, model, specs):
+    """The one-process run: each request alone through a
+    ``GenerationServer`` on the serve model, one after another."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationServer
+    srv = GenerationServer(GenerationEngine(model, **FLEET_ENGINE))
+    out = {}
+    for spec in specs:
+        h = srv.submit(_request(spec))
+        assert srv.run_until_idle(), "baseline run did not finish"
+        assert h.finish_reason == "length", h.finish_reason
+        out[spec[0]] = list(h.output_ids)
+    srv.close()
+    del srv
+    torch.cuda.empty_cache()
+    return out
+
+
+def _k18_rank(rank, work_dir):
+    """#18 in one of two gloo ranks sharing the card (a ``["kv"]`` mesh):
+    the path's largest record, bf16 K and V [32768, 8, 128] and an int8
+    page segment with its fp32 scales [32768, 8], each moved from rank 0 to
+    rank 1 by the kernel and by its twin (a gloo ``ppermute`` through the
+    host), bit for bit; then the bf16 segment timed: the kernel's pull
+    from rank 0's mapped slot and the library's ``Tensor.copy_`` of the
+    same view by rank 1 alone on the card, then the twin and the whole SPMD
+    call (stage, sync, barrier, pull) by both."""
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    from paddle_tpu_torch.ops.kernels import kv_handoff as k18
+    dist.init_parallel_env(backend="gloo")
+    mesh = dist.ProcessMesh([0, 1], ["kv"])
+    dist.set_mesh(mesh)
+    group, peer = mesh.group("kv"), 1 - rank
+
+    def payload(r, shape, dtype):
+        g = torch.Generator(device="cuda").manual_seed(200 + r)
+        if dtype == torch.int8:
+            return torch.randint(-128, 128, shape, generator=g,
+                                 device="cuda", dtype=torch.int8)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    cases = [("K bf16", (FLEET_ROWS, 8, 128), torch.bfloat16),
+             ("V bf16", (FLEET_ROWS, 8, 128), torch.bfloat16),
+             ("K int8", (FLEET_ROWS, 8, 128), torch.int8),
+             ("K scales fp32", (FLEET_ROWS, 8), torch.float32)]
+    res = {"rank": rank, "checks": []}
+    for label, shape, dtype in cases:
+        x = payload(rank, shape, dtype)
+        n0 = k18.launches
+        got = k18.kv_pages_remote_copy(x, 0, 1, chunks=2, group=group)
+        want = k18.kv_pages_remote_copy_plain(x, 0, 1, 2, group)
+        torch.cuda.synchronize()
+        res["checks"].append(dict(
+            case=label, launches=k18.launches - n0,
+            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            equal_twin=torch.equal(got, want),
+            equal_source=torch.equal(got, payload(peer, shape, dtype)),
+            moved=not torch.equal(got, x)))
+    # timing at the bf16 segment: the slot the last bf16 call staged stays
+    # unwritten until both ranks pass the next call's barrier. Rank 1, the
+    # destination, times the pull and the library's copy alone on the
+    # card while rank 0 waits at a barrier
+    x = payload(rank, cases[0][1], torch.bfloat16)
+    got = k18.kv_pages_remote_copy(x, 0, 1, chunks=2, group=group)
+    ring = hops._rings[group]
+    theirs = ring.addr(peer, ring.slot ^ 1)
+    nbytes = x.numel() * x.element_size()
+    timer = Timer(torch)
+    if rank == 1:
+        out = torch.empty_like(x)
+        res["ms"] = timer.ms(lambda: k18.pages_copy(out, theirs, 2))
+        assert torch.equal(out, got)
+        view = k18.device_view(theirs, nbytes, x.device).view(
+            x.dtype).view(x.shape)
+        res["library_ms"] = timer.ms(lambda: out.copy_(view))
+    torch.distributed.barrier(group=group)
+    res["plain_ms"] = timer.ms(lambda: k18.kv_pages_remote_copy_plain(
+        x, 0, 1, 2, group), iters=3)
+    res["call_ms"] = timer.ms(lambda: k18.kv_pages_remote_copy(
+        x, 0, 1, chunks=2, group=group))
+    res["bound_ms"], res["bound_by"] = bound(2 * nbytes, 0, "bf16")
+    del timer
+    torch.save(res, os.path.join(work_dir, f"k18_{rank}.pt"))
+
+
+def _k18_check(torch, card):
+    import tempfile
+    import paddle_tpu_torch.distributed as dist
+    with tempfile.TemporaryDirectory() as work:
+        dist.spawn(_k18_rank, (work,), nprocs=2, timeout=600)
+        ranks = [torch.load(os.path.join(work, f"k18_{r}.pt"))
+                 for r in range(2)]
+    for r in ranks:
+        for c in r["checks"]:
+            log(f"serve-fleet kernel kv_pages_remote_copy rank {r['rank']} "
+                f"{c['case']}: " + json.dumps(c))
+            assert c["equal_twin"] and c["moved"] and c["launches"] == 1, c
+            # the ranks' pairing is a shift: rank 0 receives rank 1's too
+            assert c["equal_source"], c
+    r1 = dict(ranks[1], ranks=ranks)
+    log(f"serve-fleet kernel kv_pages_remote_copy: bf16 [{FLEET_ROWS}, 8, "
+        f"128] (64 MiB), rank 1 pulling rank 0's: kernel {r1['ms']:.4f} ms, "
+        f"library copy_ {r1['library_ms']:.4f} ms, plain (gloo) "
+        f"{r1['plain_ms']:.4f} ms, whole SPMD call {r1['call_ms']:.4f} ms, "
+        f"bound {r1['bound_ms']:.4f} ms ({r1['bound_by']}) on {card}")
+    return r1
+
+
+def _pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def _leg_perf(handles, wall, card):
+    """TTFT and end-to-end latency (router clocks, p50/p99, ms) and
+    goodput (tokens of requests that finished ``length`` or ``eos`` per
+    second of the leg's wall)."""
+    ttft = [h.ttft_s * 1e3 for h in handles.values()]
+    e2e = [h.e2e_s * 1e3 for h in handles.values()]
+    good = sum(len(h.output_ids) for h in handles.values()
+               if h.finish_reason in ("length", "eos"))
+    return dict(requests=len(handles), wall_s=wall, ttft_ms_p50=_pct(ttft, .5),
+                ttft_ms_p99=_pct(ttft, .99), e2e_ms_p50=_pct(e2e, .5),
+                e2e_ms_p99=_pct(e2e, .99), goodput_tokens_per_s=good / wall,
+                card=card)
+
+
+def _fleet_state(sup):
+    """Each live host's /introspect answer, and each proxy's wire time."""
+    out = {}
+    for name, h in sorted(sup.hosts.items()):
+        if sup.procs[name].poll() is None:
+            out[name] = dict(h.introspect(), transfer=dict(h.transfer))
+    return out
+
+
+def _delta(after, before, names):
+    """Kernel launches and handoff counters between two states, summed
+    over ``names`` (a host absent before counts from zero)."""
+    launches, handoff, transfer = {}, {}, {}
+    for n in names:
+        a, b = after[n], before.get(n, {})
+        for k, v in a["launches"].items():
+            launches[k] = launches.get(k, 0) + v - b.get("launches", {}).get(
+                k, 0)
+        for k, v in a["handoff"].items():
+            handoff[k] = handoff.get(k, 0) + v - b.get("handoff", {}).get(
+                k, 0)
+        for k, v in a["transfer"].items():
+            transfer[k] = transfer.get(k, 0) + v - b.get(
+                "transfer", {}).get(k, 0)
+    return launches, handoff, transfer
+
+
+def _split(pf, dc, tr, n):
+    """The handoff's time split per record (ms): the prefill host's gather
+    (into the IPC buffer on the device route) and pack, the transport, the
+    decode host's install."""
+    ms = lambda s: 1e3 * s / max(n, 1)          # noqa: E731
+    return dict(handoffs=n, export_gather_ms=ms(pf["export_s"]),
+                pack_ms=ms(pf["pack_s"]),
+                transport_pull_ms=ms(dc["pull_s"]),
+                transport_wire_ms=ms(tr["fetch_s"] + tr["push_s"]
+                                     + dc["unpack_s"]),
+                install_ms=ms(dc["install_s"]))
+
+
+def _start_fleet(master, spec, use_kernels, log_dir):
+    from paddle_tpu_torch.inference import FleetRouter, FleetSupervisor
+    env = dict(FLEET_ENV, FLAGS_use_pallas_kernels="1" if use_kernels
+               else "0")
+    sup = FleetSupervisor(master.address, spec, log_dir=log_dir, env=env)
+    router = FleetRouter(master_address=master.address)
+    roles = (("pf0", "prefill"), ("dc0", "decode"), ("dc1", "decode"))
+    for name, role in roles:
+        sup.spawn(name, role, wait_ready=False)
+    for name, _ in roles:
+        router.register_host(sup.wait_ready(name))
+    return sup, router
+
+
+def _check_hosts(sup, digest, route):
+    state = _fleet_state(sup)
+    for name, s in state.items():
+        assert s["digest"] == digest, \
+            f"{name}: parameter digest {s['digest']} is not the baseline's"
+        assert s["device"].startswith("cuda"), (name, s["device"])
+        assert (s["ipc"] is not None) == (route == "ipc"), \
+            (name, route, s["ipc"])
+    return state
+
+
+def _leak_free(state, names):
+    for n in names:
+        s = state[n]
+        assert s["free_blocks"] == s["num_blocks"] and s["num_active"] == 0, \
+            (n, "page leak", s["free_blocks"], s["num_blocks"])
+        assert s["ipc_held"] == 0, (n, "IPC buffers still held",
+                                    s["ipc_held"])
+
+
+def _sequential_leg(router, specs, base, label):
+    """Each request alone through the fleet, waited to completion; every
+    stream bit for bit the one-process run's."""
+    handles = {}
+    t0 = time.perf_counter()
+    for spec in specs:
+        h = handles[spec[0]] = router.submit(_request(spec))
+        assert router.run_until_idle(timeout_s=180.0, poll_s=0.005), \
+            (label, router.stats())
+        assert h.finish_reason == "length", (label, spec[0], h.finish_reason)
+        assert h.output_ids == base[spec[0]], \
+            (f"{label}: request {spec[0]}'s stream differs from the "
+             f"one-process run", h.output_ids, base[spec[0]])
+    return handles, time.perf_counter() - t0
+
+
+def phase_serve_fleet(torch, np, layers, card, log_dir):
+    """The disaggregated fleet (see the module docstring, phase 7)."""
+    import signal
+    from paddle_tpu_torch.distributed.launch.master import HTTPMaster
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
+    from paddle_tpu_torch.weights import param_digest
+    t_phase = time.perf_counter()
+    k18 = _k18_check(torch, card)
+    segs = 2                            # bf16 pages: K and V a record
+
+    # the one-process runs on the serve model rebuilt from its seed, which
+    # then leaves this process before the hosts build theirs
+    seq = fleet_requests(np, 0, "a")
+    burst = fleet_requests(np, 1, "c")
+    late = fleet_requests(np, 2, "d", n=3)
+    model = LlamaForCausalLM(llama3_8b_config(dtype="bfloat16",
+                                              num_hidden_layers=layers),
+                             seed=0)
+    base = fleet_baseline(torch, model, seq + burst + late)
+    digest = param_digest(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"serve-fleet: one-process baselines done at "
+        f"{time.perf_counter() - t_phase:.1f} s, parameter digest {digest}")
+    spec = fleet_spec(layers)
+    perf, counts = {"card": card}, {}
+    master = HTTPMaster(ttl=60.0, serve_ttl=5.0, ops_hang_after=60.0,
+                        ops_bundle_grace=0.5, ops_poll=0.05)
+    try:
+        # ---- (a) sequential handoffs, device to device through #18
+        sup, router = _start_fleet(master, spec, True, log_dir)
+        try:
+            log(f"serve-fleet (a): 3 hosts ready at "
+                f"{time.perf_counter() - t_phase:.1f} s")
+            s0 = _check_hosts(sup, digest, "ipc")
+            handles, wall = _sequential_leg(router, seq, base, "(a)")
+            s1 = _fleet_state(sup)
+            launches, ho, tr = _delta(s1, s0, s1)
+            n = router.counters["handoffs"]
+            assert n == len(seq), router.counters
+            assert launches["kv_pages_remote_copy"] == n * segs, \
+                (launches, n)
+            assert ho["pulls"] == n and ho["installs"] == n, ho
+            _leak_free(s1, s1)
+            assert s1["pf0"]["ipc"]["released"] == n, s1["pf0"]["ipc"]
+            counts["serve-fleet-a"] = launches
+            perf["a"] = dict(_leg_perf(handles, wall, card),
+                             **_split(ho, ho, tr, n))
+            log("serve-fleet (a): 8 sequential requests equal to the "
+                "one-process run bit for bit; " + json.dumps(perf["a"]))
+        finally:
+            router.close()
+            sup.close()
+        # ---- (b) the same over the serialized route
+        sup, router = _start_fleet(master, spec, False, log_dir)
+        try:
+            s0 = _check_hosts(sup, digest, "bytes")
+            handles, wall = _sequential_leg(router, seq, base, "(b)")
+            s1 = _fleet_state(sup)
+            launches, ho, tr = _delta(s1, s0, s1)
+            n = router.counters["handoffs"]
+            assert n == len(seq), router.counters
+            assert launches["kv_pages_remote_copy"] == 0, launches
+            assert ho["pulls"] == 0 and ho["installs"] == n \
+                and ho["unpacks"] == n, ho
+            _leak_free(s1, s1)
+            counts["serve-fleet-serialized"] = launches
+            perf["b"] = dict(_leg_perf(handles, wall, card),
+                             **_split(ho, ho, tr, n))
+            log("serve-fleet (b): the same 8 requests over packed bytes, "
+                "equal to (a) bit for bit; " + json.dumps(perf["b"]))
+        finally:
+            router.close()
+            sup.close()
+        # ---- (c) concurrent traffic, a decode host SIGKILLed mid-stream
+        sup, router = _start_fleet(master, spec, True, log_dir)
+        try:
+            s0 = _check_hosts(sup, digest, "ipc")
+            t0 = time.perf_counter()
+            handles = {s[0]: router.submit(_request(s)) for s in burst}
+            seen = {rid: [] for rid in handles}
+
+            def watch():
+                for rid, h in handles.items():
+                    now = h.output_ids
+                    assert now[:len(seen[rid])] == seen[rid], \
+                        f"(c): {rid}'s stream rewrote a streamed token"
+                    seen[rid] = now
+            deadline = time.monotonic() + 180.0
+            mid = False
+            while not mid:
+                assert time.monotonic() < deadline, "dc1 never mid-stream"
+                router.poll()
+                watch()
+                with router._lock:
+                    mid = any(e.state == "decode" and e.host == "dc1"
+                              and len(e.tokens) > 1
+                              for e in router.journal.values())
+                time.sleep(0.005)
+            pre_kill = sup.hosts["dc1"].introspect()
+            pre_kill["transfer"] = dict(sup.hosts["dc1"].transfer)
+            sup.kill("dc1", signal.SIGKILL)
+            while not router.run_until_idle(timeout_s=0.05, poll_s=0.005):
+                watch()
+                assert time.monotonic() < deadline, router.stats()
+            watch()
+            wall = time.perf_counter() - t0
+            for rid, h in handles.items():
+                assert h.finish_reason == "length" \
+                    and len(h.output_ids) == 32, (rid, h.finish_reason,
+                                                  len(h.output_ids))
+                assert seen[rid] == h.output_ids == \
+                    router.journal[rid].tokens, rid
+            assert router.counters["failovers"] >= 1, router.counters
+            s1 = _fleet_state(sup)
+            _leak_free(s1, s1)
+            dec = dict(s1, dc1=pre_kill)
+            launches, ho, tr = _delta(dec, s0, dec)
+            assert launches["kv_pages_remote_copy"] == ho["pulls"] * segs, \
+                (launches, ho)
+            # pf0 lives through the leg, so no pull may be refused: every
+            # record pf0 staged was pulled and confirmed, or was dropped
+            # unpulled because its decode host (dc1) died
+            rc = router.counters
+            ipc = {k: s1["pf0"]["ipc"][k] - s0["pf0"]["ipc"][k]
+                   for k in ("staged", "released", "discarded")}
+            assert ho["refused"] == 0 and rc["handoffs_refused"] == 0, \
+                (ho, rc)
+            assert ho["pulls"] <= ipc["released"], (ho, ipc)
+            assert ipc["staged"] == rc["handoffs"] \
+                == ipc["released"] + rc["handoffs_dropped"] \
+                and ipc["discarded"] == rc["handoffs_dropped"], (ipc, rc)
+            greedy = [s[0] for s in burst if not s[2]["temperature"]]
+            agree = greedy_agreement(
+                {r: {"output_ids": h.output_ids} for r, h in handles.items()},
+                {r: {"output_ids": base[r]} for r in handles}, greedy)
+            counts["serve-fleet-c"] = launches
+            perf["c"] = dict(_leg_perf(handles, wall, card),
+                             **_split(ho, ho, tr, router.counters["handoffs"]),
+                             failovers=router.counters["failovers"],
+                             greedy_agreement_one_process=agree,
+                             pf0_ipc=s1["pf0"]["ipc"])
+            mttr = None
+            deadline = time.monotonic() + 60.0
+            while mttr is None and time.monotonic() < deadline:
+                done = master._incident_view()["incidents"]
+                mttr = done[-1]["mttr_seconds"] if done else None
+                time.sleep(0.05)
+            assert mttr is not None and math.isfinite(mttr), \
+                master._incident_view()
+            perf["c"]["mttr_s"] = mttr
+            log("serve-fleet (c): 8 concurrent requests, dc1 SIGKILLed "
+                "mid-stream, every request 32 tokens, no token lost or "
+                "repeated, no leak; " + json.dumps(perf["c"]))
+            # ---- (d) recovery: two decode hosts again, the respawn serves
+            assert sup.ensure(router=router) == ["dc1"]
+            assert len(sup.live_hosts("decode")) == 2
+            s0 = _check_hosts(sup, digest, "ipc")
+            rc0 = dict(router.counters)
+            landed = None
+            for spec_d in late:
+                handles, _ = _sequential_leg(router, [spec_d], base, "(d)")
+                if handles[spec_d[0]].host == "dc1":
+                    landed = spec_d[0]
+                    break
+            assert landed is not None, "no request landed on the respawn"
+            s1 = _fleet_state(sup)
+            launches, ho, tr = _delta(s1, s0, s1)
+            n = router.counters["handoffs"] - rc0["handoffs"]
+            assert launches["kv_pages_remote_copy"] == ho["pulls"] * segs \
+                and ho["pulls"] == ho["installs"] == n >= 1 \
+                and ho["refused"] == 0, (launches, ho, n)
+            assert router.counters["handoffs_refused"] \
+                == rc0["handoffs_refused"], router.counters
+            _leak_free(s1, s1)
+            counts["serve-fleet-d"] = launches
+            perf["d"] = dict(request=landed, pulls=ho["pulls"])
+            log(f"serve-fleet (d): dc1 respawned, request {landed} served on "
+                f"it bit for bit equal to the one-process run")
+        finally:
+            router.close()
+            sup.close()
+    finally:
+        master.shutdown()
+    path = {}
+    for leg in ("serve-fleet-a", "serve-fleet-c", "serve-fleet-d"):
+        for k, v in counts.pop(leg).items():
+            path[k] = path.get(k, 0) + v
+    counts["serve-fleet"] = path
+    log("serve-fleet: path launches (legs a, c, d, the decode and prefill "
+        "hosts) " + json.dumps(path))
+    row = dict(name="kv_pages_remote_copy", route="cuda",
+               source="paddle_tpu_torch/csrc/kv_handoff.cu",
+               replaces="paddle_tpu/inference/kv_handoff.py:393",
+               path="serve-fleet", tolerance="bitwise",
+               max_abs_err=max(c["max_abs_err"] for r in k18["ranks"]
+                               for c in r["checks"]),
+               ms=k18["ms"], plain_ms=k18["plain_ms"],
+               bound_ms=k18["bound_ms"], bound_by=k18["bound_by"],
+               library_ms=k18["library_ms"],
+               shape=f"bf16 [{FLEET_ROWS}, 8, 128] (a 1024-token record's K "
+                     f"at 32 layers), rank 1 of 2 on one card pulling rank "
+                     f"0's slot; plain: a gloo ppermute through the host; "
+                     f"library: Tensor.copy_ from the mapped slot")
+    perf["k18_call_ms"] = k18["call_ms"]
+    log(f"serve-fleet: {time.perf_counter() - t_phase:.1f} s")
+    return counts, row, perf
+
+
 def teacher_forced(torch, np, model, out, **engine_kw):
     """The eager engine over the serve requests, fed the tokens of ``out``
     (teacher forcing): the logits row behind each greedy request's
@@ -2822,9 +3328,13 @@ def _hop_check(torch):
     KV hop at the path's shape (bf16 K and V [1, 16384, 8, 64]) and the
     dk/dv hop (fp32, the same shape), each against its twin (a gloo
     ``ppermute`` through the host) bit for bit, then each timed beside
-    the twin; the bound moves K and V in once and out once."""
+    the twin and (rank 0 alone on the card) beside the library's copy
+    (``Tensor.copy_`` of K and of V from views of the source rank's mapped
+    slot, one call a segment); the bound moves K and V in once and out
+    once."""
     from paddle_tpu_torch.distributed import get_mesh
     from paddle_tpu_torch.ops.kernels import async_collectives as hops
+    from paddle_tpu_torch.ops.kernels.kv_handoff import device_view
     mesh = get_mesh()
     group, me = mesh.group("sep"), mesh.axis_index("sep")
     perm = [(j, (j + 1) % CP_SP) for j in range(CP_SP)]
@@ -2841,10 +3351,26 @@ def _hop_check(torch):
         assert not torch.equal(got[0], k), \
             f"ring_kv_rotate {label}: nothing moved"
         b_ms, b_by = bound(4 * k.numel() * k.element_size(), 0, "bf16")
+        ms = timer.ms(lambda: hops.ring_kv_rotate(k, v, perm, group))
+        plain_ms = timer.ms(lambda: hops.ring_kv_rotate_plain(
+            k, v, perm, group), iters=5)
+        # the library's copy reads the slot the last hop staged; no rank
+        # restages it before the next hop's barrier. Rank 0 times it alone
+        # on the card while the other ranks wait at a barrier
+        lib_ms = None
+        if me == 0:
+            ring = hops._rings[group]
+            theirs = ring.addr((me - 1) % CP_SP, ring.slot ^ 1)
+            nbytes = k.numel() * k.element_size()
+            pk, pv = (device_view(theirs + off, nbytes, k.device).view(
+                dtype).view(k.shape) for off in (0, -(-nbytes // 256) * 256))
+            ko, vo = torch.empty_like(k), torch.empty_like(v)
+            lib_ms = timer.ms(lambda: (ko.copy_(pk), vo.copy_(pv)))
+            assert torch.equal(ko, got[0]) and torch.equal(vo, got[1]), \
+                f"ring_kv_rotate {label}: the library's copy differs"
+        torch.distributed.barrier(group=group)
         out[label] = dict(
-            ms=timer.ms(lambda: hops.ring_kv_rotate(k, v, perm, group)),
-            plain_ms=timer.ms(lambda: hops.ring_kv_rotate_plain(
-                k, v, perm, group), iters=5),
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by,
             shape=f"{str(dtype)[6:]} K and V [1, {CP_SEQ // CP_SP}, "
                   f"{CP_HKV}, {CP_D}]")
@@ -2986,7 +3512,9 @@ def phase_train_cp(torch, np, card):
             for label, h in r["hop"].items():
                 log(f"train-cp (b) rank {r['rank']} ring_kv_rotate "
                     f"{label}: {h['shape']}: equal to the twin bit for bit, "
-                    f"{h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, bound "
+                    f"{h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, "
+                    f"library (copy_ of K and V from the mapped slot, "
+                    f"rank 0 alone) {h['library_ms']}, bound "
                     f"{h['bound_ms']:.4f} ms ({h['bound_by']}) on {card}")
         r0 = ranks[0]
         for r in ranks[1:]:
@@ -3038,8 +3566,10 @@ def phase_train_cp(torch, np, card):
                path="train-cp", max_abs_err=0.0, tolerance="bitwise",
                ms=hop["ms"], plain_ms=hop["plain_ms"],
                bound_ms=hop["bound_ms"], bound_by=hop["bound_by"],
-               library_ms=None, shape=hop["shape"] + ", rank 0 of 2 on one "
-               "card; plain: a gloo ppermute through the host")
+               library_ms=hop["library_ms"], shape=hop["shape"] + ", rank 0 "
+               "of 2 on one card; plain: a gloo ppermute through the host; "
+               "library: Tensor.copy_ of K and of V from the source's "
+               "mapped slot")
     return {"train-cp": b["counts"],
             "train-cp-one-process": one["counts"]}, row
 
@@ -3736,6 +4266,14 @@ def main() -> int:
             torch, np, model, args.layers, card, compiled)[0]
         del model
         log(f"serve-eager done at {time.perf_counter() - t_start:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet_counts, fleet_row, _ = phase_serve_fleet(
+            torch, np, args.layers, card,
+            os.path.join(HERE, "chiprun_out", "serve_fleet_logs"))
+        counts.update(fleet_counts)
+        rows.append(fleet_row)
+        log(f"serve-fleet done at {time.perf_counter() - t_start:.1f} s")
         counts["serve-quant"] = phase_serve_quant(torch, np, card)[0]
         log(f"serve-quant done at {time.perf_counter() - t_start:.1f} s")
         # serving before training, as in a serving process

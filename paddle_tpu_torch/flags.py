@@ -19,7 +19,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict
 
-__all__ = ["define_flag", "flag", "set_flags"]
+__all__ = ["define_flag", "flag", "flag_default", "get_flags", "set_flags"]
 
 _TRUE = {"1", "true", "yes", "on"}
 _FALSE = {"0", "false", "no", "off"}
@@ -56,6 +56,20 @@ def flag(name: str) -> Any:
         return _FLAGS[name]
     except KeyError:
         raise KeyError(f"unknown flag {name!r}") from None
+
+
+def flag_default(name: str) -> Any:
+    try:
+        return _DEFAULTS[name]
+    except KeyError:
+        raise KeyError(f"unknown flag {name!r}") from None
+
+
+def get_flags(names) -> Dict[str, Any]:
+    """``{name: value}`` of the named flags (a name or a list of them)."""
+    if isinstance(names, str):
+        names = [names]
+    return {n: flag(n) for n in names}
 
 
 def set_flags(values: Dict[str, Any]) -> None:
@@ -127,3 +141,34 @@ define_flag("pallas_async_a2a", "auto")
 # says the kernel needs moe_a2a_overlap, but its code never checks it
 # (ROADMAP.md C), and the port follows the code.
 define_flag("moe_a2a_fused_kernel", "auto")
+
+# the reference's master switch for its Pallas kernels. In the port every
+# kernel wrapper launches on CUDA tensors whatever this says; the flag gates
+# one thing, the KV handoff's transport (inference/kv_handoff.py:
+# dma_handoff_enabled): set, two CUDA hosts move the pages device to device
+# through the remote-copy kernel; unset, as packed bytes (ROADMAP.md C)
+define_flag("use_pallas_kernels", True)
+
+# request-scoped distributed tracing (observability/tracing.py): the context
+# API runs; arming it raises until its span sink, the flight recorder and
+# the JSONL stream, is ported (ROADMAP.md A.12)
+define_flag("obs_trace", False)
+define_flag("obs_trace_sample", 1.0)
+
+# chaos flags of the serving plane (testing/fault_injection.py), with the
+# reference's specs (paddle_tpu/flags.py:455-512): nothing fires unless
+# fault_injection is armed
+define_flag("fault_injection", False)
+# 'delay:SECONDS' sleeps every serving-loop step; 'crash:N' raises
+# SimulatedCrash on the Nth
+define_flag("fault_serve_step", "")
+# 'stall:ID' wedges request ID's stream consumer ('stall' alone: every one)
+define_flag("fault_serve_client", "")
+# 'storm:SECONDS' clamps every admitted request's timeout to SECONDS
+define_flag("fault_serve_deadline", "")
+# 'HOST:N' hard-kills host HOST's serving loop on its Nth iteration
+define_flag("fault_serve_kill", "")
+# 'drop:HOST' drops health posts and router reads of host HOST
+define_flag("fault_router_partition", "")
+# 'drop:N' (or 'N') strips the trace context from the Nth traced hop
+define_flag("fault_trace_drop", "")

@@ -44,10 +44,22 @@ of the compiled step: eager mode turns both off, and a hybrid model turns
 ``kv_quant`` off, each with a one-time warning, and serves on. The engine
 exposes ``kv_quant``, ``weight_quant`` and ``cache.quant``.
 
+The serving loop's API, as in the reference (``engine.py:419-520,
+595-629``): :meth:`~GenerationEngine.reap_finished` returns every request
+finished since the last reap, :attr:`~GenerationEngine.num_active` counts
+the slots in use, :meth:`~GenerationEngine.estimated_blocks` is the
+admission estimate, and a request with ``paused`` set keeps its slot and
+pages and contributes no tokens (stream backpressure). A prefill→decode
+handoff leaves one engine with :meth:`~GenerationEngine.export_request` and
+enters another with :meth:`~GenerationEngine.import_request`
+(``inference/kv_handoff.py``), a hybrid's per-slot state with it.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
 item, in both modes and for hybrids): speculative decode
-(``spec_tokens > 0``), the prefix cache, the host KV tier; the SSM state
-handoff waits for the KV handoff (A.11).
+(``spec_tokens > 0``), the prefix cache, the host KV tier; so
+:meth:`~GenerationEngine.spillable_blocks`,
+:meth:`~GenerationEngine.spill_paused` and
+:meth:`~GenerationEngine.release_prefix_cache` are 0.
 """
 
 from __future__ import annotations
@@ -110,6 +122,9 @@ class GenerationRequest:
         self.finish_reason: Optional[str] = None
         self.error: Optional[str] = None
         self._prompt_pos = 0           # prompt tokens written
+        # a paused request keeps its slot and KV pages but contributes no
+        # tokens (the server's stream backpressure)
+        self.paused = False
 
 
 def _unported(option: str, item: str):
@@ -230,6 +245,7 @@ class GenerationEngine:
                                        or max_seqs + self.prefill_chunk)
         self._tok_floor = max(1, int(token_bucket_floor))
         self._seed_counter = 0
+        self._reaped: List[GenerationRequest] = []
         self.stats = {"steps": 0, "step_time_s": 0.0, "decode_tokens": 0,
                       "prefill_tokens": 0, "occupancy_sum": 0.0,
                       "decode_rows": 0}
@@ -290,6 +306,7 @@ class GenerationEngine:
         self.cache.free_slot(req.slot)
         del self._slot_req[req.slot]
         self._requests.pop(req.request_id, None)
+        self._reaped.append(req)
 
     def evict(self, request_id, reason: str = "evicted") -> bool:
         """Finish an active request now and free its pages (and zero its
@@ -299,6 +316,53 @@ class GenerationEngine:
             return False
         self._finish(req, reason)
         return True
+
+    def reap_finished(self) -> List[GenerationRequest]:
+        """Return (and clear) every request finished since the last reap:
+        completions, evictions and mid-step exhaustion alike."""
+        out, self._reaped = self._reaped, []
+        return out
+
+    @property
+    def num_active(self) -> int:
+        return len(self._slot_req)
+
+    def estimated_blocks(self, req: GenerationRequest) -> int:
+        """Admission estimate: KV blocks for the whole prompt and the full
+        requested output, capped at the serving max length (no prefix
+        cache to peek, A.6)."""
+        total = min(len(req.input_ids) + int(req.max_new_tokens),
+                    self.max_seq_len)
+        return -(-total // self.cache.block_size)
+
+    def spillable_blocks(self) -> int:
+        """Device blocks a spill pass could free: 0 without a host tier
+        (A.7)."""
+        return 0
+
+    def spill_paused(self, max_blocks: Optional[int] = None) -> int:
+        """Park paused requests' pages in the host tier: 0 blocks freed
+        without one (A.7)."""
+        return 0
+
+    def release_prefix_cache(self) -> int:
+        """Drop the prefix index's page holds: 0 without an index (A.6)."""
+        return 0
+
+    def export_request(self, request_id):
+        """Handoff, sending side: the request's KV pages, generation state
+        and refcounts as one record (:func:`~paddle_tpu_torch.inference.
+        kv_handoff.export_handoff`); None for an unknown or mid-prefill
+        request. The caller evicts with reason ``"handoff"`` after it."""
+        from paddle_tpu_torch.inference import kv_handoff
+        return kv_handoff.export_handoff(self, request_id)
+
+    def import_request(self, record, request=None):
+        """Handoff, receiving side: install a record as an already
+        prefilled request (:func:`~paddle_tpu_torch.inference.kv_handoff.
+        install_handoff`); None when no slot or blocks are free."""
+        from paddle_tpu_torch.inference import kv_handoff
+        return kv_handoff.install_handoff(self, record, request=request)
 
     def _emit_token(self, req: GenerationRequest, tok: int) -> bool:
         """Append a sampled token and settle eos/length; True when the
@@ -327,6 +391,25 @@ class GenerationEngine:
             if st is not None:
                 st["conv"][slot].zero_()
                 st["ssm"][slot].zero_()
+
+    def export_slot_sstate(self, slot: int):
+        """One slot's recurrent state, ``[{"layer", "conv", "ssm"}, ...]``
+        for each SSM layer (copies, on the engine's device), the SSM half
+        of a handoff record; None for an attention-only engine."""
+        if self._sstate is None:
+            return None
+        return [{"layer": li, "conv": st["conv"][slot].clone(),
+                 "ssm": st["ssm"][slot].clone()}
+                for li, st in enumerate(self._sstate) if st is not None]
+
+    def install_slot_sstate(self, slot: int, planes) -> None:
+        """Install exported state planes at ``slot``; both ends run one
+        model, so the planes carry absolute layer indices."""
+        for p in planes:
+            st = self._sstate[int(p["layer"])]
+            for name in ("conv", "ssm"):
+                st[name][slot] = torch.as_tensor(p[name]).to(
+                    st[name].device, st[name].dtype)
 
     def ssm_state_bytes(self) -> int:
         """Bytes of per-slot SSM state (conv windows and SSD states over
@@ -437,7 +520,8 @@ class GenerationEngine:
         """One token for every active sequence through the Python layer
         walk (``engine.py:1210-1275``); attention reads the pages through
         ``paged_attention_decode``, SSM layers run ``ssm_layer_step``."""
-        active = sorted(self._slot_req)
+        active = [s for s in sorted(self._slot_req)
+                  if not self._slot_req[s].paused]
         if not active:
             return
         cfg, cache, dev = self.cfg, self.cache, self.device
@@ -501,6 +585,8 @@ class GenerationEngine:
         budget = self.max_tokens_per_step
         for s in sorted(self._slot_req):
             req = self._slot_req[s]
+            if req.paused:          # backpressured: holds pages, no work
+                continue
             if req._prompt_pos >= len(req.input_ids) and budget > 0:
                 start = int(cache.seq_lens[s])
                 if not cache.ensure_capacity(s, start + 1):
@@ -510,6 +596,8 @@ class GenerationEngine:
                 budget -= 1
         for s in sorted(self._slot_req):
             req = self._slot_req[s]
+            if req.paused:
+                continue
             prompt_len = len(req.input_ids)
             if req._prompt_pos < prompt_len and budget > 0:
                 n = min(self.prefill_chunk, prompt_len - req._prompt_pos,
@@ -619,9 +707,9 @@ class GenerationEngine:
     def step(self) -> None:
         """One continuous-batching step: decoding sequences advance one
         token, prefilling sequences one prompt chunk (compiled mode), in
-        one batched forward."""
-        if not self._slot_req:
-            return
+        one batched forward; paused sequences wait."""
+        if not any(not r.paused for r in self._slot_req.values()):
+            return          # idle or fully backpressured: no device call
         t0 = time.perf_counter()
         occupancy = len(self._slot_req) / max(1, self.max_seqs)
         if self.mode == "compiled":
@@ -657,6 +745,7 @@ class GenerationEngine:
             self.step()
             while queue and self.add_request(queue[0]):
                 queue.pop(0)
+            self._reaped.clear()    # generate() owns the loop; no reaper
         if return_details:
             return {r.request_id: {"output_ids": r.output_ids,
                                    "finish_reason": r.finish_reason,

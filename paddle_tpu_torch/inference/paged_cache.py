@@ -24,13 +24,17 @@ fp8 e4m3 values and two fp32 arrays ``k_scale``/``v_scale [layers, rows +
 1, kv_heads]`` hold each token row's per-head abs-max scale, laid out
 parallel to the pages (sentinel row included), so a write lands the scales
 at the same slots as the rows and freeing a block frees both.
-Prefix sharing (and with it block refcounts and copy-on-write) and the
-host-RAM tier are not ported yet (ROADMAP.md A.6, A.7).
+A KV handoff (``inference/kv_handoff.py``) reads a request's rows with one
+gather over every layer and lands them with :meth:`write_all` (or
+:meth:`write_all_quantized`, pages and scales as they are), and carries the
+blocks' refcounts. Without a prefix index every owned block's refcount is
+1; prefix sharing (the index, copy-on-write) and the host-RAM tier are not
+ported yet (ROADMAP.md A.6, A.7), so :meth:`slot_spill_pages` is None.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +45,9 @@ __all__ = ["PagedKVCache"]
 
 
 class PagedKVCache:
+    #: the host-RAM tier (``kv_tiers.HostKVTier``): not ported (A.7)
+    host_tier = None
+
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  num_kv_heads: int, head_dim: int, max_seqs: int,
                  dtype: torch.dtype = torch.float32,
@@ -81,6 +88,9 @@ class PagedKVCache:
         self._tables_dev = torch.zeros((max_seqs, self._bps),
                                        dtype=torch.int32, device=self.device)
         self._dirty: List[Tuple[int, int, int]] = []
+        # refcounts adopted from a handoff record (block -> count); a block
+        # absent here counts 1, its owner's
+        self._refs: Dict[int, int] = {}
 
     @property
     def sentinel(self) -> int:
@@ -121,6 +131,8 @@ class PagedKVCache:
         return None
 
     def free_slot(self, slot: int) -> None:
+        for b in self._tables[slot]:
+            self._refs.pop(b, None)
         self._free.extend(reversed(self._tables[slot]))
         self._tables[slot] = []
         self.seq_lens[slot] = 0
@@ -146,7 +158,25 @@ class PagedKVCache:
         need = max(1, -(-new_len // self.block_size)) if new_len > 0 else 0
         table = self._tables[slot]
         while len(table) > need:
-            self._free.append(table.pop())
+            b = table.pop()
+            self._refs.pop(b, None)
+            self._free.append(b)
+
+    def block_refs(self, slot: int) -> List[int]:
+        """Refcounts of ``slot``'s blocks in table order (1 for a block
+        its slot owns alone, the only kind without a prefix index)."""
+        return [self._refs.get(b, 1) for b in self._tables[slot]]
+
+    def set_block_refs(self, slot: int, refs: List[int]) -> None:
+        """Adopt a handoff record's refcounts onto ``slot``'s blocks;
+        table entries past the record's keep their own count."""
+        for b, r in zip(self._tables[slot], refs):
+            self._refs[b] = int(r)
+
+    def slot_spill_pages(self, slot: int):
+        """A slot's pages parked in the host tier: None, since the tier is
+        not ported (ROADMAP.md A.7)."""
+        return None
 
     def slot_mapping(self, slot: int, start: int, n: int) -> np.ndarray:
         """Flat cache positions for tokens ``[start, start+n)`` of a slot."""
@@ -198,6 +228,37 @@ class PagedKVCache:
             return
         self.k[layer].index_copy_(0, slots, k_new.to(self.k.dtype))
         self.v[layer].index_copy_(0, slots, v_new.to(self.v.dtype))
+
+    def write_all(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                  slots) -> None:
+        """Write ``k_new``/``v_new [layers, n, kv, d]`` at flat positions
+        ``slots [n]`` of every layer at once (a handoff's install).
+        Full-width rows; a quantized pool quantizes them on scatter."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        k_new = k_new.to(self.device)
+        v_new = v_new.to(self.device)
+        if self.quant is not None:
+            kq, ks = _kvq.quantize_kv(k_new, self.quant)
+            vq, vs = _kvq.quantize_kv(v_new, self.quant)
+            self.write_all_quantized(kq, vq, ks, vs, slots)
+            return
+        self.k.index_copy_(1, idx, k_new.to(self.k.dtype))
+        self.v.index_copy_(1, idx, v_new.to(self.v.dtype))
+
+    def write_all_quantized(self, kq: torch.Tensor, vq: torch.Tensor,
+                            ks: torch.Tensor, vs: torch.Tensor,
+                            slots) -> None:
+        """Write already-quantized pages ``[layers, n, kv, d]`` and their
+        scales ``[layers, n, kv]`` at ``slots`` of every layer, as they are
+        (a handoff between two pools of one quant mode)."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        for dst, src in ((self.k, kq), (self.v, vq)):
+            dst.view(torch.uint8).index_copy_(
+                1, idx, src.to(self.device).view(torch.uint8))
+        self.k_scale.index_copy_(1, idx, ks.to(self.device,
+                                                self.k_scale.dtype))
+        self.v_scale.index_copy_(1, idx, vs.to(self.device,
+                                                self.v_scale.dtype))
 
     # -- sizing ---------------------------------------------------------
     @property

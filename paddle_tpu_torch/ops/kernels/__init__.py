@@ -16,7 +16,8 @@ Each module here pairs the kernels of one TPU module, from
   ``tgmm`` apart, and the exchanges their three kernels).
 
 The mirror of ``paddle_tpu/ops/pallas/<name>.py`` is
-``paddle_tpu_torch/ops/kernels/<name>.py``.
+``paddle_tpu_torch/ops/kernels/<name>.py``; the KV-page remote copy of
+``paddle_tpu/inference/kv_handoff.py`` is ``kv_handoff.py`` here.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict
 
 from paddle_tpu_torch.ops.kernels import (async_collectives, flash_attention,
                                           fused_block, grouped_gemm,
-                                          paged_attention, quant,
+                                          kv_handoff, paged_attention, quant,
                                           ragged_paged_attention, rms_norm,
                                           selective_scan)
 
@@ -51,6 +52,7 @@ KERNELS = {
     "ring_kv_rotate": (async_collectives, "launches"),
     "tiled_a2a": (async_collectives, "launches_a2a"),
     "fused_a2a_expert_mlp": (async_collectives, "launches_fused"),
+    "kv_pages_remote_copy": (kv_handoff, "launches"),
 }
 
 

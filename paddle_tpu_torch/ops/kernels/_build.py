@@ -191,6 +191,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # peers (host array of w pointers), w, rank, bucket, inv, counts, wg,
     # wu, wd, act, y, chunks, e_local, c_pad, M, F, dtype, stream
     lib.ptt_fused_a2a_mlp.argtypes = [PP] + [I] * 3 + [P] * 7 + [I] * 6 + [P]
+    # src, dst, bytes, chunks, stream
+    lib.ptt_kv_pages_copy.argtypes = [P, P, L, I, P]
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,
                lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
                lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd,
@@ -199,7 +201,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.ptt_flash_attn_fwd_seg, lib.ptt_flash_attn_bwd_seg,
                lib.ptt_ipc_alloc, lib.ptt_ipc_free, lib.ptt_ipc_open,
                lib.ptt_ipc_close, lib.ptt_ring_copy, lib.ptt_a2a_pull,
-               lib.ptt_fused_a2a_mlp):
+               lib.ptt_fused_a2a_mlp, lib.ptt_kv_pages_copy):
         fn.restype = I
     lib.ptt_error_string.argtypes = [I]
     lib.ptt_error_string.restype = ctypes.c_char_p

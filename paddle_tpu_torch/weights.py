@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["load_jax_state", "to_torch", "gather_experts"]
+__all__ = ["load_jax_state", "to_torch", "gather_experts", "param_digest"]
 
 
 def _expert_shards(model: torch.nn.Module) -> Dict[str, Tuple]:
@@ -111,3 +111,40 @@ def gather_experts(model: torch.nn.Module,
                                       axis=0)
         out[name] = t
     return out
+
+
+_DIGEST_SLAB = 1 << 24
+
+
+def param_digest(model: torch.nn.Module) -> str:
+    """A hash of every parameter's bits, computed where the parameters
+    live: each tensor's raw words (bf16 as int16, fp32 as int32) summed
+    plainly and against a pseudo-random weight of each absolute position
+    (so no two positions of a tensor share one), in int64 on the device,
+    slab by slab; the sums, with the names, shapes
+    and dtypes, go through SHA-256. Two models with equal digests hold the
+    same bits (a difference that cancels in both sums is vanishingly
+    unlikely), and no host copy of the weights is made."""
+    import hashlib
+    h = hashlib.sha256()
+    positions = {}
+    for name, p in model.named_parameters():
+        t = p.detach().reshape(-1)
+        word = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[t.element_size()]
+        bits = t.view(word)
+        dev = bits.device
+        i = positions.get(dev)
+        if i is None:
+            i = positions[dev] = torch.arange(_DIGEST_SLAB, dtype=torch.int64,
+                                              device=dev)
+        s1 = torch.zeros((), dtype=torch.int64, device=dev)
+        s2 = torch.zeros((), dtype=torch.int64, device=dev)
+        for a in range(0, bits.numel(), _DIGEST_SLAB):
+            x = bits[a:a + _DIGEST_SLAB].to(torch.int64)
+            w = ((i[:x.numel()] + a) * 2654435761 + 40503) % 2147483629 + 1
+            s1 += x.sum()
+            s2 += (x * w).sum()
+        h.update(f"{name}:{tuple(p.shape)}:{p.dtype}:{int(s1)}:{int(s2)};"
+                 .encode())
+    return h.hexdigest()

@@ -641,3 +641,198 @@ def test_async_a2a_off_refuses_cuda_tensors(cuda_device):
     before = hops.launches_a2a
     assert torch.equal(coll.ragged_all_to_all(x), x)
     assert hops.launches_a2a == before + 1
+
+
+@pytest.mark.cuda
+def test_kv_pages_remote_copy_matches_twin_between_ranks_on_one_card(
+        cuda_device, tmp_path):
+    """#18's port: two spawned ranks share the card over gloo; the pull
+    kernel moves rank 0's pages to rank 1 bit for bit as its twin (a gloo
+    ``ppermute``) does, one launch a call, in bf16, int8 and fp32, at sizes
+    the 16-byte vectors do not divide; a float64 tensor is refused."""
+    import _torch_fleet_ranks
+    from paddle_tpu_torch import distributed as pt_dist
+    pt_dist.spawn(_torch_fleet_ranks.remote_copy_cuda_run, (str(tmp_path),),
+                  nprocs=2, timeout=300)
+    for r in range(2):
+        got = torch.load(tmp_path / f"copy{r}.pt")
+        assert len(got) == 5 and all(
+            g["equal_twin"] and g["equal_source"] and g["moved"]
+            and g["launches"] == 1 for g in got), got
+
+
+_FLEET_SPEC = {"model": "llama_tiny", "seed": 7, "device": "cuda",
+               # head_dim 128, a width the ragged kernel takes
+               "config": dict(num_hidden_layers=2, hidden_size=256,
+                              intermediate_size=256, num_attention_heads=2,
+                              num_key_value_heads=1, vocab_size=128,
+                              max_position_embeddings=256,
+                              dtype="bfloat16"),
+               "engine": {"max_seqs": 4, "max_seq_len": 128,
+                          "block_size": 16},
+               "server": {}}
+
+
+def _prefill_record(sup, prompt):
+    """A prefill job on a spawned ``pf0`` and the wire record its export
+    made (read through the router-side proxy)."""
+    import time
+    from paddle_tpu_torch.inference import GenerationRequest
+    pf = sup.spawn("pf0", "prefill")
+    got = []
+    pf.submit_prefill(GenerationRequest("q", prompt, max_new_tokens=2),
+                      lambda rec, h: got.append(rec))
+    deadline = time.monotonic() + 60
+    while not got:
+        assert time.monotonic() < deadline and pf.alive, \
+            f"no handoff record (host alive: {pf.alive})"
+        pf.refresh()
+        time.sleep(0.01)
+    return pf, got[0]
+
+
+@pytest.mark.cuda
+def test_ipc_handoff_between_processes_equals_the_serialized_route(
+        cuda_device, tmp_path):
+    """A ``serve_host`` prefill process hands one record over each route
+    to this process: device to device (the descriptor of its exported
+    buffer, pulled with #18, two launches, the buffer released after) and
+    as packed bytes. Installed into an engine here, the two give the same
+    page bits, and the stream continues the same."""
+    from paddle_tpu_torch.distributed.launch.master import HTTPMaster
+    from paddle_tpu_torch.inference import (FleetSupervisor,
+                                            GenerationEngine)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops.kernels import kv_handoff as k18
+    model = LlamaForCausalLM(llama_tiny_config(**_FLEET_SPEC["config"]),
+                             seed=7)
+    prompt = list(range(3, 40))
+    out = {}
+    for route, flag in (("ipc", "1"), ("bytes", "0")):
+        master = HTTPMaster()
+        sup = FleetSupervisor(master.address, _FLEET_SPEC,
+                              log_dir=str(tmp_path / route),
+                              env={"FLAGS_use_pallas_kernels": flag,
+                                   "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        try:
+            pf, rec = _prefill_record(sup, prompt)
+            assert ("ipc" in rec) == (route == "ipc")
+            eng = GenerationEngine(model, **_FLEET_SPEC["engine"])
+            n0 = k18.launches
+            rec["max_new_tokens"] = 8
+            req = eng.import_request(rec)
+            launches = k18.launches - n0
+            idx = torch.as_tensor(eng.cache.slot_mapping(
+                req.slot, 0, len(prompt)).astype(np.int64), device="cuda")
+            pages = [eng.cache.k.index_select(1, idx).cpu(),
+                     eng.cache.v.index_select(1, idx).cpu()]
+            while eng.num_active:
+                eng.step()
+            out[route] = (pages, launches, list(req.output_ids))
+            ins = pf.introspect()
+            assert ins["ipc_held"] == 0 and ins["free_blocks"] == \
+                ins["num_blocks"], ins
+        finally:
+            sup.close()
+            master.shutdown()
+    assert out["ipc"][1] == 2 and out["bytes"][1] == 0
+    assert all(torch.equal(a, b) for a, b in zip(out["ipc"][0],
+                                                  out["bytes"][0]))
+    assert out["ipc"][2] == out["bytes"][2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["bf16", "int8", "fp8", "hybrid"])
+def test_export_gathers_straight_into_the_ipc_buffer(cuda_device, case):
+    """A prefill engine given an ``IPCOutbox`` gathers its record into the
+    exported buffer, and the descriptor names views that hold, bit for
+    bit, the arrays the in-memory export gathers: pages, a quantized
+    pool's scales, a hybrid's state planes."""
+    from paddle_tpu_torch.inference import (GenerationEngine,
+                                            GenerationRequest, kv_handoff)
+    from paddle_tpu_torch.models import (HybridSSMForCausalLM,
+                                         LlamaForCausalLM, llama_tiny_config,
+                                         ssm_tiny_config)
+    from paddle_tpu_torch.ops.kernels import kv_handoff as k18
+    if case == "hybrid":
+        model = HybridSSMForCausalLM(ssm_tiny_config(
+            hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+            num_hidden_layers=4, layer_pattern="SA", ssm_head_dim=32),
+            seed=3)
+    else:
+        model = LlamaForCausalLM(llama_tiny_config(
+            **_FLEET_SPEC["config"]), seed=7)
+    eng = GenerationEngine(model, max_seqs=4, max_seq_len=128, block_size=16,
+                           kv_quant=case if case in ("int8", "fp8") else None)
+    assert eng.add_request(GenerationRequest("x", list(range(3, 44)),
+                                             max_new_tokens=2))
+    while not eng._requests["x"].output_ids:
+        eng.step()
+    plain = eng.export_request("x")
+    want = [plain["k"], plain["v"]]
+    if case in ("int8", "fp8"):
+        want += [plain["k_scale"], plain["v_scale"]]
+    for p in plain.get("ssm_state") or []:
+        want += [p["conv"], p["ssm"]]
+    outbox = kv_handoff.IPCOutbox(eng.cache.device)
+    eng._handoff_outbox = outbox
+    rec = eng.export_request("x")
+    assert "k" not in rec and outbox.held == 1
+    d = rec["ipc"]
+    assert [s["shape"] for s in d["segments"]] == [list(t.shape)
+                                                   for t in want]
+    base = outbox._held[d["generation"]]["ptr"]
+    for seg, t in zip(d["segments"], want):
+        nbytes = t.numel() * t.element_size()
+        got = k18.device_view(base + seg["offset"], nbytes, t.device)
+        assert torch.equal(got, t.contiguous().reshape(-1).view(torch.uint8))
+    assert outbox.release(d["generation"]) and outbox.held == 0
+
+
+@pytest.mark.cuda
+def test_a_dead_exporters_record_is_refused(cuda_device, tmp_path):
+    """What a dead exporter's mapping reads, and what the route does about
+    it: a mapping opened while the prefill process lived still reads the
+    bytes it held after a SIGKILL (the driver keeps the memory while it is
+    mapped), so reading proves nothing; the install asks the source first,
+    gets no answer, and refuses with the slot freed."""
+    import ctypes
+    import signal
+    from paddle_tpu_torch.distributed.launch.master import HTTPMaster
+    from paddle_tpu_torch.inference import (FleetSupervisor,
+                                            GenerationEngine, kv_handoff)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops.kernels import _launch
+    from paddle_tpu_torch.ops.kernels import kv_handoff as k18
+    master = HTTPMaster()
+    sup = FleetSupervisor(master.address, _FLEET_SPEC,
+                          log_dir=str(tmp_path),
+                          env={"FLAGS_use_pallas_kernels": "1"})
+    try:
+        _, rec = _prefill_record(sup, list(range(5, 30)))
+        d = rec["ipc"]
+        seg = d["segments"][0]
+        ptr = ctypes.c_void_p()
+        _launch.launch("ptt_ipc_open", 0, bytes.fromhex(d["handle"]),
+                       ctypes.byref(ptr))
+        nbytes = int(np.prod(seg["shape"])) * 2
+        before = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+        k18.pages_copy(before, ptr.value + seg["offset"])
+        sup.kill("pf0", signal.SIGKILL)
+        after = torch.empty_like(before)
+        k18.pages_copy(after, ptr.value + seg["offset"])
+        torch.cuda.synchronize()
+        assert torch.equal(after, before)
+        _launch.launch("ptt_ipc_close", 0, ptr.value)
+        model = LlamaForCausalLM(llama_tiny_config(**_FLEET_SPEC["config"]),
+                                 seed=7)
+        eng = GenerationEngine(model, **_FLEET_SPEC["engine"])
+        n0 = k18.launches
+        with pytest.raises(kv_handoff.HandoffRefused):
+            eng.import_request(rec)
+        assert k18.launches == n0
+        assert eng.cache.free_blocks == eng.cache.num_blocks
+        assert eng.num_active == 0
+    finally:
+        sup.close()
+        master.shutdown()

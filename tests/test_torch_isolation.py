@@ -372,3 +372,85 @@ def test_expert_parallel_modules_load_no_jax():
         hops.fused_a2a_expert_mlp(meta, counts, counts, w, w,
                                   torch.empty(2, 8, 4, device="meta"),
                                   group=None, chunks=1, bucket=8, c_pad=64)
+
+
+FLEET_MODULES = (
+    "paddle_tpu_torch.inference.server", "paddle_tpu_torch.inference.router",
+    "paddle_tpu_torch.inference.fleet",
+    "paddle_tpu_torch.inference.kv_handoff",
+    "paddle_tpu_torch.distributed.launch.master",
+    "paddle_tpu_torch.distributed.launch.serve_host",
+    "paddle_tpu_torch.ops.kernels.kv_handoff",
+    "paddle_tpu_torch.observability.tracing",
+    "paddle_tpu_torch.observability.ops",
+    "paddle_tpu_torch.testing.fault_injection")
+
+
+def test_fleet_modules_load_no_jax():
+    """The serving fleet's modules (server, router, fleet, handoff, master,
+    the host process, #18's wrapper, tracing, the ops seam, the chaos
+    hooks) import torch and nothing of JAX."""
+    code = ("import sys, " + ", ".join(FLEET_MODULES) + "; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {m.replace(".", "/") + ".py" for m in FLEET_MODULES} <= files
+
+
+def test_a_spawned_serve_host_loads_no_jax():
+    """A host process built from a spec (on the CPU, as the spec asks),
+    serve-registered and serving, has imported nothing of JAX."""
+    spec = ('{"model": "llama_tiny", "seed": 7, "device": "cpu", '
+            '"engine": {"max_seqs": 2, "max_seq_len": 64, "block_size": 16}}')
+    code = (
+        "import json, os, sys, threading, time\n"
+        "from paddle_tpu_torch.distributed.launch import serve_host\n"
+        "from paddle_tpu_torch.distributed.launch.master import "
+        "HTTPMaster, MasterClient\n"
+        "m = HTTPMaster()\n"
+        "threading.Thread(target=serve_host.main, args=(['--name', 'h0', "
+        "'--role', 'decode', '--master', m.address, '--spec', "
+        f"{spec!r}],), daemon=True).start()\n"
+        "end = time.time() + 90\n"
+        "while 'h0' not in MasterClient(m.address, 'p').serve_fleet()"
+        "['hosts']:\n"
+        "    assert time.time() < end\n"
+        "    time.sleep(0.05)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu')]\n"
+        "print(bad, flush=True)\n"
+        "os._exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_fleet_entry_points_default_to_cuda(monkeypatch):
+    """A host spec without a ``"device"`` builds on the card, and raises
+    without one; the device-to-device handoff is off for a CPU engine."""
+    from paddle_tpu_torch.distributed.launch import serve_host
+    from paddle_tpu_torch.inference import kv_handoff
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_host.build_from_spec({"model": "llama_tiny", "seed": 0})
+    _, eng, srv = serve_host.build_from_spec(
+        {"model": "llama_tiny", "seed": 0, "device": "cpu",
+         "engine": {"max_seqs": 2, "max_seq_len": 64, "block_size": 16}})
+    assert eng.cache.device == torch.device("cpu")
+    assert not kv_handoff.dma_handoff_enabled(eng)
+    srv.close()
+
+
+def test_remote_copy_kernel_refuses_what_it_cannot_take():
+    """#18's wrapper and its pull refuse a tensor neither on the CPU (the
+    twin) nor on a card (the kernel)."""
+    from paddle_tpu_torch.ops.kernels import kv_handoff as k18
+    meta = torch.empty(8, 4, device="meta")
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        k18.kv_pages_remote_copy(meta, 0, 1)
+    with pytest.raises(ValueError, match="expected CUDA tensors"):
+        k18.pages_copy(meta, 0)
