@@ -379,41 +379,63 @@ def _sdpa_lib(torch, q, k, v):
 
 
 def phase_flash(torch, timer):
-    """Causal bf16 [1, 2048, 32|8, 128], and a ragged length (1000)."""
+    """Causal bf16 [1, 2048, 32|8, 128], and a ragged length (1000); head
+    dim 64 at 16:8 heads, causal and (train-cp (b)'s half slices) full with
+    Sq != Sk. Timed at the table's shape and at train-cp (a)'s q [1, 32768,
+    16, 64], kv 8, each beside its bound and SDPA."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
-    res = None
-    for s in (1000, 2048):
-        q = torch.randn(1, s, 32, 128, device="cuda").bfloat16()
-        k = torch.randn(1, s, 8, 128, device="cuda").bfloat16()
-        v = torch.randn(1, s, 8, 128, device="cuda").bfloat16()
-        o, lse = fa.flash_attention_with_lse(q, k, v, True)
-        ro, rlse = fa.flash_attention_plain(q, k, v, True)
+    res = 0.0
+    tol = 2e-2   # bf16 output: p is rounded to bf16 against a running max
+    #              in the kernel and against the row max in the twin
+    for sq, sk, hq, hkv, d, causal in ((1000, 1000, 32, 8, 128, True),
+                                       (2048, 2048, 16, 8, 64, True),
+                                       (1024, 2048, 16, 8, 64, False),
+                                       (2048, 2048, 32, 8, 128, True)):
+        q = torch.randn(1, sq, hq, d, device="cuda").bfloat16()
+        k = torch.randn(1, sk, hkv, d, device="cuda").bfloat16()
+        v = torch.randn(1, sk, hkv, d, device="cuda").bfloat16()
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal)
+        ro, rlse = fa.flash_attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
         err, lerr = max_err(o, ro), max_err(lse, rlse)
-        # bf16 output: p is rounded to bf16 against a running max in the
-        # kernel and against the row max in the twin
-        tol = 2e-2
         assert err <= tol and lerr <= 1e-4, \
-            f"flash s={s}: max_abs_err {err} (lse {lerr})"
-        log(f"flash s={s}: max_abs_err {err:.3g}, lse err {lerr:.3g}")
-        if res is None:
-            res = err
-    fn, lib_args = _sdpa_lib(torch, q, k, v)
-    pairs = s * (s + 1) // 2
-    flops = 4 * 32 * 128 * pairs
-    nbytes = (q.numel() * 2 + k.numel() * 2 * 2 + q.numel() * 2 + 32 * s * 4)
-    b_ms, b_by = bound(nbytes, flops, "bf16")
-    return dict(name="flash_attention_fwd", route="cuda",
-                source="paddle_tpu_torch/csrc/flash_attention.cu",
-                replaces="paddle_tpu/ops/pallas/flash_attention.py:130",
-                path="serve", max_abs_err=max(res, err), tolerance=tol,
-                ms=timer.ms(lambda: fa.flash_attention_with_lse(q, k, v,
-                                                                True)),
-                plain_ms=timer.ms(lambda: fa.flash_attention_plain(q, k, v,
-                                                                   True)),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=timer.ms(lambda: fn(*lib_args)),
-                shape="causal bf16 q [1, 2048, 32, 128], k/v [1, 2048, 8, 128]")
+            f"flash {sq}x{sk} d={d} causal={causal}: max_abs_err {err} " \
+            f"(lse {lerr})"
+        log(f"flash q [1, {sq}, {hq}, {d}], kv [1, {sk}, {hkv}, {d}], "
+            f"causal={causal}: max_abs_err {err:.3g}, lse err {lerr:.3g}")
+        res = max(res, err)
+    del o, lse, ro, rlse
+
+    def timed(q, k, v):
+        s, hq, d = q.shape[1], q.shape[2], q.shape[3]
+        fn, lib_args = _sdpa_lib(torch, q, k, v)
+        flops = 4 * hq * d * s * (s + 1) // 2
+        nbytes = (q.numel() * 2 + k.numel() * 2 * 2 + q.numel() * 2
+                  + hq * s * 4)
+        b_ms, b_by = bound(nbytes, flops, "bf16")
+        return (timer.ms(lambda: fa.flash_attention_with_lse(q, k, v, True)),
+                b_ms, b_by, timer.ms(lambda: fn(*lib_args)))
+
+    ms, b_ms, b_by, lib_ms = timed(q, k, v)
+    row = dict(name="flash_attention_fwd", route="cuda",
+               source="paddle_tpu_torch/csrc/flash_attention.cu",
+               replaces="paddle_tpu/ops/pallas/flash_attention.py:130",
+               path="serve", max_abs_err=res, tolerance=tol, ms=ms,
+               plain_ms=timer.ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                                  True)),
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               shape="causal bf16 q [1, 2048, 32, 128], k/v [1, 2048, 8, 128]")
+    del q, k, v
+    torch.cuda.empty_cache()
+    q = torch.randn(1, CP_SEQ, 16, 64, device="cuda").bfloat16()
+    k, v = (torch.randn(1, CP_SEQ, 8, 64, device="cuda").bfloat16()
+            for _ in range(2))
+    cp = timed(q, k, v)
+    row["cp"] = dict(zip(("ms", "bound_ms", "bound_by", "library_ms"), cp),
+                     shape=f"causal bf16 q [1, {CP_SEQ}, 16, 64], k/v [1, "
+                           f"{CP_SEQ}, 8, 64] (train-cp (a))")
+    log(f"flash at train-cp (a)'s shape: " + json.dumps(row["cp"]))
+    return row
 
 
 def phase_rms(torch, timer):
@@ -2114,7 +2136,7 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
                path="serve-fleet", tolerance="bitwise",
                max_abs_err=max(c["max_abs_err"] for r in k18["ranks"]
                                for c in r["checks"]),
-               ms=k18["ms"], plain_ms=k18["plain_ms"],
+               ms=k18["ms"], call_ms=k18["call_ms"], plain_ms=k18["plain_ms"],
                bound_ms=k18["bound_ms"], bound_by=k18["bound_by"],
                library_ms=k18["library_ms"],
                shape=f"bf16 [{FLEET_ROWS}, 8, 128] (a 1024-token record's K "
@@ -3351,14 +3373,20 @@ def _hop_check(torch):
         assert not torch.equal(got[0], k), \
             f"ring_kv_rotate {label}: nothing moved"
         b_ms, b_by = bound(4 * k.numel() * k.element_size(), 0, "bf16")
-        ms = timer.ms(lambda: hops.ring_kv_rotate(k, v, perm, group))
+        call_ms = timer.ms(lambda: hops.ring_kv_rotate(k, v, perm, group))
         plain_ms = timer.ms(lambda: hops.ring_kv_rotate_plain(
             k, v, perm, group), iters=5)
-        # the library's copy reads the slot the last hop staged; no rank
-        # restages it before the next hop's barrier. Rank 0 times it alone
-        # on the card while the other ranks wait at a barrier
-        lib_ms = None
+        # the kernel's pull alone and the library's copy read the slot the
+        # last hop staged; no rank restages it before the next hop's
+        # barrier. Rank 0 times both alone on the card while the other
+        # ranks wait at a barrier
+        ms = lib_ms = None
         if me == 0:
+            ms = timer.ms(lambda: hops.ring_kv_pull(k, v, perm, group))
+            assert all(torch.equal(a, b) for a, b in zip(
+                hops.ring_kv_pull(k, v, perm, group), got)), \
+                f"ring_kv_rotate {label}: the pull alone differs"
+
             ring = hops._rings[group]
             theirs = ring.addr((me - 1) % CP_SP, ring.slot ^ 1)
             nbytes = k.numel() * k.element_size()
@@ -3370,7 +3398,7 @@ def _hop_check(torch):
                 f"ring_kv_rotate {label}: the library's copy differs"
         torch.distributed.barrier(group=group)
         out[label] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
             bound_ms=b_ms, bound_by=b_by,
             shape=f"{str(dtype)[6:]} K and V [1, {CP_SEQ // CP_SP}, "
                   f"{CP_HKV}, {CP_D}]")
@@ -3512,9 +3540,10 @@ def phase_train_cp(torch, np, card):
             for label, h in r["hop"].items():
                 log(f"train-cp (b) rank {r['rank']} ring_kv_rotate "
                     f"{label}: {h['shape']}: equal to the twin bit for bit, "
-                    f"{h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, "
-                    f"library (copy_ of K and V from the mapped slot, "
-                    f"rank 0 alone) {h['library_ms']}, bound "
+                    f"the whole call {h['call_ms']:.4f} ms, plain "
+                    f"{h['plain_ms']:.4f} ms; rank 0 alone: the pull "
+                    f"{h['ms']} ms, the library's copy_ of K and V from the "
+                    f"mapped slot {h['library_ms']} ms; bound "
                     f"{h['bound_ms']:.4f} ms ({h['bound_by']}) on {card}")
         r0 = ranks[0]
         for r in ranks[1:]:
@@ -3564,12 +3593,13 @@ def phase_train_cp(torch, np, card):
                source="paddle_tpu_torch/csrc/async_collectives.cu",
                replaces="paddle_tpu/ops/pallas/async_collectives.py:294",
                path="train-cp", max_abs_err=0.0, tolerance="bitwise",
-               ms=hop["ms"], plain_ms=hop["plain_ms"],
+               ms=hop["ms"], call_ms=hop["call_ms"], plain_ms=hop["plain_ms"],
                bound_ms=hop["bound_ms"], bound_by=hop["bound_by"],
                library_ms=hop["library_ms"], shape=hop["shape"] + ", rank 0 "
-               "of 2 on one card; plain: a gloo ppermute through the host; "
-               "library: Tensor.copy_ of K and of V from the source's "
-               "mapped slot")
+               "of 2 on one card (ms: the pull alone, rank 0 alone on the "
+               "card; call_ms: stage, sync, barrier and pull); plain: a gloo "
+               "ppermute through the host; library: Tensor.copy_ of K and of "
+               "V from the source's mapped slot")
     return {"train-cp": b["counts"],
             "train-cp-one-process": one["counts"]}, row
 
@@ -3700,6 +3730,22 @@ def _fused_tpu_numerics(torch, x_send, counts, inv, wg, wu, wd, plan):
     return ys[0] if plan.chunks == 1 else torch.cat(ys)
 
 
+def _pull_alone(torch, timer, group, call, pull):
+    """An exchange kernel's launch alone, as #18's row takes it: every rank
+    makes one whole ``call`` (which stages the slot), then rank 0 times
+    ``pull`` (the bare launch on that staged slot) while its peers wait at
+    a barrier; the result equals the call's. Returns rank 0's ms (None on
+    the other ranks)."""
+    want = call()
+    ms = None
+    if torch.distributed.get_rank(group) == 0:
+        ms = timer.ms(pull)
+        assert torch.equal(pull(), want), "the launch alone differs from " \
+            "the whole call"
+    torch.distributed.barrier(group=group)
+    return ms
+
+
 def _ep_kernel_checks(torch, mesh):
     """#15 and #17 between the ranks on the card, before the path runs, at
     the path's shapes: #15 on (b1)'s payload x_send [32768, 1024] bf16, its
@@ -3732,13 +3778,16 @@ def _ep_kernel_checks(torch, mesh):
     x = torch.randn(EP * n, MOE_HIDDEN, device="cuda",
                     generator=gen).bfloat16()
     b_ms, b_by = bound(2 * x.numel() * 2, 0, "bf16")
-    a2a = dict(ms=timer.ms(lambda: hops.tiled_a2a(x, group)),
+    a2a = dict(call_ms=timer.ms(lambda: hops.tiled_a2a(x, group)),
                plain_ms=timer.ms(lambda: hops.tiled_a2a_plain(x, group),
                                  iters=3, warmup=1),
+               ms=_pull_alone(torch, timer, group, lambda: hops.tiled_a2a(
+                   x, group), lambda: hops.tiled_a2a_pull(x, group)),
                bound_ms=b_ms, bound_by=b_by, checked=cases,
                shape=f"bf16 x_send [{EP * n}, {MOE_HIDDEN}] on rank 0 of "
-                     f"{EP} on one card; plain: a gloo all_to_all through "
-                     f"the host")
+                     f"{EP} on one card (ms: the pull alone, rank 0 alone "
+                     f"on the card; call_ms: stage, sync, barrier and "
+                     f"pull); plain: a gloo all_to_all through the host")
     del x
     fused, worst = [], 0.0
     for label, kw in (("b1 bf16", dict(chunks=1, dtype=torch.bfloat16)),
@@ -3794,8 +3843,13 @@ def _ep_kernel_checks(torch, mesh):
                 log(f"library {lib_name}: max_abs_err against the kernel "
                     f"{l_err:.3g}")
             timed = dict(
-                ms=timer.ms(lambda: hops.fused_a2a_expert_mlp(
+                call_ms=timer.ms(lambda: hops.fused_a2a_expert_mlp(
                     *args[:6], **call)),
+                ms=_pull_alone(
+                    torch, timer, group,
+                    lambda: hops.fused_a2a_expert_mlp(*args[:6], **call),
+                    lambda: hops.fused_a2a_expert_mlp_pull(*args[:6],
+                                                           **call)),
                 plain_ms=timer.ms(lambda: hops.fused_a2a_expert_mlp_plain(
                     *args[:6], **call), iters=3, warmup=1),
                 bound_ms=f_ms, bound_by=f_by, library_ms=lib_ms,
@@ -3803,7 +3857,9 @@ def _ep_kernel_checks(torch, mesh):
                 shape=f"bf16 x_send {list(x_send.shape)}, {plan.e_local} "
                       f"local experts of ffn {MOE_FFN}, {live} live rows, "
                       f"bucket {plan.bucket}, c_pad {plan.c_pad}, rank 0 "
-                      f"of {EP} on one card")
+                      f"of {EP} on one card (ms: the launch alone, rank 0 "
+                      f"alone on the card; call_ms: stage, sync, barrier "
+                      f"and launch)")
         del args, x_send, got, again, want, tpu
         torch.cuda.empty_cache()
     timed.update(cases=fused, max_abs_err=worst)
@@ -4154,7 +4210,8 @@ def phase_train_moe_ep(torch, np, card):
                  replaces="paddle_tpu/ops/pallas/async_collectives.py:187",
                  path="train-moe-ep", max_abs_err=0.0, tolerance="bitwise",
                  library_ms=None, **{x: k["a2a"][x] for x in (
-                     "ms", "plain_ms", "bound_ms", "bound_by", "shape")}),
+                     "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                     "shape")}),
             dict(name="fused_a2a_expert_mlp", route="cuda",
                  source="paddle_tpu_torch/csrc/async_collectives.cu",
                  replaces="paddle_tpu/ops/pallas/async_collectives.py:480",
@@ -4162,15 +4219,43 @@ def phase_train_moe_ep(torch, np, card):
                  tolerance="bf16 rtol=atol=2e-2 x max|twin|; fp32 rtol "
                            "1e-5, atol 1e-5 x max|twin|",
                  **{x: k["fused"][x] for x in (
-                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
                      "bound_by", "library_ms", "shape")})]
     for row in rows:
         log(f"kernel {row['name']}: {row['shape']}: max_abs_err "
             f"{row['max_abs_err']:.3g} (tol {row['tolerance']}), "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            f"{row['ms']:.4f} ms alone, {row['call_ms']:.4f} ms the whole "
+            f"call, plain {row['plain_ms']:.4f} ms, library "
             f"{row['library_ms']}, bound {row['bound_ms']:.4f} ms "
             f"({row['bound_by']}) on {card}")
     return counts, rows
+
+
+# the kernels redesigned around wgmma (#1's bf16 forward, #17's bf16
+# gate/up and down launches), by a fragment of their mangled names
+WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma")
+
+
+def check_tensor_core_kernels():
+    """Each redesigned kernel holds HGMMA instructions (``cuobjdump -sass``
+    of the built library, where the toolkit has it) and spills nothing
+    (``ptxas -v``)."""
+    from paddle_tpu_torch.ops.kernels import _build
+    hgmma = _build.sass_opcode_counts("HGMMA")
+    spills = _build.ptxas_spills()
+    for name in WGMMA_KERNELS:
+        fns = [f for f in spills if name in f]
+        assert fns, f"build: ptxas reports no kernel named *{name}*"
+        for f in fns:
+            assert spills[f] == (0, 0), f"build: {f} spills {spills[f]}"
+        if hgmma is None:
+            log(f"build: {name}: no cuobjdump in the toolkit, HGMMA not "
+                f"counted")
+            continue
+        n = sum(c for f, c in hgmma.items() if name in f)
+        log(f"build: {name}: {n} HGMMA instructions (cuobjdump -sass), "
+            f"{len(fns)} instantiations, no spills (ptxas -v)")
+        assert n > 0, f"build: {name} issues no HGMMA"
 
 
 def main() -> int:
@@ -4215,8 +4300,10 @@ def main() -> int:
         log(f"build: {_build.build_seconds():.1f} s "
             f"({len(_build.SOURCES)} sources, nvcc sm_90a)")
         for ln in _build.ptxas_report().splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
+            if ("registers" in ln or "spill" in ln or "Compiling" in ln
+                    or "Performance" in ln):
                 log(f"build: ptxas {ln.strip()[:150]}")
+        check_tensor_core_kernels()
 
         torch.manual_seed(0)
         timer = Timer(torch)
@@ -4306,8 +4393,12 @@ def main() -> int:
                 "library_ms", "path", "launches_by_path")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card)
-        log(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                    for r in rows]}))
+        # call_ms: the whole SPMD call of an exchange kernel (#15-#18),
+        # beside ms, its launch alone
+        log(json.dumps({"kernels": [
+            dict({k: r[k] for k in keys},
+                 **({"call_ms": r["call_ms"]} if "call_ms" in r else {}))
+            for r in rows]}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))

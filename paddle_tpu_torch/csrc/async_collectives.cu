@@ -44,11 +44,8 @@
 // it, bytes otherwise.
 #include <string.h>
 
-#include <mma.h>
-
-#include <type_traits>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -169,6 +166,7 @@ extern "C" int ptt_a2a_pull(const void* const* srcs, void* out, long long block_
   return copy_segments(seg, w, stream);
 }
 
+
 // ---------------------------------------------------------------------------
 // #17: the comm-fused MoE dispatch + expert SwiGLU MLP.
 //
@@ -197,30 +195,44 @@ extern "C" int ptt_a2a_pull(const void* const* srcs, void* out, long long block_
 //
 // Bound on the H100: operations. Every live row costs 6*M*F flops (gate,
 // up, down); at the MoE training path (16,384 live rows a rank and layer,
-// M 1024, F 704, bf16) that is ~71 GFLOP, ~0.072 ms at 989 TFLOP/s.
+// M 1024, F 704, bf16) that is ~71 GFLOP, ~0.072 ms at 989 TFLOP/s. Its
+// operands must therefore reach the tensor cores from a ring of copies in
+// flight, and the work must spread over many more blocks than the
+// (row tile, expert, chunk) grid's ~256 live ones.
 //
-// Design: one block of 256 threads per (64-row tile, local expert, chunk).
-// Phase 1 walks the ffn in 64-column tiles: for each, gate and up over
-// K = M from one load of each gathered A tile (gmm2's point), then
-// act = silu(g)*u rounded to the compute dtype into an act scratch (the
-// block's own rows; F is 2816 in the layer-level run, too wide for shared
-// memory at 64 rows, so the rows go through L2). Phase 2 walks the output
-// in 64-column tiles: act @ wd[e] over K = F with an fp32 accumulator,
-// rounded into y. Tiles, loads and the WMMA (bf16, tensor cores) and
-// register-tile (fp32, CUDA cores, full fp32) inner loops are those of
-// csrc/grouped_gemm.cu; each output element has one block and one summation
-// order, so repeats are bitwise. This first version loads tiles with scalar
-// loads and no pipelining; TMA, wgmma and keeping act in shared memory are
-// later work.
+// bf16: two launches on the caller's stream, each over (output tile,
+// 128-row tile, chunk*expert) blocks of 288 threads: two consumer
+// warpgroups of 64 rows issuing wgmma and one producer warp feeding a
+// 4-stage ring of 128-byte-swizzled 64-deep stages guarded by full/empty
+// mbarriers.
+//   1. gate/up, one block per (128 ffn columns, row tile): the producer
+//      gathers the tile's A rows straight from the peers' slots with 16-byte
+//      cp.async into the swizzled layout (TMA has no gather; sentinel, dead
+//      and out-of-region rows are zero-filled) and loads the wg and wu tiles
+//      by TMA (3-D maps over [E, M, F], read MN-major in place through the
+//      transpose bit); the consumers accumulate g and u in fp32 and store
+//      act = silu(g)*u with the composed path's rounding points into the
+//      act scratch [rows, F] (16,642 x 704 bf16 is ~23 MB: it stays in the
+//      50 MB L2 for the second launch).
+//   2. down, one block per (128 output columns, row tile): act tiles and
+//      the wd tiles ([E, F, M], MN-major) by TMA, y = act.wd accumulated in
+//      fp32 over the ffn in one order, rounded once on the store. A dead
+//      row tile writes its zeros here.
+// Two launches rather than one persistent kernel with per-row-tile ready
+// counters: the act round trip through L2 is a few microseconds, and no
+// block ever waits on another. A 128-row tile that runs past c_pad (c_pad
+// is a multiple of 64) computes its second half and stores none of it.
+// Each output element has one block and one summation order (no split-K,
+// no atomics), so repeats are bitwise.
+//
+// fp32 (the layer-level run's dtype): the first port's design on the CUDA
+// cores in full fp32 (no TF32): one block of 256 threads per (64-row tile,
+// local expert, chunk), phase 1 walking the ffn in 64-column tiles into the
+// act scratch, phase 2 the output, from register tiles over scalar-loaded
+// shared-memory tiles.
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kPeers = kMaxSeg;
-constexpr int kFM = 64, kFN = 64, kFK = 32;
-constexpr int kFLDA = kFM + 8;  // As[kk][m]
-constexpr int kFLDB = kFN + 8;  // Bs[kk][n]
-constexpr int kFLDC = kFN + 4;  // Cs[m][n] fp32 staging
 
 struct PeerSlots {
   const void* base[kPeers];
@@ -234,126 +246,329 @@ template <typename T> __device__ __forceinline__ float swiglu(float g, float u) 
   return round_through<T>(gt / (1.f + expf(-gt))) * round_through<T>(u);
 }
 
+// ------------------------------------------------------------------ bf16
+namespace fused_wg {
+
+using bf16 = __nv_bfloat16;
+constexpr int kRows = 128;                 // a row tile: two warpgroups of 64
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kStages = 4;
+constexpr int kFT = 128;                   // ffn columns of a gate/up block
+constexpr int kNT = 128;                   // output columns of a down block
+constexpr int kA = kRows * 128;            // a 64-deep A stage, [128][64] bf16
+constexpr int kB = 64 * 128;               // a [64][64] bf16 weight atom
+// gate/up: A, then wg's and wu's two atoms each (48 KB a stage); down: A,
+// then wd's two atoms (32 KB)
+constexpr int kGUStage = kA + 4 * kB, kDStage = kA + 2 * kB;
+constexpr int kRowpOff = kStages * kGUStage;  // gate/up: the rows' sources
+constexpr int kGUBarOff = kRowpOff + kRows * 8, kDBarOff = kStages * kDStage;
+constexpr int kGUBytes = kGUBarOff + 2 * kStages * 8 + hopper::kSmemAlign;
+constexpr int kDBytes = kDBarOff + 2 * kStages * 8 + hopper::kSmemAlign;
+
+__device__ __forceinline__ void init_ring(uint64_t* full, uint64_t* empty, int full_count) {
+  for (int s = 0; s < kStages; ++s) {
+    hopper::mbar_init(&full[s], full_count);
+    hopper::mbar_init(&empty[s], kConsumers / 32);  // one arrival a consumer warp
+  }
+  hopper::fence_barrier_init();
+}
+
+// Store a warpgroup's m64n{2R} accumulator pair-wise into out [., ld] at
+// (row0 + tile row, col0 + column), rows below `rows`, columns below `cols`;
+// v(i) gives element i's value.
+template <int R, class V>
+__device__ __forceinline__ void store_rows(bf16* out, size_t ld, size_t row0, int col0,
+                                           int rows, int cols, int g, V v) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int rt = 64 * g + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int i = 0; i < R; i += 2) {
+    const int r = rt + ((i & 2) ? 8 : 0);
+    const int col = col0 + 8 * (i / 4) + 2 * (lane & 3);
+    if (r < rows && col < cols)  // cols is even: the pair is in or out
+      *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * ld + col) =
+          __floats2bfloat162_rn(v(i), v(i + 1));
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_gate_up_wgmma(PeerSlots peers, int w, int rank, int bucket, const int* __restrict__ inv,
+                    const int* __restrict__ counts, const __grid_constant__ CUtensorMap map_wg,
+                    const __grid_constant__ CUtensorMap map_wu, bf16* __restrict__ act,
+                    int e_local, int c_pad, int M, int F) {
+  const int ce = blockIdx.z, c = ce / e_local, e = ce % e_local;
+  const int count = min(max(counts[ce], 0), c_pad);
+  const int m0 = blockIdx.y * kRows;
+  if (m0 >= count) return;  // a dead row tile: the down launch writes its zeros
+  const int f0 = blockIdx.x * kFT;
+  const int rows = min(kRows, c_pad - m0);  // the tile's rows in this expert
+  const size_t row0 = static_cast<size_t>(ce) * c_pad + m0;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_smem(smem_raw);
+  const bf16** rowp = reinterpret_cast<const bf16**>(sm + kRowpOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kGUBarOff);
+  uint64_t* empty = full + kStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid < kRows) {  // each row's source in a peer's staged slot, or none
+    const bf16* p = nullptr;
+    if (tid < rows && m0 + tid < count) {
+      const int src = inv[row0 + tid];
+      if (src >= 0 && src < w * bucket)
+        p = static_cast<const bf16*>(peers.base[src / bucket]) +
+            (static_cast<size_t>(c * w + rank) * bucket + src % bucket) * M;
+    }
+    rowp[tid] = p;
+  }
+  // full: the 32 producer lanes' cp.async arrivals and the TMA's expect_tx
+  if (tid == 0) init_ring(full, empty, 33);
+  __syncthreads();
+
+  const int n_k = (M + 63) / 64;
+  if (warp == kConsumers / 32) {  // the producer warp
+    const void* zero_src = peers.base[0];
+    for (int t = 0; t < n_k; ++t) {
+      const int s = t % kStages;
+      if (t >= kStages) hopper::mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+      unsigned char* st = sm + s * kGUStage;
+      const int k0 = t * 64;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[s], 4 * kB);
+        for (int a = 0; a < 2; ++a) {
+          hopper::tma_load_3d(st + kA + a * kB, &map_wg, &full[s], f0 + 64 * a, k0, e);
+          hopper::tma_load_3d(st + kA + (2 + a) * kB, &map_wu, &full[s], f0 + 64 * a, k0, e);
+        }
+      }
+      // 128 rows x 8 chunks of 16 bytes, 32 a lane; chunk ch of row r lands
+      // at chunk ch ^ (r % 8) of the row's 128 bytes (the 128B swizzle)
+#pragma unroll 4
+      for (int it = 0; it < kRows * 8 / 32; ++it) {
+        const int idx = it * 32 + lane, r = idx >> 3, ch = idx & 7;
+        const bf16* p = rowp[r];
+        const int k = k0 + ch * 8;
+        const bool ok = p != nullptr && k < M;  // M % 8 == 0
+        hopper::cp_async16(st + r * 128 + ((ch ^ (r & 7)) << 4),
+                           ok ? static_cast<const void*>(p + k) : zero_src, ok ? 16 : 0);
+      }
+      hopper::cp_async_arrive(&full[s]);
+    }
+    return;
+  }
+
+  const int g = warp >> 2;
+  float ag[64], au[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) ag[i] = au[i] = 0.f;
+  for (int t = 0; t < n_k; ++t) {
+    const int s = t % kStages;
+    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+    hopper::fence_proxy_async();  // the cp.async rows, for wgmma's reads
+    const unsigned char* st = sm + s * kGUStage;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::desc_sw128(st + g * 64 * 128 + kk * 32, 16, 1024);
+      const uint64_t dg = hopper::desc_sw128(st + kA + kk * 16 * 128, kB, 1024);
+      const uint64_t du = hopper::desc_sw128(st + kA + 2 * kB + kk * 16 * 128, kB, 1024);
+      hopper::wgmma_m64n128_ss<1>(ag, da, dg, 1);
+      hopper::wgmma_m64n128_ss<1>(au, da, du, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(ag);
+    hopper::fence_regs(au);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+  store_rows<64>(act, F, row0, f0, rows, F, g,
+                 [&](int i) { return swiglu<bf16>(ag[i], au[i]); });
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+fused_down_wgmma(const __grid_constant__ CUtensorMap map_act,
+                 const __grid_constant__ CUtensorMap map_wd, const int* __restrict__ counts,
+                 bf16* __restrict__ y, int e_local, int c_pad, int M, int F) {
+  const int ce = blockIdx.z, e = ce % e_local;
+  const int count = min(max(counts[ce], 0), c_pad);
+  const int m0 = blockIdx.y * kRows, n0 = blockIdx.x * kNT;
+  const int rows = min(kRows, c_pad - m0);
+  const size_t row0 = static_cast<size_t>(ce) * c_pad + m0;
+  if (m0 >= count) {  // the ragged skip: a dead row tile writes zeros
+    for (int i = threadIdx.x; i < rows * kNT; i += kThreads) {
+      const int col = n0 + i % kNT;
+      if (col < M) y[(row0 + i / kNT) * M + col] = __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kDBarOff);
+  uint64_t* empty = full + kStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) init_ring(full, empty, 1);
+  __syncthreads();
+
+  const int n_k = (F + 63) / 64;
+  if (warp == kConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      for (int t = 0; t < n_k; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) hopper::mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+        unsigned char* st = sm + s * kDStage;
+        const int k0 = t * 64;
+        hopper::mbar_arrive_expect_tx(&full[s], kDStage);
+        hopper::tma_load_2d(st, &map_act, &full[s], k0, static_cast<int>(row0));
+        hopper::tma_load_3d(st + kA, &map_wd, &full[s], n0, k0, e);
+        hopper::tma_load_3d(st + kA + kB, &map_wd, &full[s], n0 + 64, k0, e);
+      }
+    }
+    return;
+  }
+
+  const int g = warp >> 2;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int t = 0; t < n_k; ++t) {
+    const int s = t % kStages;
+    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+    const unsigned char* st = sm + s * kDStage;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hopper::desc_sw128(st + g * 64 * 128 + kk * 32, 16, 1024);
+      const uint64_t db = hopper::desc_sw128(st + kA + kk * 16 * 128, kB, 1024);
+      hopper::wgmma_m64n128_ss<1>(acc, da, db, 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+  store_rows<64>(y, M, row0, n0, rows, M, g, [&](int i) { return acc[i]; });
+}
+
+int launch(const PeerSlots& ps, int w, int rank, int bucket, const int* inv, const int* counts,
+           const void* wg, const void* wu, const void* wd, void* act, void* y, int chunks,
+           int e_local, int c_pad, int M, int F, cudaStream_t s) {
+  // TMA: 16-byte aligned bases and row strides
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(wg) | reinterpret_cast<uintptr_t>(wu) |
+                         reinterpret_cast<uintptr_t>(wd) | reinterpret_cast<uintptr_t>(act);
+  if (M % 8 != 0 || F % 8 != 0 || bits % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int j = 0; j < w; ++j)
+    if (reinterpret_cast<uintptr_t>(ps.base[j]) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t m = M, f = F, el = e_local;
+  const uint64_t rows = static_cast<uint64_t>(chunks) * e_local * c_pad;
+  CUtensorMap mg, mu, md, ma;
+  const uint64_t dw[3] = {f, m, el}, sw[2] = {f * 2, m * f * 2};  // wg, wu [E, M, F]
+  const uint64_t dd[3] = {m, f, el}, sd[2] = {m * 2, f * m * 2};  // wd [E, F, M]
+  const uint64_t da[2] = {f, rows}, sa[1] = {f * 2};              // act [rows, F]
+  const uint32_t box_w[3] = {64, 64, 1}, box_a[2] = {64, kRows};
+  int err = hopper::bf16_map(&mg, wg, 3, dw, sw, box_w);
+  if (err == 0) err = hopper::bf16_map(&mu, wu, 3, dw, sw, box_w);
+  if (err == 0) err = hopper::bf16_map(&md, wd, 3, dd, sd, box_w);
+  if (err == 0) err = hopper::bf16_map(&ma, act, 2, da, sa, box_a);
+  if (err != 0) return err;
+  cudaError_t e =
+      cudaFuncSetAttribute(fused_gate_up_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kGUBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fused_down_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int row_tiles = (c_pad + kRows - 1) / kRows;
+  const dim3 grid1((F + kFT - 1) / kFT, row_tiles, chunks * e_local);
+  fused_gate_up_wgmma<<<grid1, kThreads, kGUBytes, s>>>(ps, w, rank, bucket, inv, counts, mg, mu,
+                                                      static_cast<bf16*>(act), e_local, c_pad,
+                                                      M, F);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid2((M + kNT - 1) / kNT, row_tiles, chunks * e_local);
+  fused_down_wgmma<<<grid2, kThreads, kDBytes, s>>>(ma, md, counts, static_cast<bf16*>(y),
+                                                   e_local, c_pad, M, F);
+  PTT_RETURN_LAUNCH_ERROR();
+}
+
+}  // namespace fused_wg
+
+// ------------------------------------------------------------------ fp32
+namespace fused_f32 {
+
+constexpr int kFM = 64, kFN = 64, kFK = 32;
+constexpr int kFLDA = kFM + 8;  // As[kk][m]
+constexpr int kFLDB = kFN + 8;  // Bs[kk][n]
+
 // One [kFM x kFN] tile C = sum_kk A(m, kk) B_j(kk, n) for NB weight streams
 // over depth `depth`, then store(m, n, value) for every element of the tile.
 // With kSwiglu (NB == 2) the value is silu(C_0) * C_1 in fp32.
-template <int NB, bool kSwiglu, typename T, class LoadA, class LoadB, class Store>
-__device__ __forceinline__ void tile_gemm(unsigned char* smem, int depth, LoadA load_a,
-                                          LoadB load_b, Store store) {
-  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
-  T* As = reinterpret_cast<T*>(smem);  // [kFK][kFLDA]
-  T* Bs1 = As + kFK * kFLDA;           // [kFK][kFLDB]
-  T* Bs2 = Bs1 + kFK * kFLDB;
+template <int NB, bool kSwiglu, class LoadA, class LoadB, class Store>
+__device__ __forceinline__ void tile_gemm(float* smem, int depth, LoadA load_a, LoadB load_b,
+                                          Store store) {
+  float* As = smem;               // [kFK][kFLDA]
+  float* Bs1 = As + kFK * kFLDA;  // [kFK][kFLDB]
+  float* Bs2 = Bs1 + kFK * kFLDB;
   const int tid = threadIdx.x;
   const int ty = tid >> 4, tx = tid & 15;
-  const int warp = tid >> 5, wm = warp & 3, wn = warp >> 2;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  FragC frag[kMma ? NB : 1][2];
-  float acc[kMma ? 1 : NB][4][4];
-  if constexpr (kMma) {
+  float acc[NB][4][4];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-      wmma::fill_fragment(frag[j][0], 0.f);
-      wmma::fill_fragment(frag[j][1], 0.f);
-    }
-  } else {
+  for (int j = 0; j < NB; ++j)
 #pragma unroll
-    for (int j = 0; j < NB; ++j)
+    for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[j][r][c] = 0.f;
-  }
+      for (int c = 0; c < 4; ++c) acc[j][r][c] = 0.f;
 
   for (int k0 = 0; k0 < depth; k0 += kFK) {
-    __syncthreads();  // the previous tile's (or the staging's) reads are done
+    __syncthreads();  // the previous tile's reads are done
     for (int i = tid; i < kFM * kFK; i += kThreads) {
       const int kk = i % kFK, m = i / kFK;
-      As[kk * kFLDA + m] = k0 + kk < depth ? load_a(m, k0 + kk) : from_f<T>(0.f);
+      As[kk * kFLDA + m] = k0 + kk < depth ? load_a(m, k0 + kk) : 0.f;
     }
     for (int i = tid; i < kFK * kFN; i += kThreads) {
       const int n = i % kFN, kk = i / kFN;
       const bool in = k0 + kk < depth;
-      Bs1[kk * kFLDB + n] = in ? load_b(0, k0 + kk, n) : from_f<T>(0.f);
-      if constexpr (NB == 2) Bs2[kk * kFLDB + n] = in ? load_b(1, k0 + kk, n) : from_f<T>(0.f);
+      Bs1[kk * kFLDB + n] = in ? load_b(0, k0 + kk, n) : 0.f;
+      if constexpr (NB == 2) Bs2[kk * kFLDB + n] = in ? load_b(1, k0 + kk, n) : 0.f;
     }
     __syncthreads();
-    if constexpr (kMma) {
-#pragma unroll
-      for (int kk = 0; kk < kFK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, As + kk * kFLDA + wm * 16, kFLDA);
-#pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, Bs1 + kk * kFLDB + wn * 32 + f * 16, kFLDB);
-          wmma::mma_sync(frag[0][f], fa, fb, frag[0][f]);
-          if constexpr (NB == 2) {
-            wmma::load_matrix_sync(fb, Bs2 + kk * kFLDB + wn * 32 + f * 16, kFLDB);
-            wmma::mma_sync(frag[NB - 1][f], fa, fb, frag[NB - 1][f]);
-          }
-        }
-      }
-    } else {
 #pragma unroll 4
-      for (int kk = 0; kk < kFK; ++kk) {
-        float ar[4], br[NB][4];
+    for (int kk = 0; kk < kFK; ++kk) {
+      float ar[4], br[NB][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) ar[r] = to_f<T>(As[kk * kFLDA + ty * 4 + r]);
+      for (int r = 0; r < 4; ++r) ar[r] = As[kk * kFLDA + ty * 4 + r];
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            br[j][c] = to_f<T>((j == 0 ? Bs1 : Bs2)[kk * kFLDB + tx * 4 + c]);
+        for (int c = 0; c < 4; ++c) br[j][c] = (j == 0 ? Bs1 : Bs2)[kk * kFLDB + tx * 4 + c];
 #pragma unroll
-        for (int j = 0; j < NB; ++j)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < 4; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) acc[j][r][c] = fmaf(ar[r], br[j][c], acc[j][r][c]);
-      }
+          for (int c = 0; c < 4; ++c) acc[j][r][c] = fmaf(ar[r], br[j][c], acc[j][r][c]);
     }
   }
 
-  if constexpr (kMma) {
-    if constexpr (kSwiglu) {  // both accumulators share one element layout
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
+  for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int t = 0; t < frag[0][f].num_elements; ++t)
-          frag[0][f].x[t] = swiglu<T>(frag[0][f].x[t], frag[NB - 1][f].x[t]);
+    for (int c = 0; c < 4; ++c) {
+      const float v = kSwiglu ? swiglu<float>(acc[0][r][c], acc[NB - 1][r][c]) : acc[0][r][c];
+      store(ty * 4 + r, tx * 4 + c, v);
     }
-    float* Cs = reinterpret_cast<float*>(smem);  // [kFM][kFLDC], over As/Bs
-    __syncthreads();                              // the last tile's reads
-    wmma::store_matrix_sync(Cs + wm * 16 * kFLDC + wn * 32, frag[0][0], kFLDC,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(Cs + wm * 16 * kFLDC + wn * 32 + 16, frag[0][1], kFLDC,
-                            wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < kFM * kFN; i += kThreads)
-      store(i / kFN, i % kFN, Cs[(i / kFN) * kFLDC + i % kFN]);
-  } else {
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float v = kSwiglu ? swiglu<T>(acc[0][r][c], acc[NB - 1][r][c]) : acc[0][r][c];
-        store(ty * 4 + r, tx * 4 + c, v);
-      }
-  }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_a2a_mlp_kernel(PeerSlots peers, int w, int rank, int bucket,
                      const int* __restrict__ inv, const int* __restrict__ counts,
-                     const T* __restrict__ wg, const T* __restrict__ wu,
-                     const T* __restrict__ wd, T* __restrict__ act, T* __restrict__ y,
-                     int e_local, int c_pad, int M, int F) {
-  constexpr int kTiles = kFK * (kFLDA + 2 * kFLDB) * static_cast<int>(sizeof(T));
-  constexpr int kStage = kFM * kFLDC * 4;
-  __shared__ __align__(128) unsigned char smem[kTiles > kStage ? kTiles : kStage];
-  __shared__ const T* rowp[kFM];
+                     const float* __restrict__ wg, const float* __restrict__ wu,
+                     const float* __restrict__ wd, float* __restrict__ act,
+                     float* __restrict__ y, int e_local, int c_pad, int M, int F) {
+  __shared__ float smem[kFK * (kFLDA + 2 * kFLDB)];
+  __shared__ const float* rowp[kFM];
 
   const int i = blockIdx.x, e = blockIdx.y, c = blockIdx.z;
   const int tid = threadIdx.x;
@@ -361,60 +576,60 @@ fused_a2a_mlp_kernel(PeerSlots peers, int w, int rank, int bucket,
   const int m0 = i * kFM;
   const size_t row0 = (static_cast<size_t>(c) * e_local + e) * c_pad + m0;
   if (m0 >= count) {  // the ragged skip: a dead row tile writes zeros
-    for (size_t o = tid; o < static_cast<size_t>(kFM) * M; o += kThreads)
-      y[row0 * M + o] = from_f<T>(0.f);
+    for (size_t o = tid; o < static_cast<size_t>(kFM) * M; o += kThreads) y[row0 * M + o] = 0.f;
     return;
   }
   if (tid < kFM) {
     const int src = inv[row0 + tid];
-    const T* p = nullptr;
+    const float* p = nullptr;
     if (m0 + tid < count && src >= 0 && src < w * bucket) {
       const int peer = src / bucket;
-      p = static_cast<const T*>(peers.base[peer]) +
+      p = static_cast<const float*>(peers.base[peer]) +
           (static_cast<size_t>(c * w + rank) * bucket + src % bucket) * M;
     }
     rowp[tid] = p;
   }
   __syncthreads();
 
-  const T* wg_e = wg + static_cast<size_t>(e) * M * F;
-  const T* wu_e = wu + static_cast<size_t>(e) * M * F;
-  const T* wd_e = wd + static_cast<size_t>(e) * F * M;
-  T* act_rows = act + row0 * F;
+  const float* wg_e = wg + static_cast<size_t>(e) * M * F;
+  const float* wu_e = wu + static_cast<size_t>(e) * M * F;
+  const float* wd_e = wd + static_cast<size_t>(e) * F * M;
+  float* act_rows = act + row0 * F;
 
   // phase 1: act = silu(x wg[e]) * (x wu[e]), one 64-column ffn tile at a time
   for (int f0 = 0; f0 < F; f0 += kFN) {
-    tile_gemm<2, true, T>(
+    tile_gemm<2, true>(
         smem, M,
         [&](int m, int k) {
-          const T* p = rowp[m];
-          return p != nullptr ? p[k] : from_f<T>(0.f);
+          const float* p = rowp[m];
+          return p != nullptr ? p[k] : 0.f;
         },
         [&](int j, int k, int n) {
           const int gn = f0 + n;
-          if (gn >= F) return from_f<T>(0.f);
+          if (gn >= F) return 0.f;
           return (j == 0 ? wg_e : wu_e)[static_cast<size_t>(k) * F + gn];
         },
         [&](int m, int n, float v) {
-          if (f0 + n < F) act_rows[static_cast<size_t>(m) * F + f0 + n] = from_f<T>(v);
+          if (f0 + n < F) act_rows[static_cast<size_t>(m) * F + f0 + n] = v;
         });
   }
   __syncthreads();  // the block's act rows are written (and visible to it)
 
   // phase 2: y = act wd[e], fp32 accumulation over the ffn
   for (int n0 = 0; n0 < M; n0 += kFN) {
-    tile_gemm<1, false, T>(
-        smem, F,
-        [&](int m, int k) { return act_rows[static_cast<size_t>(m) * F + k]; },
+    tile_gemm<1, false>(
+        smem, F, [&](int m, int k) { return act_rows[static_cast<size_t>(m) * F + k]; },
         [&](int, int k, int n) {
           const int gn = n0 + n;
-          return gn < M ? wd_e[static_cast<size_t>(k) * M + gn] : from_f<T>(0.f);
+          return gn < M ? wd_e[static_cast<size_t>(k) * M + gn] : 0.f;
         },
         [&](int m, int n, float v) {
-          if (n0 + n < M) y[(row0 + m) * M + n0 + n] = from_f<T>(v);
+          if (n0 + n < M) y[(row0 + m) * M + n0 + n] = v;
         });
   }
 }
+
+}  // namespace fused_f32
 
 }  // namespace
 
@@ -423,34 +638,29 @@ fused_a2a_mlp_kernel(PeerSlots peers, int w, int rank, int bucket,
 // pointers (host array), peer j's staged x_send [chunks*w*bucket, M]; inv
 // [chunks*e_local*c_pad] int32 landing-buffer rows (>= w*bucket: none);
 // counts [chunks*e_local] int32; wg, wu [e_local, M, F], wd [e_local, F, M];
-// act [chunks*e_local*c_pad, F] scratch. All of one dtype, bf16 or fp32.
+// act [chunks*e_local*c_pad, F] scratch. All of one dtype, bf16 or fp32
+// (bf16: M and F multiples of 8, every pointer 16-byte aligned).
 extern "C" int ptt_fused_a2a_mlp(const void* const* peers, int w, int rank, int bucket,
                                  const void* inv, const void* counts, const void* wg,
                                  const void* wu, const void* wd, void* act, void* y,
                                  int chunks, int e_local, int c_pad, int M, int F,
                                  int dtype, void* stream) {
-  if (w < 1 || w > kPeers || rank < 0 || rank >= w || bucket < 1 || c_pad % kFM != 0)
+  if (w < 1 || w > kPeers || rank < 0 || rank >= w || bucket < 1 || c_pad % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (chunks == 0 || e_local == 0 || c_pad == 0 || M == 0) return 0;
   PeerSlots ps{};
   for (int j = 0; j < w; ++j) ps.base[j] = peers[j];
-  const dim3 grid(c_pad / kFM, e_local, chunks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* iv = static_cast<const int*>(inv);
   const int* cn = static_cast<const int*>(counts);
-  if (dtype == PTT_BF16) {
-    using T = __nv_bfloat16;
-    fused_a2a_mlp_kernel<T><<<grid, kThreads, 0, s>>>(
-        ps, w, rank, bucket, iv, cn, static_cast<const T*>(wg), static_cast<const T*>(wu),
-        static_cast<const T*>(wd), static_cast<T*>(act), static_cast<T*>(y), e_local,
-        c_pad, M, F);
-  } else if (dtype == PTT_F32) {
-    fused_a2a_mlp_kernel<float><<<grid, kThreads, 0, s>>>(
-        ps, w, rank, bucket, iv, cn, static_cast<const float*>(wg),
-        static_cast<const float*>(wu), static_cast<const float*>(wd),
-        static_cast<float*>(act), static_cast<float*>(y), e_local, c_pad, M, F);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype == PTT_BF16)
+    return fused_wg::launch(ps, w, rank, bucket, iv, cn, wg, wu, wd, act, y, chunks, e_local,
+                            c_pad, M, F, s);
+  if (dtype != PTT_F32) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(c_pad / fused_f32::kFM, e_local, chunks);
+  fused_f32::fused_a2a_mlp_kernel<<<grid, kThreads, 0, s>>>(
+      ps, w, rank, bucket, iv, cn, static_cast<const float*>(wg), static_cast<const float*>(wu),
+      static_cast<const float*>(wd), static_cast<float*>(act), static_cast<float*>(y), e_local,
+      c_pad, M, F);
   PTT_RETURN_LAUNCH_ERROR();
 }

@@ -183,6 +183,9 @@ class _HostState:
         eng = self.server.engine
         with self.lock:
             wire = dict(self.wire)
+        with kv_handoff.counters_lock:     # no pull half counted
+            launches = kernels.launch_counts()
+            handoff = dict(kv_handoff.handoff_stats(eng), **wire)
         return {
             "free_blocks": eng.cache.free_blocks,
             "num_blocks": eng.cache.num_blocks,
@@ -192,8 +195,8 @@ class _HostState:
             "digest": self.digest,
             "pid": os.getpid(),
             "device": str(eng.cache.device),
-            "launches": kernels.launch_counts(),
-            "handoff": dict(kv_handoff.handoff_stats(eng), **wire),
+            "launches": launches,
+            "handoff": handoff,
             "ipc_held": 0 if self.ipc is None else self.ipc.held,
             "ipc": None if self.ipc is None else dict(self.ipc.counters),
         }

@@ -107,6 +107,12 @@ def _bytes_of(t: torch.Tensor) -> bytes:
         torch.uint8).numpy().tobytes()
 
 
+# Held by a pull from its first #18 launch until its counters are updated,
+# and by a reader that needs launch counts and handoff counters that agree
+# (a host's /introspect, read from another thread while a pull is running).
+counters_lock = threading.Lock()
+
+
 def handoff_stats(engine) -> Dict[str, float]:
     """Per-engine handoff counters and seconds: ``exports``/``export_s``
     (the gather, into an IPC buffer on the device route),
@@ -553,19 +559,25 @@ class IPCInbox:
                                  f"hold generation {gen}")
         base = self._map(d["handle"], src)
         arrays = {}
-        for seg in d["segments"]:
-            out = torch.empty(tuple(seg["shape"]),
-                              dtype=_torch_dtype(seg["dtype"]),
-                              device=self.device)
-            rows = out.shape[0] if out.dim() else 1
-            _k18.pages_copy(out, base + int(seg["offset"]),
-                            _k18.clamp_chunks(self.chunks, rows))
-            arrays[seg["key"]] = out
-        _sync(self.device)          # pulled before the source may reuse it
-        if not _rpc(src, "/ipc/release", {"generation": gen}):
-            self.forget(src)
-            raise HandoffRefused(f"source {d.get('host') or src} did not "
-                                 f"confirm generation {gen} after the pull")
+        with counters_lock:
+            for seg in d["segments"]:
+                out = torch.empty(tuple(seg["shape"]),
+                                  dtype=_torch_dtype(seg["dtype"]),
+                                  device=self.device)
+                rows = out.shape[0] if out.dim() else 1
+                _k18.pages_copy(out, base + int(seg["offset"]),
+                                _k18.clamp_chunks(self.chunks, rows))
+                arrays[seg["key"]] = out
+            _sync(self.device)      # pulled before the source may reuse it
+            if not _rpc(src, "/ipc/release", {"generation": gen}):
+                self.forget(src)
+                raise HandoffRefused(
+                    f"source {d.get('host') or src} did not confirm "
+                    f"generation {gen} after the pull")
+            if stats is not None:
+                stats["pulls"] += 1
+                stats["segments"] += len(d["segments"])
+                stats["pull_s"] += time.perf_counter() - t0
         out = {k: v for k, v in record.items() if k != "ipc"}
         for key in ("k", "v", "k_scale", "v_scale"):
             if key in arrays:
@@ -579,10 +591,6 @@ class IPCInbox:
             layers = d.get("ssm_layers") or []
             out["ssm_state"] = [dict(planes[i], layer=int(layers[i]))
                                 for i in sorted(planes)]
-        if stats is not None:
-            stats["pulls"] += 1
-            stats["segments"] += len(d["segments"])
-            stats["pull_s"] += time.perf_counter() - t0
         return out
 
 

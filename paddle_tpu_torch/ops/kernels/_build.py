@@ -22,14 +22,15 @@ import fcntl
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
-__all__ = ["library", "build_seconds", "ptxas_report", "BUILD_DIR",
-           "SOURCES"]
+__all__ = ["library", "build_seconds", "ptxas_report", "ptxas_spills",
+           "sass_opcode_counts", "BUILD_DIR", "SOURCES"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -135,6 +136,48 @@ def ptxas_report() -> str:
         with open(log) as f:
             out.append(f.read())
     return "".join(out)
+
+
+def ptxas_spills() -> Dict[str, Tuple[int, int]]:
+    """``(spill store bytes, spill load bytes)`` of each kernel (mangled
+    name) in :func:`ptxas_report`."""
+    out, fn = {}, None
+    for ln in ptxas_report().splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn is not None:
+            st, ld = int(m.group(1)), int(m.group(2))
+            old = out.get(fn, (0, 0))
+            out[fn] = (max(old[0], st), max(old[1], ld))
+            fn = None
+    return out
+
+
+def sass_opcode_counts(opcode: str) -> Optional[Dict[str, int]]:
+    """How many ``opcode`` instructions (e.g. ``HGMMA``, the tensor cores'
+    warpgroup product) each kernel (mangled name) of the built library
+    holds, from ``cuobjdump -sass``; None where the toolkit has no
+    ``cuobjdump``."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+        if tool is None:
+            return None
+    so = os.path.join(BUILD_DIR, f"libpaddle_tpu_torch_{_key()}.so")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts.setdefault(fn, 0)
+        elif fn is not None and re.search(rf"\b{opcode}\b", ln):
+            counts[fn] += 1
+    return counts
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -11,7 +11,8 @@ kernels of the TPU package:
 * :func:`ring_kv_rotate` (#16, ``ring_kv_rotate`` :294): one hop of the
   ring-attention KV rotation. Twin: one stacked ``ppermute``.
 * :func:`fused_a2a_expert_mlp` (#17, ``fused_a2a_expert_mlp`` :480): the
-  chunked MoE dispatch exchange and the expert SwiGLU MLP in one launch.
+  chunked MoE dispatch exchange and the expert SwiGLU MLP in one call
+  (bf16: a gate/up and a down kernel on ``wgmma``; fp32: one kernel).
   Twin: the composed reference of ``moe_a2a.py:267-280`` (the exchange,
   the ``inv`` gather, the grouped-GEMM expert MLP).
 
@@ -39,7 +40,9 @@ from paddle_tpu_torch.ops.kernels import _launch
 
 __all__ = ["async_a2a_enabled", "fused_kernel_enabled", "tiled_a2a",
            "tiled_a2a_plain", "ring_kv_rotate", "ring_kv_rotate_plain",
-           "fused_a2a_expert_mlp", "fused_a2a_expert_mlp_plain", "release",
+           "fused_a2a_expert_mlp", "fused_a2a_expert_mlp_plain",
+           "tiled_a2a_pull", "ring_kv_pull", "fused_a2a_expert_mlp_pull",
+           "release",
            "launches", "launches_a2a", "launches_fused", "MAX_PEERS"]
 
 #: copy-kernel launches made by :func:`ring_kv_rotate` (two a hop: stage
@@ -48,7 +51,8 @@ launches = 0
 #: pull-kernel launches made by :func:`tiled_a2a` (one an exchange; the
 #: stage into the slot is the exchange protocol's copy, not #15's kernel)
 launches_a2a = 0
-#: fused-kernel launches made by :func:`fused_a2a_expert_mlp` (one a call)
+#: fused-kernel calls made by :func:`fused_a2a_expert_mlp` (one a call: in
+#: bf16 its gate/up and down launches together)
 launches_fused = 0
 
 #: ranks one exchange can join (``kMaxSeg`` in the .cu)
@@ -214,28 +218,60 @@ def tiled_a2a(x: torch.Tensor, group=None) -> torch.Tensor:
     of the same shape and dtype. CPU tensors take :func:`tiled_a2a_plain`;
     CUDA tensors stage into the group's slot and launch ``ptt_a2a_pull``
     once."""
-    global launches_a2a
     if x.device.type == "cpu":
         return tiled_a2a_plain(x, group)
+    dev, group, world = _a2a_args(x, group)
+    s = None
+    if world > 1:
+        s, _, _ = _ring(group, dev).stage([x], _launch.stream_of(dev))
+    return _a2a_pull(x, group, s)
+
+
+def tiled_a2a_pull(x: torch.Tensor, group=None) -> torch.Tensor:
+    """#15's pull alone, from the slot the group's last exchange staged: no
+    stage and no barrier. That exchange must have been a
+    :func:`tiled_a2a` of ``x`` on every rank, with no rank restaging
+    since; it times the kernel apart from the exchange protocol. Returns
+    what that :func:`tiled_a2a` returned."""
+    _, group, world = _a2a_args(x, group)
+    return _a2a_pull(x, group, None if world == 1 else _last_slot(group))
+
+
+def _a2a_args(x, group):
     dev = _launch.check_cuda("tiled_a2a", x)
-    group, me, world = _group_of("tiled_a2a", group)
+    group, _, world = _group_of("tiled_a2a", group)
     _launch.require(x.dim() >= 1 and x.shape[0] % world == 0,
                     f"tiled_a2a: {x.shape[0] if x.dim() else 0} rows do not "
                     f"split into {world} equal blocks")
+    return dev, group, world
+
+
+def _a2a_pull(x, group, s):
+    """Launch ``ptt_a2a_pull`` once over the peers' slot ``s`` (None: a
+    world of one, ``x`` itself)."""
+    global launches_a2a
+    dev = x.device
+    _, me, world = _group_of("tiled_a2a", group)
     out = torch.empty_like(x)
     blk = _nbytes(x) // world
-    stream = _launch.stream_of(dev)
-    if world == 1:
+    if s is None:
         srcs = [x.data_ptr()]
     else:
-        ring = _ring(group, dev)
-        s, _, _ = ring.stage([x], stream)
+        ring = _rings[group]
         srcs = [x.data_ptr() + me * blk if j == me
                 else ring.addr(j, s) + me * blk for j in range(world)]
     _launch.launch("ptt_a2a_pull", _pointers(srcs), out.data_ptr(), blk,
-                   world, me, stream)
+                   world, me, _launch.stream_of(dev))
     launches_a2a += 1
     return out
+
+
+def _last_slot(group) -> int:
+    """The slot the group's last exchange staged."""
+    ring = _rings.get(group)
+    if ring is None:
+        raise ValueError("no exchange of this group has staged a slot yet")
+    return ring.slot ^ 1
 
 
 # ------------------------------------------------------------ #16 ring hop
@@ -270,15 +306,37 @@ def ring_kv_rotate(k: torch.Tensor, v: torch.Tensor,
                     and sorted(d for _, d in perm) == list(range(world)),
                     f"ring_kv_rotate: {list(perm)} does not send from and to "
                     f"every one of the group's {world} ranks")
-    ring = _ring(group, dev)
-    stream = _launch.stream_of(dev)
-    s, (_, off), made = ring.stage([k, v], stream)
+    s, _, made = _ring(group, dev).stage([k, v], _launch.stream_of(dev))
     launches += made
-    theirs = ring.addr(src[0], s)
+    return _hop_pull(k, v, group, src[0], s)
+
+
+def ring_kv_pull(k: torch.Tensor, v: torch.Tensor,
+                 perm: Sequence[Tuple[int, int]], group=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """#16's pull alone, from the slot the group's last exchange staged: no
+    stage and no barrier. That exchange must have been a
+    :func:`ring_kv_rotate` of ``(k, v)`` over ``perm`` on every rank, with
+    no rank restaging since; it times the kernel apart from the exchange
+    protocol. Returns what that hop returned."""
+    _launch.check_cuda("ring_kv_rotate", k, v)
+    group = dist.group.WORLD if group is None else group
+    me = dist.get_rank(group)
+    src = [s for s, d in perm if d == me]
+    return _hop_pull(k, v, group, src[0], _last_slot(group))
+
+
+def _hop_pull(k, v, group, src: int, s: int):
+    """Launch ``ptt_ring_copy`` once: K and V from rank ``src``'s slot
+    ``s`` (staged by ``_Ring.stage([k, v])``)."""
+    global launches
+    theirs = _rings[group].addr(src, s)
     nbytes = _nbytes(k)
+    off = -(-nbytes // _ALIGN) * _ALIGN      # V's offset in the slot
     ko, vo = torch.empty_like(k), torch.empty_like(v)
     _launch.launch("ptt_ring_copy", theirs, ko.data_ptr(), nbytes,
-                   theirs + off, vo.data_ptr(), nbytes, 2, stream)
+                   theirs + off, vo.data_ptr(), nbytes, 2,
+                   _launch.stream_of(k.device))
     launches += 1
     return ko, vo
 
@@ -312,7 +370,7 @@ def fused_a2a_expert_mlp(x_send: torch.Tensor, counts: torch.Tensor,
                          chunks: int, bucket: int, c_pad: int
                          ) -> torch.Tensor:
     """Every chunk's dispatch exchange and the experts' SwiGLU MLP in one
-    launch. ``x_send [chunks*world*bucket, M]``: this rank's packed tiles,
+    call. ``x_send [chunks*world*bucket, M]``: this rank's packed tiles,
     chunk-major, destination block ``j`` of chunk ``c`` at rows ``(c*world
     + j)*bucket``; ``counts [chunks*e_local]`` int32 live rows per chunk and
     local expert; ``inv [chunks*e_local*c_pad]`` int32, each expert-major
@@ -320,16 +378,43 @@ def fused_a2a_expert_mlp(x_send: torch.Tensor, counts: torch.Tensor,
     ``wg``/``wu [e_local, M, F]``, ``wd [e_local, F, M]``. Returns ``y
     [chunks*e_local*c_pad, M]``, rows past each count zero. Collective.
     CPU tensors take :func:`fused_a2a_expert_mlp_plain`; CUDA tensors stage
-    ``x_send`` into the group's slot and launch ``ptt_fused_a2a_mlp`` once,
-    which reads the peers' slots itself."""
-    global launches_fused
+    ``x_send`` into the group's slot and call ``ptt_fused_a2a_mlp`` once
+    (one count of ``launches_fused``), which reads the peers' slots itself;
+    bf16 needs M and F multiples of 8 (the tensor maps' strides)."""
     if x_send.device.type == "cpu":
         return fused_a2a_expert_mlp_plain(x_send, counts, inv, wg, wu, wd,
                                           group=group, chunks=chunks,
                                           bucket=bucket, c_pad=c_pad)
+    dev, group, world = _fused_args(x_send, counts, inv, wg, wu, wd, group,
+                                    chunks, bucket, c_pad)
+    s = None
+    if world > 1:
+        s, _, _ = _ring(group, dev).stage([x_send], _launch.stream_of(dev))
+    return _fused_pull(x_send, counts, inv, wg, wu, wd, group, chunks,
+                       bucket, c_pad, s)
+
+
+def fused_a2a_expert_mlp_pull(x_send: torch.Tensor, counts: torch.Tensor,
+                              inv: torch.Tensor, wg: torch.Tensor,
+                              wu: torch.Tensor, wd: torch.Tensor, *, group,
+                              chunks: int, bucket: int, c_pad: int
+                              ) -> torch.Tensor:
+    """#17's launch alone, reading the slot the group's last exchange
+    staged: no stage and no barrier. That exchange must have been a
+    :func:`fused_a2a_expert_mlp` of ``x_send`` on every rank, with no rank
+    restaging since; it times the kernel apart from the exchange protocol.
+    Returns what that call returned."""
+    _, group, world = _fused_args(x_send, counts, inv, wg, wu, wd, group,
+                                  chunks, bucket, c_pad)
+    return _fused_pull(x_send, counts, inv, wg, wu, wd, group, chunks,
+                       bucket, c_pad, None if world == 1 else _last_slot(group))
+
+
+def _fused_args(x_send, counts, inv, wg, wu, wd, group, chunks, bucket,
+                c_pad):
     what = "fused_a2a_expert_mlp"
     dev = _launch.check_cuda(what, x_send, counts, inv, wg, wu, wd)
-    group, me, world = _group_of(what, group)
+    group, _, world = _group_of(what, group)
     e_local, m, ffn = wg.shape
     _launch.require(x_send.dim() == 2 and x_send.shape == (
         chunks * world * bucket, m), f"{what}: x_send {tuple(x_send.shape)} "
@@ -346,22 +431,40 @@ def fused_a2a_expert_mlp(x_send: torch.Tensor, counts: torch.Tensor,
                     f"inv int32 [{chunks * e_local * c_pad}]")
     _launch.require(c_pad % 64 == 0, f"{what}: c_pad {c_pad} is not a "
                     f"multiple of the kernel's 64-row tile")
+    if x_send.dtype == torch.bfloat16:   # TMA's strides and base addresses
+        _launch.require(m % 8 == 0 and ffn % 8 == 0,
+                        f"{what}: bf16 M {m} and F {ffn} must be multiples "
+                        f"of 8")
+        _launch.require(all(t.data_ptr() % 16 == 0
+                            for t in (x_send, wg, wu, wd)),
+                        f"{what}: bf16 x_send and weights must start at "
+                        f"16-byte aligned addresses")
+    return dev, group, world
+
+
+def _fused_pull(x_send, counts, inv, wg, wu, wd, group, chunks, bucket,
+                c_pad, s):
+    """Launch ``ptt_fused_a2a_mlp`` once over the peers' slot ``s`` (None: a
+    world of one, ``x_send`` itself)."""
+    global launches_fused
+    dev = x_send.device
+    _, me, world = _group_of("fused_a2a_expert_mlp", group)
+    e_local, m, ffn = wg.shape
     rows = chunks * e_local * c_pad
     act = torch.empty((rows, ffn), dtype=x_send.dtype, device=dev)
     y = torch.empty((rows, m), dtype=x_send.dtype, device=dev)
-    stream = _launch.stream_of(dev)
-    if world == 1:
+    if s is None:
         peers = [x_send.data_ptr()]
     else:
-        ring = _ring(group, dev)
-        s, _, _ = ring.stage([x_send], stream)
+        ring = _rings[group]
         peers = [x_send.data_ptr() if j == me else ring.addr(j, s)
                  for j in range(world)]
     _launch.launch("ptt_fused_a2a_mlp", _pointers(peers), world, me, bucket,
                    inv.data_ptr(), counts.data_ptr(), wg.data_ptr(),
                    wu.data_ptr(), wd.data_ptr(), act.data_ptr(),
                    y.data_ptr(), chunks, e_local, c_pad, m, ffn,
-                   _launch.dtype_code(x_send, what), stream)
+                   _launch.dtype_code(x_send, "fused_a2a_expert_mlp"),
+                   _launch.stream_of(dev))
     launches_fused += 1
     return y
 

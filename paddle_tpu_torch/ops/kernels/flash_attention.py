@@ -108,6 +108,15 @@ def flash_attention_with_lse(query: torch.Tensor, key: torch.Tensor,
                     "flash_attention: q, k and v must share a dtype")
     _launch.require(d in _HEAD_DIMS,
                     f"flash_attention: head_dim {d} not in {_HEAD_DIMS}")
+    if query.dtype == torch.bfloat16:   # the tensor maps' base addresses
+        _launch.require(all(t.data_ptr() % 16 == 0
+                            for t in (query, key, value)),
+                        "flash_attention: bf16 q, k and v must start at "
+                        "16-byte aligned addresses (TMA)")
+        _launch.require(b * hq <= 65535 and -(-sq // 128) <= 65535,
+                        f"flash_attention: bf16 batch x heads {b * hq} or "
+                        f"query tiles {-(-sq // 128)} exceed the grid's "
+                        f"65535")
     o = torch.empty_like(query)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     _launch.launch("ptt_flash_attn_fwd", query.data_ptr(), key.data_ptr(),

@@ -89,6 +89,29 @@ def test_flash_kernel_matches_twin(cuda_device, dtype, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("sq,sk", [(100, 130), (1000, 1000), (130, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_kernel_matches_twin(cuda_device, d, causal, sq, sk,
+                                         group):
+    """The bf16 forward (wgmma over a TMA ring) at both head dims, causal
+    and full, lengths no tile divides with Sq != Sk both ways, GQA 1:1 to
+    4:1; a second launch bitwise."""
+    rng = np.random.RandomState(sq + 7 * d + group)
+    q, k, v = (torch.from_numpy(rng.randn(2, s, h, d).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for s, h in ((sq, 4), (sk, 4 // group), (sk, 4 // group)))
+    o, lse = pt_flash.flash_attention_with_lse(q, k, v, causal)
+    o2, lse2 = pt_flash.flash_attention_with_lse(q, k, v, causal)
+    ro, rlse = pt_flash.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(_np(o), _np(ro), **BF16)
+    np.testing.assert_allclose(_np(lse), _np(rlse), rtol=1e-5, atol=1e-5)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_kernel_matches_twin(cuda_device, dtype):
     x = torch.randn(33, 200, device=cuda_device).to(getattr(torch, dtype))
@@ -600,7 +623,8 @@ def test_fused_a2a_expert_mlp_matches_twin_between_ranks_on_one_card(
     ragged K/N edges, a capacity that drops (cf 1.0) and an expert no
     token routes to; against the TPU kernel's arithmetic (gate and up in
     fp32) within the same tiers; a second launch bitwise, one launch a
-    call."""
+    call; and in bf16 at the path's widths with c_pad an odd multiple of
+    64."""
     import _torch_ep_ranks
     from paddle_tpu_torch import distributed as pt_dist
     cases = [dict(tokens=256, experts=8, hidden=64, ffn=96, cf=2.0,
@@ -608,7 +632,11 @@ def test_fused_a2a_expert_mlp_matches_twin_between_ranks_on_one_card(
              dict(tokens=256, experts=8, hidden=64, ffn=96, cf=2.0,
                   chunks=2, dtype=torch.bfloat16),
              dict(tokens=256, experts=16, hidden=128, ffn=176, cf=1.0,
-                  chunks=1, dtype=torch.bfloat16, empty_expert=3)]
+                  chunks=1, dtype=torch.bfloat16, empty_expert=3),
+             # the path's widths (M 1024, F 704) at c_pad 192, an odd
+             # multiple of 64: the last 128-row tile runs past each expert
+             dict(tokens=256, experts=8, hidden=1024, ffn=704, cf=3.0,
+                  chunks=1, dtype=torch.bfloat16)]
     torch.save(cases, tmp_path / "fused.pt")
     pt_dist.spawn(_torch_ep_ranks.fused_cuda_run, (str(tmp_path),),
                   nprocs=world, timeout=300)

@@ -429,3 +429,50 @@ def test_remote_copy_chunks_clamp_as_the_reference():
     assert pt_k18.clamp_chunks(4, 6) == 3
     assert pt_k18.clamp_chunks(5, 3) == 3
     assert pt_k18.clamp_chunks(0, 7) == 1
+
+
+def test_pull_counts_its_launches_under_the_counters_lock(monkeypatch):
+    """A reader holding ``counters_lock`` (a host's /introspect) never sees
+    a pull's #18 launches without the pull counted; a pull the source
+    does not confirm releases the lock and counts no pull."""
+    import threading
+    import time
+    launches = [0]
+
+    def fake_copy(out, src_ptr, chunks):
+        assert pt_kvh.counters_lock.locked()
+        launches[0] += 1
+        time.sleep(0.001)
+
+    answers = {"/ipc/hold": True, "/ipc/release": True}
+    monkeypatch.setattr(pt_k18, "pages_copy", fake_copy)
+    monkeypatch.setattr(pt_kvh, "_rpc", lambda src, path, p: answers[path])
+    monkeypatch.setattr(pt_kvh.IPCInbox, "_map", lambda self, h, e: 0)
+    inbox, stats = pt_kvh.IPCInbox("cpu"), {"pulls": 0, "segments": 0,
+                                            "pull_s": 0.0}
+    segs = [dict(key=k, shape=[4, 2, 8], dtype="float32", offset=0)
+            for k in ("k", "v")]
+    record = {"ipc": dict(endpoint="http://127.0.0.1:1", generation=1,
+                          handle="00", segments=segs)}
+    seen, done = [], threading.Event()
+
+    def reader():
+        while not done.is_set():
+            with pt_kvh.counters_lock:
+                seen.append((launches[0], stats["pulls"], stats["segments"]))
+    t = threading.Thread(target=reader)
+    t.start()
+    try:
+        for _ in range(20):
+            got = inbox.pull(record, stats)
+            assert set(got) == {"k", "v"} and got["k"].shape == (4, 2, 8)
+    finally:
+        done.set()
+        t.join()
+    assert stats["pulls"] == 20 and launches[0] == 40
+    assert seen and all(n == 2 * p == s for n, p, s in seen), seen[:5]
+    answers["/ipc/release"] = False
+    with pytest.raises(pt_kvh.HandoffRefused, match="did not confirm"):
+        inbox.pull(record, stats)
+    assert not pt_kvh.counters_lock.locked()
+    assert stats["pulls"] == 20 and launches[0] == 42
