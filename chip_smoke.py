@@ -474,11 +474,68 @@ TRAIN_LAYERS = 12
 TRAIN_STEPS = 10        # timed steps, as the bench times
 
 
+def _sdpa_bwd_lib(torch, timer, q, k, v, do):
+    """SDPA's backward on [b, h, s, d] views of the port's tensors, causal,
+    with the backend pinned (``torch.nn.attention.sdpa_kernel``): the
+    first of flash, memory-efficient, cuDNN and math that takes the call,
+    with ``enable_gqa`` where it does (else K/V repeated outside the call,
+    and the group sum left out). Returns ``(ms, backend)``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    do_t = do.transpose(1, 2)
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for gqa in (True, False):
+            kk, vv = (k, v) if gqa else (
+                x.repeat_interleave(g, dim=2) for x in (k, v))
+            ins = [x.transpose(1, 2).detach().requires_grad_(True)
+                   for x in (q, kk, vv)]
+            try:
+                with sdpa_kernel([backend]):
+                    out = F.scaled_dot_product_attention(
+                        *ins, is_causal=True,
+                        **({"enable_gqa": True} if gqa and g > 1 else {}))
+                fn = lambda: torch.autograd.grad(out, ins, do_t,
+                                                 retain_graph=True)
+                fn()
+                torch.cuda.synchronize()
+            except (RuntimeError, TypeError):
+                continue
+            name = backend.name + ("" if gqa or g == 1
+                                   else " (K/V repeated)")
+            return timer.ms(fn), name
+    return None, None
+
+
+def _bwd_launches(torch, label, fn):
+    """Device time of each kernel of ``fn()`` (the dQ and dK/dV launches
+    named apart) from ``torch.profiler``, ms a launch by kernel name."""
+    rows, _, _ = device_profile(torch, fn)
+    out = {}
+    for us, n, name in rows:
+        log(f"{label} profile: {us / 1e3 / n:.4f} ms a launch x{n} "
+            f"{name[:90]}")
+        for short in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"):
+            if short in name:
+                out[short] = us / 1e3 / n
+    return out
+
+
+def _bwd_flops(b, s, hq, d):
+    """The causal backward's products: 10*d flops a visible pair and
+    head."""
+    return 10 * d * b * hq * s * (s + 1) // 2
+
+
 def phase_flash_bwd(torch, timer):
     """The backward at the flagship's attention shape: causal bf16 q
     [4, 2048, 12, 128], k/v [4, 2048, 4, 128] (GQA 3:1). The forward
     kernel is held against its twin at this shape first, with the
-    serving shape's tolerances."""
+    serving shape's tolerances. Timed beside SDPA's backward with its
+    backend pinned, and at train-cp (a)'s q [1, 32768, 16, 64], kv 8
+    (no twin there: its score matrix alone would be tens of GB)."""
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     b, s, hq, hkv, d = TRAIN_B, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D
     q = torch.randn(b, s, hq, d, device="cuda").bfloat16()
@@ -510,29 +567,57 @@ def phase_flash_bwd(torch, timer):
         log(f"flash bwd {name}: max_abs_err {max_err(a, c):.4g} of max "
             f"{float(c.float().abs().max()):.4g}, rel L2 {_rel(a, c):.3g}")
         assert ok, f"flash bwd {name} beyond the bf16 tier"
-    del want
+    del want, got, again
     torch.cuda.empty_cache()
-    fn, lib_args = _sdpa_lib(torch, q, k, v)
-    lib_in = [t.detach().requires_grad_(True) for t in lib_args]
-    lib_out = fn(*lib_in)
-    lib_do = do.transpose(1, 2)
-    pairs = b * hq * s * (s + 1) // 2
-    flops = 10 * d * pairs
-    nbytes = (q.numel() * 2 * 3 + k.numel() * 2 * 4 + lse.numel() * 4)
-    b_ms, b_by = bound(nbytes, flops, "bf16")
-    return dict(name="flash_attention_bwd", route="cuda",
-                source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-                replaces="paddle_tpu/ops/pallas/flash_attention.py:303",
-                path="train", max_abs_err=err,
-                tolerance="rtol 2e-2, atol 2e-2 x max|twin|; bitwise repeat",
-                ms=timer.ms(lambda: fa.flash_attention_bwd(*args)),
-                plain_ms=timer.ms(lambda: fa.flash_attention_bwd_plain(*args),
-                                  iters=3, warmup=1),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=timer.ms(lambda: torch.autograd.grad(
-                    lib_out, lib_in, lib_do, retain_graph=True)),
-                shape="causal bf16 q [4, 2048, 12, 128], k/v [4, 2048, 4, 128]",
-                fwd_checks={"flash_attention_fwd": fwd_err})
+    lib_ms, backend = _sdpa_bwd_lib(torch, timer, q, k, v, do)
+    b_ms, b_by = bound(q.numel() * 2 * 3 + k.numel() * 2 * 4
+                       + lse.numel() * 4, _bwd_flops(b, s, hq, d),
+                       "bf16")
+    row = dict(name="flash_attention_bwd", route="cuda",
+               source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+               replaces="paddle_tpu/ops/pallas/flash_attention.py:303",
+               path="train", max_abs_err=err,
+               tolerance="rtol 2e-2, atol 2e-2 x max|twin|; bitwise repeat",
+               ms=timer.ms(lambda: fa.flash_attention_bwd(*args)),
+               plain_ms=timer.ms(lambda: fa.flash_attention_bwd_plain(*args),
+                                 iters=3, warmup=1),
+               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+               library=f"SDPA backward, {backend}",
+               launches_ms=_bwd_launches(
+                   torch, "flash bwd (train shape)",
+                   lambda: [fa.flash_attention_bwd(*args) for _ in range(5)]),
+               shape="causal bf16 q [4, 2048, 12, 128], k/v [4, 2048, 4, 128]",
+               fwd_checks={"flash_attention_fwd": fwd_err})
+    log(f"flash bwd at the train shape: {row['ms']:.4f} ms (dQ and dK/dV "
+        f"{row['launches_ms']}), SDPA backward ({backend}) {lib_ms} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    del q, k, v, do, o, lse, args
+    torch.cuda.empty_cache()
+    q = torch.randn(1, CP_SEQ, CP_HQ, CP_D, device="cuda").bfloat16()
+    k, v = (torch.randn(1, CP_SEQ, CP_HKV, CP_D, device="cuda").bfloat16()
+            for _ in range(2))
+    do = torch.randn(1, CP_SEQ, CP_HQ, CP_D, device="cuda").bfloat16()
+    o, lse = fa.flash_attention_with_lse(q, k, v, True)
+    args = (q, k, v, o, lse, do, True)
+    got = fa.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t).all()) for t in got), \
+        "flash bwd at train-cp (a)'s shape: non-finite gradients"
+    del got
+    cp_lib, cp_backend = _sdpa_bwd_lib(torch, timer, q, k, v, do)
+    cp_b = bound(q.numel() * 2 * 3 + k.numel() * 2 * 4 + lse.numel() * 4,
+                 _bwd_flops(1, CP_SEQ, CP_HQ, CP_D), "bf16")
+    row["cp"] = dict(ms=timer.ms(lambda: fa.flash_attention_bwd(*args),
+                                 iters=3, warmup=1),
+                     bound_ms=cp_b[0], bound_by=cp_b[1], library_ms=cp_lib,
+                     library=f"SDPA backward, {cp_backend}",
+                     launches_ms=_bwd_launches(
+                         torch, "flash bwd (train-cp (a) shape)",
+                         lambda: fa.flash_attention_bwd(*args)),
+                     shape=f"causal bf16 q [1, {CP_SEQ}, 16, 64], k/v [1, "
+                           f"{CP_SEQ}, 8, 64] (train-cp (a))")
+    log(f"flash bwd at train-cp (a)'s shape: " + json.dumps(row["cp"]))
+    return row
 
 
 # the context-parallel path's attention (bench_cp_long_context,
@@ -1180,6 +1265,12 @@ def phase_gmm(torch, timer):
     offs = moe_offsets(torch, MOE_CPAD)
     lib = library_ms(torch, timer, fn and (lambda: fn(x, wd, offs=offs)),
                      out, f"{lib_name} for gmm")
+    # the dx's library call reads w[e]^T as a transposed view, as the
+    # kernel does
+    wgt = wg.transpose(1, 2)
+    dx_lib = library_ms(torch, timer, fn and (lambda: fn(x, wgt, offs=offs)),
+                        dx, f"{lib_name} for the gmm dx")
+    log(f"gmm dx: {dx_ms:.4f} ms beside {lib_name} {dx_lib} ms")
     return dict(name="gmm", route="cuda",
                 source="paddle_tpu_torch/csrc/grouped_gemm.cu",
                 replaces="paddle_tpu/ops/pallas/grouped_gemm.py:166",
@@ -1192,7 +1283,8 @@ def phase_gmm(torch, timer):
                 plain_ms=timer.ms(lambda: gg.gmm_plain(x, wd, cnt), iters=3,
                                   warmup=1),
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library=lib_name, dx_ms=dx_ms, serve_ms=s_ms,
+                library=lib_name, dx_ms=dx_ms, dx_library_ms=dx_lib,
+                serve_ms=s_ms,
                 serve_max_abs_err=s_err,
                 shape="x bf16 [65536, 704] (32768 live), w bf16 "
                       "[16, 704, 1024]")
@@ -4233,7 +4325,8 @@ def phase_train_moe_ep(torch, np, card):
 
 # the kernels redesigned around wgmma (#1's bf16 forward, #17's bf16
 # gate/up and down launches), by a fragment of their mangled names
-WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma")
+WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
+                 "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "gmm_wgmma")
 
 
 def check_tensor_core_kernels():

@@ -79,14 +79,6 @@ template <int D> struct Cfg {
 };
 
 template <int D>
-__device__ __forceinline__ void mma_o(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64)
-    hopper::wgmma_m64n64_rs<1>(d, a, db, 1);
-  else
-    hopper::wgmma_m64n128_rs<1>(d, a, db, 1);
-}
-
-template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
@@ -178,8 +170,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
     hopper::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < BN / 16; ++j)
-      mma_o<D>(acc_o, pa[j],
-               hopper::desc_sw128(Vs + s * C::kTile + j * 16 * 128, BN * 128, 1024));
+      hopper::wgmma_rs<D, 1>(acc_o, pa[j],
+                             hopper::desc_sw128(Vs + s * C::kTile + j * 16 * 128, BN * 128, 1024),
+                             1);
     hopper::wgmma_commit();
   };
   auto release = [&](int s) {
@@ -234,11 +227,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   auto rescale_pack = [&]() {  // only once no P.V is in flight
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc_o[i] *= (i & 2) ? al_hi : al_lo;
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[j][r] = hopper::pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+    hopper::pack_a(pa, sc);
   };
 
   hopper::mbar_wait(q_full, 0);

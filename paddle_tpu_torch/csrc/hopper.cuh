@@ -1,8 +1,9 @@
 // Shared Hopper (sm_90a) primitives for the port's tensor-core kernels:
-// warpgroup matrix products (wgmma) with their shared-memory descriptors,
-// mbarriers, TMA tile loads (tensor maps encoded on the host through the
-// driver entry point, so the build links nothing new) and cp.async copies
-// for gathered rows.
+// warpgroup matrix products (wgmma m64n64/m64n128, A from shared memory or
+// registers) with their shared-memory descriptors and the conversion of an
+// accumulator into register-A fragments, mbarriers, TMA tile loads (tensor
+// maps encoded on the host through the driver entry point, so the build
+// links nothing new) and cp.async copies for gathered rows.
 //
 // Layout convention: every operand tile in shared memory is a stack of
 // 128-byte-swizzled atoms, rows of 64 bf16 (128 bytes), 8-row groups of
@@ -214,6 +215,34 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t desc_a
 }
 
 template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// m64nNk16 with shared-memory A for N in {64, 128}: the accumulator has N/2
+// registers a thread.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64_ss<kTransB>(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n128_ss<kTransB>(d, desc_a, desc_b, scale_d);
+}
+
+template <int kTransB>
 __device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -253,8 +282,42 @@ __device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t 
         "n"(kTransB));
 }
 
+// m64nNk16 with register A for N in {64, 128}.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N is 64 or 128");
+  if constexpr (N == 64)
+    wgmma_m64n64_rs<kTransB>(d, a, desc_b, scale_d);
+  else
+    wgmma_m64n128_rs<kTransB>(d, a, desc_b, scale_d);
+}
+
+// The register-A fragments of a k16 step j from an m64nN fp32 accumulator
+// (see the fragment layout above), rounded to bf16.
+template <int R>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[R / 8][4], const float (&d)[R]) {
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[j][r] = pack_bf16(d[8 * j + 2 * r], d[8 * j + 2 * r + 1]);
+}
+
 // ------------------------------------------------------ host: tensor maps
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+// Streaming multiprocessors of the current device (read once).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        n <= 0)
+      n = 132;
+  }
+  return n;
+}
+
+using EncodeTiledFn =CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                    const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                    const cuuint32_t*, CUtensorMapInterleave,
                                    CUtensorMapSwizzle, CUtensorMapL2promotion,

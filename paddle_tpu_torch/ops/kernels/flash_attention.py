@@ -182,8 +182,9 @@ def flash_attention_bwd(query, key, value, out, lse, d_out,
     """``(dq, dk, dv)`` of :func:`flash_attention_with_lse` for the
     cotangent ``d_out`` of ``out``, given the forward's ``out`` and
     ``lse``. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel (delta, dq and dk/dv, one call); no atomics, so the gradients
-    are the same bits on every run."""
+    kernel (bf16: dq with delta, then dk/dv, on the tensor cores; fp32:
+    delta, dq and dk/dv on the CUDA cores; one call); no atomics, so the
+    gradients are the same bits on every run."""
     global launches_bwd
     d_out = d_out.to(out.dtype)
     if query.device.type == "cpu":
@@ -206,6 +207,14 @@ def flash_attention_bwd(query, key, value, out, lse, d_out,
                     "flash_attention_bwd: shapes do not match the forward")
     _launch.require(d in _HEAD_DIMS,
                     f"flash_attention_bwd: head_dim {d} not in {_HEAD_DIMS}")
+    if query.dtype == torch.bfloat16:   # the tensor maps and O's 16-byte loads
+        _launch.require(all(t.data_ptr() % 16 == 0
+                            for t in (query, key, value, out, d_out)),
+                        "flash_attention_bwd: bf16 q, k, v, o and dO must "
+                        "start at 16-byte aligned addresses (TMA)")
+        _launch.require(b * hq <= 65535 and b * hkv <= 65535,
+                        f"flash_attention_bwd: bf16 batch x heads {b * hq} "
+                        f"exceeds the grid's 65535")
     dq = torch.empty_like(query)
     dk = torch.empty_like(key)
     dv = torch.empty_like(value)

@@ -17,13 +17,16 @@ zero. Contracts, as in the TPU kernels:
 (:func:`gmm_t`, which reads ``w`` transposed in place), the gradient of
 ``w`` is :func:`tgmm`, cast to ``w``'s dtype.
 
-The port's kernels have one tile shape (64 buffer rows by 64 columns),
-so ``c_pad`` is the capacity rounded up to :data:`BLOCK_M`
-(:func:`padded_capacity`, where the reference's ``default_blocks`` picked
-a tile per shape for the TPU's VMEM); no output depends on it. The
-kernels mask the ragged edge of any K and N themselves, so nothing is
-padded or transposed in memory, and gmm2's tile always fits (the
-reference's VMEM fit test ``fused_block_n`` has no counterpart).
+``c_pad`` is the capacity rounded up to :data:`BLOCK_M`, the row tile of
+the fp32 kernels (:func:`padded_capacity`, where the reference's
+``default_blocks`` picked a tile per shape for the TPU's VMEM); no output
+depends on it. The bf16 gmm/gmm2/gmm_t kernel takes 128-row tiles whose
+TMA boxes stop at each expert's last row, so a ``c_pad`` that is no
+multiple of 128 needs no padding either. The kernels mask the ragged
+edge of any K and N themselves (bf16: K and N multiples of 8, TMA's
+16-byte strides), so nothing is padded or transposed in memory, and
+gmm2's tile always fits (the reference's VMEM fit test
+``fused_block_n`` has no counterpart).
 
 On CPU tensors the wrappers run the plain twins; on CUDA tensors they
 launch the kernels or raise.
@@ -150,6 +153,13 @@ def _check(what: str, x, ws, counts, trans_w: bool):
                     f"{what}: x {x.dtype} with w {ws[0].dtype} is not taken "
                     f"(bf16 x bf16, fp32 x fp32 or fp32 x bf16)")
     dev = _launch.check_cuda(what, x, counts, *ws)
+    if x.dtype == torch.bfloat16:   # the tensor maps' strides and bases
+        _launch.require(k % 8 == 0 and n % 8 == 0,
+                        f"{what}: bf16 K={k} and N={n} must be multiples of "
+                        f"8 (TMA)")
+        _launch.require(all(t.data_ptr() % 16 == 0 for t in (x, *ws)),
+                        f"{what}: bf16 x and w must start at 16-byte aligned "
+                        f"addresses (TMA)")
     return e, rows // e, k, n, dev
 
 

@@ -156,6 +156,36 @@ def test_flash_backward_kernel_matches_twin(cuda_device, dtype, causal, sq,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 3, 4])
+@pytest.mark.parametrize("sq,sk", [(100, 130), (1000, 1000), (130, 100)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_wgmma_kernel_matches_twin(cuda_device, d, causal, sq,
+                                                  sk, group):
+    """The bf16 backward (dQ and delta, then dK/dV, on wgmma over TMA
+    rings) at both head dims, causal and full, lengths no tile divides
+    with Sq != Sk both ways, GQA 1:1 to 4:1 over two kv heads; the bf16
+    tier with atol scaled by each gradient's largest magnitude, and a
+    second launch bitwise."""
+    hkv = 2
+    q = _rand(cuda_device, "bfloat16", 2, sq, group * hkv, d, seed=sq + d)
+    k = _rand(cuda_device, "bfloat16", 2, sk, hkv, d, seed=sk + 1)
+    v = _rand(cuda_device, "bfloat16", 2, sk, hkv, d, seed=sk + 2)
+    do = _rand(cuda_device, "bfloat16", 2, sq, group * hkv, d, seed=group)
+    o, lse = pt_flash.flash_attention_with_lse(q, k, v, causal)
+    got = pt_flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = pt_flash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = pt_flash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == c.shape
+        assert torch.equal(a, b)
+        ref = _np(c)
+        np.testing.assert_allclose(_np(a), ref, rtol=BF16["rtol"],
+                                   atol=BF16["atol"] * np.abs(ref).max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_backward_kernel_matches_twin(cuda_device, dtype):
     """dx and the cross-row dw (fp32 atol 1e-5: 77 rows summed in
@@ -223,17 +253,21 @@ def test_fused_block_gradients_on_the_card_match_the_cpu_twins(cuda_device):
 
 
 # grouped GEMMs: 4 experts of c_pad 128 (two row tiles), one empty, one
-# full, one ending mid-tile; K 88 and N 200 are no multiples of the tiles
+# full, one ending mid-tile; K 88 and N 200 are no multiples of the tiles.
+# At c_pad 192 (a multiple of 64, not of 128) an expert's second 128-row
+# tile runs past its end, and one count (130) ends just inside it.
 _GG_COUNTS = [70, 0, 128, 3]
+_GG_COUNTS_BY_CPAD = {128: _GG_COUNTS, 192: [130, 0, 192, 3]}
 
 
 def _gg_inputs(dev, x_dtype, w_dtype, k=88, n=200, c_pad=128, seed=40):
     """Expert-major x with zero rows past each count, w [E, K, N], counts."""
-    x = _rand("cpu", "float32", len(_GG_COUNTS) * c_pad, k, seed=seed)
-    for e, c in enumerate(_GG_COUNTS):
+    cnt = _GG_COUNTS_BY_CPAD[c_pad]
+    x = _rand("cpu", "float32", len(cnt) * c_pad, k, seed=seed)
+    for e, c in enumerate(cnt):
         x[e * c_pad + c:(e + 1) * c_pad] = 0
-    w = _rand(dev, w_dtype, len(_GG_COUNTS), k, n, scale=0.1, seed=seed + 1)
-    counts = torch.tensor(_GG_COUNTS, dtype=torch.int32, device=dev)
+    w = _rand(dev, w_dtype, len(cnt), k, n, scale=0.1, seed=seed + 1)
+    counts = torch.tensor(cnt, dtype=torch.int32, device=dev)
     return x.to(dev, getattr(torch, x_dtype)), w, counts
 
 
@@ -244,27 +278,33 @@ def _gg_close(got, want, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_dtype,w_dtype", [
-    ("bfloat16", "bfloat16"), ("float32", "float32"),
-    ("float32", "bfloat16")])
-def test_gmm_and_gmm2_kernels_match_twins(cuda_device, x_dtype, w_dtype):
+@pytest.mark.parametrize("x_dtype,w_dtype,c_pad", [
+    ("bfloat16", "bfloat16", 128), ("float32", "float32", 128),
+    ("float32", "bfloat16", 128), ("bfloat16", "bfloat16", 192)])
+def test_gmm_and_gmm2_kernels_match_twins(cuda_device, x_dtype, w_dtype,
+                                          c_pad):
     """gmm, gmm2 and the transposed gmm of the backward: the twin's values
     (zeros past each count included) at the tier of x's dtype, and a
-    second launch gives the same bits."""
-    x, w, counts = _gg_inputs(cuda_device, x_dtype, w_dtype)
+    second launch gives the same bits; every output is exactly zero past
+    each count."""
+    x, w, counts = _gg_inputs(cuda_device, x_dtype, w_dtype, c_pad=c_pad)
     w2 = _rand(cuda_device, w_dtype, *w.shape, scale=0.1, seed=50)
     tol = FP32 if x_dtype == "float32" else BF16
     _gg_close(pt_gg.gmm(x, w, counts), pt_gg.gmm_plain(x, w, counts), tol)
-    for got, want in zip(pt_gg.gmm2(x, w, w2, counts),
-                         pt_gg.gmm2_plain(x, w, w2, counts)):
+    outs = pt_gg.gmm2(x, w, w2, counts)
+    assert all(torch.equal(a, b)
+               for a, b in zip(outs, pt_gg.gmm2(x, w, w2, counts)))
+    for got, want in zip(outs, pt_gg.gmm2_plain(x, w, w2, counts)):
         _gg_close(got, want, tol)
     dy = pt_gg.gmm(x, w, counts)
     dx = pt_gg.gmm_t(dy, w, counts)
     assert torch.equal(dx, pt_gg.gmm_t(dy, w, counts))
     _gg_close(dx, pt_gg.gmm_plain(dy, w, counts, trans_w=True), tol)
-    for e, c in enumerate(_GG_COUNTS):
-        if c < 128:
-            assert float(dy[e * 128 + c:(e + 1) * 128].abs().max()) == 0.0
+    for e, c in enumerate(_GG_COUNTS_BY_CPAD[c_pad]):
+        if c < c_pad:
+            for out in (dy, dx) + tuple(outs):
+                assert float(out[e * c_pad + c:(e + 1) * c_pad].abs()
+                             .max()) == 0.0
 
 
 @pytest.mark.cuda

@@ -68,15 +68,24 @@ def _close_scaled(port, ref, tol):
 
 # --------------------------------------------------------- flash attention
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,sq,sk", [(True, 40, 40), (False, 24, 40)])
-def test_flash_backward_matches_jax(dtype, causal, sq, sk):
-    """dQ, dK and dV of GQA 4:2 attention with 16-row blocks on the JAX
-    side; dK/dV come back summed over each kv head's query heads."""
+@pytest.mark.parametrize("causal,sq,sk,d,hq,hkv", [
+    pytest.param(True, 40, 40, 64, 4, 2, id="True-40-40"),
+    pytest.param(False, 24, 40, 64, 4, 2, id="False-24-40"),
+    pytest.param(True, 40, 40, 128, 6, 2, id="True-40-40-d128-gqa3"),
+    pytest.param(False, 24, 40, 128, 6, 2, id="False-24-40-d128-gqa3")])
+def test_flash_backward_matches_jax(dtype, causal, sq, sk, d, hq, hkv):
+    """dQ, dK and dV of GQA attention (4:2 at head dim 64, and the train
+    shape's 3:1 at head dim 128) with 16-row blocks on the JAX side; dK/dV
+    come back summed over each kv head's query heads. At head dim 128 the
+    gradients are held with atol scaled by their largest magnitude: the
+    causal first row's dQ is zero up to the cancellation of ``dp - delta``
+    (~2e-6 in fp32 here, against values of order 1), which each side
+    rounds differently."""
     rng = np.random.RandomState(10)
-    q = _pair(rng.randn(2, sq, 4, 64), dtype)
-    k = _pair(rng.randn(2, sk, 2, 64), dtype)
-    v = _pair(rng.randn(2, sk, 2, 64), dtype)
-    do = _pair(rng.randn(2, sq, 4, 64), dtype)
+    q = _pair(rng.randn(2, sq, hq, d), dtype)
+    k = _pair(rng.randn(2, sk, hkv, d), dtype)
+    v = _pair(rng.randn(2, sk, hkv, d), dtype)
+    do = _pair(rng.randn(2, sq, hq, d), dtype)
 
     def ref_fn(a, b, c):
         return jax_flash.flash_attention(a, b, c, is_causal=causal,
@@ -92,7 +101,7 @@ def test_flash_backward_matches_jax(dtype, causal, sq, sk):
     _close(out, ref_o, tol)
     for g, r, t in zip(grads, ref_g, (q, k, v)):
         assert g.dtype == t[1].dtype and g.shape == t[1].shape
-        _close(g, r, tol)
+        (_close if d == 64 else _close_scaled)(g, r, tol)
 
 
 def test_flash_backward_twin_of_the_kernels_call():
