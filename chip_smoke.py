@@ -29,7 +29,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    over the whole causal sequence and summed against the flash backward)
    held against its plain PyTorch twin on the same inputs (each backward
    kernel, the dx gmm, the scan and the quantized ragged kernel also
-   twice, bitwise), then timed beside the twin, the PyTorch library call
+   twice, bitwise; tgmm at both of its path shapes, gate/up and down dW,
+   and with NaN and 1e30 in the dead rows, bit for bit the clean call;
+   gmm, gmm2 and tgmm also at shapes TMA cannot map, K 70 and N 37 or a
+   base 2 bytes off alignment, on their WMMA route; the segment-causal
+   backward timed at rank 0's t=0 and t=1 descriptors), then timed
+   beside the twin, the PyTorch library call
    that computes the same function (where one exists: ``grouped_mm`` for
    gmm and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
    for tgmm, memory-efficient ``scaled_dot_product_attention`` with the
@@ -846,7 +851,9 @@ def phase_flash_seg_bwd(torch, timer):
     rank's rows), each (rank, source) piece of sp 2 and 4, dQ summed over
     the sources and dK/dV over the ranks in fp32, as the ring sums them,
     against #2; every (rank, source) descriptor of sp 2 against the twin
-    at the path's shape, one kv head at a time; timed at that shape."""
+    at the path's shape, one kv head at a time; timed at that shape at
+    rank 0's t=0 and t=1 descriptors (bf16: #2's wgmma kernels under the
+    segment mask)."""
     from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     worst = {}
@@ -944,18 +951,62 @@ def phase_flash_seg_bwd(torch, timer):
     log(f"flash seg bwd vs twin at the path's shape (q [1, {2 * c}, 16, "
         f"64], every (rank, source) descriptor of sp 2, per kv head): "
         f"max_abs_err {path_err:.3g}")
-    seg = _zigzag_seg(0, 0, c, CP_SP)
+    # timed at the path's shape: rank 0's rows against its own KV (t=0)
+    # and against rank 1's (t=1), with the t=0 forward's o and lse (finite
+    # in every row, as the ring's merged lse is)
     rq = _zigzag_rows(CP_SEQ, CP_SP, 0)
-    ql, kl, vl, dol = (x[:, rq].contiguous() for x in (q, k, v, do))
+    ql, dol = (x[:, rq].contiguous() for x in (q, do))
+    kvs = [tuple(x[:, _zigzag_rows(CP_SEQ, CP_SP, src)].contiguous()
+                 for x in (k, v)) for src in range(CP_SP)]
     del q, k, v, do, o, lse
-    ol, lsel = fa.flash_attention_seg_with_lse(ql, kl, vl, seg)
+    seg = _zigzag_seg(0, 0, c, CP_SP)
+    ol, lsel = fa.flash_attention_seg_with_lse(ql, *kvs[0], seg)
+    assert fa._seg_bwd_tma_ok(1, CP_HQ, CP_HKV, ql, *kvs[0], ol, dol), \
+        "flash seg bwd at the path's shape: not on the wgmma route"
+    steps = [_seg_bwd_timed(torch, timer, ql, *kvs[src], ol, lsel, dol,
+                            _zigzag_seg(0, src, c, CP_SP), f"t={src}")
+             for src in range(CP_SP)]
+    del kvs
+    pc = c // 4
+    pq, pk, pv, pdo = _seg_qkv(torch, 2 * pc, torch.bfloat16, seed=4)
+    pseg = _zigzag_seg(0, 0, pc, CP_SP)
+    po, plse = fa.flash_attention_seg_plain(pq, pk, pv, pseg)
+    plain = timer.ms(lambda: fa.flash_attention_seg_bwd_plain(
+        pq, pk, pv, po, plse, pdo, pseg), iters=3, warmup=1)
+    t0 = steps[0]
+    return dict(name="flash_attention_seg_bwd", route="cuda",
+                source="paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                replaces="paddle_tpu/ops/pallas/flash_attention.py:622",
+                path="train-cp", max_abs_err=max(max(worst.values()),
+                                                 ring_err, path_err),
+                tolerance="bf16 rtol 2e-2, atol 2e-2 x max|twin| (at the "
+                          "path's shape per kv head too); fp32 rtol 1e-4, "
+                          "atol 1e-5 x max|twin|; bitwise repeat; ring sums "
+                          "vs #2 at the bf16 tier",
+                ms=t0["ms"], plain_ms=plain, bound_ms=t0["bound_ms"],
+                bound_by=t0["bound_by"], library_ms=t0["library_ms"],
+                live_pairs=t0["live_pairs"], t1=steps[1],
+                launches_ms=t0["launches_ms"],
+                shape=f"bf16 q [1, {2 * c}, 16, 64], kv [1, {2 * c}, 8, 64], "
+                      f"seg {seg}; plain at q [1, {2 * pc}, 16, 64], seg {pseg}")
+
+
+def _seg_bwd_timed(torch, timer, ql, kl, vl, ol, lsel, dol, seg, label):
+    """#4 at one descriptor of the path's shape: its time, its dQ and dK/dV
+    launches apart (``torch.profiler``), the bound by live pairs and the
+    masked SDPA backward (memory-efficient, K/V repeated)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
     args = (ql, kl, vl, ol, lsel, dol, seg)
-    pairs = _live_pairs(torch, seg, 2 * c, 2 * c)
+    sq = ql.shape[1]
+    pairs = _live_pairs(torch, seg, sq, kl.shape[1])
     flops = 10 * CP_D * CP_HQ * pairs
     # reads q, o, dO, k, v and lse; writes dq, dk and dv
     nbytes = 4 * ql.numel() * 2 + 4 * kl.numel() * 2 + lsel.numel() * 4
     b_ms, b_by = bound(nbytes, flops, "bf16")
     ms = timer.ms(lambda: fa.flash_attention_seg_bwd(*args), iters=5)
+    launches = _bwd_launches(torch, f"flash seg bwd ({label})",
+                             lambda: [fa.flash_attention_seg_bwd(*args)
+                                      for _ in range(3)])
     lib = _sdpa_seg_lib(torch, ql, kl, vl, seg)
     lib_ms = None
     if lib:
@@ -966,25 +1017,11 @@ def phase_flash_seg_bwd(torch, timer):
             iters=3, warmup=1)
         del lib_in, lib_out
     del lib
-    pc = c // 4
-    pq, pk, pv, pdo = _seg_qkv(torch, 2 * pc, torch.bfloat16, seed=4)
-    pseg = _zigzag_seg(0, 0, pc, CP_SP)
-    po, plse = fa.flash_attention_seg_plain(pq, pk, pv, pseg)
-    plain = timer.ms(lambda: fa.flash_attention_seg_bwd_plain(
-        pq, pk, pv, po, plse, pdo, pseg), iters=3, warmup=1)
-    return dict(name="flash_attention_seg_bwd", route="cuda",
-                source="paddle_tpu_torch/csrc/flash_attention_seg.cu",
-                replaces="paddle_tpu/ops/pallas/flash_attention.py:622",
-                path="train-cp", max_abs_err=max(max(worst.values()),
-                                                 ring_err, path_err),
-                tolerance="bf16 rtol 2e-2, atol 2e-2 x max|twin| (at the "
-                          "path's shape per kv head too); fp32 rtol 1e-4, "
-                          "atol 1e-5 x max|twin|; bitwise repeat; ring sums "
-                          "vs #2 at the bf16 tier",
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, live_pairs=pairs,
-                shape=f"bf16 q [1, {2 * c}, 16, 64], kv [1, {2 * c}, 8, 64], "
-                      f"seg {seg}; plain at q [1, {2 * pc}, 16, 64], seg {pseg}")
+    torch.cuda.empty_cache()
+    out = dict(seg=seg, ms=ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, live_pairs=pairs, launches_ms=launches)
+    log(f"flash seg bwd at the path's shape, {label}: " + json.dumps(out))
+    return out
 
 
 def phase_rms_bwd(torch, timer):
@@ -1146,6 +1183,56 @@ def moe_offsets(torch, c_pad, e=MOE_E):
     return (torch.arange(1, e + 1, device="cuda") * c_pad).to(torch.int32)
 
 
+def _misaligned(torch, t):
+    """A contiguous copy of ``t`` whose base sits one element past an
+    allocation's start (2 bytes off for bf16): TMA cannot map it."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _gmm_odd_routes(torch, kind):
+    """gmm2 (``kind`` "gmm2"), or gmm and its dx (``kind`` "gmm"), on
+    shapes TMA cannot map: K 70 and N 37 (c_pad 128), and K 88, N 200 with
+    x (and the dx's dy) 2 bytes off alignment (c_pad 192). Each takes the
+    WMMA kernels: against the twins at rtol=atol=2e-2 x max|twin|, twice
+    bitwise, exact zeros past each count. Returns the worst max_abs_err."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    worst = 0.0
+    for k, n, c_pad, shift in ((70, 37, 128, False), (88, 200, 192, True)):
+        counts = [70 if c_pad == 128 else 130, 0, c_pad, 3]
+        x, cnt = expert_major(torch, k, counts, c_pad, torch.bfloat16)
+        dy, _ = expert_major(torch, n, counts, c_pad, torch.bfloat16)
+        if shift:
+            x, dy = _misaligned(torch, x), _misaligned(torch, dy)
+        w, w2 = ((torch.randn(4, k, n, device="cuda") * 0.1).bfloat16()
+                 for _ in range(2))
+        assert not gg._tma_ok(k, n, x, w) and not gg._tma_ok(k, n, dy, w), \
+            f"{kind} K {k} N {n}: took the TMA route"
+        if kind == "gmm2":
+            call = lambda: gg.gmm2(x, w, w2, cnt)
+            want = gg.gmm2_plain(x, w, w2, cnt)
+        else:
+            call = lambda: (gg.gmm(x, w, cnt), gg.gmm_t(dy, w, cnt))
+            want = (gg.gmm_plain(x, w, cnt),
+                    gg.gmm_plain(dy, w, cnt, trans_w=True))
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a, b), f"{kind} odd shape: two launches differ"
+            assert scaled_close(a, c, 2e-2, 2e-2), \
+                f"{kind} K {k} N {n} (misaligned {shift}): max_abs_err " \
+                f"{max_err(a, c)}"
+            live = (torch.arange(c_pad, device="cuda")[None, :]
+                    < cnt[:, None]).reshape(-1)
+            assert not a[~live].any(), f"{kind} odd shape: rows past a count"
+            worst = max(worst, max_err(a, c))
+    log(f"{kind} on the WMMA route (K 70, N 37; x 2 bytes off alignment): "
+        f"max_abs_err {worst:.3g} against the twins, bitwise on repeat")
+    return worst
+
+
 def phase_gmm2(torch, timer):
     """Gate and up of the MoE training step: x bf16 [65536, 1024] (32,768
     live rows), w1/w2 bf16 [16, 1024, 704] at the init scale; and the
@@ -1193,6 +1280,7 @@ def phase_gmm2(torch, timer):
     u_ms = timer.ms(lambda: (gg.gmm(x, w1, cnt), gg.gmm(x, w2, cnt)))
     log(f"gmm2 unfused (two gmm launches): max_abs_err against gmm2 "
         f"{u_err:.3g}, {u_ms:.4f} ms")
+    err = max(err, _gmm_odd_routes(torch, "gmm2"))
     del unfused
     fn, lib_name = grouped_mm_library(torch)
     offs = moe_offsets(torch, MOE_CPAD)
@@ -1203,8 +1291,9 @@ def phase_gmm2(torch, timer):
                 source="paddle_tpu_torch/csrc/grouped_gemm.cu",
                 replaces="paddle_tpu/ops/pallas/grouped_gemm.py:303",
                 path="train-moe", counts=["gmm2"], max_abs_err=err,
-                tolerance="rtol=atol=2e-2 (bf16 output); serve fp32 rtol "
-                          "1e-5, atol 1e-5 x max|twin|",
+                tolerance="rtol=atol=2e-2 (bf16 output; the WMMA route's "
+                          "odd shapes x max|twin|); serve fp32 rtol 1e-5, "
+                          "atol 1e-5 x max|twin|",
                 ms=timer.ms(lambda: gg.gmm2(x, w1, w2, cnt)),
                 plain_ms=timer.ms(lambda: gg.gmm2_plain(x, w1, w2, cnt),
                                   iters=3, warmup=1),
@@ -1271,14 +1360,15 @@ def phase_gmm(torch, timer):
     dx_lib = library_ms(torch, timer, fn and (lambda: fn(x, wgt, offs=offs)),
                         dx, f"{lib_name} for the gmm dx")
     log(f"gmm dx: {dx_ms:.4f} ms beside {lib_name} {dx_lib} ms")
+    odd_err = _gmm_odd_routes(torch, "gmm")
     return dict(name="gmm", route="cuda",
                 source="paddle_tpu_torch/csrc/grouped_gemm.cu",
                 replaces="paddle_tpu/ops/pallas/grouped_gemm.py:166",
                 path="train-moe", counts=["gmm_fwd", "gmm_bwd"],
-                max_abs_err=max(err, dx_err),
-                tolerance="rtol=atol=2e-2 (bf16 output); dx bitwise on "
-                          "repeat; serve fp32 rtol 1e-5, atol 1e-5 x "
-                          "max|twin|",
+                max_abs_err=max(err, dx_err, odd_err),
+                tolerance="rtol=atol=2e-2 (bf16 output; the WMMA route's "
+                          "odd shapes x max|twin|); dx bitwise on repeat; "
+                          "serve fp32 rtol 1e-5, atol 1e-5 x max|twin|",
                 ms=timer.ms(lambda: gg.gmm(x, wd, cnt)),
                 plain_ms=timer.ms(lambda: gg.gmm_plain(x, wd, cnt), iters=3,
                                   warmup=1),
@@ -1290,15 +1380,19 @@ def phase_gmm(torch, timer):
                       "[16, 704, 1024]")
 
 
-def phase_tgmm(torch, timer):
-    """The gate/up dW of the training step: x bf16 [65536, 1024] and dy
-    bf16 [65536, 704], 32,768 live rows -> fp32 [16, 1024, 704]; twice,
-    bitwise."""
+def _tgmm_shape(torch, timer, k, n, seed):
+    """tgmm at one of the path's shapes, x bf16 [65536, k] and dy bf16
+    [65536, n] over MOE_COUNTS: twin (rtol 1e-4, atol 1e-5 x max|twin|),
+    a bitwise repeat, the empty expert exactly 0, and a call with NaN in
+    the dead rows of x and 1e30 in those of dy giving the clean call's
+    bits; timed beside the twin, ``torch.bmm(out_dtype=fp32)`` over the
+    padded buffer (zero past each count, so it computes the same dW) and
+    the bound."""
     from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
-    x, cnt = expert_major(torch, MOE_HIDDEN, MOE_COUNTS, MOE_CPAD,
-                          torch.bfloat16)
-    dy, _ = expert_major(torch, MOE_FFN, MOE_COUNTS, MOE_CPAD,
-                         torch.bfloat16)
+    torch.manual_seed(seed)
+    x, cnt = expert_major(torch, k, MOE_COUNTS, MOE_CPAD, torch.bfloat16)
+    dy, _ = expert_major(torch, n, MOE_COUNTS, MOE_CPAD, torch.bfloat16)
+    assert gg._tma_ok(k, n, x, dy), "tgmm path shape: not on the wgmma route"
     dw = gg.tgmm(x, dy, cnt)
     dw2 = gg.tgmm(x, dy, cnt)
     ref = gg.tgmm_plain(x, dy, cnt)
@@ -1306,20 +1400,22 @@ def phase_tgmm(torch, timer):
     assert torch.equal(dw, dw2), "tgmm: two launches on the same inputs differ"
     err = max_err(dw, ref)
     # fp32 sums over up to 4096 rows in another order
-    assert scaled_close(dw, ref, 1e-4, 1e-5), f"tgmm: max_abs_err {err}"
+    assert scaled_close(dw, ref, 1e-4, 1e-5), f"tgmm [{k}x{n}]: max_abs_err {err}"
     assert float(dw[1].abs().max()) == 0.0, "tgmm: the empty expert's dw"
-    log(f"tgmm: max_abs_err {err:.4g} of max {float(ref.abs().max()):.4g}, "
-        f"bitwise on repeat")
-    del ref, dw2
+    dead = (torch.arange(MOE_CPAD, device="cuda")[None, :]
+            >= cnt[:, None]).reshape(-1, 1)
+    dirty = gg.tgmm(x.masked_fill(dead, float("nan")),
+                    dy.masked_fill(dead, 1e30), cnt)
+    torch.cuda.synchronize()
+    assert torch.equal(dirty, dw), \
+        "tgmm: NaN/1e30 in the dead rows changed the result"
+    del ref, dw2, dirty
     live = sum(MOE_COUNTS)
-    flops = 2 * live * MOE_HIDDEN * MOE_FFN
-    nbytes = live * (MOE_HIDDEN + MOE_FFN) * 2 + dw.numel() * 4
+    flops = 2 * live * k * n
+    nbytes = live * (k + n) * 2 + dw.numel() * 4
     b_ms, b_by = bound(nbytes, flops, "bf16")
-    # the buffers are zero past each count, so one batched product over
-    # the padded buffer computes the same fp32 dW; grouped_mm (bf16 out)
-    # only where this torch's bmm has no out_dtype
-    xe = x.view(MOE_E, MOE_CPAD, MOE_HIDDEN).transpose(1, 2)
-    dye = dy.view(MOE_E, MOE_CPAD, MOE_FFN)
+    xe = x.view(MOE_E, MOE_CPAD, k).transpose(1, 2)
+    dye = dy.view(MOE_E, MOE_CPAD, n)
     lib_name = "torch.bmm(out_dtype=torch.float32)"
     lib = library_ms(torch, timer, lambda: torch.bmm(
         xe, dye, out_dtype=torch.float32), dw, f"{lib_name} for tgmm")
@@ -1329,18 +1425,54 @@ def phase_tgmm(torch, timer):
         offs = moe_offsets(torch, MOE_CPAD)
         lib = library_ms(torch, timer, fn and (
             lambda: fn(x.t(), dy, offs=offs)), dw, f"{lib_name} for tgmm")
+    ms = timer.ms(lambda: gg.tgmm(x, dy, cnt))
+    plain = timer.ms(lambda: gg.tgmm_plain(x, dy, cnt), iters=3, warmup=1)
+    return dict(err=err, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, library=lib_name,
+                shape=f"x bf16 [65536, {k}], dy bf16 [65536, {n}] (32768 live "
+                      f"rows) -> fp32 [16, {k}, {n}]")
+
+
+def phase_tgmm(torch, timer):
+    """The train step's dW: gate/up (x bf16 [65536, 1024], dy bf16 [65536,
+    704] -> fp32 [16, 1024, 704], two launches a layer) and down (x bf16
+    [65536, 704], dy bf16 [65536, 1024] -> [16, 704, 1024], one), each
+    through ``_tgmm_shape``; then an odd shape (K 70, N 37, x 2 bytes off
+    alignment) on the WMMA route against the twin, twice bitwise."""
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    up = _tgmm_shape(torch, timer, MOE_HIDDEN, MOE_FFN, seed=5)
+    down = _tgmm_shape(torch, timer, MOE_FFN, MOE_HIDDEN, seed=6)
+    for label, r in (("gate/up dW", up), ("down dW", down)):
+        log(f"tgmm {label}: {r['shape']}: max_abs_err {r['err']:.4g}, bitwise "
+            f"on repeat and with NaN/1e30 in the dead rows, {r['ms']:.4f} ms, "
+            f"{r['library']} {r['library_ms']} ms, plain {r['plain_ms']:.4f} "
+            f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    cnt = torch.tensor([70, 0, 192, 3], dtype=torch.int32, device="cuda")
+    x = _misaligned(torch, torch.randn(4 * 192, 70, device="cuda").bfloat16())
+    dy = torch.randn(4 * 192, 37, device="cuda").bfloat16()
+    route = "wgmma" if gg._tma_ok(70, 37, x, dy) else "wmma"
+    odd = gg.tgmm(x, dy, cnt)
+    odd2 = gg.tgmm(x, dy, cnt)
+    oref = gg.tgmm_plain(x, dy, cnt)
+    torch.cuda.synchronize()
+    assert route == "wmma", "tgmm: an odd shape took the TMA route"
+    assert torch.equal(odd, odd2), "tgmm odd shape: two launches differ"
+    odd_err = max_err(odd, oref)
+    assert scaled_close(odd, oref, 1e-4, 1e-5), \
+        f"tgmm odd shape: max_abs_err {odd_err}"
+    log(f"tgmm odd shape (K 70, N 37, x 2 bytes off alignment, c_pad 192): "
+        f"route {route}, max_abs_err {odd_err:.4g}, bitwise on repeat")
     return dict(name="tgmm", route="cuda",
                 source="paddle_tpu_torch/csrc/grouped_gemm.cu",
                 replaces="paddle_tpu/ops/pallas/grouped_gemm.py:216",
-                path="train-moe", counts=["tgmm"], max_abs_err=err,
-                tolerance="rtol 1e-4, atol 1e-5 x max|twin|; bitwise repeat",
-                ms=timer.ms(lambda: gg.tgmm(x, dy, cnt)),
-                plain_ms=timer.ms(lambda: gg.tgmm_plain(x, dy, cnt), iters=3,
-                                  warmup=1),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                library=lib_name,
-                shape="x bf16 [65536, 1024], dy bf16 [65536, 704] (32768 "
-                      "live rows) -> fp32 [16, 1024, 704]")
+                path="train-moe", counts=["tgmm"],
+                max_abs_err=max(up["err"], down["err"], odd_err),
+                tolerance="rtol 1e-4, atol 1e-5 x max|twin|; bitwise repeat "
+                          "and with NaN/1e30 in the dead rows",
+                ms=up["ms"], plain_ms=up["plain_ms"], bound_ms=up["bound_ms"],
+                bound_by=up["bound_by"], library_ms=up["library_ms"],
+                library=up["library"], down=down, odd_route=route,
+                shape=up["shape"])
 
 
 def phase_scan(torch, timer):
@@ -4324,9 +4456,13 @@ def phase_train_moe_ep(torch, np, card):
 
 
 # the kernels redesigned around wgmma (#1's bf16 forward, #17's bf16
-# gate/up and down launches), by a fragment of their mangled names
+# gate/up and down launches, #2's dQ and dK/dV, #11/#13's gmm, #12's tgmm),
+# by a fragment of their mangled names; #4's bf16 route is #2's kernels
+# instantiated with the segment mask, checked by the fragments of both
 WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
-                 "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "gmm_wgmma")
+                 "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "gmm_wgmma",
+                 "tgmm_wgmma", ("flash_bwd_dq_wgmma", "SegMask"),
+                 ("flash_bwd_dkv_wgmma", "SegMask"))
 
 
 def check_tensor_core_kernels():
@@ -4336,8 +4472,10 @@ def check_tensor_core_kernels():
     from paddle_tpu_torch.ops.kernels import _build
     hgmma = _build.sass_opcode_counts("HGMMA")
     spills = _build.ptxas_spills()
-    for name in WGMMA_KERNELS:
-        fns = [f for f in spills if name in f]
+    for parts in WGMMA_KERNELS:
+        parts = (parts,) if isinstance(parts, str) else parts
+        name = " ".join(parts)
+        fns = [f for f in spills if all(p in f for p in parts)]
         assert fns, f"build: ptxas reports no kernel named *{name}*"
         for f in fns:
             assert spills[f] == (0, 0), f"build: {f} spills {spills[f]}"
@@ -4345,7 +4483,7 @@ def check_tensor_core_kernels():
             log(f"build: {name}: no cuobjdump in the toolkit, HGMMA not "
                 f"counted")
             continue
-        n = sum(c for f, c in hgmma.items() if name in f)
+        n = sum(c for f, c in hgmma.items() if all(p in f for p in parts))
         log(f"build: {name}: {n} HGMMA instructions (cuobjdump -sass), "
             f"{len(fns)} instantiations, no spills (ptxas -v)")
         assert n > 0, f"build: {name} issues no HGMMA"

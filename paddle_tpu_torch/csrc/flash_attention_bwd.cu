@@ -57,6 +57,18 @@
 // shapes), blocks run the longest causal tiles of every head first; else
 // (train-cp's 32k tokens) one head at a time, so the blocks in flight share
 // one head's K/V (launch 1) or one group's Q/dO (launch 2) in L2.
+// The mask is a compile-time policy of both kernels: DenseMask (causal or
+// full, chosen at run time: #2) or SegMask, the segment-causal mask of the
+// zig-zag ring's steps (segment.cuh), through which these same kernels are
+// #4's bf16 route (flash_bwd_seg_wgmma, called by
+// csrc/flash_attention_seg.cu; it replaces the TPU kernel
+// paddle_tpu/ops/pallas/flash_attention.py:_bwd_seg, :622). Under either
+// policy a query row sees a prefix of the keys and a key a suffix of the
+// queries, so the walks stop at the first dead key tile (dQ) and start at
+// the first live query tile (dK/dV), only tiles that are not interior build
+// a mask, and late query tiles (dQ) and early key tiles (dK/dV), which the
+// schedule starts first, are the longest. A segment step can leave a whole
+// tile with nothing visible: its block walks no tile and stores zeros.
 //
 // fp32: the first port's design on the CUDA cores in full fp32, three
 // launches:
@@ -75,6 +87,7 @@
 // (col < Sk, row < Sq, causal col <= row).
 #include "common.cuh"
 #include "hopper.cuh"
+#include "segment.cuh"
 
 namespace {
 
@@ -436,6 +449,69 @@ __device__ __forceinline__ void release(uint64_t* empty) {
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(empty);
 }
 
+// ------------------------------------------------------------- the masks
+// Positions of rows and columns past Sq or Sk follow the maps: those rows
+// are never stored, and queries past Sq carry p = 0 in launch 2.
+struct DenseMask {  // #2: causal (col <= row) or full
+  int causal;
+  // keys a dQ block of the query rows [q0, q0 + bm) walks
+  __device__ __forceinline__ int keys(int q0, int bm, int Sq, int Sk) const {
+    return causal ? min(Sk, q0 + bm) : Sk;
+  }
+  // of n_tiles key tiles, those with a key that a row up to `last` sees
+  __device__ __forceinline__ int live_tiles(int n_tiles, int last, int bn, int Sq, int Sk) const {
+    return causal ? min(n_tiles, (last + bn) / bn) : n_tiles;
+  }
+  __device__ __forceinline__ int qpos(int row) const { return row; }
+  __device__ __forceinline__ int kpos(int col) const { return col; }
+  // the key tile [k0, k0 + bn) needs a mask for the rows from `first`
+  __device__ __forceinline__ bool dq_edge(int k0, int bn, int first, int Sk) const {
+    return k0 + bn > Sk || (causal && k0 + bn - 1 > first);
+  }
+  // column col is hidden from the row at position pos
+  __device__ __forceinline__ bool dq_hidden(int pos, int col, int Sk) const {
+    return col >= Sk || (causal && col > pos);
+  }
+  // the first query tile of bq rows that sees key k0
+  __device__ __forceinline__ int first_q_tile(int k0, int bq, int Sq) const {
+    return causal ? k0 / bq : 0;
+  }
+  // no query of the tile [q0, q0 + bq) sees key kw, nor any later key
+  __device__ __forceinline__ bool q_tile_dead(int q0, int bq, int kw, int Sq) const {
+    return causal && q0 + bq - 1 < kw;
+  }
+  // the keys [kw, kw + 64) against the queries from q0 need a mask
+  __device__ __forceinline__ bool dkv_edge(int kw, int q0) const { return causal && kw + 63 > q0; }
+  // the key at position kp is hidden from query col
+  __device__ __forceinline__ bool dkv_hidden(int kp, int col) const { return kp > col; }
+};
+
+struct SegMask {  // #4: g_q(row) >= g_k(col) through two monotone maps
+  SegMap gq, gk;
+  __device__ __forceinline__ int keys(int q0, int bm, int Sq, int Sk) const {
+    return gk.count_le(gq(min(q0 + bm, Sq) - 1), Sk);
+  }
+  __device__ __forceinline__ int live_tiles(int n_tiles, int last, int bn, int Sq, int Sk) const {
+    return min(n_tiles, (gk.count_le(gq(min(last, Sq - 1)), Sk) + bn - 1) / bn);
+  }
+  __device__ __forceinline__ int qpos(int row) const { return gq(row); }
+  __device__ __forceinline__ int kpos(int col) const { return gk(col); }
+  __device__ __forceinline__ bool dq_edge(int k0, int bn, int first, int Sk) const {
+    return k0 + bn > Sk || gk(k0 + bn - 1) > gq(first);
+  }
+  __device__ __forceinline__ bool dq_hidden(int pos, int col, int Sk) const {
+    return col >= Sk || gk(col) > pos;
+  }
+  __device__ __forceinline__ int first_q_tile(int k0, int bq, int Sq) const {
+    return gq.count_le(gk(k0) - 1, Sq) / bq;  // the rows before key k0
+  }
+  __device__ __forceinline__ bool q_tile_dead(int q0, int bq, int kw, int Sq) const {
+    return gq(min(q0 + bq, Sq) - 1) < gk(kw);
+  }
+  __device__ __forceinline__ bool dkv_edge(int kw, int q0) const { return gk(kw + 63) > gq(q0); }
+  __device__ __forceinline__ bool dkv_hidden(int kp, int col) const { return kp > gq(col); }
+};
+
 // ------------------------------------------------------------ 1. dQ, delta
 template <int D> struct DqCfg {
   static constexpr int BM = 128;                 // query rows a block
@@ -451,14 +527,14 @@ template <int D> struct DqCfg {
   static constexpr int kBytes = kBarOff + (1 + 2 * kStages) * 8 + hopper::kSmemAlign;
 };
 
-template <int D>
+template <int D, class Mask>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_do,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v, const bf16* __restrict__ o,
                    const float* __restrict__ lse, float* __restrict__ delta,
-                   bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, int causal,
+                   bf16* __restrict__ dq, int Sq, int Sk, int Hq, int Hkv, Mask mask,
                    float scale, int heads_fastest) {
   using C = DqCfg<D>;
   constexpr int BM = C::BM, BN = C::BN, kStages = C::kStages;
@@ -477,7 +553,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
   // late query tiles see the most keys: start them first
   const int q0 = ((heads_fastest ? gridDim.y : gridDim.x) - 1 - qt) * BM;
-  const int k_end = causal ? min(Sk, q0 + BM) : Sk;
+  const int k_end = mask.keys(q0, BM, Sq, Sk);
   const int n_tiles = (k_end + BN - 1) / BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -517,9 +593,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int g = warp >> 2, wq = warp & 3;
   const int first = q0 + 64 * g, last = first + 63;
   const int r_lo = first + 16 * wq + (lane >> 2), r_hi = r_lo + 8;
-  // causal: tiles past n_live hold only keys above every row of this
-  // warpgroup; they are waited for and freed, never computed
-  const int n_live = causal ? min(n_tiles, (last + BN) / BN) : n_tiles;
+  // tiles past n_live hold only keys that no row of this warpgroup sees;
+  // they are waited for and freed, never computed
+  const int n_live = mask.live_tiles(n_tiles, last, BN, Sq, Sk);
+  const int p_lo = mask.qpos(r_lo), p_hi = mask.qpos(r_hi);
   const size_t row_stride = static_cast<size_t>(Hq) * D;
   const size_t head_off = static_cast<size_t>(b) * Sq * row_stride + static_cast<size_t>(h) * D;
 
@@ -579,12 +656,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
     hopper::fence_regs(dp);
-    if (k0 + BN > Sk || (causal && k0 + BN - 1 > first)) {  // the edge tiles only
+    if (mask.dq_edge(k0, BN, first, Sk)) {  // the edge tiles only
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
         const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
-        const int row = (i & 2) ? r_hi : r_lo;
-        if (col >= Sk || (causal && col > row)) sc[i] = -CUDART_INF_F;
+        if (mask.dq_hidden((i & 2) ? p_hi : p_lo, col, Sk)) sc[i] = -CUDART_INF_F;
       }
     }
 #pragma unroll
@@ -646,14 +722,14 @@ template <int D> struct DkvCfg {
   static constexpr int kBytes = kBarOff + (1 + 2 * kStages) * 8 + hopper::kSmemAlign;
 };
 
-template <int D>
+template <int D, class Mask>
 __global__ void __launch_bounds__(DkvCfg<D>::kThreads, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_do,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v, const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, int causal,
+                    bf16* __restrict__ dv, int Sq, int Sk, int Hq, int Hkv, Mask mask,
                     float scale, int heads_fastest) {
   using C = DkvCfg<D>;
   constexpr int BK = C::BK, BQ = C::BQ, kStages = C::kStages;
@@ -673,8 +749,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int kt = heads_fastest ? blockIdx.y : blockIdx.x;  // early key tiles see the most queries
   const int b = bhk / Hkv, hk = bhk % Hkv, group = Hq / Hkv;
   const int k0 = kt * BK;
-  // causal: query tiles that end before the key tile starts see none of it
-  const int t_begin = causal ? k0 / BQ : 0;
+  // query tiles that end before the key tile starts see none of it
+  const int t_begin = mask.first_q_tile(k0, BQ, Sq);
   const int per_head = max(0, (Sq + BQ - 1) / BQ - t_begin);
   const int n_iter = group * per_head;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -732,6 +808,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int g = warp >> 2, wq = warp & 3;
   const int kw = k0 + 64 * g;
   const int key_lo = kw + 16 * wq + (lane >> 2), key_hi = key_lo + 8;
+  const int kp_lo = mask.kpos(key_lo), kp_hi = mask.kpos(key_hi);
   const float scale_log2 = scale * kLog2e;
   float adk[D / 2], adv[D / 2], st[BQ / 2], dpt[BQ / 2];
   uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];  // p^T and ds^T: register A
@@ -743,7 +820,7 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
     const int s = it % kStages;
     const int q0 = (t_begin + it % per_head) * BQ;
     hopper::mbar_wait(&full[s], (it / kStages) & 1);
-    if (causal && q0 + BQ - 1 < kw) {  // every query of the tile is above these keys
+    if (mask.q_tile_dead(q0, BQ, kw, Sq)) {  // every query of the tile precedes these keys
       release(&empty[s]);
       continue;
     }
@@ -763,11 +840,11 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
     hopper::wgmma_wait<0>();
     hopper::fence_regs(st);
     hopper::fence_regs(dpt);
-    if (causal && kw + 63 > q0) {  // the diagonal tiles only
+    if (mask.dkv_edge(kw, q0)) {  // the diagonal tiles only
 #pragma unroll
       for (int i = 0; i < BQ / 2; ++i) {
         const int col = q0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
-        if (((i & 2) ? key_hi : key_lo) > col) st[i] = -CUDART_INF_F;
+        if (mask.dkv_hidden((i & 2) ? kp_hi : kp_lo, col)) st[i] = -CUDART_INF_F;
       }
     }
     const float* ls = Ls + s * BQ;
@@ -827,10 +904,10 @@ int map_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int D, int
   return hopper::bf16_map(map, base, 4, dims, strides, box);
 }
 
-template <int D>
+template <int D, class Mask>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-           int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+           int Hq, int Hkv, Mask mask, float scale, cudaStream_t stream) {
   using C1 = DqCfg<D>;
   using C2 = DkvCfg<D>;
   const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -851,14 +928,14 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   if (err == 0) err = map_bshd(&mk1, none ? q : k, B, none ? Sq : Sk, none ? Hq : Hkv, D, C1::BN);
   if (err == 0) err = map_bshd(&mv1, none ? q : v, B, none ? Sq : Sk, none ? Hq : Hkv, D, C1::BN);
   if (err != 0) return err;
-  auto k1 = flash_bwd_dq_wgmma<D>;
+  auto k1 = flash_bwd_dq_wgmma<D, Mask>;
   cudaError_t e =
       cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, C1::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 g1 = hf1 ? dim3(B * Hq, q_tiles) : dim3(q_tiles, B * Hq);
   k1<<<g1, kThreads, C1::kBytes, stream>>>(mq1, mdo1, mk1, mv1, static_cast<const bf16*>(o), lse,
                                            delta, static_cast<bf16*>(dq), Sq, Sk, Hq, Hkv,
-                                           causal, scale, hf1);
+                                           mask, scale, hf1);
   e = cudaGetLastError();
   if (e != cudaSuccess || none) return static_cast<int>(e);
 
@@ -867,13 +944,13 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   if (err == 0) err = map_bshd(&mk2, k, B, Sk, Hkv, D, C2::BK);
   if (err == 0) err = map_bshd(&mv2, v, B, Sk, Hkv, D, C2::BK);
   if (err != 0) return err;
-  auto k2 = flash_bwd_dkv_wgmma<D>;
+  auto k2 = flash_bwd_dkv_wgmma<D, Mask>;
   e = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize, C2::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 g2 = hf2 ? dim3(B * Hkv, k_tiles) : dim3(k_tiles, B * Hkv);
   k2<<<g2, C2::kThreads, C2::kBytes, stream>>>(mq2, mdo2, mk2, mv2, lse, delta,
                                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq,
-                                           Sk, Hq, Hkv, causal, scale, hf2);
+                                           Sk, Hq, Hkv, mask, scale, hf2);
   PTT_RETURN_LAUNCH_ERROR();
 }
 
@@ -898,9 +975,23 @@ extern "C" int ptt_flash_attn_bwd(const void* q, const void* k, const void* v,
                              Hkv, D, causal, scale, s);
   if (dtype == PTT_BF16 && D == 64)
     return wg::launch<64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
-                          causal, scale, s);
+                          wg::DenseMask{causal}, scale, s);
   if (dtype == PTT_BF16 && D == 128)
     return wg::launch<128>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
-                           causal, scale, s);
+                           wg::DenseMask{causal}, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int flash_bwd_seg_wgmma(const void* q, const void* k, const void* v, const void* o,
+                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                        void* dv, int B, int Sq, int Sk, int Hq, int Hkv, int D, SegMap gq,
+                        SegMap gk, float scale, cudaStream_t stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (D == 64)
+    return wg::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
+                          wg::SegMask{gq, gk}, scale, stream);
+  if (D == 128)
+    return wg::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
+                           wg::SegMask{gq, gk}, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,17 +7,26 @@
 //   backward  _bwd_seg (:622; dQ pallas_call :633, dK/dV :664) and the GQA
 //             group sum of _bwd_grouped_seg (:707).
 // A descriptor seg = [q_off0, q_off1, q_split, k_off0, k_off1, k_split]
-// maps local row i to the global position g(i) = i < split ? off0 + i
-// : off1 + (i - split) (columns the same), and the mask is g(row) >= g(col)
-// in global coordinates. Contract (checked by the wrapper): off1 >= off0 +
-// split, so both maps are monotone. The six ints cross by value: each rank
-// knows its rank and the ring step on the host.
+// maps local rows and columns to global positions through two monotone maps
+// (SegMap, segment.cuh), and the mask is g(row) >= g(col) in global
+// coordinates. The six ints cross by value: each rank knows its rank and
+// the ring step on the host.
 //
 // Bound on the H100: operations, as for the dense kernels (4*d flops per
 // live (row, col) pair and head forward, 10*d backward, against one read of
-// each tile). This first version is #1/#2's design (csrc/flash_attention.cu,
-// csrc/flash_attention_bwd.cu) with the segment mask: products in fp32 on
-// the CUDA cores, no score, probability or ds matrix in device memory.
+// each tile).
+//
+// Routes of the backward, chosen by the wrapper from shape and alignment
+// before the launch (the `tma` flag): bf16 with 16-byte-aligned q, k, v, o
+// and dO and grids within 65535 takes #2's wgmma dQ and dK/dV kernels with
+// the segment mask as their compile-time policy (csrc/flash_attention_bwd.cu,
+// flash_bwd_seg_wgmma): TMA rings, 128-row query tiles in dQ, 64-key tiles
+// a consumer warpgroup in dK/dV, no atomics. Every other call (fp32, or a
+// misaligned bf16 base) takes this file's kernels below.
+//
+// This file's kernels are #1/#2's first design (PR 6) with the segment
+// mask: products in fp32 on the CUDA cores, no score, probability or ds
+// matrix in device memory.
 // What it does about the bound is skip dead work: the maps are monotone, so
 // a key tile is dead for a query tile once g_k(its first column) > g_q(the
 // tile's last row), and every later key tile is dead too; the walks stop
@@ -37,18 +46,11 @@
 // Layout: q/o/dO [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] read in place, lse and
 // delta [B, Hq, Sq] fp32.
 #include "common.cuh"
+#include "segment.cuh"
 
 namespace {
 
 constexpr int kB = 64, kThreads = 256;
-
-// local index -> global position; monotone when off1 >= off0 + split
-struct SegMap {
-  int off0, off1, split;
-  __device__ __forceinline__ int operator()(int i) const {
-    return i < split ? off0 + i : off1 + (i - split);
-  }
-};
 
 template <int D> struct SegSmem {
   static constexpr int DP = D + 1;   // padded fp32 row of a tile
@@ -577,7 +579,8 @@ extern "C" int ptt_flash_attn_fwd_seg(const void* q, const void* k, const void* 
 }
 
 // q, o, dout, dq: [B, Sq, Hq, D]; k, v, dk, dv: [B, Sk, Hkv, D]; lse and the
-// scratch delta: [B, Hq, Sq] fp32. All tensors share the dtype code.
+// scratch delta: [B, Hq, Sq] fp32. All tensors share the dtype code. tma 1
+// (bf16 only) takes the wgmma route (see the header).
 extern "C" int ptt_flash_attn_bwd_seg(const void* q, const void* k, const void* v,
                                       const void* o, const void* dout,
                                       const void* lse, void* delta, void* dq,
@@ -585,7 +588,7 @@ extern "C" int ptt_flash_attn_bwd_seg(const void* q, const void* k, const void* 
                                       int Hq, int Hkv, int D, int q_off0,
                                       int q_off1, int q_split, int k_off0,
                                       int k_off1, int k_split, float scale,
-                                      int dtype, void* stream) {
+                                      int dtype, int tma, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -593,6 +596,10 @@ extern "C" int ptt_flash_attn_bwd_seg(const void* q, const void* k, const void* 
   const SegMap gq{q_off0, q_off1, q_split}, gk{k_off0, k_off1, k_split};
   const bool f32 = dtype == PTT_F32;
   if (!f32 && dtype != PTT_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (tma)
+    return f32 ? static_cast<int>(cudaErrorInvalidValue)
+               : flash_bwd_seg_wgmma(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq, Sk, Hq, Hkv,
+                                     D, gq, gk, scale, s);
   switch (D) {
     case 64:
       return f32 ? launch_bwd<float, 64>(q, k, v, o, dout, l, dl, dq, dk, dv, B, Sq,

@@ -22,6 +22,12 @@
 //   row tile that starts at or past counts[e] writes zeros and does no math:
 //   the ragged skip of _gmm_kernel; inside a live tile the rows past
 //   counts[e] are stored as exact zeros whatever the buffer holds there.
+// * Routes by shape, chosen by the wrapper before launch (the `tma` flag of
+//   the C entries): a bf16 call whose K and N are multiples of 8 (TMA's
+//   16-byte strides) and whose bases are 16-byte aligned takes the wgmma
+//   kernels below; any other bf16 call takes the WMMA branch of the
+//   template kernel, which masks any K and N and reads any 2-byte-aligned
+//   base. fp32 always takes the template's CUDA-core branch.
 // * bf16 gmm, gmm2 and gmm_t (the training paths): wgmma over a TMA ring
 //   (hopper.cuh), one block of 288 threads per (256 output columns, or 128
 //   of gmm2, 128-row tile, expert): two consumer warpgroups of 64 rows and one producer warp
@@ -37,14 +43,29 @@
 //   for gmm_t (dx = dy . w[e]^T), read K-major. gmm2 feeds both weight
 //   streams from each A stage (two m64n128 accumulators a warpgroup), the
 //   point of the TPU kernel. Each output element has one block and one
-//   summation order (no split-K, no atomics): repeats are bitwise. K and N
-//   must be multiples of 8 (TMA's 16-byte strides).
-// * tgmm: one block of 256 threads owns one [64 x 64] tile of one expert's
-//   dw and walks the expert's live rows in order, 32 at a time. That loop
-//   takes the place of the TPU's sequential "arbitrary" row-tile grid axis:
-//   no atomics, one rounding, the same bits on every run. bf16 runs on warp-
-//   level WMMA 16x16x16 fragments with fp32 accumulators (8 warps, each 16
-//   rows x 32 columns of the tile), from scalar loads with no pipelining.
+//   summation order (no split-K, no atomics): repeats are bitwise.
+// * bf16 tgmm (the weight gradient): the same block shape and ring over a
+//   [128 rows of K, 256 columns of N] tile of one expert's dw, the
+//   contraction running over the expert's live tokens, 64 a stage. Both
+//   operands are read MN-major in place from 64-token boxes of 3-D maps
+//   over [E, c_pad, K] and [E, c_pad, N]: A = x_e^T through the transpose-A
+//   bit, B = dy_e as gmm reads w. The map stops at c_pad, not at counts[e],
+//   so the last stage's rows past the count may hold anything (NaN
+//   included): the consumers zero those rows' 128-byte lines in every box
+//   of that stage (a token row is one whole line under the 128-byte
+//   swizzle, which permutes 16-byte chunks within it), fence them for the
+//   async proxy and meet at a named barrier before any wgmma reads them.
+//   One block and one token order per dw tile (no split-K, no atomics):
+//   repeats are bitwise. Blocks take experts in order of descending count,
+//   ranked by each block from the counts, so the longest contractions start
+//   first; which block owns which tile, and so the bits, do not change.
+// * Other bf16 tgmm shapes: one block of 256 threads owns one [64 x 64]
+//   tile of one expert's dw and walks the expert's live rows in order, 32
+//   at a time, on warp-level WMMA 16x16x16 fragments with fp32
+//   accumulators (8 warps, each 16 rows x 32 columns of the tile), from
+//   scalar loads with no pipelining. That loop takes the place of the TPU's
+//   sequential "arbitrary" row-tile grid axis: no atomics, one rounding,
+//   the same bits on every run.
 // * fp32 x (the serving step, and tgmm in fp32): the same template's CUDA-
 //   core branch, each thread a 4x4 register tile in full fp32 (no TF32); a bf16
 //   weight is widened in registers, which gives the values of the
@@ -478,6 +499,153 @@ int gmm_modes(const void* x, const void* w1, const void* w2, void* o1, void* o2,
   return launch<kOne>(x, w1, nullptr, o1, nullptr, counts, E, c_pad, K, N, s);
 }
 
+// ------------------------------------------------------------------ tgmm
+constexpr int kBox = 64 * 128;  // one 64-token x 64-column box, 128B-swizzled
+
+// The expert of rank `z` in order of descending count (ties by index).
+__device__ __forceinline__ int ranked_expert(const int* __restrict__ counts, int E, int z) {
+  __shared__ int pick;
+  for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    const int ci = counts[i];
+    int rank = 0;
+    for (int j = 0; j < E; ++j) {
+      const int cj = counts[j];
+      rank += cj > ci || (cj == ci && j < i);
+    }
+    if (rank == z) pick = i;
+  }
+  __syncthreads();
+  return pick;
+}
+
+// dw[e][m0 .. m0+127][n0 .. n0+255] = x_e^T . dy_e over the expert's live
+// tokens: see the header. Stage layout: the two A boxes (x columns m0 and
+// m0 + 64), then each accumulator's two B boxes (dy columns nb, nb + 64).
+__global__ void __launch_bounds__(kThreads, 1)
+tgmm_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_dy,
+           const int* __restrict__ counts, float* __restrict__ dw, int E, int c_pad, int K,
+           int N) {
+  const int e = ranked_expert(counts, E, blockIdx.z);
+  const int count = min(max(counts[e], 0), c_pad);  // live tokens of expert e
+  const int m0 = blockIdx.y * kRows, n0 = blockIdx.x * 2 * kNH;
+  const int n_t = (count + 63) / 64;                 // token stages (0: a zero tile)
+  const int n_acc = n0 + kNH < N ? 2 : 1;            // accumulators with a column below N
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kBarOff);
+  uint64_t* empty = full + kStages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 32);  // one arrival a consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % kStages, t0 = t * 64;
+        if (t >= kStages) hopper::mbar_wait(&empty[s], ((t / kStages) - 1) & 1);
+        unsigned char* st = sm + s * kStage;
+        hopper::mbar_arrive_expect_tx(&full[s], kA + n_acc * kB);
+        // rows past c_pad and columns past K or N land as zeros
+        hopper::tma_load_3d(st, &map_x, &full[s], m0, t0, e);
+        hopper::tma_load_3d(st + kBox, &map_x, &full[s], m0 + 64, t0, e);
+        for (int j = 0; j < n_acc; ++j) {
+          unsigned char* bt = st + kA + j * kB;
+          hopper::tma_load_3d(bt, &map_dy, &full[s], n0 + j * kNH, t0, e);
+          hopper::tma_load_3d(bt + kBox, &map_dy, &full[s], n0 + j * kNH + 64, t0, e);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = warp >> 2;
+  float acc[2][64];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % kStages;
+    hopper::mbar_wait(&full[s], (t / kStages) & 1);
+    unsigned char* st = sm + s * kStage;
+    const int live = count - t * 64;
+    if (live < 64) {  // the last stage: token rows past the count read as zero
+      const int dead = 64 - live, boxes = 2 + 2 * n_acc;
+      const uint4 z = make_uint4(0, 0, 0, 0);
+      for (int i = threadIdx.x; i < boxes * dead * 8; i += kConsumers) {
+        const int b = i / (dead * 8), r = live + (i % (dead * 8)) / 8, c = i % 8;
+        *reinterpret_cast<uint4*>(st + b * kBox + r * 128 + c * 16) = z;
+      }
+      hopper::fence_proxy_async();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");  // both share B
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // 16 tokens a step: 16 rows of each box
+      const uint64_t da = hopper::desc_sw128(st + g * kBox + kk * 16 * 128, kBox, 1024);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const uint64_t db = hopper::desc_sw128(st + kA + j * kB + kk * 16 * 128, kBox, 1024);
+        if (j < n_acc) hopper::wgmma_m64n128_ss<1, 1>(acc[j], da, db, 1);
+      }
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc[0]);
+    hopper::fence_regs(acc[1]);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // fp32 rows of dw straight from the accumulator fragments; N % 8 == 0, so
+  // a column pair is in or out
+  const int wq = warp & 3;
+  const int rt = m0 + 64 * g + 16 * wq + (lane >> 2);
+  float* out = dw + static_cast<size_t>(e) * K * N;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int nb = n0 + j * kNH;
+#pragma unroll
+    for (int i = 0; i < 64; i += 2) {
+      const int r = rt + ((i & 2) ? 8 : 0);
+      const int col = nb + 8 * (i / 4) + 2 * (lane & 3);
+      if (r < K && col < N)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * N + col) =
+            make_float2(acc[j][i], acc[j][i + 1]);
+    }
+  }
+}
+
+int tgmm(const void* x, const void* dy, void* dw, const int* counts, int E, int c_pad, int K,
+         int N, cudaStream_t stream) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(dy) |
+                         reinterpret_cast<uintptr_t>(dw);
+  if (K % 8 != 0 || N % 8 != 0 || bits % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int row_tiles = (K + kRows - 1) / kRows;
+  if (row_tiles > 65535 || E > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t k = K, n = N, e = E, cp = c_pad;
+  CUtensorMap mx, mdy;
+  const uint32_t box[3] = {64, 64, 1};
+  const uint64_t dx[3] = {k, cp, e}, sx[2] = {k * 2, cp * k * 2};  // x [E, c_pad, K]
+  const uint64_t dd[3] = {n, cp, e}, sd[2] = {n * 2, cp * n * 2};  // dy [E, c_pad, N]
+  int err = hopper::bf16_map(&mx, x, 3, dx, sx, box);
+  if (err == 0) err = hopper::bf16_map(&mdy, dy, 3, dd, sd, box);
+  if (err != 0) return err;
+  cudaError_t r =
+      cudaFuncSetAttribute(tgmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (r != cudaSuccess) return static_cast<int>(r);
+  const dim3 grid((N + 2 * kNH - 1) / (2 * kNH), row_tiles, E);
+  tgmm_wgmma<<<grid, kThreads, kBytes, stream>>>(mx, mdy, counts, static_cast<float*>(dw), E,
+                                                  c_pad, K, N);
+  PTT_RETURN_LAUNCH_ERROR();
+}
+
 }  // namespace wg
 
 }  // namespace
@@ -485,16 +653,20 @@ int gmm_modes(const void* x, const void* w1, const void* w2, void* o1, void* o2,
 // gmm / gmm2 over x [E*c_pad, K] (dtype x_dtype) and w1 (and w2, for gmm2;
 // null for gmm) [E, K, N] (dtype w_dtype), or, with trans_w, w1 [E, N, K]
 // read as w1[e]^T (no gmm2). o1 (o2) [E*c_pad, N] in x's dtype. counts [E]
-// int32 on the device. bf16 x takes bf16 w (tensor cores); fp32 x takes fp32
-// or bf16 w (CUDA cores, fp32).
+// int32 on the device. bf16 x takes bf16 w (tensor cores: wgmma with tma 1,
+// which needs K and N multiples of 8 and 16-byte-aligned bases, else WMMA);
+// fp32 x takes fp32 or bf16 w (CUDA cores, fp32).
 extern "C" int ptt_gmm(const void* x, const void* w1, const void* w2, void* o1,
                        void* o2, const void* counts, int E, int c_pad, int K, int N,
-                       int trans_w, int x_dtype, int w_dtype, void* stream) {
+                       int trans_w, int x_dtype, int w_dtype, int tma, void* stream) {
   if (E == 0 || c_pad == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* cnt = static_cast<const int*>(counts);
   if (x_dtype == PTT_BF16 && w_dtype == PTT_BF16)
-    return wg::gmm_modes(x, w1, w2, o1, o2, cnt, E, c_pad, K, N, trans_w, s);
+    return tma ? wg::gmm_modes(x, w1, w2, o1, o2, cnt, E, c_pad, K, N, trans_w, s)
+               : gmm_modes<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
+                     x, w1, w2, o1, o2, cnt, E, c_pad, K, N, trans_w, s);
+  if (tma) return static_cast<int>(cudaErrorInvalidValue);
   if (x_dtype == PTT_F32 && w_dtype == PTT_F32)
     return gmm_modes<float, float, float>(x, w1, w2, o1, o2, cnt, E, c_pad, K, N,
                                           trans_w, s);
@@ -505,16 +677,18 @@ extern "C" int ptt_gmm(const void* x, const void* w1, const void* w2, void* o1,
 }
 
 // tgmm: dw [E, K, N] fp32 = x_e^T . dy_e over each expert's live rows, for
-// x [E*c_pad, K] and dy [E*c_pad, N] of one dtype.
+// x [E*c_pad, K] and dy [E*c_pad, N] of one dtype; tma as for ptt_gmm (bf16
+// only).
 extern "C" int ptt_tgmm(const void* x, const void* dy, void* dw, const void* counts,
-                        int E, int c_pad, int K, int N, int dtype, void* stream) {
+                        int E, int c_pad, int K, int N, int dtype, int tma, void* stream) {
   if (E == 0 || K == 0 || N == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* cnt = static_cast<const int*>(counts);
   if (dtype == PTT_BF16)
-    return launch<kTgmm, 1, __nv_bfloat16, __nv_bfloat16, float>(
-        x, dy, nullptr, dw, nullptr, cnt, E, c_pad, K, N, 0, s);
-  if (dtype == PTT_F32)
+    return tma ? wg::tgmm(x, dy, dw, cnt, E, c_pad, K, N, s)
+               : launch<kTgmm, 1, __nv_bfloat16, __nv_bfloat16, float>(
+                     x, dy, nullptr, dw, nullptr, cnt, E, c_pad, K, N, 0, s);
+  if (dtype == PTT_F32 && !tma)
     return launch<kTgmm, 1, float, float, float>(x, dy, nullptr, dw, nullptr, cnt, E,
                                                  c_pad, K, N, 0, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,8 @@
 // Shared Hopper (sm_90a) primitives for the port's tensor-core kernels:
-// warpgroup matrix products (wgmma m64n64/m64n128, A from shared memory or
-// registers) with their shared-memory descriptors and the conversion of an
-// accumulator into register-A fragments, mbarriers, TMA tile loads (tensor
+// warpgroup matrix products (wgmma m64n64/m64n128, A from shared memory,
+// K-major or MN-major, or from registers) with their shared-memory
+// descriptors and the conversion of an accumulator into register-A
+// fragments, mbarriers, TMA tile loads (tensor
 // maps encoded on the host through the driver entry point, so the build
 // links nothing new) and cp.async copies for gathered rows.
 //
@@ -13,8 +14,9 @@
 //   * K-major operand (K contiguous: Q, K, gathered x rows, act): one atom
 //     per 64 columns of K; a k16 step starts 32 bytes further into the
 //     atom; SBO = 1024 (the next 8 rows of M or N).
-//   * MN-major operand (N contiguous: V, wg/wu [M, F], wd [F, M]): rows are
-//     K, each 128-byte row holds 64 elements of N; the transpose bit is set;
+//   * MN-major operand (N contiguous: V, wg/wu [M, F], wd [F, M], dy of
+//     tgmm; or M contiguous: tgmm's x read as x^T): rows are K, each
+//     128-byte row holds 64 elements of N (M); the transpose bit is set;
 //     a k16 step starts 16 rows (2048 bytes) further; SBO = 1024 (the next
 //     8 rows of K), LBO = the byte stride between 64-column atoms of N.
 // Accumulator fragment of m64nNk16 (fp32), thread t of the warpgroup
@@ -190,9 +192,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // wgmma.mma_async m64nNk16, fp32 += bf16 x bf16. _ss: A and B from shared
-// memory (descriptors); _rs: A from registers. kTransB 1: B is MN-major.
+// memory (descriptors); _rs: A from registers. kTransB 1: B is MN-major;
+// kTransA 1 (shared-memory A only): A is MN-major, M contiguous.
 // scale_d 0 ignores the accumulator's old value.
-template <int kTransB>
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -202,7 +205,7 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t desc_a
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      "%64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -211,10 +214,10 @@ __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
-template <int kTransB>
+template <int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t desc_a,
                                                 uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -222,24 +225,24 @@ __device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t desc_a,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
 }
 
 // m64nNk16 with shared-memory A for N in {64, 128}: the accumulator has N/2
 // registers a thread.
-template <int N, int kTransB>
+template <int N, int kTransB, int kTransA = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
   if constexpr (N == 64)
-    wgmma_m64n64_ss<kTransB>(d, desc_a, desc_b, scale_d);
+    wgmma_m64n64_ss<kTransB, kTransA>(d, desc_a, desc_b, scale_d);
   else
-    wgmma_m64n128_ss<kTransB>(d, desc_a, desc_b, scale_d);
+    wgmma_m64n128_ss<kTransB, kTransA>(d, desc_a, desc_b, scale_d);
 }
 
 template <int kTransB>

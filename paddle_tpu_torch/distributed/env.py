@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from paddle_tpu_torch.framework.place import resolve_device
+
 __all__ = ["init_parallel_env", "is_initialized", "get_rank",
            "get_world_size", "ParallelEnv"]
 
@@ -101,6 +103,6 @@ class ParallelEnv:
 
     @property
     def device(self) -> torch.device:
-        if self.device_count:
-            return torch.device("cuda", self.device_id)
-        return torch.device("cpu")
+        """``cuda:{device_id}``; raises, as :func:`resolve_device` does,
+        where no CUDA device exists (a CPU run names its device itself)."""
+        return resolve_device(f"cuda:{self.device_id}")

@@ -202,10 +202,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.ptt_fused_block_smem_bytes.argtypes = [I, I, I]
     lib.ptt_fused_block_smem_bytes.restype = ctypes.c_longlong
     # x, w1, w2, o1, o2, counts, E, c_pad, K, N, trans_w, x_dtype,
-    # w_dtype, stream
-    lib.ptt_gmm.argtypes = [P] * 6 + [I] * 7 + [P]
-    # x, dy, dw, counts, E, c_pad, K, N, dtype, stream
-    lib.ptt_tgmm.argtypes = [P] * 4 + [I] * 5 + [P]
+    # w_dtype, tma, stream
+    lib.ptt_gmm.argtypes = [P] * 6 + [I] * 8 + [P]
+    # x, dy, dw, counts, E, c_pad, K, N, dtype, tma, stream
+    lib.ptt_tgmm.argtypes = [P] * 4 + [I] * 6 + [P]
     # q, kc, vc, tables, lens, out, B, Hq, Hkv, D, bs, max_blocks, scale,
     # q_dtype, kv_dtype, stream
     lib.ptt_paged_decode_attn.argtypes = [P] * 6 + [I] * 6 + [F, I, I, P]
@@ -218,8 +218,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # dtype, stream
     lib.ptt_flash_attn_fwd_seg.argtypes = [P] * 5 + [I] * 12 + [F, I, P]
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, the
-    # six seg ints, scale, dtype, stream
-    lib.ptt_flash_attn_bwd_seg.argtypes = [P] * 10 + [I] * 12 + [F, I, P]
+    # six seg ints, scale, dtype, tma, stream
+    lib.ptt_flash_attn_bwd_seg.argtypes = [P] * 10 + [I] * 12 + [F, I, I, P]
     # device, bytes, &ptr, handle (64 bytes) / device, ptr / device,
     # handle, &ptr / device, ptr
     L, PP = ctypes.c_longlong, ctypes.POINTER(P)

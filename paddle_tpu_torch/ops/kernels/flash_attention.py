@@ -351,13 +351,25 @@ def flash_attention_seg_with_lse(query: torch.Tensor, key: torch.Tensor,
     return o, lse
 
 
+def _seg_bwd_tma_ok(b: int, hq: int, hkv: int, *tensors: torch.Tensor
+                    ) -> bool:
+    """Whether a bf16 segment-causal backward of batch ``b`` and ``hq:hkv``
+    heads over ``tensors`` (q, k, v, o and dO) takes the ``wgmma`` route,
+    #2's kernels under the segment mask: TMA and O's 16-byte loads need
+    16-byte-aligned bases, and the grids' batch x heads axis must fit
+    65535. Otherwise the call takes the CUDA-core kernels."""
+    return (b * hq <= 65535 and b * hkv <= 65535
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def flash_attention_seg_bwd(query, key, value, out, lse, d_out, seg):
     """``(dq, dk, dv)`` of segment-causal attention (#4) for the
     cotangent ``d_out``, given ``out`` and ``lse`` (the ring passes the
     MERGED ones of its rows). dq in Q's dtype; dk and dv summed over the
     GQA group in fp32 and returned in K's dtype. CPU tensors take the
-    plain twin; CUDA tensors launch ``ptt_flash_attn_bwd_seg`` (no
-    atomics: the same bits on every run)."""
+    plain twin; CUDA tensors launch ``ptt_flash_attn_bwd_seg``: bf16 on
+    #2's ``wgmma`` kernels where :func:`_seg_bwd_tma_ok` holds, else (and
+    fp32) on the CUDA cores; no atomics, so the same bits on every run."""
     global launches_seg_bwd
     d_out = d_out.to(out.dtype)
     if query.device.type == "cpu":
@@ -386,11 +398,13 @@ def flash_attention_seg_bwd(query, key, value, out, lse, d_out, seg):
     dk = torch.empty_like(key)
     dv = torch.empty_like(value)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
+    tma = query.dtype == torch.bfloat16 and _seg_bwd_tma_ok(
+        b, hq, hkv, query, key, value, out, d_out)
     _launch.launch("ptt_flash_attn_bwd_seg", query.data_ptr(),
                    key.data_ptr(), value.data_ptr(), out.data_ptr(),
                    d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq,
-                   hkv, d, *seg, 1.0 / math.sqrt(d), code,
+                   hkv, d, *seg, 1.0 / math.sqrt(d), code, int(tma),
                    _launch.stream_of(dev))
     launches_seg_bwd += 1
     return dq, dk, dv

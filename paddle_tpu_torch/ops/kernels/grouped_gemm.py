@@ -20,13 +20,20 @@ zero. Contracts, as in the TPU kernels:
 ``c_pad`` is the capacity rounded up to :data:`BLOCK_M`, the row tile of
 the fp32 kernels (:func:`padded_capacity`, where the reference's
 ``default_blocks`` picked a tile per shape for the TPU's VMEM); no output
-depends on it. The bf16 gmm/gmm2/gmm_t kernel takes 128-row tiles whose
-TMA boxes stop at each expert's last row, so a ``c_pad`` that is no
-multiple of 128 needs no padding either. The kernels mask the ragged
-edge of any K and N themselves (bf16: K and N multiples of 8, TMA's
-16-byte strides), so nothing is padded or transposed in memory, and
-gmm2's tile always fits (the reference's VMEM fit test
-``fused_block_n`` has no counterpart).
+depends on it. Nothing is padded or transposed in memory, and gmm2's tile
+always fits (the reference's VMEM fit test ``fused_block_n`` has no
+counterpart). Each bf16 call takes one of two routes, chosen by
+:func:`_tma_ok` from its shape and alignment alone, before the launch:
+
+* K and N multiples of 8 and every operand 16-byte aligned (TMA's
+  strides and bases): the ``wgmma`` kernels over TMA rings. Their boxes
+  stop at each expert's ``c_pad`` rows, so a ``c_pad`` that is no multiple
+  of their tiles needs no padding, and tgmm zeroes the rows past each
+  count inside the kernel;
+* any other K, N or base: the WMMA kernels, which mask the ragged edge of
+  any K and N and read any base.
+
+fp32 calls take the CUDA-core kernels, which mask any K and N.
 
 On CPU tensors the wrappers run the plain twins; on CUDA tensors they
 launch the kernels or raise.
@@ -153,14 +160,16 @@ def _check(what: str, x, ws, counts, trans_w: bool):
                     f"{what}: x {x.dtype} with w {ws[0].dtype} is not taken "
                     f"(bf16 x bf16, fp32 x fp32 or fp32 x bf16)")
     dev = _launch.check_cuda(what, x, counts, *ws)
-    if x.dtype == torch.bfloat16:   # the tensor maps' strides and bases
-        _launch.require(k % 8 == 0 and n % 8 == 0,
-                        f"{what}: bf16 K={k} and N={n} must be multiples of "
-                        f"8 (TMA)")
-        _launch.require(all(t.data_ptr() % 16 == 0 for t in (x, *ws)),
-                        f"{what}: bf16 x and w must start at 16-byte aligned "
-                        f"addresses (TMA)")
     return e, rows // e, k, n, dev
+
+
+def _tma_ok(k: int, n: int, *tensors: torch.Tensor) -> bool:
+    """Whether a bf16 call of contraction or row width ``k`` and output
+    width ``n`` over ``tensors`` takes the ``wgmma`` route: TMA needs row
+    strides of a multiple of 16 bytes (K and N multiples of 8) and
+    16-byte-aligned bases. Otherwise the call takes the WMMA kernels."""
+    return (k % 8 == 0 and n % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _launch_gmm(what, x, w1, w2, counts, trans_w):
@@ -168,12 +177,14 @@ def _launch_gmm(what, x, w1, w2, counts, trans_w):
     e, c_pad, k, n, dev = _check(what, x, ws, counts, trans_w)
     outs = [torch.empty((x.shape[0], n), dtype=x.dtype, device=dev)
             for _ in ws]
+    tma = x.dtype == torch.bfloat16 and _tma_ok(k, n, x, *ws)
     _launch.launch("ptt_gmm", x.data_ptr(), w1.data_ptr(),
                    None if w2 is None else w2.data_ptr(), outs[0].data_ptr(),
                    None if w2 is None else outs[1].data_ptr(),
                    counts.data_ptr(), e, c_pad, k, n, int(trans_w),
                    _launch.dtype_code(x, what),
-                   _launch.dtype_code(w1, what), _launch.stream_of(dev))
+                   _launch.dtype_code(w1, what), int(tma),
+                   _launch.stream_of(dev))
     return outs
 
 
@@ -216,8 +227,9 @@ def gmm2(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 def tgmm(x: torch.Tensor, dy: torch.Tensor,
          counts: torch.Tensor) -> torch.Tensor:
     """``dw [E, K, N]`` fp32 of :func:`gmm` for ``x [E*c_pad, K]`` and ``dy
-    [E*c_pad, N]`` of one dtype. The same bits on every run: each output
-    tile sums its expert's rows in order, with no atomics."""
+    [E*c_pad, N]`` of one dtype, over each expert's first ``counts[e]``
+    rows whatever the rows after them hold. The same bits on every run:
+    each output tile sums its expert's rows in order, with no atomics."""
     global launches_tgmm
     if x.device.type == "cpu":
         return tgmm_plain(x, dy, counts)
@@ -234,9 +246,11 @@ def tgmm(x: torch.Tensor, dy: torch.Tensor,
                     f"rows={rows}, got {counts.dtype} {tuple(counts.shape)}")
     dev = _launch.check_cuda("tgmm", x, dy, counts)
     dw = torch.empty((e, k, n), dtype=torch.float32, device=dev)
+    tma = x.dtype == torch.bfloat16 and _tma_ok(k, n, x, dy)
     _launch.launch("ptt_tgmm", x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
                    counts.data_ptr(), e, rows // e, k, n,
-                   _launch.dtype_code(x, "tgmm"), _launch.stream_of(dev))
+                   _launch.dtype_code(x, "tgmm"), int(tma),
+                   _launch.stream_of(dev))
     launches_tgmm += 1
     return dw
 

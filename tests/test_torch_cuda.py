@@ -277,17 +277,40 @@ def _gg_close(got, want, tol):
                                atol=tol["atol"] * max(np.abs(ref).max(), 1))
 
 
+def _shifted(t):
+    """A contiguous copy of ``t`` whose base sits one element past an
+    allocation's (16-byte aligned) start: 2 bytes off for bf16."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("x_dtype,w_dtype,c_pad", [
-    ("bfloat16", "bfloat16", 128), ("float32", "float32", 128),
-    ("float32", "bfloat16", 128), ("bfloat16", "bfloat16", 192)])
+@pytest.mark.parametrize("x_dtype,w_dtype,c_pad,odd", [
+    pytest.param("bfloat16", "bfloat16", 128, None,
+                 id="bfloat16-bfloat16-128"),
+    pytest.param("float32", "float32", 128, None, id="float32-float32-128"),
+    pytest.param("float32", "bfloat16", 128, None, id="float32-bfloat16-128"),
+    pytest.param("bfloat16", "bfloat16", 192, None,
+                 id="bfloat16-bfloat16-192"),
+    # the WMMA route: K and N no multiples of 8, or x 2 bytes off alignment
+    pytest.param("bfloat16", "bfloat16", 128, "kn", id="bf16-wmma-k70-n37"),
+    pytest.param("bfloat16", "bfloat16", 192, "shift",
+                 id="bf16-wmma-misaligned-x")])
 def test_gmm_and_gmm2_kernels_match_twins(cuda_device, x_dtype, w_dtype,
-                                          c_pad):
+                                          c_pad, odd):
     """gmm, gmm2 and the transposed gmm of the backward: the twin's values
     (zeros past each count included) at the tier of x's dtype, and a
     second launch gives the same bits; every output is exactly zero past
-    each count."""
-    x, w, counts = _gg_inputs(cuda_device, x_dtype, w_dtype, c_pad=c_pad)
+    each count. Shapes TMA cannot map (K or N no multiple of 8, a
+    misaligned base) take the WMMA kernels."""
+    k, n = (70, 37) if odd == "kn" else (88, 200)
+    x, w, counts = _gg_inputs(cuda_device, x_dtype, w_dtype, k=k, n=n,
+                              c_pad=c_pad)
+    if odd == "shift":
+        x = _shifted(x)
+    assert pt_gg._tma_ok(k, n, x, w) == (odd is None)
     w2 = _rand(cuda_device, w_dtype, *w.shape, scale=0.1, seed=50)
     tol = FP32 if x_dtype == "float32" else BF16
     _gg_close(pt_gg.gmm(x, w, counts), pt_gg.gmm_plain(x, w, counts), tol)
@@ -307,21 +330,53 @@ def test_gmm_and_gmm2_kernels_match_twins(cuda_device, x_dtype, w_dtype,
                              .max()) == 0.0
 
 
+def _tgmm_counts(c_pad):
+    """Counts 70 (c_pad 128: ``_GG_COUNTS``) or 130, each ending inside a
+    64-token stage, 0, c_pad and 3."""
+    return [70 if c_pad < 192 else 130, 0, c_pad, 3]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_tgmm_kernel_matches_twin_bitwise_on_repeat(cuda_device, dtype):
+@pytest.mark.parametrize("dtype,case", [
+    pytest.param("float32", {}, id="float32"),
+    pytest.param("bfloat16", {}, id="bfloat16"),
+    # the wgmma route at c_pad 128, 192 and 4096 and the train-moe widths
+    pytest.param("bfloat16", dict(c_pad=192, k=1024, n=704),
+                 id="bf16-cpad192-k1024-n704"),
+    pytest.param("bfloat16", dict(c_pad=4096, k=704, n=1024),
+                 id="bf16-cpad4096-k704-n1024"),
+    pytest.param("bfloat16", dict(c_pad=128, k=200, n=72),
+                 id="bf16-cpad128-k200-n72"),
+    pytest.param("bfloat16", dict(c_pad=192, k=200, n=72, nan=True),
+                 id="bf16-nan-in-dead-rows"),
+    # the WMMA route: K and N no multiples of 8, x 2 bytes off alignment
+    pytest.param("bfloat16", dict(c_pad=192, k=70, n=37, shift=True),
+                 id="bf16-wmma-k70-n37-misaligned")])
+def test_tgmm_kernel_matches_twin_bitwise_on_repeat(cuda_device, dtype, case):
     """dw fp32 over each expert's live rows only: the rows past a count
-    hold noise here, which neither the kernel nor the twin may read."""
-    x, _, counts = _gg_inputs(cuda_device, dtype, dtype)
-    x = x + _rand(cuda_device, dtype, *x.shape, seed=60)
-    dy = _rand(cuda_device, dtype, x.shape[0], 200, seed=61)
+    hold noise here, which neither the kernel nor the twin may read
+    (NaN and 1e30 in one case: the same bits as with zeros there)."""
+    c_pad, k, n = case.get("c_pad", 128), case.get("k", 88), case.get("n", 200)
+    cnt = _tgmm_counts(c_pad)
+    counts = torch.tensor(cnt, dtype=torch.int32, device=cuda_device)
+    x = _rand(cuda_device, dtype, len(cnt) * c_pad, k, seed=60)
+    dy = _rand(cuda_device, dtype, x.shape[0], n, seed=61)
+    if case.get("shift"):
+        x = _shifted(x)
+    assert pt_gg._tma_ok(k, n, x, dy) == (not case.get("shift"))
     dw = pt_gg.tgmm(x, dy, counts)
-    assert dw.dtype == torch.float32 and dw.shape == (4, 88, 200)
+    assert dw.dtype == torch.float32 and dw.shape == (4, k, n)
     assert torch.equal(dw, pt_gg.tgmm(x, dy, counts))
     assert float(dw[1].abs().max()) == 0.0          # the empty expert
     ref = _np(pt_gg.tgmm_plain(x, dy, counts))
     np.testing.assert_allclose(_np(dw), ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
+    if case.get("nan"):
+        dead = (torch.arange(c_pad, device=cuda_device)[None, :]
+                >= counts[:, None]).reshape(-1)
+        xn = x.masked_fill(dead[:, None], float("nan"))
+        dyn = dy.masked_fill(dead[:, None], 1e30)
+        assert torch.equal(pt_gg.tgmm(xn, dyn, counts), dw)
 
 
 @pytest.mark.cuda
@@ -577,13 +632,16 @@ def test_quantized_engine_on_the_card(cuda_device, kv_quant):
     (200, 200, [0, 300, 100, 0, 300, 100]),     # a ring's t=0 step
     (200, 200, [100, 200, 100, 0, 300, 100]),   # KV from an earlier rank
     (150, 130, [5, 190, 77, 0, 140, 61]),       # straddling splits
-    (96, 96, [0, 48, 48, 20, 500, 96])])        # rows with nothing visible
+    (96, 96, [0, 48, 48, 20, 500, 96]),         # rows with nothing visible
+    (256, 256, [0, 384, 128, 128, 256, 128])])  # whole dead tiles
 def test_segment_causal_kernels_match_twins(cuda_device, dtype, d, sq, sk,
                                             seg):
     """#3 and #4 against their twins: GQA 4:2, splits no tile divides, a
     query tile that straddles its split, rows that see no column (o = 0,
-    lse = -inf); the backward twice, bitwise. lse at atol 1e-5, the
-    gradients with atol scaled by each tensor's largest magnitude."""
+    lse = -inf), whole query and key tiles with nothing visible (a t > 0
+    ring step); the backward twice, bitwise, with exact zeros in the rows
+    of dq and of dk/dv that see nothing. lse at atol 1e-5, the gradients
+    with atol scaled by each tensor's largest magnitude."""
     q = _rand(cuda_device, dtype, 2, sq, 4, d, seed=21)
     k = _rand(cuda_device, dtype, 2, sk, 2, d, seed=22)
     v = _rand(cuda_device, dtype, 2, sk, 2, d, seed=23)
@@ -607,6 +665,58 @@ def test_segment_causal_kernels_match_twins(cuda_device, dtype, d, sq, sk,
         ref = _np(c)
         np.testing.assert_allclose(_np(a), ref, rtol=tol["rtol"],
                                    atol=tol["atol"] * np.abs(ref).max())
+    _assert_unseen_zero(got, rlse, seg, sk)
+
+
+def _assert_unseen_zero(grads, lse, seg, sk):
+    """dq is exactly 0 in the rows that see nothing (lse -inf), dk and dv
+    in the keys that no row sees."""
+    dq, dk, dv = grads
+    assert not dq[torch.isneginf(lse).transpose(1, 2)].any()
+    gq = pt_flash.seg_positions(*seg[:3], dq.shape[1], dq.device)
+    gk = pt_flash.seg_positions(*seg[3:], sk, dq.device)
+    unseen = gk > gq.max()
+    assert not dk[:, unseen].any() and not dv[:, unseen].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_segment_causal_backward_routes_by_alignment(cuda_device, d):
+    """#4 in bf16 with q, k, v, o and dO 2 bytes off alignment takes the
+    CUDA-core kernels (TMA cannot map them), aligned copies the wgmma
+    kernels: each against the twin, bitwise on repeat, zeros where
+    nothing is seen, and the two routes at the bf16 tier of each other."""
+    sq = sk = 256
+    seg = [0, 384, 128, 128, 256, 128]
+    q, do = (_rand(cuda_device, "bfloat16", 1, sq, 4, d, seed=s)
+             for s in (31, 34))
+    k, v = (_rand(cuda_device, "bfloat16", 1, sk, 2, d, seed=s)
+            for s in (32, 33))
+    ro, rlse = pt_flash.flash_attention_seg_plain(q, k, v, seg)
+    ro = ro.contiguous()
+    aligned = (q, k, v, ro, do)
+    shifted = tuple(_shifted(t) for t in aligned)
+    assert pt_flash._seg_bwd_tma_ok(1, 4, 2, *aligned)
+    assert not pt_flash._seg_bwd_tma_ok(1, 4, 2, *shifted)
+    want = pt_flash.flash_attention_seg_bwd_plain(*aligned[:4], rlse, do,
+                                                  seg)
+    routes = []
+    for q_, k_, v_, o_, do_ in (aligned, shifted):
+        got = pt_flash.flash_attention_seg_bwd(q_, k_, v_, o_, rlse, do_, seg)
+        again = pt_flash.flash_attention_seg_bwd(q_, k_, v_, o_, rlse, do_,
+                                                 seg)
+        torch.cuda.synchronize()
+        for a, b, c in zip(got, again, want):
+            assert torch.equal(a, b)
+            ref = _np(c)
+            np.testing.assert_allclose(_np(a), ref, rtol=BF16["rtol"],
+                                       atol=BF16["atol"] * np.abs(ref).max())
+        _assert_unseen_zero(got, rlse, seg, sk)
+        routes.append(got)
+    for a, b in zip(*routes):
+        ref = _np(b)
+        np.testing.assert_allclose(_np(a), ref, rtol=BF16["rtol"],
+                                   atol=BF16["atol"] * np.abs(ref).max())
 
 
 @pytest.mark.cuda

@@ -28,12 +28,12 @@ FP32 = dict(rtol=1e-5, atol=1e-6)
 B, HQ, HK, D = 1, 4, 2, 16
 
 
-def _inputs(sq, sk, seed):
+def _inputs(sq, sk, seed, hq=HQ, hk=HK, d=D):
     rng = np.random.RandomState(seed)
-    q = rng.randn(B, sq, HQ, D).astype(np.float32)
-    k = rng.randn(B, sk, HK, D).astype(np.float32)
-    v = rng.randn(B, sk, HK, D).astype(np.float32)
-    do = rng.randn(B, sq, HQ, D).astype(np.float32)
+    q = rng.randn(B, sq, hq, d).astype(np.float32)
+    k = rng.randn(B, sk, hk, d).astype(np.float32)
+    v = rng.randn(B, sk, hk, d).astype(np.float32)
+    do = rng.randn(B, sq, hq, d).astype(np.float32)
     return q, k, v, do
 
 
@@ -121,3 +121,49 @@ def test_seg_wrappers_refuse_off_cuda():
     lse = torch.empty(1, 4, 16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensors"):
         pt_flash.flash_attention_seg_bwd(*meta, meta[0], lse, meta[0], seg)
+
+
+@pytest.mark.parametrize("idx,src", [(0, 1), (1, 0)])
+def test_seg_backward_with_whole_dead_tiles_matches_jax(idx, src):
+    """The t > 0 steps of sp 2 over chunks of 96 rows, head dim 64, GQA
+    2:1: rank 0's first query chunk precedes every resident key, and rank
+    1's second key chunk follows every query, so whole 64-row query and
+    key tiles see nothing. dq there (rows with lse -inf) and dk/dv there
+    (keys no row sees) are exact zeros, as in the JAX kernels (interpret
+    mode), and the rest matches them at the fp32 tier."""
+    c, sp = 96, 2
+    seg = _zigzag_seg(idx, src, c, sp)
+    q, k, v, do = _inputs(2 * c, 2 * c, seed=11 + idx, hq=2, hk=1, d=64)
+    want = _jax_seg(q, k, v, do, seg)
+    got = _torch_seg(q, k, v, do, seg)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **FP32)
+    dq, dk, dv = got[2:]
+    rows = np.isneginf(got[1][0, 0])
+    keys = np.asarray(pt_flash.seg_positions(*seg[3:], 2 * c)) > np.asarray(
+        pt_flash.seg_positions(*seg[:3], 2 * c)).max()
+    dead_rows, dead_keys = (slice(0, 96), None) if idx == 0 else (
+        None, slice(96, 192))
+    if dead_rows:
+        assert rows[dead_rows].all() and not rows[96:].any()
+    else:
+        assert keys[dead_keys].all() and not keys[:96].any()
+    for a, b, mask in ((dq, want[2], rows), (dk, want[3], keys),
+                       (dv, want[4], keys)):
+        assert (a[:, mask] == 0).all() and (b[:, mask] == 0).all()
+        assert np.abs(a[:, ~mask]).max() > 0
+
+
+def test_seg_backward_routes_by_alignment():
+    """A bf16 segment backward takes #2's ``wgmma`` kernels where TMA can
+    map q, k, v, o and dO (16-byte-aligned bases) and the grids' batch x
+    heads fit 65535, else the CUDA-core kernels: decided from shapes and
+    pointers alone, before any launch."""
+    q = torch.zeros(1, 64, 16, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 64, 8, 64, dtype=torch.bfloat16)
+    assert pt_flash._seg_bwd_tma_ok(1, 16, 8, q, kv, kv, q, q)
+    flat = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)
+    off = flat[1:].view(q.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    assert not pt_flash._seg_bwd_tma_ok(1, 16, 8, q, kv, kv, off, q)
+    assert not pt_flash._seg_bwd_tma_ok(4096, 16, 8, q, kv, kv, q, q)

@@ -131,6 +131,47 @@ def test_tgmm_matches_jax(dtype):
     assert float(dw[2].abs().max()) == 0.0
 
 
+@pytest.mark.parametrize("c_pad,k,n", [(40, 16, 24), (72, 70, 37)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tgmm_twin_ignores_dead_rows_and_matches_jax(dtype, c_pad, k, n):
+    """The twin reads each expert's first ``counts[e]`` rows only: with
+    NaN, inf and noise in the rows after them it gives the bits it gives
+    with zeros there, and those match JAX's ``_tgmm_call`` (through
+    ``tgmm``, interpret mode) at the fp32 tier. ``c_pad`` no multiple of
+    64, counts 0, 3, ``c_pad`` and one ending inside a 64-row tile, K and
+    N no multiples of 8 (70, 37) beside (16, 24)."""
+    rs = np.random.RandomState(7)
+    counts = [0, 3, c_pad, c_pad - 5]
+    jx, px = _buf(rs, k, dtype, counts, c_pad)
+    jdy, pdy = _buf(rs, n, dtype, counts, c_pad)
+    pc = torch.tensor(counts, dtype=torch.int32)
+    dead = (torch.arange(c_pad)[None, :] >= pc[:, None]).reshape(-1, 1)
+    noise = torch.from_numpy(rs.randn(*px.shape).astype(np.float32))
+    gx = torch.where(dead, noise.to(px.dtype), px)
+    gx[dead[:, 0].nonzero()[::2, 0]] = float("nan")
+    gdy = pdy.masked_fill(dead, float("inf"))
+    dw = pgg.tgmm(gx, gdy, pc)
+    assert torch.equal(dw, pgg.tgmm(px, pdy, pc))
+    _close(dw, jgg.tgmm(jx, jdy, jnp.asarray(counts, jnp.int32), block_m=8),
+           "float32")
+    assert float(dw[0].abs().max()) == 0.0
+
+
+def test_routes_by_shape_and_alignment():
+    """A bf16 call takes the ``wgmma`` kernels exactly where TMA can map
+    it (K and N multiples of 8, every base 16-byte aligned), else the WMMA
+    kernels: decided from shapes and pointers alone, before any launch."""
+    x = torch.zeros(64, 16, dtype=torch.bfloat16)
+    w = torch.zeros(4, 16, 24, dtype=torch.bfloat16)
+    assert pgg._tma_ok(16, 24, x, w)
+    assert not pgg._tma_ok(70, 24, x, w)
+    assert not pgg._tma_ok(16, 37, x, w)
+    off = torch.zeros(64 * 16 + 1, dtype=torch.bfloat16)[1:].view(64, 16)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 2
+    assert not pgg._tma_ok(16, 24, off, w)
+    assert pgg._tma_ok(16, 24, x[8:16], w)      # a view at +256 bytes
+
+
 def _routing(rs, n, k, e_num, cap):
     """The gate's contract: per-expert arrival slots, keep = slot < cap."""
     e_idx = np.zeros((n, k), np.int32)

@@ -27,6 +27,7 @@ def _port_files():
             if f.endswith(".py"):
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "tools", "torch_phase_ab.py")
 
 
 def _imported_modules(path):
@@ -80,6 +81,15 @@ def test_default_device_is_cuda_and_absence_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     m = LlamaForCausalLM(llama_tiny_config(), device="cpu")
     assert m.device == torch.device("cpu")
+
+
+def test_parallel_env_device_is_cuda_and_absence_raises(monkeypatch):
+    """``ParallelEnv.device`` is the rank's CUDA device, and raises, as
+    ``resolve_device`` does, where there is none: no CPU fallback."""
+    from paddle_tpu_torch.distributed.env import ParallelEnv
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ParallelEnv().device
 
 
 def test_wrappers_do_not_fall_back_off_cuda():

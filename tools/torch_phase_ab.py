@@ -1,0 +1,73 @@
+#!/usr/bin/env python3
+"""Time ``chip_smoke.py`` kernel phases of two checkouts on one card, in
+turns.
+
+    python3 tools/torch_phase_ab.py PARENT_DIR CHANGE_DIR PHASE [PHASE ...]
+
+Each checkout runs the named phases of its own ``chip_smoke.py`` (e.g.
+``phase_flash_bwd``, ``phase_tgmm``) in a process of its own, in the order
+parent, change, change, parent, so that both versions are measured on the
+same card at the same power limit. Each run prints one JSON line: the
+checkout, the turn and, for every phase, the timings of the row the phase
+returns (``ms``, ``library_ms``, ``bound_ms``, the per-launch
+``launches_ms`` and the extra shapes a phase times, such as tgmm's
+``down`` or the segment backward's ``t1``). Each checkout builds its own
+kernels into its own ``paddle_tpu_torch/_build/``. Needs a CUDA device.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+_KEYS = ("ms", "library_ms", "bound_ms", "launches_ms", "cp", "down", "t1")
+
+_RUN = """
+import json, os, sys
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+timer = cs.Timer(torch)
+out = {}
+for name in sys.argv[1:]:
+    row = getattr(cs, name)(torch, timer)
+    out[name] = {k: row[k] for k in %r if k in row}
+    torch.cuda.empty_cache()
+print("AB " + json.dumps(out))
+""" % (_KEYS,)
+
+
+def run(tree: str, phases) -> dict:
+    proc = subprocess.run([sys.executable, "-c", _RUN, *phases], cwd=tree,
+                          capture_output=True, text=True)
+    rows = [ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+    if proc.returncode != 0 or not rows:
+        raise RuntimeError(f"{tree}: exit {proc.returncode}\n"
+                           f"{proc.stderr[-3000:]}")
+    return json.loads(rows[-1])
+
+
+def main() -> int:
+    if len(sys.argv) < 4:
+        print(__doc__, file=sys.stderr)
+        return 2
+    parent, change, phases = sys.argv[1], sys.argv[2], sys.argv[3:]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    for turn, (label, tree) in enumerate((("parent", parent),
+                                          ("change", change),
+                                          ("change", change),
+                                          ("parent", parent))):
+        print(json.dumps({"turn": turn, "tree": label,
+                          "phases": run(os.path.abspath(tree), phases)}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
