@@ -24,9 +24,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and fp8 pages, with a bf16 q and pads, and at the serve-quant step's;
    the segment-causal flash forward and backward at every zig-zag
    descriptor of sp 2 and 4 over a global 4096, 16:8 heads of 64, bf16
-   and fp32, with splits no tile divides, then each rank's pieces at the
-   train-cp path's global 32768, merged by lse against the flash forward
-   over the whole causal sequence and summed against the flash backward)
+   and fp32, with splits no tile divides, the forward also on bf16 bases
+   2 bytes off alignment (its CUDA-core route), then each rank's pieces at
+   the train-cp path's global 32768, merged by lse against the flash
+   forward over the whole causal sequence and summed against the flash
+   backward)
    held against its plain PyTorch twin on the same inputs (each backward
    kernel, the dx gmm, the scan and the quantized ragged kernel also
    twice, bitwise; tgmm at both of its path shapes, gate/up and down dW,
@@ -39,7 +41,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gmm and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
    for tgmm, memory-efficient ``scaled_dot_product_attention`` with the
    segment mask for the segment-causal pair) and the least time the card
-   could take;
+   could take; then head dims other than 64 and 128: the flash forward and
+   backward, the segment-causal pair and ragged attention at head dims 96
+   and 256, bf16 and fp32, and the bf16 flash pair on misaligned bases,
+   against their twins (each route's time printed), and a head-dim-96
+   Llama (hidden 768, 2 layers, fp32) whose forward, training step and
+   compiled greedy decode on the card are held against its own copy on
+   the CPU twins;
 4. serve, the slice-1 path, with ``pallas_fused_block=off``:
    ``GenerationEngine.generate`` serving 8 requests (prompts of 32..1024
    tokens, 32 new tokens each, 6 greedy and 2 sampled) on a
@@ -718,22 +726,27 @@ def _sdpa_seg_lib(torch, q, k, v, seg):
 
 
 def phase_flash_seg(torch, timer):
-    """#3, the segment-causal forward. (1) Against its twin, bf16 and
-    fp32, for every zig-zag descriptor at sp 2 and 4 over a global 4096
-    (16:8 heads of 64) and at sp 2 over 4000 (straddling splits). (2) The
+    """#3, the segment-causal forward. (1) Against its twin for every
+    zig-zag descriptor at sp 2 and 4 over a global 4096 (16:8 heads of 64)
+    and at sp 2 over 4000 (straddling splits), on each route: bf16 on #1's
+    ``wgmma`` kernel under the segment mask, fp32 and bf16 with bases 2
+    bytes off alignment on the CUDA cores (the edge route). (2) The
     single-process ring check at the path's global 32768, bf16: for sp 2
     and 4 each rank's pieces over every source, merged by their lse as
     the ring merges them, against #1 over the whole causal sequence.
     (3) Against its twin at the path's shape, q [1, 16384, 16, 64], kv
     [1, 16384, 8, 64], bf16, both ranks' t=0 descriptors at sp 2, one kv
     head at a time, each output row to 2e-2 of its own max|twin|. (4)
-    Timed at that shape, rank 0's t=0 descriptor."""
+    Timed at that shape, rank 0's t=0 descriptor, on the ``wgmma`` route
+    (asserted), beside masked SDPA; its factor to the bound printed."""
     from paddle_tpu_torch.distributed.sequence_parallel import (_merge,
                                                                 _zigzag_seg)
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     worst = {}
-    for dtype, tol, ltol in ((torch.bfloat16, 2e-2, 1e-4),
-                             (torch.float32, 2e-5, 1e-5)):
+    for key, dtype, shift, tol, ltol in (
+            ("bf16 wgmma", torch.bfloat16, False, 2e-2, 1e-4),
+            ("fp32", torch.float32, False, 2e-5, 1e-5),
+            ("bf16 misaligned", torch.bfloat16, True, 2e-2, 1e-4)):
         qkv = {}
         for s, sp, idx, src, seg in _seg_cases():
             if s not in qkv:
@@ -741,14 +754,17 @@ def phase_flash_seg(torch, timer):
             q, k, v, _ = qkv[s]
             rq, rk = _zigzag_rows(s, sp, idx), _zigzag_rows(s, sp, src)
             ql, kl, vl = q[:, rq], k[:, rk], v[:, rk]
+            if shift:
+                ql, kl, vl = (_misaligned(torch, x) for x in (ql, kl, vl))
+            assert fa._seg_fwd_tma_ok(1, CP_HQ, ql, kl, vl) == (
+                key == "bf16 wgmma"), (key, seg)
             o, lse = fa.flash_attention_seg_with_lse(ql, kl, vl, seg)
             ro, rlse = fa.flash_attention_seg_plain(ql, kl, vl, seg)
             torch.cuda.synchronize()
             err, lerr = max_err(o, ro), _lse_err(torch, lse, rlse)
             assert err <= tol and lerr <= ltol, \
-                f"flash seg {dtype} s={s} sp={sp} seg={seg}: max_abs_err " \
+                f"flash seg {key} s={s} sp={sp} seg={seg}: max_abs_err " \
                 f"{err} (lse {lerr})"
-            key = f"{str(dtype)[6:]}"
             worst[key] = max(worst.get(key, 0.0), err)
         log(f"flash seg vs twin, {key}: {len(list(_seg_cases()))} "
             f"descriptors, worst max_abs_err {worst[key]:.3g}")
@@ -811,6 +827,8 @@ def phase_flash_seg(torch, timer):
     rq = _zigzag_rows(CP_SEQ, CP_SP, 0)
     ql, kl, vl = (x[:, rq].contiguous() for x in (q, k, v))
     del q, k, v
+    assert fa._seg_fwd_tma_ok(1, CP_HQ, ql, kl, vl), \
+        "flash seg at the path's shape: not on the wgmma route"
     pairs = _live_pairs(torch, seg, 2 * c, 2 * c)
     flops = 4 * CP_D * CP_HQ * pairs
     nbytes = (2 * ql.numel() * 2 + 2 * kl.numel() * 2
@@ -821,6 +839,10 @@ def phase_flash_seg(torch, timer):
     lib_ms = timer.ms(lambda: lib[0](*lib[1]), iters=3, warmup=1) \
         if lib else None
     del lib
+    log(f"flash seg #3 at the path's shape, seg {seg} (wgmma): {ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}), {ms / b_ms:.2f}x the bound; masked "
+        f"SDPA {lib_ms} ms"
+        + (f" ({ms / lib_ms:.3f}x of it)" if lib_ms else ""))
     # the twin at a quarter of the path's rows: its fp32 scores at 16384
     # rows would take 17 GB a matrix
     pc = c // 4
@@ -829,13 +851,14 @@ def phase_flash_seg(torch, timer):
     plain = timer.ms(lambda: fa.flash_attention_seg_plain(pq, pk, pv, pseg),
                      iters=3, warmup=1)
     return dict(name="flash_attention_seg_fwd", route="cuda",
-                source="paddle_tpu_torch/csrc/flash_attention_seg.cu",
+                source="paddle_tpu_torch/csrc/flash_attention.cu",
                 replaces="paddle_tpu/ops/pallas/flash_attention.py:458",
                 path="train-cp", max_abs_err=max(max(worst.values()),
                                                  ring_err, path_err),
-                tolerance="bf16 2e-2, fp32 2e-5 (lse 1e-4, 1e-5); at the "
-                          "path's shape each row 2e-2 x its max|twin|; ring "
-                          "pieces merged vs #1 2e-2",
+                tolerance="bf16 2e-2 (wgmma and misaligned), fp32 2e-5 "
+                          "(lse 1e-4, 1e-5); at the path's shape each row "
+                          "2e-2 x its max|twin|; ring pieces merged vs #1 "
+                          "2e-2",
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, live_pairs=pairs,
                 shape=f"bf16 q [1, {2 * c}, 16, 64], kv [1, {2 * c}, 8, 64], "
@@ -1022,6 +1045,222 @@ def _seg_bwd_timed(torch, timer, ql, kl, vl, ol, lsel, dol, seg, label):
                library_ms=lib_ms, live_pairs=pairs, launches_ms=launches)
     log(f"flash seg bwd at the path's shape, {label}: " + json.dumps(out))
     return out
+
+# the edge route's head dims: one the training shapes of other Llamas use
+# (96), and the largest the kernels take (256)
+EDGE_HEAD_DIMS = (96, 256)
+
+
+def phase_head_dims(torch, timer):
+    """Head dims other than 64 and 128 and bf16 calls TMA cannot map, on
+    the edge route (the CUDA-core kernels at a padded head dim). At head
+    dims 96 and 256, bf16 and fp32, over q [1, 1024, 16, d], kv 8: #1
+    (causal) and #2 against their twins, #3 and #4 at the zig-zag
+    descriptors of sp 2 over the 1024 rows, and #8 at its timing shape
+    (bf16 and fp32 pages under fp32 q, as the compiled step feeds it; bf16
+    q over bf16 pages); then #1 and #2 in bf16 at head dims 64 and 128
+    with q, k, v, o and dO 2 bytes off alignment. Tolerances as each
+    kernel's own phase. Each route's ms is printed. Returns the worst
+    error by kernel row, merged into those rows."""
+    from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rp
+    worst = {}
+
+    def note(name, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    def check_pair(label, q, k, v, do, causal_or_seg, tol, ltol, gtol):
+        seg = not isinstance(causal_or_seg, bool)
+        fwd = fa.flash_attention_seg_with_lse if seg \
+            else fa.flash_attention_with_lse
+        plain = fa.flash_attention_seg_plain if seg \
+            else fa.flash_attention_plain
+        bwd = fa.flash_attention_seg_bwd if seg else fa.flash_attention_bwd
+        bplain = fa.flash_attention_seg_bwd_plain if seg \
+            else fa.flash_attention_bwd_plain
+        o, lse = fwd(q, k, v, causal_or_seg)
+        ro, rlse = plain(q, k, v, causal_or_seg)
+        ro = ro.contiguous()
+        if q.data_ptr() % 16:      # o off alignment too, as q, k, v, dO
+            ro = _misaligned(torch, ro)
+        got = bwd(q, k, v, ro, rlse, do, causal_or_seg)
+        again = bwd(q, k, v, ro, rlse, do, causal_or_seg)
+        want = bplain(q, k, v, ro, rlse, do, causal_or_seg)
+        torch.cuda.synchronize()
+        err, lerr = max_err(o, ro), _lse_err(torch, lse, rlse)
+        assert err <= tol and lerr <= ltol, \
+            f"{label}: forward max_abs_err {err} (lse {lerr})"
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+            f"{label}: two backward launches differ"
+        for name, a, c_ in zip(("dq", "dk", "dv"), got, want):
+            assert scaled_close(a, c_, *gtol), \
+                f"{label} {name}: max_abs_err {max_err(a, c_)} of max " \
+                f"{float(c_.float().abs().max())}"
+        note("flash_attention_seg_fwd" if seg else "flash_attention_fwd",
+             err)
+        note("flash_attention_seg_bwd" if seg else "flash_attention_bwd",
+             max(max_err(a, c_) for a, c_ in zip(got, want)))
+        return (timer.ms(lambda: fwd(q, k, v, causal_or_seg), iters=3),
+                timer.ms(lambda: bwd(q, k, v, ro, rlse, do, causal_or_seg),
+                         iters=3))
+
+    s, sp = 1024, 2
+    c = s // (2 * sp)
+    tiers = {torch.bfloat16: (2e-2, 1e-4, (2e-2, 2e-2)),
+             torch.float32: (2e-5, 1e-5, (1e-4, 1e-5))}
+    for d in EDGE_HEAD_DIMS:
+        for dtype, (tol, ltol, gtol) in tiers.items():
+            g = torch.Generator(device="cuda").manual_seed(d)
+            q, k, v, do = (torch.randn(1, s, h, d, device="cuda",
+                                       generator=g).to(dtype)
+                           for h in (CP_HQ, CP_HKV, CP_HKV, CP_HQ))
+            assert not fa._seg_fwd_tma_ok(1, CP_HQ, q, k, v)
+            kind = str(dtype)[6:]
+            ms = dict(zip(("fwd", "bwd"), check_pair(
+                f"flash d={d} {kind}", q, k, v, do, True, tol, ltol, gtol)))
+            for idx, src in ((0, 0), (0, 1), (1, 0)):
+                rq, rk = _zigzag_rows(s, sp, idx), _zigzag_rows(s, sp, src)
+                seg = _zigzag_seg(idx, src, c, sp)
+                t = check_pair(f"flash seg d={d} {kind} {seg}", q[:, rq],
+                               k[:, rk], v[:, rk], do[:, rq], seg, tol, ltol,
+                               gtol)
+                if idx == src == 0:
+                    ms["seg_fwd"], ms["seg_bwd"] = t
+            log(f"head dim {d} {kind} (edge route, q [1, {s}, {CP_HQ}, {d}],"
+                f" kv {CP_HKV}): ms " + json.dumps(ms))
+            del q, k, v, do
+    # #8: the timing shape of phase_ragged at the edge head dims
+    hq, hkv, bs, seqs, width = 32, 8, 64, 8, 32
+    rows = torch.tensor(RAGGED_ROWS, dtype=torch.int32, device="cuda")
+    valids = torch.tensor(RAGGED_VALIDS, dtype=torch.int32, device="cuda")
+    tables = torch.randperm(seqs * width, device="cuda").int().reshape(
+        seqs, width)
+    for d in EDGE_HEAD_DIMS:
+        for q_dtype, kv_dtype, tol in (
+                (torch.float32, torch.bfloat16, 2e-5),
+                (torch.float32, torch.float32, 2e-5),
+                (torch.bfloat16, torch.bfloat16, 2e-2)):
+            kc, vc = (torch.randn(seqs * width * bs, hkv, d,
+                                  device="cuda").to(kv_dtype)
+                      for _ in range(2))
+            q = torch.randn(len(RAGGED_ROWS), hq, d, device="cuda").to(
+                q_dtype)
+            args = (q, kc, vc, tables, rows, valids, bs)
+            out = rp.ragged_paged_attention(*args)
+            ref = rp.ragged_paged_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            assert err <= tol, f"ragged d={d} q {q_dtype} pages " \
+                               f"{kv_dtype}: max_abs_err {err}"
+            assert float(out[-1].abs().max()) == 0.0
+            note("ragged_paged_attention", err)
+            log(f"head dim {d} ragged q {str(q_dtype)[6:]} pages "
+                f"{str(kv_dtype)[6:]} [{len(RAGGED_ROWS)}, {hq}, {d}]: "
+                f"max_abs_err {err:.3g}, "
+                f"{timer.ms(lambda: rp.ragged_paged_attention(*args)):.4f} ms")
+            del kc, vc
+    # #1 and #2 in bf16 where TMA cannot map q, k, v, o and dO
+    for d in (64, 128):
+        g = torch.Generator(device="cuda").manual_seed(d + 1)
+        q, k, v, do = (_misaligned(torch, torch.randn(
+            1, s, h, d, device="cuda", generator=g).bfloat16())
+                       for h in (CP_HQ, CP_HKV, CP_HKV, CP_HQ))
+        assert not fa._seg_fwd_tma_ok(1, CP_HQ, q, k, v)
+        t = check_pair(f"flash d={d} bf16 misaligned", q, k, v, do, True,
+                       *tiers[torch.bfloat16])
+        log(f"flash d={d} bf16 misaligned (edge route, q [1, {s}, {CP_HQ}, "
+            f"{d}]): ms " + json.dumps(dict(zip(("fwd", "bwd"), t))))
+    log("head dims: worst max_abs_err by kernel " + json.dumps(worst))
+    return worst
+
+
+def phase_llama_d96(torch, np):
+    """A small Llama at head dim 96 (hidden 768, 8:4 heads of 96, ffn
+    2048, 2 layers, vocab 1024, fp32, seed 12) on the card against its own
+    copy on the CPU twins: the forward's logits, a training step (loss,
+    every parameter's gradient, one AdamW step and the loss after it; rel
+    L2 within 1e-4, fp32 sums in another order), and greedy decoding
+    through the compiled engine (4 prompts of 5..200 tokens, 16 new each;
+    >= 90% of tokens equal: random weights sit near ties). Launches on the
+    card: flash forward and backward = layers a pass, ragged = steps x
+    layers; the fused block none (it takes head dims 64 and 128)."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops import kernels
+    layers = 2
+    cfg = llama_tiny_config(hidden_size=768, num_attention_heads=8,
+                            num_key_value_heads=4, num_hidden_layers=layers,
+                            intermediate_size=2048, vocab_size=1024,
+                            max_position_embeddings=512)
+    cpu = LlamaForCausalLM(cfg, seed=12, device="cpu")
+    gpu = LlamaForCausalLM(cfg, seed=12)
+    gpu.load_state_dict({k: v.cuda() for k, v in cpu.state_dict().items()})
+    ids = np.random.RandomState(12).randint(0, 1024, size=(2, 200))
+    res = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        x = torch.from_numpy(ids).to(model.device)
+        opt = optimizer.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                              parameters=model.parameters())
+        kernels.reset_launch_counts()
+        logits = model(x).detach()
+        loss, _ = model(x, labels=x)
+        loss.backward()
+        grads = [p.grad.detach().cpu() for p in model.parameters()]
+        opt.step()
+        opt.clear_grad()
+        with torch.no_grad():
+            after, _ = model(x, labels=x)
+        counts = kernels.launch_counts()
+        res[name] = (logits.cpu(), float(loss.detach()), grads, float(after),
+                     counts)
+    (lc, l0c, gc, l1c, _), (lg, l0g, gg_, l1g, counts) = res["cpu"], \
+        res["cuda"]
+    want = {"flash_attention_fwd": 3 * layers,
+            "flash_attention_bwd": layers}
+    for n in ("flash_attention_fwd", "flash_attention_bwd",
+              "fused_block_fwd"):
+        assert counts[n] == want.get(n, 0), ("llama d96", n, counts)
+    rel_logits = _rel(lg, lc)
+    rel_grad = max(_rel(a, b) for a, b in zip(gg_, gc) if b.norm() > 0)
+    log(f"llama d96 (hidden 768, 8:4 heads of 96, {layers} layers, fp32): "
+        f"logits rel L2 {rel_logits:.3g} from the CPU twins, loss "
+        f"{l0g:.6f} vs {l0c:.6f}, worst gradient rel L2 {rel_grad:.3g}, "
+        f"loss after one AdamW step {l1g:.6f} vs {l1c:.6f}")
+    assert rel_logits <= 1e-4 and rel_grad <= 1e-4, "llama d96: forward or " \
+        "gradients beyond 1e-4 rel L2 of the CPU twins"
+    assert abs(l0g - l0c) <= 1e-4 * abs(l0c) and \
+        abs(l1g - l1c) <= 1e-4 * abs(l1c), "llama d96: losses differ"
+    prompts = [[5, 3, 9, 1, 7], list(range(1, 61)),
+               [int(t) for t in ids[0, :200]], [11, 12] * 40]
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        kernels.reset_launch_counts()
+        eng = GenerationEngine(model, max_seqs=4, max_seq_len=256,
+                               block_size=16)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs[name] = eng.generate(
+                [GenerationRequest(i, p, max_new_tokens=16)
+                 for i, p in enumerate(prompts)])
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        steps = eng.stats["steps"]
+        assert counts["ragged_paged_attention"] == (
+            steps * layers if name == "cuda" else 0), ("llama d96", counts)
+        assert eng.cache.free_blocks == eng.cache.num_blocks, \
+            "llama d96: pages leaked"
+        log(f"llama d96 compiled decode ({name}): {steps} steps, "
+            f"{1e3 * wall / steps:.2f} ms a step")
+    same = sum(a == b for i in outs["cuda"] for a, b in
+               zip(outs["cuda"][i], outs["cpu"][i]))
+    total = sum(len(t) for t in outs["cpu"].values())
+    log(f"llama d96 compiled decode: {same} of {total} greedy tokens equal "
+        f"to the CPU twins'")
+    assert same >= 0.9 * total, "llama d96: decode disagrees with the twins"
+    return dict(rel_logits=rel_logits, rel_grad=rel_grad,
+                tokens_equal=same / total)
 
 
 def phase_rms_bwd(torch, timer):
@@ -3569,6 +3808,15 @@ def cp_run(torch, np, label, want, hops=False, profile=False):
     return res, grads
 
 
+def _device_ms(torch, timer, fn, key, calls=10):
+    """Device time a call of ``fn`` from ``torch.profiler``: the summed
+    time of the device activities whose name holds ``key``, over
+    ``calls`` calls with the L2 cache flushed before each, per call."""
+    rows, _, _ = device_profile(torch, lambda: [(timer.flush.zero_(), fn())
+                                                for _ in range(calls)])
+    return sum(us for us, _, name in rows if key in name) / 1e3 / calls
+
+
 def _hop_check(torch):
     """#16's port in a rank of train-cp (b), before the path runs: the
     KV hop at the path's shape (bf16 K and V [1, 16384, 8, 64]) and the
@@ -3577,7 +3825,9 @@ def _hop_check(torch):
     the twin and (rank 0 alone on the card) beside the library's copy
     (``Tensor.copy_`` of K and of V from views of the source rank's mapped
     slot, one call a segment); the bound moves K and V in once and out
-    once."""
+    once. Rank 0 also reads both from the profiler as device time a call
+    (the kernel's launch; ``copy_``'s two device-to-device copies), apart
+    from the host time of the calls."""
     from paddle_tpu_torch.distributed import get_mesh
     from paddle_tpu_torch.ops.kernels import async_collectives as hops
     from paddle_tpu_torch.ops.kernels.kv_handoff import device_view
@@ -3604,7 +3854,7 @@ def _hop_check(torch):
         # last hop staged; no rank restages it before the next hop's
         # barrier. Rank 0 times both alone on the card while the other
         # ranks wait at a barrier
-        ms = lib_ms = None
+        ms = lib_ms = dev_ms = lib_dev_ms = None
         if me == 0:
             ms = timer.ms(lambda: hops.ring_kv_pull(k, v, perm, group))
             assert all(torch.equal(a, b) for a, b in zip(
@@ -3620,9 +3870,20 @@ def _hop_check(torch):
             lib_ms = timer.ms(lambda: (ko.copy_(pk), vo.copy_(pv)))
             assert torch.equal(ko, got[0]) and torch.equal(vo, got[1]), \
                 f"ring_kv_rotate {label}: the library's copy differs"
+            dev_ms = _device_ms(torch, timer, lambda: hops.ring_kv_pull(
+                k, v, perm, group), "ring_copy_kernel")
+            lib_dev_ms = _device_ms(torch, timer, lambda: (
+                ko.copy_(pk), vo.copy_(pv)), "Memcpy DtoD")
         torch.distributed.barrier(group=group)
+        if me == 0:
+            log(f"ring_kv_rotate {label}: the pull alone {ms:.4f} ms, "
+                f"copy_ {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the "
+                f"whole call {call_ms:.4f} ms; device time a call "
+                f"(profiler): the pull {dev_ms:.4f} ms, copy_ "
+                f"{lib_dev_ms:.4f} ms")
         out[label] = dict(
             ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            device_ms=dev_ms, library_device_ms=lib_dev_ms,
             bound_ms=b_ms, bound_by=b_by,
             shape=f"{str(dtype)[6:]} K and V [1, {CP_SEQ // CP_SP}, "
                   f"{CP_HKV}, {CP_D}]")
@@ -4012,6 +4273,10 @@ def _ep_kernel_checks(torch, mesh):
                      f"{EP} on one card (ms: the pull alone, rank 0 alone "
                      f"on the card; call_ms: stage, sync, barrier and "
                      f"pull); plain: a gloo all_to_all through the host")
+    if a2a["ms"] is not None:
+        log(f"tiled_a2a (#15, the copy #16 shares): the pull alone "
+            f"{a2a['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the whole "
+            f"call {a2a['call_ms']:.4f} ms")
     del x
     fused, worst = [], 0.0
     for label, kw in (("b1 bf16", dict(chunks=1, dtype=torch.bfloat16)),
@@ -4019,10 +4284,18 @@ def _ep_kernel_checks(torch, mesh):
                       ("fp32", dict(chunks=1, dtype=torch.float32)),
                       ("cf 1.0 bf16, expert 5 empty",
                        dict(chunks=1, dtype=torch.bfloat16, cf=1.0,
-                            empty_expert=5))):
-        kw = dict(dict(cf=2.0), **kw)
-        args = ep_inputs(torch, mesh, n, MOE_E, MOE_HIDDEN, MOE_FFN, **kw)
-        x_send, counts, _, wg, _, _, plan = args
+                            empty_expert=5)),
+                      (f"bf16 M {MOE_HIDDEN - 4}, F {MOE_FFN - 4} (CUDA "
+                       f"cores)", dict(chunks=1, dtype=torch.bfloat16,
+                                       hidden=MOE_HIDDEN - 4,
+                                       ffn=MOE_FFN - 4))):
+        kw = dict(dict(cf=2.0, hidden=MOE_HIDDEN, ffn=MOE_FFN), **kw)
+        args = ep_inputs(torch, mesh, n, MOE_E, **kw)
+        x_send, counts, _, wg, wu, wd, plan = args
+        tma = kw["dtype"] == torch.bfloat16 and hops._fused_tma_ok(
+            kw["hidden"], kw["ffn"], x_send, wg, wu, wd)
+        assert tma == (kw["dtype"] == torch.bfloat16
+                       and kw["hidden"] == MOE_HIDDEN), (label, tma)
         call = dict(group=group, chunks=plan.chunks, bucket=plan.bucket,
                     c_pad=plan.c_pad)
         got = hops.fused_a2a_expert_mlp(*args[:6], **call)
@@ -4054,6 +4327,11 @@ def _ep_kernel_checks(torch, mesh):
                        f"{tol[1]} x max|y|"
         if kw["dtype"] == torch.bfloat16:
             worst = max(worst, err)
+        if "CUDA cores" in label:
+            log(f"fused_a2a_expert_mlp {label}: max_abs_err {err:.3g} of "
+                f"max|twin| {scale:.3g}, "
+                f"{timer.ms(lambda: hops.fused_a2a_expert_mlp(*args[:6], **call)):.4f}"
+                f" ms a call")
         if label == "b1 bf16":
             live = int(counts.sum())
             nbytes = (x_send.numel() + 3 * wg.numel() + got.numel()) * 2
@@ -4084,7 +4362,7 @@ def _ep_kernel_checks(torch, mesh):
                       f"of {EP} on one card (ms: the launch alone, rank 0 "
                       f"alone on the card; call_ms: stage, sync, barrier "
                       f"and launch)")
-        del args, x_send, got, again, want, tpu
+        del args, x_send, wg, wu, wd, got, again, want, tpu
         torch.cuda.empty_cache()
     timed.update(cases=fused, max_abs_err=worst)
     del timer
@@ -4458,11 +4736,13 @@ def phase_train_moe_ep(torch, np, card):
 # the kernels redesigned around wgmma (#1's bf16 forward, #17's bf16
 # gate/up and down launches, #2's dQ and dK/dV, #11/#13's gmm, #12's tgmm),
 # by a fragment of their mangled names; #4's bf16 route is #2's kernels
-# instantiated with the segment mask, checked by the fragments of both
+# and #3's is #1's, instantiated with the segment mask, checked by the
+# fragments of both
 WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
                  "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "gmm_wgmma",
                  "tgmm_wgmma", ("flash_bwd_dq_wgmma", "SegMask"),
-                 ("flash_bwd_dkv_wgmma", "SegMask"))
+                 ("flash_bwd_dkv_wgmma", "SegMask"),
+                 ("flash_fwd_wgmma", "SegMask"))
 
 
 def check_tensor_core_kernels():
@@ -4569,6 +4849,13 @@ def main() -> int:
             for name, err in r.pop("fwd_checks", {}).items():
                 by_name[name]["max_abs_err"] = max(
                     by_name[name]["max_abs_err"], err)
+        for name, err in phase_head_dims(torch, timer).items():
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                               err)
+        torch.cuda.empty_cache()
+        phase_llama_d96(torch, np)
+        gc.collect()
+        torch.cuda.empty_cache()
         del timer
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 

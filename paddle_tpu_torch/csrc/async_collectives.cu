@@ -39,9 +39,15 @@
 // fused_a2a_expert_mlp, async_collectives.py:480): see ptt_fused_a2a_mlp
 // below.
 //
-// The copies: up to kMaxSeg segments per launch, blockIdx.y picks one;
-// 16-byte vectors in a grid-stride loop when every pointer and size allows
-// it, bytes otherwise.
+// The copies (#16's stage and pull, #15's pull): up to kMaxSeg segments per
+// launch, blockIdx.y picks one. Bound: bytes, each segment in once and out
+// once. When every pointer and size is a multiple of 16 bytes, each thread
+// of a grid-stride loop issues kUnroll independent 16-byte streaming loads
+// (ld.global.cs: read once, no reuse to keep in cache) before their
+// streaming stores, and the grid fills every SM at full occupancy (8 blocks
+// of 256 threads an SM, split over the segments): ~17 MB in flight across
+// the card, far past the bandwidth-delay product, where one load in flight
+// a thread on a grid of 4 x 132 blocks kept ~2 MB. Bytes otherwise.
 #include <string.h>
 
 #include "common.cuh"
@@ -51,6 +57,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSeg = 8;  // segments of one copy launch: the peers of #15
+constexpr int kUnroll = 8;  // independent 16-byte loads a thread keeps in flight
+constexpr int kBlocksPerSm = 2048 / kThreads;  // full occupancy
 
 struct Segments {
   const unsigned char* src[kMaxSeg];
@@ -63,13 +71,21 @@ __global__ void __launch_bounds__(kThreads) ring_copy_kernel(Segments seg) {
   const int s = blockIdx.y;
   const long long n = seg.bytes[s];
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (kVec) {
     const uint4* src = reinterpret_cast<const uint4*>(seg.src[s]);
     uint4* dst = reinterpret_cast<uint4*>(seg.dst[s]);
-    for (long long i = first; i < n / 16; i += stride) dst[i] = src[i];
+    const long long n16 = n / 16;
+    for (; i + (kUnroll - 1) * stride < n16; i += kUnroll * stride) {
+      uint4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) v[u] = __ldcs(src + i + u * stride);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) __stcs(dst + i + u * stride, v[u]);
+    }
+    for (; i < n16; i += stride) __stcs(dst + i, __ldcs(src + i));
   } else {
-    for (long long i = first; i < n; i += stride) seg.dst[s][i] = seg.src[s][i];
+    for (; i < n; i += stride) seg.dst[s][i] = seg.src[s][i];
   }
 }
 
@@ -84,9 +100,13 @@ int copy_segments(const Segments& seg, int n, cudaStream_t stream) {
     vec = vec && (bits % 16 == 0);
     most = seg.bytes[i] > most ? seg.bytes[i] : most;
   }
+  // enough blocks for one pass of kUnroll vectors a thread, at most the
+  // card's full occupancy shared by the segments
+  const long long per_block = static_cast<long long>(kThreads) * (vec ? kUnroll : 1);
   const long long units = vec ? most / 16 : most;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  blocks = blocks < 1 ? 1 : (blocks > 4 * 132 ? 4 * 132 : blocks);
+  const long long cap = static_cast<long long>(hopper::sm_count()) * kBlocksPerSm / n;
+  long long blocks = (units + per_block - 1) / per_block;
+  blocks = blocks < 1 ? 1 : (blocks > cap ? (cap < 1 ? 1 : cap) : blocks);
   const dim3 grid(static_cast<unsigned>(blocks), n);
   if (vec)
     ring_copy_kernel<true><<<grid, kThreads, 0, stream>>>(seg);
@@ -225,11 +245,17 @@ extern "C" int ptt_a2a_pull(const void* const* srcs, void* out, long long block_
 // Each output element has one block and one summation order (no split-K,
 // no atomics), so repeats are bitwise.
 //
-// fp32 (the layer-level run's dtype): the first port's design on the CUDA
-// cores in full fp32 (no TF32): one block of 256 threads per (64-row tile,
-// local expert, chunk), phase 1 walking the ffn in 64-column tiles into the
-// act scratch, phase 2 the output, from register tiles over scalar-loaded
-// shared-memory tiles.
+// Every other call (fp32, the layer-level run's dtype; bf16 with M or F not
+// a multiple of 8, which TMA's strides cannot map, or a base off 16-byte
+// alignment): the first port's design on the CUDA cores, templated on the
+// element type, full fp32 arithmetic (no TF32): one block of 256 threads
+// per (64-row tile, local expert, chunk), phase 1 walking the ffn in
+// 64-column tiles into the act scratch, phase 2 the output, from register
+// tiles over scalar-loaded shared-memory tiles. In bf16 it rounds where the
+// wgmma route rounds: g and u and silu(g)*u through swiglu<T>, act stored in
+// bf16, y accumulated in fp32 over the ffn and rounded once on the store.
+// The wrapper picks the route from shape and alignment before the launch
+// (the `tma` flag).
 namespace {
 
 constexpr int kPeers = kMaxSeg;
@@ -495,8 +521,8 @@ int launch(const PeerSlots& ps, int w, int rank, int bucket, const int* inv, con
 
 }  // namespace fused_wg
 
-// ------------------------------------------------------------------ fp32
-namespace fused_f32 {
+// ------------------------------------------------------------ CUDA cores
+namespace fused_cc {
 
 constexpr int kFM = 64, kFN = 64, kFK = 32;
 constexpr int kFLDA = kFM + 8;  // As[kk][m]
@@ -504,8 +530,9 @@ constexpr int kFLDB = kFN + 8;  // Bs[kk][n]
 
 // One [kFM x kFN] tile C = sum_kk A(m, kk) B_j(kk, n) for NB weight streams
 // over depth `depth`, then store(m, n, value) for every element of the tile.
-// With kSwiglu (NB == 2) the value is silu(C_0) * C_1 in fp32.
-template <int NB, bool kSwiglu, class LoadA, class LoadB, class Store>
+// With kSwiglu (NB == 2) the value is silu(C_0) * C_1 with T's rounding
+// points (swiglu<T>).
+template <typename T, int NB, bool kSwiglu, class LoadA, class LoadB, class Store>
 __device__ __forceinline__ void tile_gemm(float* smem, int depth, LoadA load_a, LoadB load_b,
                                           Store store) {
   float* As = smem;               // [kFK][kFLDA]
@@ -556,19 +583,20 @@ __device__ __forceinline__ void tile_gemm(float* smem, int depth, LoadA load_a, 
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      const float v = kSwiglu ? swiglu<float>(acc[0][r][c], acc[NB - 1][r][c]) : acc[0][r][c];
+      const float v = kSwiglu ? swiglu<T>(acc[0][r][c], acc[NB - 1][r][c]) : acc[0][r][c];
       store(ty * 4 + r, tx * 4 + c, v);
     }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 fused_a2a_mlp_kernel(PeerSlots peers, int w, int rank, int bucket,
                      const int* __restrict__ inv, const int* __restrict__ counts,
-                     const float* __restrict__ wg, const float* __restrict__ wu,
-                     const float* __restrict__ wd, float* __restrict__ act,
-                     float* __restrict__ y, int e_local, int c_pad, int M, int F) {
+                     const T* __restrict__ wg, const T* __restrict__ wu,
+                     const T* __restrict__ wd, T* __restrict__ act,
+                     T* __restrict__ y, int e_local, int c_pad, int M, int F) {
   __shared__ float smem[kFK * (kFLDA + 2 * kFLDB)];
-  __shared__ const float* rowp[kFM];
+  __shared__ const T* rowp[kFM];
 
   const int i = blockIdx.x, e = blockIdx.y, c = blockIdx.z;
   const int tid = threadIdx.x;
@@ -576,60 +604,73 @@ fused_a2a_mlp_kernel(PeerSlots peers, int w, int rank, int bucket,
   const int m0 = i * kFM;
   const size_t row0 = (static_cast<size_t>(c) * e_local + e) * c_pad + m0;
   if (m0 >= count) {  // the ragged skip: a dead row tile writes zeros
-    for (size_t o = tid; o < static_cast<size_t>(kFM) * M; o += kThreads) y[row0 * M + o] = 0.f;
+    for (size_t o = tid; o < static_cast<size_t>(kFM) * M; o += kThreads)
+      y[row0 * M + o] = from_f<T>(0.f);
     return;
   }
   if (tid < kFM) {
     const int src = inv[row0 + tid];
-    const float* p = nullptr;
+    const T* p = nullptr;
     if (m0 + tid < count && src >= 0 && src < w * bucket) {
       const int peer = src / bucket;
-      p = static_cast<const float*>(peers.base[peer]) +
+      p = static_cast<const T*>(peers.base[peer]) +
           (static_cast<size_t>(c * w + rank) * bucket + src % bucket) * M;
     }
     rowp[tid] = p;
   }
   __syncthreads();
 
-  const float* wg_e = wg + static_cast<size_t>(e) * M * F;
-  const float* wu_e = wu + static_cast<size_t>(e) * M * F;
-  const float* wd_e = wd + static_cast<size_t>(e) * F * M;
-  float* act_rows = act + row0 * F;
+  const T* wg_e = wg + static_cast<size_t>(e) * M * F;
+  const T* wu_e = wu + static_cast<size_t>(e) * M * F;
+  const T* wd_e = wd + static_cast<size_t>(e) * F * M;
+  T* act_rows = act + row0 * F;
 
   // phase 1: act = silu(x wg[e]) * (x wu[e]), one 64-column ffn tile at a time
   for (int f0 = 0; f0 < F; f0 += kFN) {
-    tile_gemm<2, true>(
+    tile_gemm<T, 2, true>(
         smem, M,
         [&](int m, int k) {
-          const float* p = rowp[m];
-          return p != nullptr ? p[k] : 0.f;
+          const T* p = rowp[m];
+          return p != nullptr ? to_f<T>(p[k]) : 0.f;
         },
         [&](int j, int k, int n) {
           const int gn = f0 + n;
           if (gn >= F) return 0.f;
-          return (j == 0 ? wg_e : wu_e)[static_cast<size_t>(k) * F + gn];
+          return to_f<T>((j == 0 ? wg_e : wu_e)[static_cast<size_t>(k) * F + gn]);
         },
         [&](int m, int n, float v) {
-          if (f0 + n < F) act_rows[static_cast<size_t>(m) * F + f0 + n] = v;
+          if (f0 + n < F) act_rows[static_cast<size_t>(m) * F + f0 + n] = from_f<T>(v);
         });
   }
   __syncthreads();  // the block's act rows are written (and visible to it)
 
   // phase 2: y = act wd[e], fp32 accumulation over the ffn
   for (int n0 = 0; n0 < M; n0 += kFN) {
-    tile_gemm<1, false>(
-        smem, F, [&](int m, int k) { return act_rows[static_cast<size_t>(m) * F + k]; },
+    tile_gemm<T, 1, false>(
+        smem, F, [&](int m, int k) { return to_f<T>(act_rows[static_cast<size_t>(m) * F + k]); },
         [&](int, int k, int n) {
           const int gn = n0 + n;
-          return gn < M ? wd_e[static_cast<size_t>(k) * M + gn] : 0.f;
+          return gn < M ? to_f<T>(wd_e[static_cast<size_t>(k) * M + gn]) : 0.f;
         },
         [&](int m, int n, float v) {
-          if (n0 + n < M) y[(row0 + m) * M + n0 + n] = v;
+          if (n0 + n < M) y[(row0 + m) * M + n0 + n] = from_f<T>(v);
         });
   }
 }
 
-}  // namespace fused_f32
+template <typename T>
+int launch(const PeerSlots& ps, int w, int rank, int bucket, const int* inv, const int* counts,
+           const void* wg, const void* wu, const void* wd, void* act, void* y, int chunks,
+           int e_local, int c_pad, int M, int F, cudaStream_t s) {
+  const dim3 grid(c_pad / kFM, e_local, chunks);
+  fused_a2a_mlp_kernel<T><<<grid, kThreads, 0, s>>>(
+      ps, w, rank, bucket, inv, counts, static_cast<const T*>(wg), static_cast<const T*>(wu),
+      static_cast<const T*>(wd), static_cast<T*>(act), static_cast<T*>(y), e_local, c_pad, M,
+      F);
+  PTT_RETURN_LAUNCH_ERROR();
+}
+
+}  // namespace fused_cc
 
 }  // namespace
 
@@ -638,13 +679,14 @@ fused_a2a_mlp_kernel(PeerSlots peers, int w, int rank, int bucket,
 // pointers (host array), peer j's staged x_send [chunks*w*bucket, M]; inv
 // [chunks*e_local*c_pad] int32 landing-buffer rows (>= w*bucket: none);
 // counts [chunks*e_local] int32; wg, wu [e_local, M, F], wd [e_local, F, M];
-// act [chunks*e_local*c_pad, F] scratch. All of one dtype, bf16 or fp32
-// (bf16: M and F multiples of 8, every pointer 16-byte aligned).
+// act [chunks*e_local*c_pad, F] scratch. All of one dtype, bf16 or fp32.
+// tma 1 (bf16 with M and F multiples of 8 and every pointer 16-byte
+// aligned) takes the wgmma kernels, tma 0 the CUDA cores (see above).
 extern "C" int ptt_fused_a2a_mlp(const void* const* peers, int w, int rank, int bucket,
                                  const void* inv, const void* counts, const void* wg,
                                  const void* wu, const void* wd, void* act, void* y,
                                  int chunks, int e_local, int c_pad, int M, int F,
-                                 int dtype, void* stream) {
+                                 int dtype, int tma, void* stream) {
   if (w < 1 || w > kPeers || rank < 0 || rank >= w || bucket < 1 || c_pad % 64 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (chunks == 0 || e_local == 0 || c_pad == 0 || M == 0) return 0;
@@ -653,14 +695,13 @@ extern "C" int ptt_fused_a2a_mlp(const void* const* peers, int w, int rank, int 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* iv = static_cast<const int*>(inv);
   const int* cn = static_cast<const int*>(counts);
-  if (dtype == PTT_BF16)
+  if (dtype == PTT_BF16 && tma)
     return fused_wg::launch(ps, w, rank, bucket, iv, cn, wg, wu, wd, act, y, chunks, e_local,
                             c_pad, M, F, s);
-  if (dtype != PTT_F32) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(c_pad / fused_f32::kFM, e_local, chunks);
-  fused_f32::fused_a2a_mlp_kernel<<<grid, kThreads, 0, s>>>(
-      ps, w, rank, bucket, iv, cn, static_cast<const float*>(wg), static_cast<const float*>(wu),
-      static_cast<const float*>(wd), static_cast<float*>(act), static_cast<float*>(y), e_local,
-      c_pad, M, F);
-  PTT_RETURN_LAUNCH_ERROR();
+  if (dtype == PTT_BF16)
+    return fused_cc::launch<__nv_bfloat16>(ps, w, rank, bucket, iv, cn, wg, wu, wd, act, y,
+                                           chunks, e_local, c_pad, M, F, s);
+  if (dtype != PTT_F32 || tma) return static_cast<int>(cudaErrorInvalidValue);
+  return fused_cc::launch<float>(ps, w, rank, bucket, iv, cn, wg, wu, wd, act, y, chunks,
+                                 e_local, c_pad, M, F, s);
 }

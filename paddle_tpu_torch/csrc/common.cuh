@@ -95,5 +95,14 @@ __device__ __forceinline__ float block_sum(float v) {
   return warp_sum(v);
 }
 
+// The padded head dim that the CUDA-core attention kernels are instantiated
+// at for a head dim d (a multiple of 16 up to 256; those kernels take the real
+// d and mask the columns past it), or 0 where d is not one. Mirrored by
+// ops/kernels/_launch.py:head_dim_bucket.
+inline int head_dim_bucket(int d) {
+  if (d < 16 || d > 256 || d % 16 != 0) return 0;
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+
 // Each C entry returns the launch's error (0 = cudaSuccess).
 #define PTT_RETURN_LAUNCH_ERROR() return static_cast<int>(cudaGetLastError())

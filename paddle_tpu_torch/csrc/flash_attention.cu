@@ -1,9 +1,11 @@
 // Flash-attention forward for Hopper: causal (top-left aligned) or full,
-// GQA, fp32 online softmax; emits O and the log-sum-exp.
+// GQA, fp32 online softmax; emits O and the log-sum-exp. The same kernel
+// under the segment mask is #3's bf16 route.
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel
+// Replaces the TPU kernels paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel
 // (grid and specs in _fwd, flash_attention.py:130 -> pallas_call :146;
-// wrapper logic of _prep / flash_attention_with_lse, :844-921).
+// wrapper logic of _prep / flash_attention_with_lse, :844-921) and, through
+// the segment mask, _fwd_seg_kernel (_fwd_seg, :458 -> pallas_call :466).
 //
 // Bound on the H100: operations. A 2048-token causal head does
 // ~2*2*2048*2048/2*128 flops on 2048*128*2*4 bytes, hundreds of flops per
@@ -38,10 +40,20 @@
 // the tensor cores; overlapping the two across the warpgroups is the next
 // step.
 //
-// fp32: the CUDA-core kernel below (the first port's design, full fp32 and
-// no TF32): one block of 256 threads per (64-row query tile, batch*head),
-// a 16x16 thread grid owning a 4x4 patch of the 64x64 score tile and a
-// 4 x D/16 patch of the output accumulator in registers.
+// The mask is a compile-time policy (segment.cuh), as in #2's kernels:
+// DenseMask (causal or full at run time: #1) or SegMask, the zig-zag ring's
+// segment-causal mask through two monotone maps (#3's bf16 route,
+// flash_fwd_seg_wgmma). Under SegMask a query tile walks the keys its last
+// row sees (count_le of its mapped position), a key tile is interior (no
+// mask) when g_q(first row) >= g_k(last column), an edge tile masks g_q(row)
+// >= g_k(col), and a tile with no visible key walks nothing and stores O = 0
+// and lse = -inf. The maps are monotone, so later query tiles still have
+// the longest live prefixes and the schedule stays as it is.
+//
+// Every other call (fp32, head dims other than 64 and 128, a misaligned
+// bf16 base, a grid past 65535) takes the edge route, the CUDA-core kernels
+// of csrc/flash_attention_seg.cu under the descriptor of dense attention;
+// the wrapper picks the route from shape and alignment before the launch.
 //
 // Layout: q [B, Sq, Hq, D], k/v [B, Sk, Hkv, D] (Paddle's flash layout, read
 // in place: no transposes), o like q, lse [B, Hq, Sq] fp32. GQA: query head
@@ -50,6 +62,7 @@
 // lse = -inf.
 #include "common.cuh"
 #include "hopper.cuh"
+#include "segment.cuh"
 
 namespace {
 
@@ -78,12 +91,12 @@ template <int D> struct Cfg {
   static constexpr int kBytes = kBarOff + (1 + 2 * kStages) * 8 + hopper::kSmemAlign;
 };
 
-template <int D>
+template <int D, class Mask>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ o,
-                float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, int causal,
+                float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv, Mask mask,
                 float scale_log2, int heads_fastest) {
   using C = Cfg<D>;
   constexpr int BN = C::BN, kStages = C::kStages;
@@ -96,14 +109,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
 
-  // the longest causal tiles first: across all heads when every head's
-  // K/V fits in L2 together, else within one head at a time (query tiles
-  // varying fastest), so that the blocks in flight share one kv head's K/V
+  // the longest live prefixes first (late query tiles: under either mask
+  // a later row sees at least the keys an earlier one sees): across all
+  // heads when every head's K/V fits in L2 together, else within one head
+  // at a time (query tiles varying fastest), so that the blocks in flight
+  // share one kv head's K/V
   const int bh = heads_fastest ? blockIdx.x : blockIdx.y;
   const int qt = heads_fastest ? blockIdx.y : blockIdx.x;
   const int b = bh / Hq, h = bh % Hq, hk = h / (Hq / Hkv);
   const int q0 = ((heads_fastest ? gridDim.y : gridDim.x) - 1 - qt) * kBM;
-  const int k_end = causal ? min(Sk, q0 + kBM) : Sk;
+  const int k_end = mask.keys(q0, kBM, Sq, Sk);  // the keys the tile's last row sees
   const int n_tiles = (k_end + BN - 1) / BN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
@@ -141,9 +156,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int g = warp >> 2, wq = warp & 3;
   const int first = q0 + 64 * g, last = first + 63;
   const int r_lo = first + 16 * wq + (lane >> 2), r_hi = r_lo + 8;
-  // causal: tiles past n_live hold only keys above every row of this
-  // warpgroup; they are waited for and freed, never computed
-  const int n_live = causal ? min(n_tiles, (last + BN) / BN) : n_tiles;
+  // tiles past n_live hold only keys that no row of this warpgroup sees;
+  // they are waited for and freed, never computed. A tile with no visible
+  // key walks nothing and stores O = 0 and lse = -inf
+  const int n_live = mask.live_tiles(n_tiles, last, BN, Sq, Sk);
+  const int p_lo = mask.qpos(r_lo), p_hi = mask.qpos(r_hi);
   float acc_o[D / 2], sc[BN / 2];
   uint32_t pa[BN / 16][4];  // P in bf16: the A fragments of O += P.V
 #pragma unroll
@@ -182,12 +199,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   // the online softmax of the scores in sc for keys k0..: sc becomes p, m
   // and this lane's share of l are updated, al_* rescale the old O
   auto softmax = [&](int k0) {
-    if (k0 + BN > Sk || (causal && k0 + BN - 1 > first)) {  // the edge tiles only
+    if (mask.dq_edge(k0, BN, first, Sk)) {  // not interior: the edge tiles only
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) {
         const int col = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
-        const int row = (i & 2) ? r_hi : r_lo;
-        if (col >= Sk || (causal && col > row)) sc[i] = -CUDART_INF_F;
+        if (mask.dq_hidden((i & 2) ? p_hi : p_lo, col, Sk)) sc[i] = -CUDART_INF_F;
       }
     }
     float mx_lo = -CUDART_INF_F, mx_hi = -CUDART_INF_F;
@@ -310,10 +326,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int D>
+template <int D, class Mask>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
-           int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+           int Sk, int Hq, int Hkv, Mask mask, float scale, cudaStream_t stream) {
   using C = Cfg<D>;
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v);
+  if (bits % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   // [B, S, H, D] as 4-D maps, innermost first; a box is 64 columns of one
   // head over kBM (Q) or BN (K, V) rows of one batch
   CUtensorMap mq, mk, mv;
@@ -338,196 +357,49 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   if (err == 0) err = hopper::bf16_map(&mk, none ? q : k, 4, dk, sk, bk);
   if (err == 0) err = hopper::bf16_map(&mv, none ? q : v, 4, dk, sk, bk);
   if (err != 0) return err;
-  auto kern = flash_fwd_wgmma<D>;
+  auto kern = flash_fwd_wgmma<D, Mask>;
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid = heads_fastest ? dim3(B * Hq, q_tiles) : dim3(q_tiles, B * Hq);
   kern<<<grid, kThreads, C::kBytes, stream>>>(mq, mk, mv, static_cast<bf16*>(o), lse, Sq, Sk,
-                                              Hq, Hkv, causal, scale * kLog2e,
+                                              Hq, Hkv, mask, scale * kLog2e,
                                               heads_fastest);
   PTT_RETURN_LAUNCH_ERROR();
 }
 
 }  // namespace wg
 
-// ---------------------------------------------------------------- fp32
-namespace f32 {
-
-constexpr int kBQ = 64, kBK = 64, kThreads = 256;
-
-template <int D> struct Smem {
-  static constexpr int DP = D + 1;   // padded row of the Q and K tiles
-  static constexpr int PP = kBK + 1; // padded row of the probability tile
-  static constexpr size_t floats = kBQ * DP + kBK * DP + kBK * D + kBQ * PP;
-  static constexpr size_t bytes = floats * sizeof(float);
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                 int causal, float scale) {
-  using S = Smem<D>;
-  constexpr int DP = S::DP, PP = S::PP, NC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // [kBQ][DP]
-  float* Ks = Qs + kBQ * DP;     // [kBK][DP]
-  float* Vs = Ks + kBK * DP;     // [kBK][D]
-  float* Ps = Vs + kBK * D;      // [kBQ][PP]
-
-  const int q0 = blockIdx.x * kBQ;
-  const int bh = blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq;
-  const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const size_t q_row = static_cast<size_t>(Hq) * D;   // stride between tokens
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
-  const float* qb = q + (static_cast<size_t>(b) * Sq) * q_row + h * D;
-  const float* kb = k + (static_cast<size_t>(b) * Sk) * kv_row + hk * D;
-  const float* vb = v + (static_cast<size_t>(b) * Sk) * kv_row + hk * D;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, gr = q0 + r;
-    Qs[r * DP + c] = gr < Sq ? qb[gr * q_row + c] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -CUDART_INF_F;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NC; ++n) acc[i][n] = 0.f;
-  }
-
-  // causal: keys past the tile's last row are masked for every row
-  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // previous tile's K/V/P reads are done (and Q is stored)
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D, gr = k0 + r;
-      const bool in = gr < Sk;
-      Ks[r * DP + c] = in ? kb[gr * kv_row + c] : 0.f;
-      Vs[r * D + c] = in ? vb[gr * kv_row + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * DP + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < Sk && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * scale : -CUDART_INF_F;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)  // the row's 16 threads
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float m_safe = m_new == -CUDART_INF_F ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_safe);  // exp(-inf) = 0 on first use
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_safe);  // masked: exp(-inf) = 0
-        sum += p;
-        Ps[(ty * 4 + i) * PP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < NC; ++n) acc[i][n] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vv[NC];
-#pragma unroll
-      for (int n = 0; n < NC; ++n) vv[n] = Vs[j * D + tx + 16 * n];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty * 4 + i) * PP + j];
-#pragma unroll
-        for (int n = 0; n < NC; ++n) acc[i][n] = fmaf(p, vv[n], acc[i][n]);
-      }
-    }
-  }
-
-  float* ob = o + (static_cast<size_t>(b) * Sq) * q_row + h * D;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= Sq) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
-#pragma unroll
-    for (int n = 0; n < NC; ++n) ob[row * q_row + tx + 16 * n] = acc[i][n] / l_safe;
-    if (tx == 0)
-      lse[static_cast<size_t>(bh) * Sq + row] =
-          m[i] == -CUDART_INF_F ? -CUDART_INF_F : m[i] + logf(l_safe);
-  }
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
-           int Sk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<D>;
-  const size_t bytes = Smem<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + kBQ - 1) / kBQ, B * Hq);
-  kern<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, Hq, Hkv,
-      causal, scale);
-  PTT_RETURN_LAUNCH_ERROR();
-}
-
-}  // namespace f32
-
 }  // namespace
 
+// q, o: [B, Sq, Hq, D]; k, v: [B, Sk, Hkv, D]; lse: [B, Hq, Sq] fp32. tma 1
+// (bf16 at head dim 64 or 128, 16-byte-aligned bases) takes the wgmma
+// kernel; tma 0 the edge route (csrc/flash_attention_seg.cu) under the dense
+// descriptor. The wrapper picks the route from shape and alignment.
 extern "C" int ptt_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   void* o, void* lse, int B, int Sq, int Sk,
                                   int Hq, int Hkv, int D, int causal,
-                                  float scale, int dtype, void* stream) {
+                                  float scale, int dtype, int tma, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == PTT_F32 && D == 64)
-    return f32::launch<64>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal, scale, s);
-  if (dtype == PTT_F32 && D == 128)
-    return f32::launch<128>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+  if (!tma)
+    return flash_fwd_edge(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, D, dense_rows(Sq, Sk, causal),
+                          dense_cols(Sk), scale, dtype, s);
   if (dtype == PTT_BF16 && D == 64)
-    return wg::launch<64>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    return wg::launch<64>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, DenseMask{causal}, scale, s);
   if (dtype == PTT_BF16 && D == 128)
-    return wg::launch<128>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, causal, scale, s);
+    return wg::launch<128>(q, k, v, o, l, B, Sq, Sk, Hq, Hkv, DenseMask{causal}, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int flash_fwd_seg_wgmma(const void* q, const void* k, const void* v, void* o, float* lse,
+                        int B, int Sq, int Sk, int Hq, int Hkv, int D, SegMap gq, SegMap gk,
+                        float scale, cudaStream_t stream) {
+  if (B == 0 || Sq == 0) return 0;
+  if (D == 64)
+    return wg::launch<64>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, SegMask{gq, gk}, scale, stream);
+  if (D == 128)
+    return wg::launch<128>(q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, SegMask{gq, gk}, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,16 +25,24 @@
 // owns cache rows r, r+32, ...; the online-softmax max and sum are warp
 // reductions. PV: lane owns one 16-byte column chunk of a row phase, and
 // the row phases are summed with shuffles at the end.
+//
+// Head dims: the kernel is instantiated at a padded head dim D of 64, 128 or
+// 256 (head_dim_bucket, common.cuh) and told the real d, a multiple of 16:
+// only the d / V chunks of a row that exist are loaded, scored, summed and
+// stored, with d as the row length in device memory. At D 256 in fp32 a row
+// is 64 chunks, so a lane owns two chunks of one row phase in PV.
 #include "common.cuh"
 
 namespace {
 
 template <typename KT, int D> struct Geo {
   static constexpr int V = 16 / sizeof(KT);  // elements per 16-byte chunk
-  static constexpr int CH = D / V;           // chunks per row
-  static constexpr int RP = 32 / CH;         // row phases per warp in PV
+  static constexpr int CH = D / V;           // chunks per padded row
+  static constexpr int CL = CH < 32 ? CH : 32;  // chunks one row phase covers
+  static constexpr int LC = CH / CL;         // chunks a lane owns in PV
+  static constexpr int RP = 32 / CL;         // row phases per warp in PV
   static constexpr int KS = D + V;           // padded K row (elements)
-  static_assert(CH >= 1 && CH <= 32 && 32 % CH == 0, "unsupported head_dim");
+  static_assert(CH >= 1 && 32 % CL == 0 && CH % CL == 0, "unsupported head_dim");
 };
 
 template <typename KT, int D>
@@ -51,9 +59,10 @@ __global__ void ragged_paged_attn_kernel(
     const QT* __restrict__ q, const KT* __restrict__ kc,
     const KT* __restrict__ vc, const int* __restrict__ tables,
     const int* __restrict__ rows, const int* __restrict__ valids,
-    QT* __restrict__ out, int Hq, int Hkv, int bs, int width, float scale) {
+    QT* __restrict__ out, int Hq, int Hkv, int d, int bs, int width, float scale) {
   using G = Geo<KT, D>;
-  constexpr int V = G::V, CH = G::CH, RP = G::RP, KS = G::KS;
+  constexpr int V = G::V, CH = G::CH, CL = G::CL, LC = G::LC, RP = G::RP, KS = G::KS;
+  const int chd = d / V;  // the chunks of a row that exist
   extern __shared__ uint4 smem_raw[];
   const int g = blockIdx.x, t = blockIdx.y;
   const int group = Hq / Hkv;
@@ -69,22 +78,24 @@ __global__ void ragged_paged_attn_kernel(
 
   const int valid = valids[t];
   const int row = rows[t];
-  for (int c = lane; c < D; c += 32)
-    qw[c] = to_f<QT>(q[(static_cast<size_t>(t) * Hq + h) * D + c]);
+  for (int c = lane; c < d; c += 32)
+    qw[c] = to_f<QT>(q[(static_cast<size_t>(t) * Hq + h) * d + c]);
 
-  float m = -CUDART_INF_F, l = 0.f, acc[V];
+  float m = -CUDART_INF_F, l = 0.f, acc[LC][V];
 #pragma unroll
-  for (int e = 0; e < V; ++e) acc[e] = 0.f;
+  for (int u = 0; u < LC; ++u)
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[u][e] = 0.f;
 
   int nblk = valid > 0 ? (valid + bs - 1) / bs : 0;
   if (nblk > width) nblk = width;
-  const size_t page_row = static_cast<size_t>(Hkv) * D;  // elements per cache row
+  const size_t page_row = static_cast<size_t>(Hkv) * d;  // elements per cache row
   for (int j = 0; j < nblk; ++j) {
     const size_t base = static_cast<size_t>(tables[static_cast<size_t>(row) * width + j]) * bs;
     __syncthreads();  // the previous page's K/V reads are done (and qw is stored)
-    for (int i = threadIdx.x; i < bs * CH; i += blockDim.x) {
-      const int r = i / CH, ch = i % CH;
-      const size_t src = (base + r) * page_row + static_cast<size_t>(g) * D + ch * V;
+    for (int i = threadIdx.x; i < bs * chd; i += blockDim.x) {
+      const int r = i / chd, ch = i % chd;
+      const size_t src = (base + r) * page_row + static_cast<size_t>(g) * d + ch * V;
       *reinterpret_cast<uint4*>(Ks + r * KS + ch * V) =
           *reinterpret_cast<const uint4*>(kc + src);
       *reinterpret_cast<uint4*>(Vs + r * D + ch * V) =
@@ -97,6 +108,7 @@ __global__ void ragged_paged_attn_kernel(
       float s = 0.f;
 #pragma unroll
       for (int ch = 0; ch < CH; ++ch) {
+        if (ch >= chd) break;
         float kf[V];
         unpack<KT>(*reinterpret_cast<const uint4*>(Ks + r * KS + ch * V), kf);
 #pragma unroll
@@ -122,35 +134,48 @@ __global__ void ragged_paged_attn_kernel(
     __syncwarp();  // pw[] complete before other lanes read it
 
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] *= alpha;
-    const int ch = lane % CH;
-    for (int r = lane / CH; r < bs; r += RP) {
-      float vf[V];
-      unpack<KT>(*reinterpret_cast<const uint4*>(Vs + r * D + ch * V), vf);
+    for (int u = 0; u < LC; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[u][e] *= alpha;
+    for (int r = lane / CL; r < bs; r += RP) {
       const float p = pw[r];
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = fmaf(p, vf[e], acc[e]);
+      for (int u = 0; u < LC; ++u) {
+        const int ch = lane % CL + 32 * u;
+        if (ch >= chd) break;
+        float vf[V];
+        unpack<KT>(*reinterpret_cast<const uint4*>(Vs + r * D + ch * V), vf);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[u][e] = fmaf(p, vf[e], acc[u][e]);
+      }
     }
     __syncwarp();
   }
 
   // lanes holding the same column chunk (different row phases) add up
 #pragma unroll
-  for (int off = CH; off < 32; off <<= 1)
+  for (int off = CL; off < 32; off <<= 1)
 #pragma unroll
-    for (int e = 0; e < V; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
-  if (lane < CH) {
+    for (int u = 0; u < LC; ++u)
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[u][e] += __shfl_xor_sync(0xffffffffu, acc[u][e], off);
+  if (lane < CL) {
     const float l_safe = l == 0.f ? 1.f : l;
-    QT* o = out + (static_cast<size_t>(t) * Hq + h) * D + lane * V;
 #pragma unroll
-    for (int e = 0; e < V; ++e) o[e] = from_f<QT>(acc[e] / l_safe);
+    for (int u = 0; u < LC; ++u) {
+      const int ch = lane + 32 * u;
+      if (ch >= chd) break;
+      QT* o = out + (static_cast<size_t>(t) * Hq + h) * d + ch * V;
+#pragma unroll
+      for (int e = 0; e < V; ++e) o[e] = from_f<QT>(acc[u][e] / l_safe);
+    }
   }
 }
 
 template <typename QT, typename KT, int D>
 int launch(const void* q, const void* kc, const void* vc, const int* tables,
            const int* rows, const int* valids, void* out, int T, int Hq, int Hkv,
-           int bs, int width, float scale, cudaStream_t stream) {
+           int d, int bs, int width, float scale, cudaStream_t stream) {
   const int group = Hq / Hkv;
   const size_t bytes = smem_bytes<KT, D>(bs, group);
   auto kern = ragged_paged_attn_kernel<QT, KT, D>;
@@ -161,7 +186,7 @@ int launch(const void* q, const void* kc, const void* vc, const int* tables,
   kern<<<grid, 32 * group, bytes, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(kc),
       static_cast<const KT*>(vc), tables, rows, valids, static_cast<QT*>(out),
-      Hq, Hkv, bs, width, scale);
+      Hq, Hkv, d, bs, width, scale);
   PTT_RETURN_LAUNCH_ERROR();
 }
 
@@ -169,13 +194,16 @@ template <typename QT, typename KT>
 int dispatch_d(const void* q, const void* kc, const void* vc, const int* tables,
                const int* rows, const int* valids, void* out, int T, int Hq,
                int Hkv, int D, int bs, int width, float scale, cudaStream_t s) {
-  switch (D) {
+  switch (head_dim_bucket(D)) {
     case 64:
       return launch<QT, KT, 64>(q, kc, vc, tables, rows, valids, out, T, Hq, Hkv,
-                                bs, width, scale, s);
+                                D, bs, width, scale, s);
     case 128:
       return launch<QT, KT, 128>(q, kc, vc, tables, rows, valids, out, T, Hq, Hkv,
-                                 bs, width, scale, s);
+                                 D, bs, width, scale, s);
+    case 256:
+      return launch<QT, KT, 256>(q, kc, vc, tables, rows, valids, out, T, Hq, Hkv,
+                                 D, bs, width, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -186,16 +186,17 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     # x, w, y, rows, d, eps, dtype, stream
     lib.ptt_rms_norm_fwd.argtypes = [P, P, P, I, I, F, I, P]
-    # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, causal, scale, dtype, stream
-    lib.ptt_flash_attn_fwd.argtypes = [P] * 5 + [I] * 7 + [F, I, P]
+    # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, causal, scale, dtype, tma,
+    # stream
+    lib.ptt_flash_attn_fwd.argtypes = [P] * 5 + [I] * 7 + [F, I, I, P]
     # q, kc, vc, tables, rows, valids, out, T, Hq, Hkv, D, bs, width,
     # scale, q_dtype, kv_dtype, stream
     lib.ptt_ragged_paged_attn.argtypes = [P] * 7 + [I] * 6 + [F, I, I, P]
     # x, w, dy, dx, dw_part, dw, rows, d, eps, dtype, stream
     lib.ptt_rms_norm_bwd.argtypes = [P] * 6 + [I, I, F, I, P]
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
-    # causal, scale, dtype, stream
-    lib.ptt_flash_attn_bwd.argtypes = [P] * 10 + [I] * 7 + [F, I, P]
+    # causal, scale, dtype, tma, stream
+    lib.ptt_flash_attn_bwd.argtypes = [P] * 10 + [I] * 7 + [F, I, I, P]
     # q, k, v, resid, wn, wo, wg, wu, wd, out, B, S, nh, nkv, D, hidden,
     # ffn, scale, eps, dtype, stream
     lib.ptt_fused_block_fwd.argtypes = [P] * 10 + [I] * 7 + [F, F, I, P]
@@ -215,8 +216,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # bs, width, scale, q_dtype, page_dtype, stream
     lib.ptt_ragged_paged_attn_quant.argtypes = [P] * 9 + [I] * 6 + [F, I, I, P]
     # q, k, v, o, lse, B, Sq, Sk, Hq, Hkv, D, the six seg ints, scale,
-    # dtype, stream
-    lib.ptt_flash_attn_fwd_seg.argtypes = [P] * 5 + [I] * 12 + [F, I, P]
+    # dtype, tma, stream
+    lib.ptt_flash_attn_fwd_seg.argtypes = [P] * 5 + [I] * 12 + [F, I, I, P]
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D, the
     # six seg ints, scale, dtype, tma, stream
     lib.ptt_flash_attn_bwd_seg.argtypes = [P] * 10 + [I] * 12 + [F, I, I, P]
@@ -232,8 +233,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # srcs (host array of w pointers), out, block bytes, w, rank, stream
     lib.ptt_a2a_pull.argtypes = [PP, P, L, I, I, P]
     # peers (host array of w pointers), w, rank, bucket, inv, counts, wg,
-    # wu, wd, act, y, chunks, e_local, c_pad, M, F, dtype, stream
-    lib.ptt_fused_a2a_mlp.argtypes = [PP] + [I] * 3 + [P] * 7 + [I] * 6 + [P]
+    # wu, wd, act, y, chunks, e_local, c_pad, M, F, dtype, tma, stream
+    lib.ptt_fused_a2a_mlp.argtypes = [PP] + [I] * 3 + [P] * 7 + [I] * 7 + [P]
     # src, dst, bytes, chunks, stream
     lib.ptt_kv_pages_copy.argtypes = [P, P, L, I, P]
     for fn in (lib.ptt_rms_norm_fwd, lib.ptt_flash_attn_fwd,

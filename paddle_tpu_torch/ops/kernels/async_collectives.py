@@ -12,7 +12,9 @@ kernels of the TPU package:
   ring-attention KV rotation. Twin: one stacked ``ppermute``.
 * :func:`fused_a2a_expert_mlp` (#17, ``fused_a2a_expert_mlp`` :480): the
   chunked MoE dispatch exchange and the expert SwiGLU MLP in one call
-  (bf16: a gate/up and a down kernel on ``wgmma``; fp32: one kernel).
+  (bf16 where :func:`_fused_tma_ok` holds: a gate/up and a down kernel on
+  ``wgmma``; fp32 and every other bf16 call: one kernel on the CUDA
+  cores).
   Twin: the composed reference of ``moe_a2a.py:267-280`` (the exchange,
   the ``inv`` gather, the grouped-GEMM expert MLP).
 
@@ -95,6 +97,7 @@ class _Ring:
 
     def __init__(self, group, device: torch.device):
         self.group, self.device = group, device
+        self.rank = dist.get_rank(group)      # this process's group rank
         self.cap, self.base, self.slot = 0, None, 0
         self.handles, self.peers = [], {}
 
@@ -163,7 +166,7 @@ class _Ring:
     def addr(self, rank: int, s: int) -> int:
         """Group rank ``rank``'s slot ``s`` in this process's address
         space."""
-        if rank == dist.get_rank(self.group):
+        if rank == self.rank:
             return self.base + s * self.cap
         if rank not in self.peers:
             ptr = ctypes.c_void_p()
@@ -321,9 +324,10 @@ def ring_kv_pull(k: torch.Tensor, v: torch.Tensor,
     protocol. Returns what that hop returned."""
     _launch.check_cuda("ring_kv_rotate", k, v)
     group = dist.group.WORLD if group is None else group
-    me = dist.get_rank(group)
-    src = [s for s, d in perm if d == me]
-    return _hop_pull(k, v, group, src[0], _last_slot(group))
+    s = _last_slot(group)
+    me = _rings[group].rank
+    src = [s_ for s_, d in perm if d == me]
+    return _hop_pull(k, v, group, src[0], s)
 
 
 def _hop_pull(k, v, group, src: int, s: int):
@@ -380,7 +384,7 @@ def fused_a2a_expert_mlp(x_send: torch.Tensor, counts: torch.Tensor,
     CPU tensors take :func:`fused_a2a_expert_mlp_plain`; CUDA tensors stage
     ``x_send`` into the group's slot and call ``ptt_fused_a2a_mlp`` once
     (one count of ``launches_fused``), which reads the peers' slots itself;
-    bf16 needs M and F multiples of 8 (the tensor maps' strides)."""
+    the route is picked before the launch by :func:`_fused_tma_ok`."""
     if x_send.device.type == "cpu":
         return fused_a2a_expert_mlp_plain(x_send, counts, inv, wg, wu, wd,
                                           group=group, chunks=chunks,
@@ -431,15 +435,18 @@ def _fused_args(x_send, counts, inv, wg, wu, wd, group, chunks, bucket,
                     f"inv int32 [{chunks * e_local * c_pad}]")
     _launch.require(c_pad % 64 == 0, f"{what}: c_pad {c_pad} is not a "
                     f"multiple of the kernel's 64-row tile")
-    if x_send.dtype == torch.bfloat16:   # TMA's strides and base addresses
-        _launch.require(m % 8 == 0 and ffn % 8 == 0,
-                        f"{what}: bf16 M {m} and F {ffn} must be multiples "
-                        f"of 8")
-        _launch.require(all(t.data_ptr() % 16 == 0
-                            for t in (x_send, wg, wu, wd)),
-                        f"{what}: bf16 x_send and weights must start at "
-                        f"16-byte aligned addresses")
     return dev, group, world
+
+
+def _fused_tma_ok(m: int, ffn: int, *tensors: torch.Tensor) -> bool:
+    """Whether a bf16 #17 call of width ``m`` and ffn ``ffn`` over
+    ``tensors`` (x_send and the three weights) takes the ``wgmma`` kernels:
+    TMA's row strides need M and F multiples of 8 and its bases (and the
+    16-byte row gathers) 16-byte alignment; the peers' slots are aligned by
+    construction. Otherwise the call takes the CUDA-core kernel, which
+    rounds where the ``wgmma`` route rounds."""
+    return (m % 8 == 0 and ffn % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _fused_pull(x_send, counts, inv, wg, wu, wd, group, chunks, bucket,
@@ -459,12 +466,14 @@ def _fused_pull(x_send, counts, inv, wg, wu, wd, group, chunks, bucket,
         ring = _rings[group]
         peers = [x_send.data_ptr() if j == me else ring.addr(j, s)
                  for j in range(world)]
+    tma = x_send.dtype == torch.bfloat16 and _fused_tma_ok(
+        m, ffn, x_send, wg, wu, wd)
     _launch.launch("ptt_fused_a2a_mlp", _pointers(peers), world, me, bucket,
                    inv.data_ptr(), counts.data_ptr(), wg.data_ptr(),
                    wu.data_ptr(), wd.data_ptr(), act.data_ptr(),
                    y.data_ptr(), chunks, e_local, c_pad, m, ffn,
                    _launch.dtype_code(x_send, "fused_a2a_expert_mlp"),
-                   _launch.stream_of(dev))
+                   int(tma), _launch.stream_of(dev))
     launches_fused += 1
     return y
 

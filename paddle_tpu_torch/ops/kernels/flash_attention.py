@@ -13,6 +13,16 @@ Paddle's flash layout ``[batch, seq, heads, head_dim]``; GQA when
 ``heads(q)`` is a multiple of ``heads(k)``. The kernel reads that layout in
 place, so the TPU wrapper's transposes and block padding have no
 counterpart here: the kernel masks with the true lengths itself.
+
+Routes on CUDA, picked here from shape and alignment before the launch and
+passed to the C entries as their ``tma`` flag (no route is a fallback on a
+failed launch, which raises): bf16 at head dim 64 or 128 with
+16-byte-aligned bases and grids within 65535 (:func:`_seg_fwd_tma_ok`,
+:func:`_seg_bwd_tma_ok`) takes the ``wgmma`` kernels; every other call,
+fp32, any other multiple of 16 up to 256 as head dim, or a misaligned bf16
+base, takes the edge route, the CUDA-core kernels of
+``csrc/flash_attention_seg.cu`` (dense attention as a segment descriptor),
+which pad the head dim to 64, 128 or 256 and mask the columns past it.
 """
 
 from __future__ import annotations
@@ -41,7 +51,36 @@ launches_seg = 0
 #: segment-causal backward launches (:func:`flash_attention_seg_bwd`)
 launches_seg_bwd = 0
 
-_HEAD_DIMS = (64, 128)
+#: head dims the kernels take: every multiple of 16 up to 256
+_HEAD_DIMS = tuple(range(16, 257, 16))
+#: head dims of the ``wgmma`` kernels (bf16); the rest take the edge route
+_WGMMA_HEAD_DIMS = (64, 128)
+_GRID_LIMIT = 65535      # a CUDA grid's y axis
+_BM = 128                # query rows of a ``wgmma`` forward block
+
+
+def _check_head_dim(what: str, d: int) -> None:
+    _launch.require(d in _HEAD_DIMS,
+                    f"{what}: head_dim {d} is not a multiple of 16 in "
+                    f"16..256")
+
+
+def _wgmma_dims(query: torch.Tensor) -> bool:
+    """bf16 at a head dim the ``wgmma`` kernels are instantiated at."""
+    return (query.dtype == torch.bfloat16
+            and query.shape[-1] in _WGMMA_HEAD_DIMS)
+
+
+def _seg_fwd_tma_ok(b: int, hq: int, *tensors: torch.Tensor) -> bool:
+    """Whether a forward (#1, or #3 under its descriptor) of batch ``b``
+    and ``hq`` query heads over ``tensors`` (q, k and v; q first) takes the
+    ``wgmma`` kernel: bf16 at head dim 64 or 128, 16-byte-aligned bases
+    for TMA, and the grid's batch x heads and 128-row query tiles within
+    65535. Otherwise the call takes the edge route."""
+    q_tiles = -(-tensors[0].shape[1] // _BM)
+    return (_wgmma_dims(tensors[0]) and b * hq <= _GRID_LIMIT
+            and q_tiles <= _GRID_LIMIT
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _causal_keep(sq: int, sk: int, device) -> torch.Tensor:
@@ -106,23 +145,14 @@ def flash_attention_with_lse(query: torch.Tensor, key: torch.Tensor,
     code = _launch.dtype_code(query, "flash_attention")
     _launch.require(key.dtype == query.dtype and value.dtype == query.dtype,
                     "flash_attention: q, k and v must share a dtype")
-    _launch.require(d in _HEAD_DIMS,
-                    f"flash_attention: head_dim {d} not in {_HEAD_DIMS}")
-    if query.dtype == torch.bfloat16:   # the tensor maps' base addresses
-        _launch.require(all(t.data_ptr() % 16 == 0
-                            for t in (query, key, value)),
-                        "flash_attention: bf16 q, k and v must start at "
-                        "16-byte aligned addresses (TMA)")
-        _launch.require(b * hq <= 65535 and -(-sq // 128) <= 65535,
-                        f"flash_attention: bf16 batch x heads {b * hq} or "
-                        f"query tiles {-(-sq // 128)} exceed the grid's "
-                        f"65535")
+    _check_head_dim("flash_attention", d)
+    tma = _seg_fwd_tma_ok(b, hq, query, key, value)
     o = torch.empty_like(query)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     _launch.launch("ptt_flash_attn_fwd", query.data_ptr(), key.data_ptr(),
                    value.data_ptr(), o.data_ptr(), lse.data_ptr(), b, sq, sk,
                    hq, hkv, d, int(bool(is_causal)), 1.0 / math.sqrt(d),
-                   code, _launch.stream_of(dev))
+                   code, int(tma), _launch.stream_of(dev))
     launches += 1
     return o, lse
 
@@ -182,9 +212,10 @@ def flash_attention_bwd(query, key, value, out, lse, d_out,
     """``(dq, dk, dv)`` of :func:`flash_attention_with_lse` for the
     cotangent ``d_out`` of ``out``, given the forward's ``out`` and
     ``lse``. CPU tensors take the plain twin; CUDA tensors launch the
-    kernel (bf16: dq with delta, then dk/dv, on the tensor cores; fp32:
-    delta, dq and dk/dv on the CUDA cores; one call); no atomics, so the
-    gradients are the same bits on every run."""
+    kernel (bf16 where :func:`_seg_bwd_tma_ok` holds: dq with delta, then
+    dk/dv, on the tensor cores; every other call: delta, dq and dk/dv on
+    the CUDA cores; one call); no atomics, so the gradients are the same
+    bits on every run."""
     global launches_bwd
     d_out = d_out.to(out.dtype)
     if query.device.type == "cpu":
@@ -205,16 +236,8 @@ def flash_attention_bwd(query, key, value, out, lse, d_out,
     _launch.require(out.shape == query.shape and d_out.shape == query.shape
                     and value.shape == key.shape and hq % hkv == 0,
                     "flash_attention_bwd: shapes do not match the forward")
-    _launch.require(d in _HEAD_DIMS,
-                    f"flash_attention_bwd: head_dim {d} not in {_HEAD_DIMS}")
-    if query.dtype == torch.bfloat16:   # the tensor maps and O's 16-byte loads
-        _launch.require(all(t.data_ptr() % 16 == 0
-                            for t in (query, key, value, out, d_out)),
-                        "flash_attention_bwd: bf16 q, k, v, o and dO must "
-                        "start at 16-byte aligned addresses (TMA)")
-        _launch.require(b * hq <= 65535 and b * hkv <= 65535,
-                        f"flash_attention_bwd: bf16 batch x heads {b * hq} "
-                        f"exceeds the grid's 65535")
+    _check_head_dim("flash_attention_bwd", d)
+    tma = _seg_bwd_tma_ok(b, hq, hkv, query, key, value, out, d_out)
     dq = torch.empty_like(query)
     dk = torch.empty_like(key)
     dv = torch.empty_like(value)
@@ -223,7 +246,7 @@ def flash_attention_bwd(query, key, value, out, lse, d_out,
                    value.data_ptr(), out.data_ptr(), d_out.data_ptr(),
                    lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), b, sq, sk, hq, hkv, d,
-                   int(bool(is_causal)), 1.0 / math.sqrt(d), code,
+                   int(bool(is_causal)), 1.0 / math.sqrt(d), code, int(tma),
                    _launch.stream_of(dev))
     launches_bwd += 1
     return dq, dk, dv
@@ -326,8 +349,10 @@ def flash_attention_seg_with_lse(query: torch.Tensor, key: torch.Tensor,
     """Segment-causal attention (#3): the output in ``query``'s layout and
     dtype and the fp32 log-sum-exp ``[b, hq, sq]``, under the mask of the
     six-int descriptor ``seg``. CPU tensors take the plain twin; CUDA
-    tensors launch ``ptt_flash_attn_fwd_seg``. The zig-zag ring owns the
-    backward (:func:`flash_attention_seg_bwd` with the merged lse)."""
+    tensors launch ``ptt_flash_attn_fwd_seg``: bf16 on #1's ``wgmma``
+    kernel under the segment mask where :func:`_seg_fwd_tma_ok` holds, else
+    on the CUDA cores. The zig-zag ring owns the backward
+    (:func:`flash_attention_seg_bwd` with the merged lse)."""
     global launches_seg
     _check_shapes("flash_attention_seg", query, key, value)
     if query.device.type == "cpu":
@@ -339,26 +364,28 @@ def flash_attention_seg_with_lse(query: torch.Tensor, key: torch.Tensor,
     code = _launch.dtype_code(query, "flash_attention_seg")
     _launch.require(key.dtype == query.dtype and value.dtype == query.dtype,
                     "flash_attention_seg: q, k and v must share a dtype")
-    _launch.require(d in _HEAD_DIMS,
-                    f"flash_attention_seg: head_dim {d} not in {_HEAD_DIMS}")
+    _check_head_dim("flash_attention_seg", d)
+    tma = _seg_fwd_tma_ok(b, hq, query, key, value)
     o = torch.empty_like(query)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
     _launch.launch("ptt_flash_attn_fwd_seg", query.data_ptr(),
                    key.data_ptr(), value.data_ptr(), o.data_ptr(),
                    lse.data_ptr(), b, sq, sk, hq, hkv, d, *seg,
-                   1.0 / math.sqrt(d), code, _launch.stream_of(dev))
+                   1.0 / math.sqrt(d), code, int(tma), _launch.stream_of(dev))
     launches_seg += 1
     return o, lse
 
 
 def _seg_bwd_tma_ok(b: int, hq: int, hkv: int, *tensors: torch.Tensor
                     ) -> bool:
-    """Whether a bf16 segment-causal backward of batch ``b`` and ``hq:hkv``
-    heads over ``tensors`` (q, k, v, o and dO) takes the ``wgmma`` route,
-    #2's kernels under the segment mask: TMA and O's 16-byte loads need
-    16-byte-aligned bases, and the grids' batch x heads axis must fit
-    65535. Otherwise the call takes the CUDA-core kernels."""
-    return (b * hq <= 65535 and b * hkv <= 65535
+    """Whether a backward (#2, or #4 under its descriptor) of batch ``b``
+    and ``hq:hkv`` heads over ``tensors`` (q, k, v, o and dO; q first)
+    takes the ``wgmma`` route, #2's kernels under the dense or segment
+    mask: bf16 at head dim 64 or 128, 16-byte-aligned bases for TMA and
+    O's 16-byte loads, and the grids' batch x heads axis within 65535.
+    Otherwise the call takes the CUDA-core kernels of the edge route."""
+    return (_wgmma_dims(tensors[0]) and b * hq <= _GRID_LIMIT
+            and b * hkv <= _GRID_LIMIT
             and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
@@ -367,9 +394,10 @@ def flash_attention_seg_bwd(query, key, value, out, lse, d_out, seg):
     cotangent ``d_out``, given ``out`` and ``lse`` (the ring passes the
     MERGED ones of its rows). dq in Q's dtype; dk and dv summed over the
     GQA group in fp32 and returned in K's dtype. CPU tensors take the
-    plain twin; CUDA tensors launch ``ptt_flash_attn_bwd_seg``: bf16 on
-    #2's ``wgmma`` kernels where :func:`_seg_bwd_tma_ok` holds, else (and
-    fp32) on the CUDA cores; no atomics, so the same bits on every run."""
+    plain twin; CUDA tensors launch ``ptt_flash_attn_bwd_seg``: bf16 at
+    head dim 64 or 128 on #2's ``wgmma`` kernels where
+    :func:`_seg_bwd_tma_ok` holds, else on the CUDA cores; no atomics, so
+    the same bits on every run."""
     global launches_seg_bwd
     d_out = d_out.to(out.dtype)
     if query.device.type == "cpu":
@@ -391,15 +419,12 @@ def flash_attention_seg_bwd(query, key, value, out, lse, d_out, seg):
                     f"{sq}], got {lse.dtype} {tuple(lse.shape)}")
     _launch.require(out.shape == query.shape and d_out.shape == query.shape,
                     "flash_attention_seg_bwd: o and dO must have q's shape")
-    _launch.require(d in _HEAD_DIMS,
-                    f"flash_attention_seg_bwd: head_dim {d} not in "
-                    f"{_HEAD_DIMS}")
+    _check_head_dim("flash_attention_seg_bwd", d)
     dq = torch.empty_like(query)
     dk = torch.empty_like(key)
     dv = torch.empty_like(value)
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=dev)
-    tma = query.dtype == torch.bfloat16 and _seg_bwd_tma_ok(
-        b, hq, hkv, query, key, value, out, d_out)
+    tma = _seg_bwd_tma_ok(b, hq, hkv, query, key, value, out, d_out)
     _launch.launch("ptt_flash_attn_bwd_seg", query.data_ptr(),
                    key.data_ptr(), value.data_ptr(), out.data_ptr(),
                    d_out.data_ptr(), lse.data_ptr(), delta.data_ptr(),

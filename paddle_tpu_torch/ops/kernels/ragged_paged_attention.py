@@ -6,6 +6,9 @@ packed token-major, ``q[t]`` one token of some sequence; ``rows[t]`` names
 its block-table row and ``valids[t]`` how many cached positions it sees
 (its position + 1, so a prompt chunk is causal within itself once its K/V
 are in the cache). Pad tokens have ``valids = 0`` and come out exactly 0.
+The kernel takes every head dim that is a multiple of 16 up to 256: it is
+built at a padded head dim of 64, 128 or 256 and masks the columns past
+the real one.
 """
 
 from __future__ import annotations
@@ -23,10 +26,20 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
 #: kernel launches made by :func:`ragged_paged_attention` (never by the twin)
 launches = 0
 
-_HEAD_DIMS = (64, 128)
+#: head dims the kernel takes: every multiple of 16 up to 256
+_HEAD_DIMS = tuple(range(16, 257, 16))
 _SMEM_LIMIT = 232448      # dynamic shared memory one block may use on H100
 _PAIRS = {(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
+
+
+def _smem_bytes(d: int, esz: int, group: int, block_size: int) -> int:
+    """Shared memory of one block of the kernel: a K page of padded rows
+    (16 bytes past the row), a V page, the group's q rows and scores, all
+    at the padded head dim of ``d``."""
+    dp = _launch.head_dim_bucket(d)
+    return (block_size * (dp * esz + 16) + block_size * dp * esz
+            + group * dp * 4 + group * block_size * 4)
 
 
 def gather_paged_kv(cache: torch.Tensor, block_tables: torch.Tensor,
@@ -97,8 +110,8 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows, valids,
                     f"ragged_paged_attention: q {q.dtype} over pages "
                     f"{k_cache.dtype} is not supported")
     _launch.require(d in _HEAD_DIMS,
-                    f"ragged_paged_attention: head_dim {d} not in "
-                    f"{_HEAD_DIMS}")
+                    f"ragged_paged_attention: head_dim {d} is not a multiple "
+                    f"of 16 in 16..256")
     for name, ix in (("block_tables", block_tables), ("rows", rows),
                      ("valids", valids)):
         _launch.require(ix.dtype == torch.int32,
@@ -109,10 +122,7 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows, valids,
     _launch.require(k_cache.data_ptr() % 16 == 0
                     and v_cache.data_ptr() % 16 == 0,
                     "ragged_paged_attention: pages must be 16-byte aligned")
-    esz = k_cache.element_size()
-    group = hq // hkv
-    smem = (block_size * (d * esz + 16) + block_size * d * esz
-            + group * d * 4 + group * block_size * 4)
+    smem = _smem_bytes(d, k_cache.element_size(), hq // hkv, block_size)
     _launch.require(smem <= _SMEM_LIMIT,
                     f"ragged_paged_attention: block_size {block_size} needs "
                     f"{smem} bytes of shared memory")

@@ -627,7 +627,7 @@ def test_quantized_engine_on_the_card(cuda_device, kv_quant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128, 256])
 @pytest.mark.parametrize("sq,sk,seg", [
     (200, 200, [0, 300, 100, 0, 300, 100]),     # a ring's t=0 step
     (200, 200, [100, 200, 100, 0, 300, 100]),   # KV from an earlier rank
@@ -640,8 +640,10 @@ def test_segment_causal_kernels_match_twins(cuda_device, dtype, d, sq, sk,
     query tile that straddles its split, rows that see no column (o = 0,
     lse = -inf), whole query and key tiles with nothing visible (a t > 0
     ring step); the backward twice, bitwise, with exact zeros in the rows
-    of dq and of dk/dv that see nothing. lse at atol 1e-5, the gradients
-    with atol scaled by each tensor's largest magnitude."""
+    of dq and of dk/dv that see nothing. bf16 at head dims 64 and 128 runs
+    the wgmma kernels, every other case the edge route (head dims 96 and
+    256 padded to 128 and 256). lse at atol 1e-5, the gradients with atol
+    scaled by each tensor's largest magnitude."""
     q = _rand(cuda_device, dtype, 2, sq, 4, d, seed=21)
     k = _rand(cuda_device, dtype, 2, sk, 2, d, seed=22)
     v = _rand(cuda_device, dtype, 2, sk, 2, d, seed=23)
@@ -719,6 +721,284 @@ def test_segment_causal_backward_routes_by_alignment(cuda_device, d):
                                    atol=BF16["atol"] * np.abs(ref).max())
 
 
+def _check_fwd(o, lse, ro, rlse, tol):
+    np.testing.assert_allclose(_np(o), _np(ro), **tol)
+    np.testing.assert_array_equal(torch.isneginf(lse).cpu().numpy(),
+                                  torch.isneginf(rlse).cpu().numpy())
+    fin = ~torch.isneginf(rlse)
+    np.testing.assert_allclose(_np(lse[fin]), _np(rlse[fin]), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _check_grads(got, again, want, tol):
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, b) and a.dtype == c.dtype
+        ref = _np(c)
+        np.testing.assert_allclose(_np(a), ref, rtol=tol["rtol"],
+                                   atol=tol["atol"] * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 80, 96, 256])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 130, 130), (False, 100, 130)])
+def test_flash_edge_head_dims_match_twins(cuda_device, dtype, d, causal, sq,
+                                          sk):
+    """#1 and #2 at head dims other than 64 and 128 take the edge route
+    (the CUDA-core kernels at a padded head dim, columns past d masked):
+    GQA 4:2, ragged lengths, against the twins; the backward twice,
+    bitwise. Gradients with atol scaled by each tensor's largest
+    magnitude."""
+    q, do = (_rand(cuda_device, dtype, 2, sq, 4, d, seed=s) for s in (51, 54))
+    k, v = (_rand(cuda_device, dtype, 2, sk, 2, d, seed=s) for s in (52, 53))
+    assert not pt_flash._seg_fwd_tma_ok(2, 4, q, k, v)
+    assert not pt_flash._seg_bwd_tma_ok(2, 4, 2, q, k, v, q, do)
+    o, lse = pt_flash.flash_attention_with_lse(q, k, v, causal)
+    ro, rlse = pt_flash.flash_attention_plain(q, k, v, causal)
+    ro = ro.contiguous()
+    got = pt_flash.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+    again = pt_flash.flash_attention_bwd(q, k, v, ro, rlse, do, causal)
+    want = pt_flash.flash_attention_bwd_plain(q, k, v, ro, rlse, do, causal)
+    torch.cuda.synchronize()
+    tol = FP32 if dtype == "float32" else BF16
+    _check_fwd(o, lse, ro, rlse, tol)
+    _check_grads(got, again, want, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_misaligned_bf16_takes_the_edge_route(cuda_device, d, causal):
+    """#1 and #2 in bf16 with q, k, v, o and dO 2 bytes off alignment
+    (TMA cannot map them) take the edge route instead of raising: each
+    against the twin, the backward bitwise on repeat, and the two routes
+    at the bf16 tier of each other."""
+    sq, sk = 200, 200 if causal else 130
+    q, do = (_rand(cuda_device, "bfloat16", 1, sq, 4, d, seed=s)
+             for s in (61, 64))
+    k, v = (_rand(cuda_device, "bfloat16", 1, sk, 2, d, seed=s)
+            for s in (62, 63))
+    ro, rlse = pt_flash.flash_attention_plain(q, k, v, causal)
+    ro = ro.contiguous()
+    aligned = (q, k, v, ro, do)
+    shifted = tuple(_shifted(t) for t in aligned)
+    assert pt_flash._seg_fwd_tma_ok(1, 4, *aligned[:3])
+    assert not pt_flash._seg_fwd_tma_ok(1, 4, *shifted[:3])
+    assert not pt_flash._seg_bwd_tma_ok(1, 4, 2, *shifted)
+    want = pt_flash.flash_attention_bwd_plain(q, k, v, ro, rlse, do, causal)
+    outs = []
+    for q_, k_, v_, o_, do_ in (aligned, shifted):
+        o, lse = pt_flash.flash_attention_with_lse(q_, k_, v_, causal)
+        got = pt_flash.flash_attention_bwd(q_, k_, v_, o_, rlse, do_, causal)
+        again = pt_flash.flash_attention_bwd(q_, k_, v_, o_, rlse, do_,
+                                             causal)
+        torch.cuda.synchronize()
+        _check_fwd(o, lse, ro, rlse, BF16)
+        _check_grads(got, again, want, BF16)
+        outs.append((o, *got))
+    for a, b in zip(*outs):
+        ref = _np(b)
+        np.testing.assert_allclose(_np(a), ref, rtol=2e-2,
+                                   atol=2e-2 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_segment_causal_forward_routes_by_alignment(cuda_device, d):
+    """#3 in bf16 on #1's wgmma kernel under the segment mask where TMA
+    maps q, k and v, on the edge route with the bases 2 bytes off: each
+    against the twin at every descriptor the zig-zag ring issues at sp 2
+    and 4 over a global 1000 (chunks no tile divides) and at every other
+    kind (a query window straddling its split, rows and whole tiles with
+    nothing visible), and the two routes at the bf16 tier of each other."""
+    from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
+    cases = [(2 * (1000 // (2 * sp)),) * 2
+             + (_zigzag_seg(idx, src, 1000 // (2 * sp), sp),)
+             for sp in (2, 4) for idx in range(sp) for src in range(sp)]
+    for sq, sk, seg in cases + [(150, 130, [5, 190, 77, 0, 140, 61]),
+                                (96, 96, [0, 48, 48, 20, 500, 96]),
+                                (256, 256, [0, 384, 128, 128, 256, 128])]:
+        q = _rand(cuda_device, "bfloat16", 2, sq, 4, d, seed=sq + 71)
+        k, v = (_rand(cuda_device, "bfloat16", 2, sk, 2, d, seed=sk + s)
+                for s in (72, 73))
+        ro, rlse = pt_flash.flash_attention_seg_plain(q, k, v, seg)
+        shifted = tuple(_shifted(t) for t in (q, k, v))
+        assert pt_flash._seg_fwd_tma_ok(2, 4, q, k, v)
+        assert not pt_flash._seg_fwd_tma_ok(2, 4, *shifted)
+        outs = [pt_flash.flash_attention_seg_with_lse(*ts, seg)
+                for ts in ((q, k, v), shifted)]
+        again = pt_flash.flash_attention_seg_with_lse(q, k, v, seg)
+        torch.cuda.synchronize()
+        for o, lse in outs:
+            _check_fwd(o, lse, ro, rlse, BF16)
+        assert torch.equal(outs[0][0], again[0])
+        np.testing.assert_allclose(_np(outs[0][0]), _np(outs[1][0]), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("d", [16, 96, 256])
+def test_ragged_kernel_head_dims_match_twin(cuda_device, q_dtype, kv_dtype,
+                                            d):
+    """#8 at head dims other than 64 and 128 (padded to 64, 128 and 256;
+    at 256 in fp32 a lane owns two 16-byte chunks of a row): against the
+    twin, the pad row exactly 0."""
+    args = _ragged_inputs(cuda_device, q_dtype, kv_dtype, d=d)
+    out = pt_ragged.ragged_paged_attention(*args)
+    ref = pt_ragged.ragged_paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    tol = FP32 if q_dtype == "float32" else BF16
+    np.testing.assert_allclose(_np(out), _np(ref), **tol)
+    assert float(out[-1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_head_dims_outside_the_kernels_raise_on_the_card(cuda_device):
+    """A head dim that is no multiple of 16, or above 256, raises on CUDA
+    tensors naming the accepted set, before any launch."""
+    from paddle_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    for d in (8, 72, 272):
+        q = torch.zeros(1, 8, 2, d, device=cuda_device)
+        with pytest.raises(ValueError, match="multiple of 16 in 16..256"):
+            pt_flash.flash_attention_with_lse(q, q, q, True)
+        with pytest.raises(ValueError, match="multiple of 16 in 16..256"):
+            pt_flash.flash_attention_seg_with_lse(q, q, q,
+                                                  [0, 8, 8, 0, 8, 8])
+        args = _ragged_inputs(cuda_device, "float32", "float32", d=d)
+        with pytest.raises(ValueError, match="multiple of 16 in 16..256"):
+            pt_ragged.ragged_paged_attention(*args)
+    assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}
+
+
+@pytest.mark.cuda
+def test_llama_at_head_dim_96_on_the_card(cuda_device):
+    """A tiny fp32 Llama with 4:2 heads of 96 (hidden 384, 2 layers) on
+    the card against its own copy on the CPU twins: the forward's logits,
+    one training step's loss and every parameter's gradient (rel L2
+    within 1e-4: fp32 sums in another order), and the compiled engine's
+    greedy streams (>= 90% of tokens equal: random weights sit near ties),
+    with flash forward and backward launches = layers a pass and ragged
+    launches = steps x layers."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops import kernels
+    cfg = llama_tiny_config(hidden_size=384, num_attention_heads=4,
+                            num_key_value_heads=2, num_hidden_layers=2,
+                            intermediate_size=512, vocab_size=512,
+                            max_position_embeddings=256)
+    cpu = LlamaForCausalLM(cfg, seed=9, device="cpu")
+    gpu = LlamaForCausalLM(cfg, seed=9)
+    gpu.load_state_dict({k: v.to(cuda_device)
+                         for k, v in cpu.state_dict().items()})
+    ids = np.random.RandomState(3).randint(0, 512, size=(2, 70))
+    res = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        dev = model.device
+        kernels.reset_launch_counts()
+        x = torch.from_numpy(ids).to(dev)
+        logits = model(x)
+        loss, _ = model(x, labels=x)
+        loss.backward()
+        res[name] = (logits.detach().cpu(), float(loss.detach()),
+                     [p.grad.cpu() for p in model.parameters()])
+        counts = kernels.launch_counts()
+        want = 2 * 2 if name == "cuda" else 0     # two passes x 2 layers
+        assert counts["flash_attention_fwd"] == want, counts
+        assert counts["flash_attention_bwd"] == want // 2, counts
+        model.zero_grad(set_to_none=True)
+    (lc, lossc, gc), (lg, lossg, gg_) = res["cpu"], res["cuda"]
+    assert float((lg - lc).norm() / lc.norm()) <= 1e-4
+    assert abs(lossg - lossc) <= 1e-4 * abs(lossc)
+    for a, b in zip(gg_, gc):
+        assert float((a - b).norm() / b.norm().clamp_min(1e-30)) <= 1e-4
+    prompts = [[3, 1, 4, 1, 5, 9, 2, 6] * 5, [2, 7, 1, 8], list(range(70))]
+    outs = {}
+    for name, model in (("cpu", cpu), ("cuda", gpu)):
+        kernels.reset_launch_counts()
+        eng = GenerationEngine(model, max_seqs=4, max_seq_len=128,
+                               block_size=16)
+        with torch.no_grad():
+            outs[name] = eng.generate([GenerationRequest(i, p,
+                                                         max_new_tokens=9)
+                                       for i, p in enumerate(prompts)])
+        counts = kernels.launch_counts()
+        want = eng.stats["steps"] * 2 if name == "cuda" else 0
+        assert counts["ragged_paged_attention"] == want, counts
+        assert eng.cache.free_blocks == eng.cache.num_blocks
+    same = sum(a == b for i in outs["cuda"] for a, b in
+               zip(outs["cuda"][i], outs["cpu"][i]))
+    assert same >= 0.9 * 27, outs
+
+
+@pytest.mark.cuda
+def test_fused_a2a_expert_mlp_odd_widths_on_one_rank(cuda_device):
+    """#17 in bf16 at M and F that are no multiples of 8, and at aligned
+    widths with x_send 2 bytes off alignment, on a world of one (no
+    process group: x_send is its own slot): the CUDA-core kernel against
+    the twin at the bf16 tier scaled by the twin's largest magnitude, a
+    second launch bitwise, sentinel rows and rows past each count zero;
+    the aligned call takes the wgmma route."""
+    from paddle_tpu_torch.ops.kernels import async_collectives as pt_ac
+    g = torch.Generator().manual_seed(81)
+    bucket, e_local, c_pad = 96, 2, 64
+    for m, ffn, shift in ((68, 100, False), (64, 37, False),
+                          (64, 96, True), (64, 96, False)):
+        x = (torch.randn(bucket, m, generator=g)).to(cuda_device,
+                                                     torch.bfloat16)
+        x = _shifted(x) if shift else x
+        wg, wu = ((torch.randn(e_local, m, ffn, generator=g) * 0.1)
+                  .to(cuda_device, torch.bfloat16) for _ in range(2))
+        wd = (torch.randn(e_local, ffn, m, generator=g) * 0.1).to(
+            cuda_device, torch.bfloat16)
+        counts = torch.tensor([50, 0], dtype=torch.int32, device=cuda_device)
+        inv = torch.full((e_local * c_pad,), bucket, dtype=torch.int32)
+        inv[:50] = torch.randperm(bucket, generator=g)[:50].int()
+        inv[10] = bucket                     # a sentinel inside the count
+        inv = inv.to(cuda_device)
+        kw = dict(group=None, chunks=1, bucket=bucket, c_pad=c_pad)
+        assert pt_ac._fused_tma_ok(m, ffn, x, wg, wu, wd) == (
+            m % 8 == 0 and ffn % 8 == 0 and not shift)
+        y = pt_ac.fused_a2a_expert_mlp(x, counts, inv, wg, wu, wd, **kw)
+        again = pt_ac.fused_a2a_expert_mlp(x, counts, inv, wg, wu, wd, **kw)
+        want = pt_ac.fused_a2a_expert_mlp_plain(x, counts, inv, wg, wu, wd,
+                                                **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(y, again)
+        ref = _np(want)
+        np.testing.assert_allclose(_np(y), ref, rtol=2e-2,
+                                   atol=2e-2 * np.abs(ref).max())
+        assert not y[10].any() and not y[50:].any()
+
+
+@pytest.mark.cuda
+def test_ring_copy_kernel_is_bit_equal_to_copy(cuda_device):
+    """#16's copy kernel (``ptt_ring_copy``, the hop's stage and pull) on
+    two segments at once: 16-byte vectors with a tail the unrolled loop
+    does not divide, and bytes where a base is off alignment; each
+    destination bit for bit ``Tensor.copy_``'s."""
+    from paddle_tpu_torch.ops.kernels import _launch
+    stream = _launch.stream_of(cuda_device)
+    g = torch.Generator().manual_seed(91)
+    for n0, n1, off in ((16 << 20, (16 << 20) + 48, 0), (1000003, 4096, 1),
+                        (16, 0, 0)):
+        src = [torch.randint(0, 256, (n + 1,), generator=g,
+                             dtype=torch.uint8).to(cuda_device)[off:off + n]
+               for n in (n0, n1)]
+        dst = [torch.empty(n + 1, dtype=torch.uint8,
+                           device=cuda_device)[off:off + n]
+               for n in (n0, n1)]
+        segs = 2 if n1 else 1
+        _launch.launch("ptt_ring_copy", src[0].data_ptr(), dst[0].data_ptr(),
+                       n0, src[1].data_ptr(), dst[1].data_ptr(), n1, segs,
+                       stream)
+        torch.cuda.synchronize()
+        for s_, d_ in zip(src[:segs], dst[:segs]):
+            assert torch.equal(s_, d_)
+
+
 @pytest.mark.cuda
 def test_ring_kv_rotate_matches_twin_between_ranks_on_one_card(cuda_device,
                                                                 tmp_path):
@@ -773,8 +1053,8 @@ def test_fused_a2a_expert_mlp_matches_twin_between_ranks_on_one_card(
     ragged K/N edges, a capacity that drops (cf 1.0) and an expert no
     token routes to; against the TPU kernel's arithmetic (gate and up in
     fp32) within the same tiers; a second launch bitwise, one launch a
-    call; and in bf16 at the path's widths with c_pad an odd multiple of
-    64."""
+    call; in bf16 at the path's widths with c_pad an odd multiple of 64;
+    and in bf16 at M 68 and F 100, which take the CUDA-core kernel."""
     import _torch_ep_ranks
     from paddle_tpu_torch import distributed as pt_dist
     cases = [dict(tokens=256, experts=8, hidden=64, ffn=96, cf=2.0,
@@ -786,7 +1066,10 @@ def test_fused_a2a_expert_mlp_matches_twin_between_ranks_on_one_card(
              # the path's widths (M 1024, F 704) at c_pad 192, an odd
              # multiple of 64: the last 128-row tile runs past each expert
              dict(tokens=256, experts=8, hidden=1024, ffn=704, cf=3.0,
-                  chunks=1, dtype=torch.bfloat16)]
+                  chunks=1, dtype=torch.bfloat16),
+             # M and F no multiples of 8: the CUDA-core kernel in bf16
+             dict(tokens=256, experts=8, hidden=68, ffn=100, cf=2.0,
+                  chunks=2, dtype=torch.bfloat16)]
     torch.save(cases, tmp_path / "fused.pt")
     pt_dist.spawn(_torch_ep_ranks.fused_cuda_run, (str(tmp_path),),
                   nprocs=world, timeout=300)

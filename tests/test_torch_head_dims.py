@@ -1,0 +1,310 @@
+"""Head dims other than 64 and 128, and the routes the CUDA wrappers pick.
+
+The kernels of #1-#4 and #8 take every head dim that is a multiple of 16
+up to 256 on the card (an edge route instantiated at a padded head dim);
+their plain twins are what the CPU runs. Here the twins at head dim 96 are
+held against the JAX package's own functions on the CPU (Pallas interpret
+mode), on the same numpy inputs, and a tiny head-dim-96 Llama carried over
+by ``weights.load_jax_state`` is held against the JAX model. The route
+predicates are pure functions of shape and alignment, tested as such; the
+CUDA kernels behind them are held against these twins on a card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``. Tolerances follow
+``tests/op_harness.py``: fp32 rtol 1e-5 / atol 1e-6, bf16 2e-2.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu import flags as jax_flags
+from paddle_tpu.models import llama as jax_llama
+from paddle_tpu.ops.pallas import flash_attention as jax_flash
+from paddle_tpu.ops.pallas import ragged_paged_attention as jax_ragged
+from paddle_tpu_torch import flags as pt_flags
+from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.ops import kernels
+from paddle_tpu_torch.ops.kernels import _launch
+from paddle_tpu_torch.ops.kernels import async_collectives as pt_ac
+from paddle_tpu_torch.ops.kernels import flash_attention as pt_flash
+from paddle_tpu_torch.ops.kernels import ragged_paged_attention as pt_ragged
+from paddle_tpu_torch.weights import load_jax_state, to_torch
+
+FP32 = dict(rtol=1e-5, atol=1e-6)
+BF16 = dict(rtol=2e-2, atol=2e-2)
+D = 96
+
+
+@pytest.fixture(autouse=True)
+def _full_fp32_products():
+    """The JAX references run their products at full fp32 ("highest"),
+    the precision of the twins' fp32 products, so that no CPU backend
+    picks a rounder product for them."""
+    with jax.default_matmul_precision("highest"):
+        yield
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy().astype(np.float64)
+    return np.asarray(jnp.asarray(x, jnp.float32), np.float64)
+
+
+def _pair(a, dtype):
+    """The same numpy values as a jax array and a torch tensor."""
+    ja = jnp.asarray(a, getattr(jnp, dtype))
+    return ja, to_torch(np.asarray(ja))
+
+
+def _close_scaled(port, ref, tol):
+    """rtol, and atol times the tensor's largest magnitude (a gradient
+    element is a long sum, off by the rounding of its terms)."""
+    ref = _np(ref)
+    np.testing.assert_allclose(_np(port), ref, rtol=tol["rtol"],
+                               atol=tol["atol"] * np.abs(ref).max())
+
+
+# ------------------------------------------------- #1 and #2 at head dim 96
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,sq,sk", [(True, 40, 40), (False, 24, 40)])
+def test_flash_twins_match_jax_at_head_dim_96(dtype, causal, sq, sk):
+    """#1's twin (O and lse) and #2's twin through ``FlashAttention
+    Function`` against the JAX kernel and its vjp at head dim 96, GQA
+    4:2, lengths no 16-row block divides."""
+    rng = np.random.RandomState(40)
+    q, k, v, do = (_pair(rng.randn(2, s, h, D), dtype)
+                   for s, h in ((sq, 4), (sk, 2), (sk, 2), (sq, 4)))
+    ref_o, ref_lse = jax_flash.flash_attention_with_lse(
+        q[0], k[0], v[0], is_causal=causal, block_q=16, block_k=16)
+    o, lse = pt_flash.flash_attention_with_lse(q[1], k[1], v[1], causal)
+    tol = FP32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(_np(o), _np(ref_o), **tol)
+    np.testing.assert_allclose(_np(lse), _np(ref_lse), **FP32)
+
+    ref_out, vjp = jax.vjp(lambda a, b, c: jax_flash.flash_attention(
+        a, b, c, is_causal=causal, block_q=16, block_k=16), q[0], k[0], v[0])
+    ref_g = vjp(do[0])
+    ts = [t[1].clone().requires_grad_(True) for t in (q, k, v)]
+    out = pt_flash.FlashAttentionFunction.apply(*ts, causal)
+    grads = torch.autograd.grad(out, ts, do[1])
+    np.testing.assert_allclose(_np(out), _np(ref_out), **tol)
+    for g, r, t in zip(grads, ref_g, ts):
+        assert g.dtype == t.dtype and g.shape == t.shape
+        _close_scaled(g, r, tol)
+
+
+# ------------------------------------------------- #3 and #4 at head dim 96
+def _seg_cases():
+    for sp in (2, 4):
+        c = 64 // (2 * sp)
+        for idx, src in ((0, 0), (sp - 1, 0), (0, sp - 1)):
+            yield pytest.param(2 * c, 2 * c, _zigzag_seg(idx, src, c, sp),
+                               id=f"sp{sp}-rank{idx}-src{src}")
+    yield pytest.param(24, 20, [5, 40, 13, 0, 33, 7], id="straddle-cross")
+
+
+@pytest.mark.parametrize("sq,sk,seg", list(_seg_cases()))
+def test_seg_twins_match_jax_at_head_dim_96(sq, sk, seg):
+    """#3's and #4's twins against the JAX segment-causal kernel and its
+    vjp (fed the forward's own lse) at head dim 96, GQA 4:2, over zig-zag
+    descriptors and splits no tile divides; fp32 tier, the gradients with
+    atol scaled by each one's largest magnitude (a dK element near zero
+    is a sum of 96-term products, off by their rounding)."""
+    rng = np.random.RandomState(sum(seg) + sq)
+    q, k, v, do = (rng.randn(1, s, h, D).astype(np.float32)
+                   for s, h in ((sq, 4), (sk, 2), (sk, 2), (sq, 4)))
+    jseg = jnp.asarray(seg, jnp.int32)
+    (o, lse), vjp = jax.vjp(
+        lambda a, b, c: jax_flash.flash_attention_seg_with_lse(a, b, c, jseg),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [o, lse, *vjp((jnp.asarray(do), jnp.zeros_like(lse)))]
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    po, plse = pt_flash.flash_attention_seg_with_lse(qt, kt, vt, seg)
+    got = [po, plse, *pt_flash.flash_attention_seg_bwd(qt, kt, vt, po, plse,
+                                                       dot, seg)]
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        b = np.asarray(b)
+        fin = np.isfinite(b)
+        np.testing.assert_array_equal(np.isfinite(_np(a)), fin, err_msg=name)
+        scale = np.abs(b[fin]).max() if name[0] == "d" else 1.0
+        np.testing.assert_allclose(_np(a)[fin], b[fin], rtol=FP32["rtol"],
+                                   atol=FP32["atol"] * scale, err_msg=name)
+
+
+# ------------------------------------------------------------ #8 at 96
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+def test_ragged_twin_matches_jax_at_head_dim_96(q_dtype, kv_dtype):
+    """#8's twin against the JAX kernel (interpret mode) at head dim 96:
+    a decode row, a 4-token prompt chunk, a long decode and a pad row over
+    GQA 4:2 pages of 8 tokens."""
+    rng = np.random.RandomState(41)
+    bs, num_blocks = 8, 16
+    kc = _pair(rng.randn(num_blocks * bs, 2, D), kv_dtype)
+    vc = _pair(rng.randn(num_blocks * bs, 2, D), kv_dtype)
+    tables = rng.permutation(num_blocks)[:12].reshape(3, 4).astype(np.int32)
+    rows = np.asarray([0, 1, 1, 1, 1, 2, 0], np.int32)
+    valids = np.asarray([13, 3, 4, 5, 6, 25, 0], np.int32)
+    q = _pair(rng.randn(len(rows), 4, D), q_dtype)
+    ref = jax_ragged.ragged_paged_attention(
+        q[0], kc[0], vc[0], jnp.asarray(tables), jnp.asarray(rows),
+        jnp.asarray(valids), bs)
+    out = pt_ragged.ragged_paged_attention(
+        q[1], kc[1], vc[1], torch.from_numpy(tables), torch.from_numpy(rows),
+        torch.from_numpy(valids), bs)
+    assert out.dtype == q[1].dtype
+    np.testing.assert_allclose(_np(out), _np(ref),
+                               **(FP32 if q_dtype == "float32" else BF16))
+    assert float(out[-1].abs().max()) == 0.0
+
+
+# ------------------------------------------------ a head-dim-96 Llama
+def test_llama_at_head_dim_96_matches_jax():
+    """A tiny Llama with 4:2 heads of 96 (hidden 384, 2 layers), fp32,
+    built by the JAX package from a seed and carried over by
+    ``load_jax_state``: logits and every parameter's gradient of a loss on
+    them against JAX's (rtol 1e-5 / atol 1e-6 on the logits, the
+    gradients with atol scaled by each one's largest magnitude), the
+    composed decoder path on both sides (the fused block takes head dims
+    64 and 128 only); no kernel launch on CPU tensors."""
+    tiny = dict(num_hidden_layers=2, hidden_size=384, intermediate_size=512,
+                num_attention_heads=4, num_key_value_heads=2, vocab_size=128,
+                max_position_embeddings=64)
+    paddle.seed(25)
+    jcfg = jax_llama.llama_tiny_config(dtype="float32", **tiny)
+    jm = jax_llama.LlamaForCausalLM(jcfg)
+    names = {f.name for f in dataclasses.fields(LlamaConfig)}
+    pcfg = LlamaConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(jcfg)
+                          if f.name in names})
+    assert pcfg.hidden_size // pcfg.num_attention_heads == D
+    pm = LlamaForCausalLM(pcfg, device="cpu")
+    load_jax_state(pm, {k: np.asarray(v.numpy())
+                        for k, v in jm.state_dict().items()})
+    ids = np.random.RandomState(6).randint(0, 128, size=(2, 21)) \
+        .astype("int32")
+    old = jax_flags.flag("pallas_fused_block"), \
+        pt_flags.flag("pallas_fused_block")
+    jax_flags.set_flags({"pallas_fused_block": "off"})
+    pt_flags.set_flags({"pallas_fused_block": "off"})
+    kernels.reset_launch_counts()
+    try:
+        jl = jm(paddle.to_tensor(ids))
+        paddle.mean(jl * jl).backward()
+        pl = pm(torch.from_numpy(ids))
+        (pl * pl).mean().backward()
+    finally:
+        jax_flags.set_flags({"pallas_fused_block": old[0]})
+        pt_flags.set_flags({"pallas_fused_block": old[1]})
+    np.testing.assert_allclose(_np(pl), np.asarray(jl.numpy(), np.float64),
+                               **FP32)
+    jgrads = dict(jm.named_parameters())
+    for name, p in pm.named_parameters():
+        ref = np.asarray(jgrads[name].grad.numpy(), np.float64)
+        np.testing.assert_allclose(_np(p.grad), ref, rtol=1e-5,
+                                   atol=1e-6 * np.abs(ref).max(),
+                                   err_msg=name)
+    assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}
+
+
+# ------------------------------------------------------------ the routes
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A contiguous tensor 2 bytes past a 16-byte-aligned start."""
+    flat = torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)
+    out = flat[1:].view(shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 2
+    return out
+
+
+def test_forward_routes_by_shape_and_alignment():
+    """#1 and #3 take #1's ``wgmma`` kernel in bf16 at head dim 64 or
+    128 where TMA maps q, k and v (16-byte-aligned bases) and the grid's
+    batch x heads and 128-row query tiles fit 65535; else the edge route
+    (#2 and #4 likewise by their own predicate). Decided from dtypes,
+    shapes and pointers alone, before any launch."""
+    q = torch.zeros(1, 300, 16, 64, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 300, 8, 64, dtype=torch.bfloat16)
+    assert pt_flash._seg_fwd_tma_ok(1, 16, q, kv, kv)
+    assert not pt_flash._seg_fwd_tma_ok(1, 16, _misaligned(q.shape), kv, kv)
+    assert not pt_flash._seg_fwd_tma_ok(1, 16, q, kv, _misaligned(kv.shape))
+    assert not pt_flash._seg_fwd_tma_ok(4096, 16, q, kv, kv)
+    assert pt_flash._seg_fwd_tma_ok(4095, 16, q, kv, kv)
+    # query tiles past the grid's 65535 (a view: no memory behind it)
+    long_q = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(
+        1, 128 * 65535 + 1, 1, 64)
+    assert not pt_flash._seg_fwd_tma_ok(1, 1, long_q, kv, kv)
+    assert pt_flash._seg_fwd_tma_ok(1, 1, long_q[:, :128 * 65535], kv, kv)
+    for d, dtype, want in ((64, torch.bfloat16, True),
+                           (128, torch.bfloat16, True),
+                           (96, torch.bfloat16, False),
+                           (256, torch.bfloat16, False),
+                           (64, torch.float32, False)):
+        t = torch.zeros(1, 8, 2, d, dtype=dtype)
+        assert pt_flash._seg_fwd_tma_ok(1, 2, t, t, t) == want
+        assert pt_flash._seg_bwd_tma_ok(1, 2, 2, t, t, t, t, t) == want
+
+
+def test_backward_routes_by_shape_and_alignment():
+    """#2 and #4 share #4's predicate: aligned q, k, v, o and dO and
+    batch x heads (query and kv) within 65535."""
+    q = torch.zeros(2, 40, 6, 128, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 40, 2, 128, dtype=torch.bfloat16)
+    assert pt_flash._seg_bwd_tma_ok(2, 6, 2, q, kv, kv, q, q)
+    for i in range(5):
+        ts = [q, kv, kv, q, q]
+        ts[i] = _misaligned(ts[i].shape)
+        assert not pt_flash._seg_bwd_tma_ok(2, 6, 2, *ts)
+    assert not pt_flash._seg_bwd_tma_ok(10923, 6, 2, q, kv, kv, q, q)
+    assert pt_flash._seg_bwd_tma_ok(10922, 6, 2, q, kv, kv, q, q)
+
+
+@pytest.mark.parametrize("m,ffn,shift,want", [
+    (1024, 704, None, True), (70, 704, None, False),
+    (1024, 37, None, False), (1024, 704, "x", False),
+    (1024, 704, "wd", False), (64, 128, None, True)])
+def test_fused_mlp_routes_by_shape_and_alignment(m, ffn, shift, want):
+    """#17 in bf16 takes its ``wgmma`` kernels where TMA maps x_send and
+    the weights (M and F multiples of 8, 16-byte-aligned bases), else its
+    CUDA-core kernel."""
+    shapes = {"x": (64, m), "wg": (2, m, ffn), "wu": (2, m, ffn),
+              "wd": (2, ffn, m)}
+    ts = {k: (_misaligned(s) if k == shift
+              else torch.zeros(s, dtype=torch.bfloat16))
+          for k, s in shapes.items()}
+    assert pt_ac._fused_tma_ok(m, ffn, *ts.values()) == want
+
+
+def test_head_dim_buckets_and_refusals():
+    """Every multiple of 16 in 16..256 is taken and padded to 64, 128 or
+    256 (the kernels' copy is ``csrc/common.cuh``); anything else raises,
+    naming the accepted set."""
+    for d in range(0, 300):
+        ok = 16 <= d <= 256 and d % 16 == 0
+        want = 0 if not ok else 64 if d <= 64 else 128 if d <= 128 else 256
+        assert _launch.head_dim_bucket(d) == want, d
+        assert (d in pt_flash._HEAD_DIMS) == ok
+        assert (d in pt_ragged._HEAD_DIMS) == ok
+        if ok:
+            pt_flash._check_head_dim("flash_attention", d)
+        else:
+            with pytest.raises(ValueError, match="multiple of 16 in 16..256"):
+                pt_flash._check_head_dim("flash_attention", d)
+
+
+@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("esz", [2, 4])
+def test_ragged_smem_fits_at_every_bucket(d, esz):
+    """#8's block at the padded head dim fits the H100's 227 KB at the
+    serving block size (64) and a full GQA group of 8, bf16 or fp32
+    pages."""
+    smem = pt_ragged._smem_bytes(d, esz, 8, 64)
+    dp = _launch.head_dim_bucket(d)
+    assert smem == 64 * (dp * esz + 16) + 64 * dp * esz + 8 * dp * 4 \
+        + 8 * 64 * 4
+    assert smem <= pt_ragged._SMEM_LIMIT
