@@ -13,8 +13,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels: each kernel's wrapper on CUDA tensors at the shapes its path
    gives it (serving at Llama-3-8B widths: head_dim 128, 32:8 heads,
    hidden 4096; training at the flagship widths: 4 x 2048 tokens, hidden
-   1536, ffn 4096, 12:4 heads, where the flash and RMSNorm forwards are
-   checked too; the grouped GEMMs at the MoE training shapes, an
+   1536, ffn 4096, 12:4 heads, where the flash forward is checked too;
+   the grouped GEMMs at the MoE training shapes, an
    expert-major buffer of 65,536 rows with 32,768 live over 16 experts,
    one empty and one full, and gmm/gmm2 also in fp32 at the MoE serving
    shapes, gmm2 beside the unfused route's two gmm launches; the chunked
@@ -41,13 +41,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gmm and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
    for tgmm, memory-efficient ``scaled_dot_product_attention`` with the
    segment mask for the segment-causal pair) and the least time the card
-   could take; then head dims other than 64 and 128: the flash forward and
-   backward, the segment-causal pair and ragged attention at head dims 96
-   and 256, bf16 and fp32, and the bf16 flash pair on misaligned bases,
-   against their twins (each route's time printed), and a head-dim-96
-   Llama (hidden 768, 2 layers, fp32) whose forward, training step and
-   compiled greedy decode on the card are held against its own copy on
-   the CPU twins;
+   could take (RMSNorm in phase 15); then head dims other than 64 and 128: the flash forward and
+   backward, the segment-causal pair, ragged attention, paged decode and
+   ragged attention over int8/fp8 pages at head dims 96 and 256, bf16 and
+   fp32, and the bf16 flash pair on misaligned bases, against their twins
+   (each route's time printed), and a head-dim-96 Llama (hidden 768, 2
+   layers, fp32) whose forward, training step and greedy decode through
+   the compiled engine, the eager engine and int8 pages on the card are
+   held against its own copy on the CPU twins;
 4. serve, the slice-1 path, with ``pallas_fused_block=off``:
    ``GenerationEngine.generate`` serving 8 requests (prompts of 32..1024
    tokens, 32 new tokens each, 6 greedy and 2 sampled) on a
@@ -233,7 +234,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    four, so that #15 and #17 run with three peers: its output against the
    one-device layer, then fwd + bwd + AdamW with ``moe_a2a_overlap`` off
    and on (the ratio reported, not asserted);
-15. the ``kernels`` JSON line, then the result line.
+15. RMSNorm (#5 and #6), checked and timed as the kernels of phase 3 are,
+   but after every path and in a process of their own, so that their
+   profiler sessions, library calls and host-time loops run after each
+   step was read and their sessions start afresh;
+16. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -451,33 +456,158 @@ def phase_flash(torch, timer):
     return row
 
 
+RMS_EXTRA = ((8192, 1024), (8192, 4096))   # the other paths' widths
+# the profiler's names of #5's and #6's kernels start so (``csrc/rms_norm.cu``
+# keeps them in an anonymous namespace; a library's kernels are qualified)
+RMS_KERNELS = "void (anonymous namespace)::rms_norm_"
+
+
+def _rms_aten(torch, x, w):
+    """``aten._fused_rms_norm`` as the yardstick of #5 and #6: with the
+    fp32 weight the kernels take where the installed torch accepts it
+    beside x (like for like), else with the weight in x's dtype. Returns
+    the call and the weight's dtype, or ``(None, "none")`` where torch has
+    no such op."""
+    op = getattr(torch.ops.aten, "_fused_rms_norm", None)
+    if op is None:
+        return None, "none"
+    d = x.shape[-1]
+    for wl in (w, w.to(x.dtype)):
+        try:
+            op(x, [d], wl, 1e-5)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return (lambda: op(x, [d], wl, 1e-5)), str(wl.dtype)[6:]
+    return None, "refused"
+
+
+def _rms_aten_bwd(torch, x, w, dy):
+    """``aten._fused_rms_norm_backward`` with the ``rstd`` its forward
+    saves, dx and dw asked for, as :func:`_rms_aten` picks its weight."""
+    fwd, wdt = _rms_aten(torch, x, w)
+    op = getattr(torch.ops.aten, "_fused_rms_norm_backward", None)
+    if fwd is None or op is None:
+        return None, "none"
+    wl = w if wdt == "float32" else w.to(x.dtype)
+    rstd = fwd()[1]
+    d = x.shape[-1]
+    try:
+        op(dy, x, [d], rstd, wl, [True, True])
+        torch.cuda.synchronize()
+    except RuntimeError:
+        return None, "refused"
+    return (lambda: op(dy, x, [d], rstd, wl, [True, True])), wdt
+
+
+def _profile_rows(torch, fn, tries=3):
+    """:func:`device_profile`'s rows for ``fn()``, profiled again (at most
+    ``tries`` times) where a session saw no device activity at all, as
+    one now and then does."""
+    for _ in range(tries):
+        rows = device_profile(torch, fn)[0]
+        if rows:
+            break
+    return rows
+
+
+def _flush_kernels(torch, timer):
+    """The names of the device activities of the L2 flush alone, as its own
+    profiler session saw them."""
+    return {name for _, _, name in _profile_rows(torch, timer.flush.zero_)}
+
+
+def _is_flush(name, flush) -> bool:
+    """Whether a profiled activity is the L2 flush: one of ``flush``, or a
+    fill of a uint8 tensor (the flush buffer's dtype, which no RMSNorm call
+    fills), in case the flush's own session saw nothing."""
+    return name in flush or "FillFunctor<unsigned char>" in name
+
+
+def _rms_times(torch, timer, ours, key, lib, flush, nbytes, flops,
+               calls=10):
+    """#5's or #6's times at one shape: the event-timed call (the
+    wrapper's host time inside the window), device time a call from the
+    profiler (kernels whose name holds ``key``), the same two for the
+    library call (every kernel it runs but the flush's, :func:`_is_flush`), and
+    the bound. Both device times come from one profiler session, so that
+    a phase opens few, ``calls`` calls each with the L2 flushed before
+    each; one the profiler did not see is None (not measured), never 0.
+    ``host_us``: the host's time to launch a call, 200 calls back to back
+    without a synchronise between them."""
+    def host_us(fn, n=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * t / n
+
+    b_ms, b_by = bound(nbytes, flops, "fp32")
+    out = dict(ms=timer.ms(ours), bound_ms=b_ms, bound_by=b_by,
+               library_ms=timer.ms(lib) if lib is not None else None,
+               host_us=host_us(ours),
+               library_host_us=host_us(lib) if lib is not None else None)
+
+    def run():
+        for fn in (ours, lib):
+            for _ in range(calls if fn is not None else 0):
+                timer.flush.zero_()
+                fn()
+    rows = _profile_rows(torch, run)
+    mine = sum(us for us, _, n in rows if key in n) / 1e3 / calls
+    other = sum(us for us, _, n in rows
+                if key not in n and not _is_flush(n, flush)) / 1e3 / calls
+    out.update(device_ms=mine or None,
+               library_device_ms=(other or None) if lib is not None else None)
+    return out
+
+
 def phase_rms(torch, timer):
-    """[2048, 4096] bf16 x with an fp32 weight."""
-    import torch.nn.functional as F
+    """#5 at [2048, 4096] bf16 x with an fp32 weight, then at the other
+    paths' widths ([8192, 1024], [8192, 4096]); each against its twin,
+    timed as a call and on the device beside ``aten._fused_rms_norm``."""
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
-    x = torch.randn(2048, 4096, device="cuda").bfloat16()
-    w = torch.rand(4096, device="cuda") + 0.5
-    out = rn.rms_norm(x, w, 1e-5)
-    ref = rn.rms_norm_plain(x, w, 1e-5)
-    torch.cuda.synchronize()
-    err = max_err(out, ref)
-    ok = torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
-    assert ok, f"rms_norm: max_abs_err {err} beyond rtol/atol 2e-2"
-    wb = w.bfloat16()
-    lib = None
-    if hasattr(F, "rms_norm"):
-        lib = timer.ms(lambda: F.rms_norm(x, (4096,), wb, 1e-5))
-    nbytes = x.numel() * 2 * 2 + w.numel() * 4
-    b_ms, b_by = bound(nbytes, 4 * x.numel(), "fp32")
+    shapes = {}
+    err = 0.0
+    flush = _flush_kernels(torch, timer)
+    for rows, d in ((2048, 4096),) + RMS_EXTRA:
+        x = torch.randn(rows, d, device="cuda").bfloat16()
+        w = torch.rand(d, device="cuda") + 0.5
+        out = rn.rms_norm(x, w, 1e-5)
+        ref = rn.rms_norm_plain(x, w, 1e-5)
+        torch.cuda.synchronize()
+        e = max_err(out, ref)
+        assert torch.allclose(out.float(), ref.float(), rtol=2e-2,
+                              atol=2e-2), \
+            f"rms_norm [{rows}, {d}]: max_abs_err {e} beyond rtol/atol 2e-2"
+        err = max(err, e)
+        lib, wdt = _rms_aten(torch, x, w)
+        t = _rms_times(torch, timer, lambda: rn.rms_norm(x, w, 1e-5),
+                       RMS_KERNELS + "fwd", lib, flush,
+                       x.numel() * 2 * 2 + w.numel() * 4, 4 * x.numel())
+        t.update(library_weight=wdt, max_abs_err=e)
+        if (rows, d) == (2048, 4096):
+            t["plain_ms"] = timer.ms(lambda: rn.rms_norm_plain(x, w, 1e-5))
+        shapes[f"{rows}x{d}"] = t
+        log(f"rms fwd bf16 [{rows}, {d}], w fp32: " + json.dumps(t))
+        del x, out, ref
+    main = shapes["2048x4096"]
     return dict(name="rms_norm_fwd", route="cuda",
                 source="paddle_tpu_torch/csrc/rms_norm.cu",
                 replaces="paddle_tpu/ops/pallas/rms_norm.py:64",
                 path="serve", max_abs_err=err,
                 tolerance="rtol=atol=2e-2 (bf16 output)",
-                ms=timer.ms(lambda: rn.rms_norm(x, w, 1e-5)),
-                plain_ms=timer.ms(lambda: rn.rms_norm_plain(x, w, 1e-5)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                shape="x bf16 [2048, 4096], w fp32 [4096]")
+                ms=main["ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                library_device_ms=main["library_device_ms"],
+                host_us=main["host_us"],
+                library_host_us=main["library_host_us"],
+                library="aten._fused_rms_norm, weight "
+                        + main["library_weight"] + " (ours fp32)",
+                shapes=shapes, shape="x bf16 [2048, 4096], w fp32 [4096]")
 
 
 # the training slice's shapes (bench.py:2315-2320)
@@ -1058,8 +1188,10 @@ def phase_head_dims(torch, timer):
     (causal) and #2 against their twins, #3 and #4 at the zig-zag
     descriptors of sp 2 over the 1024 rows, and #8 at its timing shape
     (bf16 and fp32 pages under fp32 q, as the compiled step feeds it; bf16
-    q over bf16 pages); then #1 and #2 in bf16 at head dims 64 and 128
-    with q, k, v, o and dO 2 bytes off alignment. Tolerances as each
+    q over bf16 pages); #9 at the eager serve step's shape (the same
+    three q/page pairs) and #10 at #8's timing shape (int8 and fp8 pages,
+    fp32 and bf16 q, two pads); then #1 and #2 in bf16 at head dims 64 and
+    128 with q, k, v, o and dO 2 bytes off alignment. Tolerances as each
     kernel's own phase. Each route's ms is printed. Returns the worst
     error by kernel row, merged into those rows."""
     from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
@@ -1160,6 +1292,84 @@ def phase_head_dims(torch, timer):
                 f"max_abs_err {err:.3g}, "
                 f"{timer.ms(lambda: rp.ragged_paged_attention(*args)):.4f} ms")
             del kc, vc
+    # #9: the eager serve step's shape (bf16 q [8, 32, d], kv 8, block 64)
+    # and the hybrid's fp32 one at the edge head dims, every q/page pair
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    lens = [64 + 142 * i for i in range(8)]
+    need = [-(-n // bs) for n in lens]
+    ptab = torch.zeros(8, width, dtype=torch.int32)
+    perm = torch.randperm(sum(need) + 8).int()
+    off = 0
+    for i, nb in enumerate(need):
+        ptab[i, :nb] = perm[off:off + nb]
+        off += nb
+    ptab, plens = ptab.cuda(), torch.tensor(lens, dtype=torch.int32,
+                                            device="cuda")
+    for d in EDGE_HEAD_DIMS:
+        for q_dtype, kv_dtype in ((torch.float32, torch.float32),
+                                  (torch.float32, torch.bfloat16),
+                                  (torch.bfloat16, torch.bfloat16)):
+            kc, vc = (torch.randn((sum(need) + 8) * bs, hkv, d,
+                                  device="cuda").to(kv_dtype)
+                      for _ in range(2))
+            q = torch.randn(8, hq, d, device="cuda").to(q_dtype)
+            args = (q, kc, vc, ptab, plens, bs)
+            out = pa.paged_decode_attention(*args)
+            ref = pa.paged_decode_attention_plain(*args)
+            torch.cuda.synchronize()
+            if q_dtype == torch.float32:
+                err = max_err(out, ref)
+                assert err <= 2e-5, f"paged d={d} pages {kv_dtype}: " \
+                                    f"max_abs_err {err}"
+            else:   # as phase_paged: bf16 ulps of each sequence's scale
+                err = max(max_err(out[i], ref[i])
+                          / float(ref[i].float().abs().max())
+                          for i in range(len(lens)))
+                assert err <= 2e-2, f"paged d={d} bf16: scaled err {err}"
+            note("paged_attention", max_err(out, ref))
+            log(f"head dim {d} paged q {str(q_dtype)[6:]} pages "
+                f"{str(kv_dtype)[6:]} [8, {hq}, {d}] (stages "
+                f"{pa._stages(d, kc.element_size(), hq // hkv, bs)}): err "
+                f"{err:.3g}, "
+                f"{timer.ms(lambda: pa.paged_decode_attention(*args)):.4f} ms")
+            del kc, vc
+    # #10: case (a) of phase_quant at the edge head dims, int8 and fp8
+    # pages, fp32 and bf16 q, with two pads
+    from paddle_tpu_torch.ops.kernels import quant as pq
+    from paddle_tpu_torch.quantization import kv as kvq
+    qvalids = torch.tensor([0 if i in (3, 40) else v
+                            for i, v in enumerate(RAGGED_VALIDS)],
+                           dtype=torch.int32, device="cuda")
+    for d in EDGE_HEAD_DIMS:
+        for mode in ("int8", "fp8"):
+            kq, ks = kvq.quantize_kv(torch.randn(seqs * width * bs, hkv, d,
+                                                 device="cuda"), mode)
+            vq, vs = kvq.quantize_kv(torch.randn(seqs * width * bs, hkv, d,
+                                                 device="cuda"), mode)
+            for q_dtype in (torch.float32, torch.bfloat16):
+                q = torch.randn(len(RAGGED_ROWS), hq, d, device="cuda").to(
+                    q_dtype)
+                args = (q, kq, vq, ks, vs, tables, rows, qvalids, bs)
+                out = pq.ragged_paged_attention_quant(*args)
+                again = pq.ragged_paged_attention_quant(*args)
+                ref = pq.ragged_paged_attention_quant_plain(*args)
+                torch.cuda.synchronize()
+                assert torch.equal(out, again), f"quant d={d}: repeat differs"
+                err, top = max_err(out, ref), float(ref.float().abs().max())
+                if q_dtype == torch.float32:
+                    assert err <= 1e-4 * top, f"quant d={d} {mode}: {err}"
+                else:
+                    assert torch.allclose(
+                        out.float(), ref.float(), rtol=2e-2, atol=2e-2), \
+                        f"quant d={d} bf16: {err}"
+                assert float(out[[3, 40, len(RAGGED_ROWS) - 1]].abs().max()) \
+                    == 0.0, f"quant d={d}: a pad token is not 0"
+                note("ragged_paged_attention_quant", err)
+                ms = timer.ms(lambda: pq.ragged_paged_attention_quant(*args))
+                log(f"head dim {d} quant {mode} q {str(q_dtype)[6:]} "
+                    f"[{len(RAGGED_ROWS)}, {hq}, {d}]: max_abs_err {err:.3g} "
+                    f"of max {top:.3g}, bitwise on repeat, {ms:.4f} ms")
+            del kq, vq
     # #1 and #2 in bf16 where TMA cannot map q, k, v, o and dO
     for d in (64, 128):
         g = torch.Generator(device="cuda").manual_seed(d + 1)
@@ -1180,11 +1390,14 @@ def phase_llama_d96(torch, np):
     2048, 2 layers, vocab 1024, fp32, seed 12) on the card against its own
     copy on the CPU twins: the forward's logits, a training step (loss,
     every parameter's gradient, one AdamW step and the loss after it; rel
-    L2 within 1e-4, fp32 sums in another order), and greedy decoding
-    through the compiled engine (4 prompts of 5..200 tokens, 16 new each;
-    >= 90% of tokens equal: random weights sit near ties). Launches on the
-    card: flash forward and backward = layers a pass, ragged = steps x
-    layers; the fused block none (it takes head dims 64 and 128)."""
+    L2 within 1e-4, fp32 sums in another order), and greedy decoding (4
+    prompts of 5..200 tokens, 16 new each; >= 90% of tokens equal: random
+    weights sit near ties) through the compiled engine, the eager engine
+    and the compiled engine over int8 pages. Launches on the card: flash
+    forward and backward = layers a pass; ragged (compiled), paged decode
+    (eager) or quantized ragged (int8) = steps x layers, and the eager
+    prefill's flash forward = prompts x layers; the fused block none (it
+    takes head dims 64 and 128)."""
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
     from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
@@ -1234,86 +1447,118 @@ def phase_llama_d96(torch, np):
         abs(l1g - l1c) <= 1e-4 * abs(l1c), "llama d96: losses differ"
     prompts = [[5, 3, 9, 1, 7], list(range(1, 61)),
                [int(t) for t in ids[0, :200]], [11, 12] * 40]
-    outs = {}
-    for name, model in (("cpu", cpu), ("cuda", gpu)):
-        kernels.reset_launch_counts()
-        eng = GenerationEngine(model, max_seqs=4, max_seq_len=256,
-                               block_size=16)
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            outs[name] = eng.generate(
-                [GenerationRequest(i, p, max_new_tokens=16)
-                 for i, p in enumerate(prompts)])
-        wall = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        steps = eng.stats["steps"]
-        assert counts["ragged_paged_attention"] == (
-            steps * layers if name == "cuda" else 0), ("llama d96", counts)
-        assert eng.cache.free_blocks == eng.cache.num_blocks, \
-            "llama d96: pages leaked"
-        log(f"llama d96 compiled decode ({name}): {steps} steps, "
-            f"{1e3 * wall / steps:.2f} ms a step")
-    same = sum(a == b for i in outs["cuda"] for a, b in
-               zip(outs["cuda"][i], outs["cpu"][i]))
-    total = sum(len(t) for t in outs["cpu"].values())
-    log(f"llama d96 compiled decode: {same} of {total} greedy tokens equal "
-        f"to the CPU twins'")
-    assert same >= 0.9 * total, "llama d96: decode disagrees with the twins"
+    # the decode routes: compiled (#8), eager (#9), int8 pages (#10)
+    routes = (("compiled", {}, "ragged_paged_attention"),
+              ("eager", {"mode": "eager"}, "paged_attention"),
+              ("int8", {"kv_quant": "int8"}, "ragged_paged_attention_quant"))
+    equal = {}
+    for label, kw, kernel in routes:
+        outs = {}
+        for name, model in (("cpu", cpu), ("cuda", gpu)):
+            kernels.reset_launch_counts()
+            eng = GenerationEngine(model, max_seqs=4, max_seq_len=256,
+                                   block_size=16, **kw)
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                outs[name] = eng.generate(
+                    [GenerationRequest(i, p, max_new_tokens=16)
+                     for i, p in enumerate(prompts)])
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            steps = eng.stats["steps"]
+            on = name == "cuda"
+            want = {kernel: steps * layers if on else 0}
+            if label == "eager":     # prefill at admission: flash
+                want["flash_attention_fwd"] = len(prompts) * layers * on
+            for n in ("ragged_paged_attention", "paged_attention",
+                      "ragged_paged_attention_quant", "flash_attention_fwd"):
+                assert counts[n] == want.get(n, 0), ("llama d96", label,
+                                                     name, counts)
+            assert eng.cache.free_blocks == eng.cache.num_blocks, \
+                f"llama d96 {label}: pages leaked"
+            log(f"llama d96 {label} decode ({name}): {steps} steps, "
+                f"{1e3 * wall / steps:.2f} ms a step, {kernel} launches "
+                f"{counts[kernel]}")
+        same = sum(a == b for i in outs["cuda"] for a, b in
+                   zip(outs["cuda"][i], outs["cpu"][i]))
+        total = sum(len(t) for t in outs["cpu"].values())
+        log(f"llama d96 {label} decode: {same} of {total} greedy tokens "
+            f"equal to the CPU twins'")
+        assert same >= 0.9 * total, \
+            f"llama d96 {label}: decode disagrees with the twins"
+        equal[label] = same / total
     return dict(rel_logits=rel_logits, rel_grad=rel_grad,
-                tokens_equal=same / total)
+                tokens_equal=equal)
 
 
 def phase_rms_bwd(torch, timer):
     """The backward over the flagship's 8192 tokens: x and dy bf16
-    [8192, 1536], w fp32. The forward kernel is held against its twin at
-    this shape first."""
-    import torch.nn.functional as F
+    [8192, 1536], w fp32, then at the other paths' widths ([8192, 1024],
+    [8192, 4096]); each against its twin and twice, bitwise, timed as a
+    call and on the device beside ``aten._fused_rms_norm_backward``. The
+    forward kernel is held against its twin at the main shape first."""
     from paddle_tpu_torch.ops.kernels import rms_norm as rn
-    rows, d = TRAIN_B * TRAIN_S, TRAIN_HIDDEN
-    x = torch.randn(rows, d, device="cuda").bfloat16()
-    dy = torch.randn(rows, d, device="cuda").bfloat16()
-    w = torch.rand(d, device="cuda") + 0.5
-    y, ry = rn.rms_norm(x, w, 1e-5), rn.rms_norm_plain(x, w, 1e-5)
-    torch.cuda.synchronize()
-    fwd_err = max_err(y, ry)
-    log(f"rms fwd at the train shape: max_abs_err {fwd_err:.4g}")
-    assert torch.allclose(y.float(), ry.float(), rtol=2e-2, atol=2e-2), \
-        f"rms fwd train shape: max_abs_err {fwd_err} beyond rtol/atol 2e-2"
-    del y, ry
-    dx, dw = rn.rms_norm_bwd(x, w, dy, 1e-5)
-    dx2, dw2 = rn.rms_norm_bwd(x, w, dy, 1e-5)
-    rdx, rdw = rn.rms_norm_bwd_plain(x, w, dy, 1e-5)
-    torch.cuda.synchronize()
-    assert torch.equal(dx, dx2) and torch.equal(dw, dw2), \
-        "rms bwd: two launches on the same inputs differ"
-    assert torch.allclose(dx.float(), rdx.float(), rtol=2e-2, atol=2e-2), \
-        f"rms bwd dx: max_abs_err {max_err(dx, rdx)}"
-    # dw: fp32 sums over 8192 rows in another order
-    assert scaled_close(dw, rdw, 1e-4, 1e-5), \
-        f"rms bwd dw: max_abs_err {max_err(dw, rdw)}"
-    log(f"rms bwd: dx max_abs_err {max_err(dx, rdx):.4g}, dw max_abs_err "
-        f"{max_err(dw, rdw):.4g} of max {float(rdw.abs().max()):.4g}")
-    lib = None
-    if hasattr(F, "rms_norm"):
-        xl = x.detach().requires_grad_(True)
-        wl = w.bfloat16().requires_grad_(True)
-        yl = F.rms_norm(xl, (d,), wl, 1e-5)
-        lib = timer.ms(lambda: torch.autograd.grad(yl, (xl, wl), dy,
-                                                   retain_graph=True))
-    nbytes = x.numel() * 2 * 3 + w.numel() * 4 * 2
-    b_ms, b_by = bound(nbytes, 12 * x.numel(), "fp32")
+    shapes, errs, fwd_err = {}, [], 0.0
+    flush = _flush_kernels(torch, timer)
+    for rows, d in ((TRAIN_B * TRAIN_S, TRAIN_HIDDEN),) + RMS_EXTRA:
+        x = torch.randn(rows, d, device="cuda").bfloat16()
+        dy = torch.randn(rows, d, device="cuda").bfloat16()
+        w = torch.rand(d, device="cuda") + 0.5
+        main = d == TRAIN_HIDDEN
+        if main:
+            y, ry = rn.rms_norm(x, w, 1e-5), rn.rms_norm_plain(x, w, 1e-5)
+            torch.cuda.synchronize()
+            fwd_err = max_err(y, ry)
+            log(f"rms fwd at the train shape: max_abs_err {fwd_err:.4g}")
+            assert torch.allclose(y.float(), ry.float(), rtol=2e-2,
+                                  atol=2e-2), \
+                f"rms fwd train shape: max_abs_err {fwd_err} beyond " \
+                f"rtol/atol 2e-2"
+            del y, ry
+        dx, dw = rn.rms_norm_bwd(x, w, dy, 1e-5)
+        dx2, dw2 = rn.rms_norm_bwd(x, w, dy, 1e-5)
+        rdx, rdw = rn.rms_norm_bwd_plain(x, w, dy, 1e-5)
+        torch.cuda.synchronize()
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2), \
+            f"rms bwd [{rows}, {d}]: two launches on the same inputs differ"
+        assert torch.allclose(dx.float(), rdx.float(), rtol=2e-2,
+                              atol=2e-2), \
+            f"rms bwd dx [{rows}, {d}]: max_abs_err {max_err(dx, rdx)}"
+        # dw: fp32 sums over 8192 rows in another order
+        assert scaled_close(dw, rdw, 1e-4, 1e-5), \
+            f"rms bwd dw [{rows}, {d}]: max_abs_err {max_err(dw, rdw)}"
+        errs.append(max(max_err(dx, rdx), max_err(dw, rdw)))
+        log(f"rms bwd [{rows}, {d}]: dx max_abs_err {max_err(dx, rdx):.4g},"
+            f" dw max_abs_err {max_err(dw, rdw):.4g} of max "
+            f"{float(rdw.abs().max()):.4g}, bitwise on repeat")
+        lib, wdt = _rms_aten_bwd(torch, x, w, dy)
+        t = _rms_times(torch, timer, lambda: rn.rms_norm_bwd(x, w, dy, 1e-5),
+                       RMS_KERNELS + "bwd", lib, flush,
+                       x.numel() * 2 * 3 + w.numel() * 4 * 2,
+                       12 * x.numel())
+        t.update(library_weight=wdt, max_abs_err=errs[-1])
+        if main:
+            t["plain_ms"] = timer.ms(
+                lambda: rn.rms_norm_bwd_plain(x, w, dy, 1e-5))
+        shapes[f"{rows}x{d}"] = t
+        log(f"rms bwd bf16 [{rows}, {d}], w fp32: " + json.dumps(t))
+        del x, dy, dx, dx2, rdx
+    main = shapes[f"{TRAIN_B * TRAIN_S}x{TRAIN_HIDDEN}"]
     return dict(name="rms_norm_bwd", route="cuda",
                 source="paddle_tpu_torch/csrc/rms_norm.cu",
                 replaces="paddle_tpu/ops/pallas/rms_norm.py:116",
-                path="train", max_abs_err=max(max_err(dx, rdx),
-                                              max_err(dw, rdw)),
+                path="train", max_abs_err=max(errs),
                 tolerance="dx rtol=atol=2e-2; dw rtol 1e-4, atol 1e-5 x "
                           "max|twin|; bitwise repeat",
-                ms=timer.ms(lambda: rn.rms_norm_bwd(x, w, dy, 1e-5)),
-                plain_ms=timer.ms(lambda: rn.rms_norm_bwd_plain(x, w, dy,
-                                                                1e-5)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                shape="x, dy bf16 [8192, 1536], w fp32 [1536]",
+                ms=main["ms"], device_ms=main["device_ms"],
+                plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+                bound_by=main["bound_by"], library_ms=main["library_ms"],
+                library_device_ms=main["library_device_ms"],
+                host_us=main["host_us"],
+                library_host_us=main["library_host_us"],
+                library="aten._fused_rms_norm_backward, weight "
+                        + main["library_weight"] + " (ours fp32)",
+                shapes=shapes, shape="x, dy bf16 [8192, 1536], w fp32 [1536]",
                 fwd_checks={"rms_norm_fwd": fwd_err})
 
 
@@ -4745,13 +4990,24 @@ WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
                  ("flash_fwd_wgmma", "SegMask"))
 
 
+# redesigned kernels of no tensor-core product: they must not spill either
+NO_SPILL_KERNELS = ("rms_norm_fwd_reg", "rms_norm_bwd_reg", "rms_norm_fwd_any",
+                    "rms_norm_bwd_any", "rms_norm_bwd_dw")
+
+
 def check_tensor_core_kernels():
     """Each redesigned kernel holds HGMMA instructions (``cuobjdump -sass``
     of the built library, where the toolkit has it) and spills nothing
-    (``ptxas -v``)."""
+    (``ptxas -v``); so does every instantiation of #5's and #6's kernels."""
     from paddle_tpu_torch.ops.kernels import _build
     hgmma = _build.sass_opcode_counts("HGMMA")
     spills = _build.ptxas_spills()
+    for name in NO_SPILL_KERNELS:
+        fns = [f for f in spills if name in f]
+        assert fns, f"build: ptxas reports no kernel named *{name}*"
+        for f in fns:
+            assert spills[f] == (0, 0), f"build: {f} spills {spills[f]}"
+        log(f"build: {name}: {len(fns)} instantiations, no spills (ptxas -v)")
     for parts in WGMMA_KERNELS:
         parts = (parts,) if isinstance(parts, str) else parts
         name = " ".join(parts)
@@ -4767,6 +5023,47 @@ def check_tensor_core_kernels():
         log(f"build: {name}: {n} HGMMA instructions (cuobjdump -sass), "
             f"{len(fns)} instantiations, no spills (ptxas -v)")
         assert n > 0, f"build: {name} issues no HGMMA"
+
+
+# the child process of rms_phases: its argument is this script's directory
+_RMS_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+timer = cs.Timer(torch)
+rows = [cs.phase_rms(torch, timer), cs.phase_rms_bwd(torch, timer)]
+print("RMS_ROWS " + json.dumps(rows), flush=True)
+"""
+
+
+def rms_phases():
+    """:func:`phase_rms` and :func:`phase_rms_bwd` in a process of their
+    own, run after every path: no step is read after their profiler
+    sessions, library calls and host-time loops, and their sessions see
+    every device activity (sessions late in this long process saw only part
+    of it). Their lines are logged here and their rows returned."""
+    proc = subprocess.run([sys.executable, "-c", _RMS_CHILD, HERE],
+                          capture_output=True, text=True, timeout=600)
+    rows = None
+    for ln in proc.stdout.splitlines():
+        if ln.startswith("RMS_ROWS "):
+            rows = json.loads(ln[len("RMS_ROWS "):])
+        else:
+            log(ln)
+    assert proc.returncode == 0 and rows is not None, \
+        f"rms phases: exit {proc.returncode}\n{proc.stderr[-3000:]}"
+    return rows
+
+
+def kernel_row(r, rows, card):
+    """Keep a kernel phase's row and log its numbers."""
+    rows.append(r)
+    log(f"kernel {r['name']}: {r['shape']}: max_abs_err "
+        f"{r['max_abs_err']:.3g} (tol {r['tolerance']}), "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}) on {card}")
 
 
 def main() -> int:
@@ -4822,11 +5119,9 @@ def main() -> int:
         for phase in (lambda: phase_ragged(torch, timer,
                                            np.random.RandomState(0)),
                       lambda: phase_flash(torch, timer),
-                      lambda: phase_rms(torch, timer),
                       lambda: phase_flash_bwd(torch, timer),
                       lambda: phase_flash_seg(torch, timer),
                       lambda: phase_flash_seg_bwd(torch, timer),
-                      lambda: phase_rms_bwd(torch, timer),
                       lambda: phase_fused(torch, timer),
                       lambda: phase_gmm2(torch, timer),
                       lambda: phase_gmm(torch, timer),
@@ -4836,19 +5131,9 @@ def main() -> int:
                                           np.random.RandomState(1)),
                       lambda: phase_quant(torch, np, timer,
                                           np.random.RandomState(3))):
-            r = phase()
-            rows.append(r)
-            log(f"kernel {r['name']}: {r['shape']}: max_abs_err "
-                f"{r['max_abs_err']:.3g} (tol {r['tolerance']}), "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-                f"{r['library_ms']}, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}) on {card}")
+            kernel_row(phase(), rows, card)
             torch.cuda.empty_cache()
         by_name = {r["name"]: r for r in rows}
-        for r in rows:
-            for name, err in r.pop("fwd_checks", {}).items():
-                by_name[name]["max_abs_err"] = max(
-                    by_name[name]["max_abs_err"], err)
         for name, err in phase_head_dims(torch, timer).items():
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
                                                err)
@@ -4899,6 +5184,16 @@ def main() -> int:
         counts.update(ep_counts)
         rows.extend(ep_rows)
         log(f"train-moe-ep done at {time.perf_counter() - t_start:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        for r in rms_phases():
+            kernel_row(r, rows, card)
+        by_name = {r["name"]: r for r in rows}
+        for r in rows:
+            for name, err in r.pop("fwd_checks", {}).items():
+                by_name[name]["max_abs_err"] = max(
+                    by_name[name]["max_abs_err"], err)
+        log(f"rms phases done at {time.perf_counter() - t_start:.1f} s")
         for r in rows:
             names = r.get("counts", [r["name"]])
             r["launches"] = sum(counts[r["path"]][n] for n in names)
@@ -4912,10 +5207,11 @@ def main() -> int:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         log(card)
         # call_ms: the whole SPMD call of an exchange kernel (#15-#18),
-        # beside ms, its launch alone
+        # beside ms, its launch alone; device_ms (#5, #6): the profiler's
+        # kernel time a call, beside ms, the event-timed call
+        extra = ("call_ms", "device_ms", "library_device_ms")
         log(json.dumps({"kernels": [
-            dict({k: r[k] for k in keys},
-                 **({"call_ms": r["call_ms"]} if "call_ms" in r else {}))
+            dict({k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r})
             for r in rows]}))
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,12 @@
 // twin's largest magnitude for an fp32 output and to the bf16 tier for a
 // bf16 one. Splitting a long context over several blocks (flash decoding),
 // TMA and wgmma are left for later.
+//
+// Head dims: the kernel is instantiated at a padded head dim D of 64, 128 or
+// 256 (head_dim_bucket, common.cuh) and told the real d, a multiple of 16, so
+// a row is whole 16-byte chunks: only the d / 16 chunks that exist are copied,
+// scored, summed and stored, with d as the row length in device memory. At D
+// 256 a stage is 34,304 bytes at 64 rows, so two stages fit every group.
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 
@@ -94,7 +100,7 @@ __device__ __forceinline__ void unpack_page(const uint4& u, float* f, PageF8) {
 }
 
 template <int D> struct Geo {
-  static constexpr int CH = D / 16;  // 16-byte chunks per row
+  static constexpr int CH = D / 16;  // 16-byte chunks per padded row
   static constexpr int RP = 32 / CH; // row phases per warp in PV
   static constexpr int KS = D + 16;  // padded K row, bytes
   static_assert(CH >= 1 && CH <= 32 && 32 % CH == 0, "unsupported head_dim");
@@ -120,10 +126,11 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
                          const uint8_t* __restrict__ vc, const float* __restrict__ ks,
                          const float* __restrict__ vs, const int* __restrict__ tables,
                          const int* __restrict__ rows, const int* __restrict__ valids,
-                         QT* __restrict__ out, int Hq, int Hkv, int bs, int width,
-                         float scale) {
+                         QT* __restrict__ out, int Hq, int Hkv, int d, int bs,
+                         int width, float scale) {
   using G = Geo<D>;
   constexpr int CH = G::CH, RP = G::RP, KS = G::KS;
+  const int chd = d / 16;  // the chunks of a row that exist
   extern __shared__ uint4 smem_raw[];
   const int t = blockIdx.x, g = blockIdx.y;
   const int group = Hq / Hkv;
@@ -142,7 +149,7 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
   int nblk = valid > 0 ? (valid + bs - 1) / bs : 0;
   if (nblk > width) nblk = width;
   const int* trow = tables + static_cast<size_t>(rows[t]) * width;
-  const size_t page_row = static_cast<size_t>(Hkv) * D;  // bytes per cache row
+  const size_t page_row = static_cast<size_t>(Hkv) * d;  // bytes per cache row
 
   auto issue = [&](int j) {  // copies of page j into stage j % 2
     uint8_t* Kst = st0 + (j & 1) * stage;
@@ -151,8 +158,9 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
     float* Vsc = Ksc + bs;
     const size_t base = static_cast<size_t>(trow[j]) * bs;
     for (int i = threadIdx.x; i < bs * CH; i += blockDim.x) {
-      const int r = i / CH, ch = i % CH;
-      const size_t src = (base + r) * page_row + static_cast<size_t>(g) * D + ch * 16;
+      const int r = i / CH, ch = i % CH;  // CH a power of two: shifts
+      if (ch >= chd) continue;
+      const size_t src = (base + r) * page_row + static_cast<size_t>(g) * d + ch * 16;
       cp_async16(Kst + r * KS + ch * 16, kc + src);
       cp_async16(Vst + r * D + ch * 16, vc + src);
     }
@@ -166,8 +174,8 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
 
   if (nblk > 0) issue(0);
   if (scores)
-    for (int c = lane; c < D; c += 32)
-      qw[c] = to_f<QT>(q[(static_cast<size_t>(t) * Hq + h) * D + c]);
+    for (int c = lane; c < d; c += 32)
+      qw[c] = to_f<QT>(q[(static_cast<size_t>(t) * Hq + h) * d + c]);
 
   float m = -CUDART_INF_F, l = 0.f, acc[16];
 #pragma unroll
@@ -194,6 +202,7 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
           float dot = 0.f;
 #pragma unroll
           for (int ch = 0; ch < CH; ++ch) {
+            if (ch >= chd) break;
             float kf[16];
             unpack_page(*reinterpret_cast<const uint4*>(Kst + r * KS + ch * 16), kf, PT());
 #pragma unroll
@@ -221,7 +230,7 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
 #pragma unroll
       for (int e = 0; e < 16; ++e) acc[e] *= alpha;
       const int ch = lane % CH;
-      for (int r = lane / CH; r < rmax; r += RP) {
+      for (int r = lane / CH; ch < chd && r < rmax; r += RP) {
         float vf[16];
         unpack_page(*reinterpret_cast<const uint4*>(Vst + r * D + ch * 16), vf, PT());
         const float pr = pw[r] * Vsc[r];  // the V scale, once a row
@@ -238,9 +247,9 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
   for (int off = CH; off < 32; off <<= 1)
 #pragma unroll
     for (int e = 0; e < 16; ++e) acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
-  if (lane < CH) {
+  if (lane < chd) {
     const float l_safe = l == 0.f ? 1.f : l;
-    QT* o = out + (static_cast<size_t>(t) * Hq + h) * D + lane * 16;
+    QT* o = out + (static_cast<size_t>(t) * Hq + h) * d + lane * 16;
 #pragma unroll
     for (int e = 0; e < 16; ++e) o[e] = from_f<QT>(acc[e] / l_safe);
   }
@@ -249,7 +258,7 @@ ragged_attn_quant_kernel(const QT* __restrict__ q, const uint8_t* __restrict__ k
 template <typename QT, typename PT, int D>
 int launch(const void* q, const void* kc, const void* vc, const float* ks,
            const float* vs, const int* tables, const int* rows, const int* valids,
-           void* out, int T, int Hq, int Hkv, int bs, int width, float scale,
+           void* out, int T, int Hq, int Hkv, int d, int bs, int width, float scale,
            cudaStream_t stream) {
   const int group = Hq / Hkv;
   const size_t bytes = smem_bytes<D>(bs, group);
@@ -262,7 +271,7 @@ int launch(const void* q, const void* kc, const void* vc, const float* ks,
   kern<<<grid, 32 * warps, bytes, stream>>>(
       static_cast<const QT*>(q), static_cast<const uint8_t*>(kc),
       static_cast<const uint8_t*>(vc), ks, vs, tables, rows, valids,
-      static_cast<QT*>(out), Hq, Hkv, bs, width, scale);
+      static_cast<QT*>(out), Hq, Hkv, d, bs, width, scale);
   PTT_RETURN_LAUNCH_ERROR();
 }
 
@@ -271,13 +280,16 @@ int dispatch_d(const void* q, const void* kc, const void* vc, const float* ks,
                const float* vs, const int* tables, const int* rows,
                const int* valids, void* out, int T, int Hq, int Hkv, int D, int bs,
                int width, float scale, cudaStream_t s) {
-  switch (D) {
+  switch (head_dim_bucket(D)) {
     case 64:
       return launch<QT, PT, 64>(q, kc, vc, ks, vs, tables, rows, valids, out, T,
-                                Hq, Hkv, bs, width, scale, s);
+                                Hq, Hkv, D, bs, width, scale, s);
     case 128:
       return launch<QT, PT, 128>(q, kc, vc, ks, vs, tables, rows, valids, out, T,
-                                 Hq, Hkv, bs, width, scale, s);
+                                 Hq, Hkv, D, bs, width, scale, s);
+    case 256:
+      return launch<QT, PT, 256>(q, kc, vc, ks, vs, tables, rows, valids, out, T,
+                                 Hq, Hkv, D, bs, width, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -192,8 +192,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # q, kc, vc, tables, rows, valids, out, T, Hq, Hkv, D, bs, width,
     # scale, q_dtype, kv_dtype, stream
     lib.ptt_ragged_paged_attn.argtypes = [P] * 7 + [I] * 6 + [F, I, I, P]
-    # x, w, dy, dx, dw_part, dw, rows, d, eps, dtype, stream
-    lib.ptt_rms_norm_bwd.argtypes = [P] * 6 + [I, I, F, I, P]
+    # x, w, dy, dx, part, part_rows, dw, rows, d, eps, dtype, stream
+    lib.ptt_rms_norm_bwd.argtypes = [P] * 5 + [I, P, I, I, F, I, P]
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
     # causal, scale, dtype, tma, stream
     lib.ptt_flash_attn_bwd.argtypes = [P] * 10 + [I] * 7 + [F, I, I, P]

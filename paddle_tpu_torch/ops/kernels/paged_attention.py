@@ -6,7 +6,9 @@ sequence: ``q [b, hq, d]`` over a flat paged cache ``[num_blocks *
 block_size, kv, d]`` (one layer), ``block_tables [b, max_blocks]`` int32 and
 ``seq_lens [b]`` int32, the valid cached tokens of each sequence including
 the one just written. The eager engine calls it in every attention layer of
-every decode step.
+every decode step. The kernel takes every head dim that is a multiple of 16
+up to 256: it is built at a padded head dim of 64, 128 or 256 and masks the
+columns past the real one.
 """
 
 from __future__ import annotations
@@ -25,7 +27,6 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
 #: kernel launches made by :func:`paged_decode_attention` (never by the twin)
 launches = 0
 
-_HEAD_DIMS = (64, 128)    # the head dims the port's flash kernel takes
 _SMEM_LIMIT = 232448      # dynamic shared memory one block may use on H100
 _PAIRS = {(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
@@ -33,11 +34,33 @@ _PAIRS = {(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
 
 def eligible(q_shape, kv_heads: int, head_dim: int) -> bool:
     """Whether the kernel takes this shape (the reference's ``eligible``
-    with the port's limits): head_dim 64 or 128 and whole GQA groups of at
-    most 32 query heads."""
+    with the port's limits): a head_dim that is a multiple of 16 up to 256
+    and whole GQA groups of at most 32 query heads."""
     _, hq, _ = q_shape
-    return (head_dim in _HEAD_DIMS and hq % kv_heads == 0
+    return (_launch.head_dim_bucket(head_dim) != 0 and hq % kv_heads == 0
             and hq // kv_heads <= 32)
+
+
+def _stages(d: int, esz: int, group: int, block_size: int) -> int:
+    """[K | V] page stages of one block: two (the next page's copies in
+    flight during this page) where they fit the H100's shared memory, else
+    one (``csrc/paged_attention.cu:launch``)."""
+    return 2 if _smem_bytes(d, esz, group, block_size, 2) <= _SMEM_LIMIT \
+        else 1
+
+
+def _smem_bytes(d: int, esz: int, group: int, block_size: int,
+                stages: Optional[int] = None) -> int:
+    """Shared memory of one block (``csrc/paged_attention.cu:smem_bytes``):
+    ``stages`` (by default :func:`_stages`) of a K page of padded rows (16
+    bytes past the row) and a V page, then the group's q rows and scores,
+    all at the padded head dim of ``d``. One stage is #8's block
+    (``ragged_paged_attention._smem_bytes``)."""
+    if stages is None:
+        stages = _stages(d, esz, group, block_size)
+    dp = _launch.head_dim_bucket(d)
+    return (stages * block_size * (2 * dp * esz + 16) + group * dp * 4
+            + group * block_size * 4)
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, block_tables,
@@ -95,8 +118,8 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens,
         f"block_size {block_size}")
     _launch.require(eligible(q.shape, hkv, d),
                     f"paged_decode_attention: q {tuple(q.shape)} over {hkv} "
-                    f"kv heads (needs head_dim in {_HEAD_DIMS} and whole "
-                    f"groups of at most 32 query heads)")
+                    f"kv heads (needs a head_dim that is a multiple of 16 in "
+                    f"16..256 and whole groups of at most 32 query heads)")
     _launch.require((q.dtype, k_cache.dtype) in _PAIRS
                     and v_cache.dtype == k_cache.dtype,
                     f"paged_decode_attention: q {q.dtype} over pages "
@@ -111,10 +134,7 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens,
     _launch.require(k_cache.data_ptr() % 16 == 0
                     and v_cache.data_ptr() % 16 == 0,
                     "paged_decode_attention: pages must be 16-byte aligned")
-    esz = k_cache.element_size()
-    group = hq // hkv
-    smem = (2 * block_size * (2 * d + 16 // esz) * esz
-            + group * d * 4 + group * block_size * 4)
+    smem = _smem_bytes(d, k_cache.element_size(), hq // hkv, block_size)
     _launch.require(smem <= _SMEM_LIMIT,
                     f"paged_decode_attention: block_size {block_size} needs "
                     f"{smem} bytes of shared memory")

@@ -14,8 +14,9 @@ comes out exactly 0.
 
 The reference runs its Pallas kernel for int8 pages with ``head_dim % 128
 == 0`` only and composes everything else; here the kernel takes int8 and
-fp8 pages at head_dim 64 or 128 (ROADMAP.md C), so a CUDA tensor never
-takes the twin.
+fp8 pages at every head_dim that is a multiple of 16 up to 256 (built at a
+padded head dim of 64, 128 or 256, the columns past the real one masked),
+so a CUDA tensor never takes the twin.
 """
 
 from __future__ import annotations
@@ -36,7 +37,6 @@ __all__ = ["ragged_paged_attention_quant",
 #: the twin)
 launches = 0
 
-_HEAD_DIMS = (64, 128)
 _SMEM_LIMIT = 232448      # dynamic shared memory one block may use on H100
 #: page dtype -> its code in the C interface (``csrc/common.cuh``)
 PAGE_DTYPES = {torch.int8: 2}
@@ -47,11 +47,11 @@ _Q_DTYPES = (torch.float32, torch.bfloat16)
 
 def eligible(q_shape, kv_heads: int, head_dim: int,
              page_dtype: torch.dtype = torch.int8) -> bool:
-    """Whether the kernel takes this shape and page type: head_dim 64 or
-    128, whole GQA groups of at most 32 query heads, int8 or fp8 e4m3
-    pages."""
+    """Whether the kernel takes this shape and page type: a head_dim that
+    is a multiple of 16 up to 256, whole GQA groups of at most 32 query
+    heads, int8 or fp8 e4m3 pages."""
     _, hq, _ = q_shape
-    return (head_dim in _HEAD_DIMS and hq % kv_heads == 0
+    return (_launch.head_dim_bucket(head_dim) != 0 and hq % kv_heads == 0
             and hq // kv_heads <= 32 and page_dtype in PAGE_DTYPES)
 
 
@@ -147,8 +147,9 @@ def ragged_paged_attention_quant(q, k_cache, v_cache, k_scale, v_scale,
                     f"{v_cache.dtype} are not int8 or float8_e4m3fn")
     _launch.require(eligible(q.shape, hkv, d, k_cache.dtype),
                     f"ragged_paged_attention_quant: q {tuple(q.shape)} over "
-                    f"{hkv} kv heads (needs head_dim in {_HEAD_DIMS} and "
-                    f"whole groups of at most 32 query heads)")
+                    f"{hkv} kv heads (needs a head_dim that is a multiple "
+                    f"of 16 in 16..256 and whole groups of at most 32 query "
+                    f"heads)")
     for name, ix in (("block_tables", block_tables), ("rows", rows),
                      ("valids", valids)):
         _launch.require(ix.dtype == torch.int32,
@@ -183,6 +184,7 @@ def smem_bytes(block_size: int, d: int, group: int) -> int:
     """Dynamic shared memory of one block (``csrc/quant.cu:smem_bytes``):
     two stages of a padded K page, a V page and their two scale columns,
     each stage rounded up to 16 bytes, then the group's q rows and p rows in
-    fp32."""
-    stage = -(-block_size * ((d + 16) + d + 2 * 4) // 16) * 16
-    return 2 * stage + group * d * 4 + group * block_size * 4
+    fp32, all at the padded head dim of ``d``."""
+    dp = _launch.head_dim_bucket(d)
+    stage = -(-block_size * ((dp + 16) + dp + 2 * 4) // 16) * 16
+    return 2 * stage + group * dp * 4 + group * block_size * 4

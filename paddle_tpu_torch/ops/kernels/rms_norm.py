@@ -10,7 +10,7 @@ from ``x`` and gives ``dx`` in ``x``'s dtype and ``dw`` in fp32.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,8 +24,44 @@ launches = 0
 #: kernel launches made by :func:`rms_norm_bwd`
 launches_bwd = 0
 
-# rows per block of the backward's first stage (``kBwdRows`` in the .cu)
-_BWD_ROWS = 32
+# the backward's grid cap an SM (``kBwdBlocksPerSm`` in the .cu)
+_BWD_BLOCKS_PER_SM = 2
+
+# (device index, stream) -> the backward's partial rows, reused
+_partial_rows: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _fast_ok(x: torch.Tensor, tensors, d: int) -> bool:
+    """One pass over what the kernels take: x bf16 or fp32, every tensor
+    contiguous on x's CUDA device, the fp32 weight (first of ``tensors``)
+    of shape (d,) and the others of x's shape. Where it fails, the wrapper
+    runs the detailed checks, which raise naming the fault."""
+    dev = x.device
+    if dev.type != "cuda" or x.dtype not in _launch.DTYPE_CODE \
+            or not x.is_contiguous():
+        return False
+    w = tensors[0]
+    if w.shape != (d,) or w.dtype != torch.float32:
+        return False
+    for i, t in enumerate(tensors):
+        if t.device != dev or not t.is_contiguous() \
+                or (i and (t.shape != x.shape or t.dtype != x.dtype)):
+            return False
+    return True
+
+
+def _partials(dev: torch.device, stream: int, d: int) -> torch.Tensor:
+    """The backward's partial rows for launches on ``stream``, one a block
+    of the grid's cap (SMs x ``_BWD_BLOCKS_PER_SM``): kept and reused by
+    every call on that stream, whatever its rows, and grown for a wider
+    row."""
+    key = (dev.index, stream)
+    part = _partial_rows.get(key)
+    if part is None or part.shape[1] < d:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        part = _partial_rows[key] = torch.empty(
+            (sms * _BWD_BLOCKS_PER_SM, d), dtype=torch.float32, device=dev)
+    return part
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -43,18 +79,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     CPU tensors take the plain twin; CUDA tensors launch the kernel.
     """
     global launches
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return rms_norm_plain(x, weight, epsilon)
     d = x.shape[-1]
-    _launch.require(weight.shape == (d,),
-                    f"rms_norm: weight shape {tuple(weight.shape)} != ({d},)")
     w = weight if weight.dtype == torch.float32 else weight.float()
-    dev = _launch.check_cuda("rms_norm", x, w)
-    code = _launch.dtype_code(x, "rms_norm")
+    if not _fast_ok(x, (w,), d):
+        _launch.require(weight.shape == (d,), f"rms_norm: weight shape "
+                        f"{tuple(weight.shape)} != ({d},)")
+        _launch.check_cuda("rms_norm", x, w)
+        _launch.dtype_code(x, "rms_norm")
     y = torch.empty_like(x)
-    _launch.launch("ptt_rms_norm_fwd", x.data_ptr(), w.data_ptr(),
-                   y.data_ptr(), x.numel() // max(d, 1), d, float(epsilon),
-                   code, _launch.stream_of(dev))
+    _launch.launch(
+        "ptt_rms_norm_fwd", x.data_ptr(), w.data_ptr(), y.data_ptr(),
+        x.numel() // max(d, 1), d, float(epsilon), _launch.DTYPE_CODE[x.dtype],
+        _launch.stream_of(dev))
     launches += 1
     return y
 
@@ -80,32 +119,33 @@ def rms_norm_bwd(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
                  epsilon: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dx, dw)`` of :func:`rms_norm` for the cotangent ``dy`` (cast to
     x's dtype, as the TPU wrapper does). ``dw`` is fp32 and the same bits
-    on every run: the kernel reduces it across rows in two fixed-order
-    stages, with no atomics. CPU tensors take the plain twin; CUDA
-    tensors launch the kernel."""
+    on every run: the kernels reduce it across rows in fixed orders, with
+    no atomics. CPU tensors take the plain twin; CUDA tensors launch the
+    kernels (the rows, then dw's sum over the blocks' partials), one
+    count in ``launches_bwd``."""
     global launches_bwd
     dy = dy.to(x.dtype)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return rms_norm_bwd_plain(x, weight, dy, epsilon)
     d = x.shape[-1]
-    _launch.require(weight.shape == (d,),
-                    f"rms_norm_bwd: weight shape {tuple(weight.shape)} != "
-                    f"({d},)")
-    _launch.require(dy.shape == x.shape,
-                    f"rms_norm_bwd: dy {tuple(dy.shape)} != x "
-                    f"{tuple(x.shape)}")
     w = weight if weight.dtype == torch.float32 else weight.float()
-    dev = _launch.check_cuda("rms_norm_bwd", x, w, dy)
-    code = _launch.dtype_code(x, "rms_norm_bwd")
-    rows = x.numel() // max(d, 1)
+    if not _fast_ok(x, (w, dy), d):
+        _launch.require(weight.shape == (d,), f"rms_norm_bwd: weight shape "
+                        f"{tuple(weight.shape)} != ({d},)")
+        _launch.require(dy.shape == x.shape, f"rms_norm_bwd: dy "
+                        f"{tuple(dy.shape)} != x {tuple(x.shape)}")
+        _launch.check_cuda("rms_norm_bwd", x, w, dy)
+        _launch.dtype_code(x, "rms_norm_bwd")
+    stream = _launch.stream_of(dev)
+    part = _partials(dev, stream, d)
     dx = torch.empty_like(x)
-    part = torch.empty((max(1, -(-rows // _BWD_ROWS)), d),
-                       dtype=torch.float32, device=dev)
     dw = torch.empty(d, dtype=torch.float32, device=dev)
-    _launch.launch("ptt_rms_norm_bwd", x.data_ptr(), w.data_ptr(),
-                   dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-                   dw.data_ptr(), rows, d, float(epsilon), code,
-                   _launch.stream_of(dev))
+    _launch.launch(
+        "ptt_rms_norm_bwd", x.data_ptr(), w.data_ptr(), dy.data_ptr(),
+        dx.data_ptr(), part.data_ptr(), part.shape[0], dw.data_ptr(),
+        x.numel() // max(d, 1), d, float(epsilon), _launch.DTYPE_CODE[x.dtype],
+        stream)
     launches_bwd += 1
     return dx, dw
 

@@ -189,8 +189,8 @@ def test_flash_backward_wgmma_kernel_matches_twin(cuda_device, d, causal, sq,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rms_norm_backward_kernel_matches_twin(cuda_device, dtype):
     """dx and the cross-row dw (fp32 atol 1e-5: 77 rows summed in
-    another order) of a width that is no multiple of the vector; bitwise
-    repeat."""
+    another order) at width 200, a warp a row; bitwise repeat (the widths
+    off the vector are in test_rms_norm_backward_routes_match_twin)."""
     x = _rand(cuda_device, dtype, 77, 200, scale=3.0, seed=5)
     dy = _rand(cuda_device, dtype, 77, 200, seed=6)
     w = torch.rand(200, device=cuda_device) + 0.5
@@ -204,6 +204,118 @@ def test_rms_norm_backward_kernel_matches_twin(cuda_device, dtype):
     np.testing.assert_allclose(_np(dx), _np(rdx), **tol)
     np.testing.assert_allclose(_np(dw), _np(rdw), rtol=1e-5,
                                atol=1e-5 if dtype == "float32" else 1e-3)
+
+
+def _rms_inputs(dev, dtype, rows, d, misaligned=False, seed=0):
+    """x and dy [rows, d] (one element past a 16-byte boundary when
+    ``misaligned``: the general route) and an fp32 weight."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for scale in (3.0, 1.0):
+        t = (torch.randn(rows * d + 8, generator=g) * scale).to(
+            dev, getattr(torch, dtype))
+        off = int(misaligned)
+        t = t[off:off + rows * d].view(rows, d)
+        assert (t.data_ptr() % 16 != 0) == misaligned
+        out.append(t)
+    w = (torch.rand(d, generator=g) + 0.5).to(dev)
+    return out[0], out[1], w
+
+
+# 202 and 1001 are no multiple of the 16-byte vector at either dtype (the
+# general route, dw summed as floats); bf16 100 is no multiple of 8 (the
+# general route, dw summed as float4s)
+_RMS_WIDTHS = [100, 200, 202, 1001, 1024, 1536, 4096, 8192]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 7, 8192])
+@pytest.mark.parametrize("d", _RMS_WIDTHS)
+def test_rms_norm_routes_match_twin(cuda_device, d, rows, dtype):
+    """#5 against its twin at every width of the paths and 1, 7 and 8192
+    rows: up to 1536 a warp a row, 4096 and 8192 a warpgroup a row, except
+    the general route's widths: fp32 8192 (vectorised), bf16 100, and 202
+    and 1001 at either dtype (scalar: no multiple of the vector)."""
+    x, _, w = _rms_inputs(cuda_device, dtype, rows, d)
+    out = pt_rms.rms_norm(x, w, 1e-5)
+    ref = pt_rms.rms_norm_plain(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert out.dtype == x.dtype and out.shape == x.shape
+    np.testing.assert_allclose(_np(out), _np(ref),
+                               **(FP32 if dtype == "float32" else BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 7, 8192])
+@pytest.mark.parametrize("d", _RMS_WIDTHS)
+def test_rms_norm_backward_routes_match_twin(cuda_device, d, rows, dtype):
+    """#6 against its twin at the same widths and rows (the general route's
+    dw summed as floats at 202 and 1001, as float4s elsewhere): dx at its
+    dtype's tier, dw (fp32 sums over the rows in another order) to 1e-5 of
+    its largest magnitude; dw and dx the same bits on a second launch."""
+    x, dy, w = _rms_inputs(cuda_device, dtype, rows, d, seed=1)
+    dx, dw = pt_rms.rms_norm_bwd(x, w, dy, 1e-5)
+    dx2, dw2 = pt_rms.rms_norm_bwd(x, w, dy, 1e-5)
+    rdx, rdw = pt_rms.rms_norm_bwd_plain(x, w, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.dtype == x.dtype and dw.dtype == torch.float32
+    np.testing.assert_allclose(_np(dx), _np(rdx),
+                               **(FP32 if dtype == "float32" else BF16))
+    top = np.abs(_np(rdw)).max()
+    np.testing.assert_allclose(_np(dw), _np(rdw), rtol=1e-4, atol=1e-5 * top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [1024, 4096])
+def test_rms_norm_misaligned_base_takes_the_general_route(cuda_device, d,
+                                                          dtype):
+    """x and dy one element off a 16-byte boundary: both kernels take
+    their general route, against the twins, dw bitwise on repeat."""
+    x, dy, w = _rms_inputs(cuda_device, dtype, 77, d, misaligned=True,
+                           seed=2)
+    out = pt_rms.rms_norm(x, w)
+    dx, dw = pt_rms.rms_norm_bwd(x, w, dy)
+    dw2 = pt_rms.rms_norm_bwd(x, w, dy)[1]
+    ref = pt_rms.rms_norm_plain(x, w)
+    rdx, rdw = pt_rms.rms_norm_bwd_plain(x, w, dy)
+    torch.cuda.synchronize()
+    tol = FP32 if dtype == "float32" else BF16
+    np.testing.assert_allclose(_np(out), _np(ref), **tol)
+    np.testing.assert_allclose(_np(dx), _np(rdx), **tol)
+    np.testing.assert_allclose(_np(dw), _np(rdw), rtol=1e-4,
+                               atol=1e-5 * np.abs(_np(rdw)).max())
+    assert torch.equal(dw, dw2)
+
+
+@pytest.mark.cuda
+def test_rms_norm_backward_reuses_its_partials(cuda_device):
+    """The backward's partial rows are kept for the stream and reused by
+    calls of other row counts and widths (growing for a wider row): each
+    call equals a fresh twin, and a repeat after the others gives the first
+    call's bits."""
+    from paddle_tpu_torch.ops.kernels import _launch
+    first = None
+    for rows, d in ((8192, 1536), (7, 1536), (1, 1024), (3000, 4096),
+                    (8192, 1536)):
+        x, dy, w = _rms_inputs(cuda_device, "bfloat16", rows, d, seed=3)
+        dx, dw = pt_rms.rms_norm_bwd(x, w, dy)
+        rdx, rdw = pt_rms.rms_norm_bwd_plain(x, w, dy)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_np(dx), _np(rdx), **BF16)
+        np.testing.assert_allclose(_np(dw), _np(rdw), rtol=1e-4,
+                                   atol=1e-5 * np.abs(_np(rdw)).max())
+        if first is None:
+            first = dw
+        elif (rows, d) == (8192, 1536):
+            assert torch.equal(dw, first)
+    key = (cuda_device.index or 0, _launch.stream_of(x.device))
+    part = pt_rms._partial_rows[key]
+    assert part.shape[1] >= 4096 and part.shape[0] == 2 * \
+        torch.cuda.get_device_properties(x.device).multi_processor_count
 
 
 def _block_args(dev, dtype, b=2, s=37, nh=4, nkv=2, d=64, ffn=320):
@@ -442,6 +554,40 @@ def test_paged_decode_kernel_matches_twin(cuda_device, q_dtype, kv_dtype, d,
     assert float(out[1].abs().max()) == 0.0          # the empty sequence
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    ("float32", "float32"), ("float32", "bfloat16"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("d", [96, 256])
+def test_paged_decode_kernel_head_dims_match_twin(cuda_device, q_dtype,
+                                                  kv_dtype, d):
+    """#9 at head dims 96 and 256 (padded to 128 and 256; over fp32 pages
+    at 256 one page stage, a lane owning two chunks of a row) against its
+    twin, pages of 64 rows, GQA 4:1; the empty sequence exactly 0."""
+    g = torch.Generator().manual_seed(81)
+    bs, nb, hq, kv = 64, 24, 8, 2
+    kc = torch.randn(nb * bs, kv, d, generator=g)
+    vc = torch.randn(nb * bs, kv, d, generator=g)
+    tables = torch.randperm(nb, generator=g)[:20].reshape(5, 4)
+    q = torch.randn(5, hq, d, generator=g)
+    kvt, qt = getattr(torch, kv_dtype), getattr(torch, q_dtype)
+    args = [q.to(cuda_device, qt), kc.to(cuda_device, kvt),
+            vc.to(cuda_device, kvt), tables.to(cuda_device, torch.int32),
+            torch.tensor([13, 0, 130, 1, 256], dtype=torch.int32,
+                         device=cuda_device), bs]
+    out = pt_paged.paged_decode_attention(*args)
+    ref = pt_paged.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == (5, hq, d)
+    if q_dtype == "float32":
+        np.testing.assert_allclose(_np(out), _np(ref), **FP32)
+    else:
+        for o, r in zip(_np(out), _np(ref)):
+            np.testing.assert_allclose(o, r, rtol=BF16["rtol"],
+                                       atol=BF16["atol"] * np.abs(r).max())
+    assert float(out[1].abs().max()) == 0.0
+
+
 def _scan_inputs(dev, dtype, b, l, h, dh, ds, seed=90):
     rs = np.random.RandomState(seed)
     t = getattr(torch, dtype)
@@ -587,6 +733,43 @@ def test_quant_ragged_kernel_matches_twin(cuda_device, case):
         np.testing.assert_allclose(_np(out), _np(ref), **BF16)
     pads = [i for i, v in enumerate(valids) if v == 0]
     assert not pads or float(out[pads].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("d", [96, 256])
+def test_quant_ragged_kernel_head_dims_match_twin(cuda_device, d, mode,
+                                                  q_dtype):
+    """#10 at head dims 96 and 256 over int8 and fp8 pages, fp32 or bf16
+    q, at case (a)'s rows and lengths with pads: tolerances as
+    :func:`test_quant_ragged_kernel_matches_twin`, bitwise on repeat."""
+    from paddle_tpu_torch.quantization import kv as kvq
+    g = torch.Generator().manual_seed(d)
+    hq, hkv, seqs, width, bs = 32, 8, 8, 32, 64
+    rows = _RAGGED_ROWS
+    valids = [0 if i in (3, 40) else v for i, v in enumerate(_RAGGED_VALIDS)]
+    tables = torch.randperm(seqs * width, generator=g).reshape(seqs, width)
+    kq, ks = kvq.quantize_kv(torch.randn(seqs * width * bs, hkv, d,
+                                         generator=g).to(cuda_device), mode)
+    vq, vs = kvq.quantize_kv(torch.randn(seqs * width * bs, hkv, d,
+                                         generator=g).to(cuda_device), mode)
+    q = torch.randn(len(rows), hq, d, generator=g).to(
+        cuda_device, getattr(torch, q_dtype))
+    args = [q, kq, vq, ks, vs, tables.to(cuda_device, torch.int32),
+            torch.tensor(rows, dtype=torch.int32, device=cuda_device),
+            torch.tensor(valids, dtype=torch.int32, device=cuda_device), bs]
+    out = pt_quant.ragged_paged_attention_quant(*args)
+    again = pt_quant.ragged_paged_attention_quant(*args)
+    ref = pt_quant.ragged_paged_attention_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and out.shape == q.shape
+    if q_dtype == "float32":
+        assert np.abs(_np(out) - _np(ref)).max() <= \
+            1e-4 * np.abs(_np(ref)).max()
+    else:
+        np.testing.assert_allclose(_np(out), _np(ref), **BF16)
+    assert float(out[[3, 40, len(rows) - 1]].abs().max()) == 0.0
 
 
 @pytest.mark.cuda
@@ -857,7 +1040,8 @@ def test_ragged_kernel_head_dims_match_twin(cuda_device, q_dtype, kv_dtype,
 @pytest.mark.cuda
 def test_head_dims_outside_the_kernels_raise_on_the_card(cuda_device):
     """A head dim that is no multiple of 16, or above 256, raises on CUDA
-    tensors naming the accepted set, before any launch."""
+    tensors naming the accepted set, before any launch (#1, #3, #8, #9
+    and #10)."""
     from paddle_tpu_torch.ops import kernels
     kernels.reset_launch_counts()
     for d in (8, 72, 272):
@@ -870,6 +1054,15 @@ def test_head_dims_outside_the_kernels_raise_on_the_card(cuda_device):
         args = _ragged_inputs(cuda_device, "float32", "float32", d=d)
         with pytest.raises(ValueError, match="multiple of 16 in 16..256"):
             pt_ragged.ragged_paged_attention(*args)
+        q, kc, vc, tables, rows, valids, bs = args
+        with pytest.raises(ValueError, match="multiple of 16 in 16..256"):
+            pt_paged.paged_decode_attention(q[:3], kc, vc, tables, rows[:3],
+                                            bs)
+        i8 = torch.zeros(kc.shape, dtype=torch.int8, device=cuda_device)
+        sc = torch.ones(kc.shape[:2], device=cuda_device)
+        with pytest.raises(ValueError, match="multiple of 16 in 16..256"):
+            pt_quant.ragged_paged_attention_quant(q, i8, i8, sc, sc, tables,
+                                                  rows, valids, bs)
     assert kernels.launch_counts() == {n: 0 for n in kernels.KERNELS}
 
 

@@ -1,11 +1,14 @@
 """Head dims other than 64 and 128, and the routes the CUDA wrappers pick.
 
-The kernels of #1-#4 and #8 take every head dim that is a multiple of 16
-up to 256 on the card (an edge route instantiated at a padded head dim);
-their plain twins are what the CPU runs. Here the twins at head dim 96 are
-held against the JAX package's own functions on the CPU (Pallas interpret
-mode), on the same numpy inputs, and a tiny head-dim-96 Llama carried over
-by ``weights.load_jax_state`` is held against the JAX model. The route
+The kernels of #1-#4 and #8-#10 take every head dim that is a multiple of
+16 up to 256 on the card (instantiated at a padded head dim); their plain
+twins are what the CPU runs. Here the twins at head dim 96 are held against
+the JAX package's own functions on the CPU (Pallas interpret mode), on the
+same numpy inputs; #9's and #10's twins also at 256, against the JAX
+package's Pallas kernels (which take ``d % 128 == 0``) and, at 96, against
+the composed path the reference sends that head dim to. A tiny head-dim-96
+Llama carried over by ``weights.load_jax_state`` is held against the JAX
+model. The route
 predicates are pure functions of shape and alignment, tested as such; the
 CUDA kernels behind them are held against these twins on a card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``. Tolerances follow
@@ -22,9 +25,16 @@ import torch
 
 import paddle_tpu as paddle
 from paddle_tpu import flags as jax_flags
+from paddle_tpu.inference.attention import \
+    paged_attention_decode as jax_decode
+from paddle_tpu.inference.attention import \
+    ragged_attention_xla as jax_ragged_xla
 from paddle_tpu.models import llama as jax_llama
 from paddle_tpu.ops.pallas import flash_attention as jax_flash
+from paddle_tpu.ops.pallas import paged_attention as jax_paged
+from paddle_tpu.ops.pallas import quant as jax_quant
 from paddle_tpu.ops.pallas import ragged_paged_attention as jax_ragged
+from paddle_tpu.quantization import kv as jax_kvq
 from paddle_tpu_torch import flags as pt_flags
 from paddle_tpu_torch.distributed.sequence_parallel import _zigzag_seg
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
@@ -32,6 +42,8 @@ from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import _launch
 from paddle_tpu_torch.ops.kernels import async_collectives as pt_ac
 from paddle_tpu_torch.ops.kernels import flash_attention as pt_flash
+from paddle_tpu_torch.ops.kernels import paged_attention as pt_paged
+from paddle_tpu_torch.ops.kernels import quant as pt_quant
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as pt_ragged
 from paddle_tpu_torch.weights import load_jax_state, to_torch
 
@@ -160,6 +172,100 @@ def test_ragged_twin_matches_jax_at_head_dim_96(q_dtype, kv_dtype):
         torch.from_numpy(valids), bs)
     assert out.dtype == q[1].dtype
     np.testing.assert_allclose(_np(out), _np(ref),
+                               **(FP32 if q_dtype == "float32" else BF16))
+    assert float(out[-1].abs().max()) == 0.0
+
+
+# ---------------------------------------------------- #9 at 96 and 256
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [96, 256])
+def test_paged_twin_matches_jax_at_edge_head_dims(d, dtype):
+    """#9's twin (the eager engine's decode) against the reference at
+    head dims 96 and 256, GQA 4:2, pages of 8 tokens: at 256 its Pallas
+    kernel (interpret mode; it takes ``d % 128 == 0``), at 96 the composed
+    path ``inference/attention.py`` sends that head dim to (the public op,
+    with the kernel flag on)."""
+    rng = np.random.RandomState(d)
+    bs, nb = 8, 4
+    lens = [13, 1, 32]
+    kc = _pair(rng.randn((3 * nb + 1) * bs, 2, d), dtype)
+    vc = _pair(rng.randn((3 * nb + 1) * bs, 2, d), dtype)
+    q = _pair(rng.randn(3, 4, d), dtype)
+    tables = (1 + rng.permutation(3 * nb)).reshape(3, nb).astype(np.int32)
+    jlens = np.asarray(lens, np.int32)
+    if d % 128 == 0:
+        assert jax_paged.eligible(q[0].shape, 2, d)
+        ref = jax_paged.paged_decode_attention(q[0], kc[0], vc[0],
+                                               jnp.asarray(tables), jlens, bs)
+    else:
+        assert not jax_paged.eligible(q[0].shape, 2, d)
+        old = jax_flags.flag("use_pallas_kernels")
+        jax_flags.set_flags({"use_pallas_kernels": True})
+        try:
+            ref = jax_decode(paddle.to_tensor(np.asarray(q[0])), kc[0], vc[0],
+                             tables, jlens, bs)
+        finally:
+            jax_flags.set_flags({"use_pallas_kernels": old})
+    assert pt_paged.eligible(q[1].shape, 2, d)
+    out = pt_paged.paged_decode_attention(
+        q[1], kc[1], vc[1], torch.from_numpy(tables),
+        torch.from_numpy(jlens), bs)
+    assert out.dtype == q[1].dtype and tuple(out.shape) == (3, 4, d)
+    np.testing.assert_allclose(_np(out), _np(ref),
+                               **(FP32 if dtype == "float32" else BF16))
+
+
+# --------------------------------------------------- #10 at 96 and 256
+def _quant_pages(mode, rng, n_rows, d):
+    """Pages quantized by the JAX package from seeded fp32 rows, as a JAX
+    pair and the torch tensors of the same bytes."""
+    kq, ks = jax_kvq.quantize_kv(
+        jnp.asarray(rng.randn(n_rows, 2, d).astype(np.float32)), mode)
+    pages = np.asarray(kq)
+    if pages.dtype.name == "float8_e4m3fn":
+        tq = torch.from_numpy(pages.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    else:
+        tq = torch.from_numpy(pages.copy())
+    return (kq, ks), (tq, torch.from_numpy(np.array(ks)))
+
+
+@pytest.mark.parametrize("d,mode,q_dtype", [
+    (96, "int8", "float32"), (96, "fp8", "float32"), (96, "int8", "bfloat16"),
+    (256, "int8", "float32"), (256, "int8", "bfloat16"),
+    (256, "fp8", "float32")])
+def test_quant_twin_matches_jax_at_edge_head_dims(d, mode, q_dtype):
+    """#10's twin (ragged attention over int8/fp8 pages) against the
+    reference at head dims 96 and 256, GQA 4:2, pages of 8 tokens, decode
+    rows and a prompt chunk: the reference's Pallas kernel (interpret
+    mode) where it goes, int8 at 256; its composed dequant path
+    (``ragged_attention_xla`` with the scales) elsewhere. Live tokens only
+    (the composed path averages at a pad; the twin gives exactly 0)."""
+    rng = np.random.RandomState(d + len(mode))
+    bs, seqs, width = 8, 3, 4
+    n_rows = (seqs * width + 1) * bs
+    (jk, jks), (tk, tks) = _quant_pages(mode, rng, n_rows, d)
+    (jv, jvs), (tv, tvs) = _quant_pages(mode, rng, n_rows, d)
+    tables = (1 + rng.permutation(seqs * width)).reshape(
+        seqs, width).astype(np.int32)
+    rows = np.asarray([0, 1, 2, 2, 2, 2, 0], np.int32)
+    valids = np.asarray([13, 32, 4, 5, 6, 7, 0], np.int32)
+    q = _pair(rng.randn(len(rows), 4, d), q_dtype)
+    jidx = (jnp.asarray(tables), jnp.asarray(rows), jnp.asarray(valids))
+    if jax_quant.eligible(q[0].shape, 2, d, jk.dtype):
+        assert d == 256 and mode == "int8"
+        ref = jax_quant.ragged_paged_attention_quant(q[0], jk, jv, jks, jvs,
+                                                     *jidx, bs)
+    else:
+        ref = jax_ragged_xla(q[0], jk, jv, *jidx, bs, k_scale=jks,
+                             v_scale=jvs)
+    assert pt_quant.eligible(q[1].shape, 2, d, tk.dtype)
+    out = pt_quant.ragged_paged_attention_quant(
+        q[1], tk, tv, tks, tvs, torch.from_numpy(tables),
+        torch.from_numpy(rows), torch.from_numpy(valids), bs)
+    assert out.dtype == q[1].dtype and tuple(out.shape) == tuple(q[1].shape)
+    live = valids > 0
+    np.testing.assert_allclose(_np(out)[live], _np(ref)[live],
                                **(FP32 if q_dtype == "float32" else BF16))
     assert float(out[-1].abs().max()) == 0.0
 
@@ -308,3 +414,35 @@ def test_ragged_smem_fits_at_every_bucket(d, esz):
     assert smem == 64 * (dp * esz + 16) + 64 * dp * esz + 8 * dp * 4 \
         + 8 * 64 * 4
     assert smem <= pt_ragged._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("group", [8, 32])
+@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("esz", [2, 4])
+def test_paged_smem_fits_at_every_bucket(d, esz, group):
+    """#9's block at the padded head dim fits the H100's 227 KB at the
+    serving block size (64), bf16 or fp32 pages, a GQA group of 8 or 32:
+    two page stages where they fit, else one (D 256 over fp32 pages), and
+    one stage is #8's block, so #9 takes every shape #8 takes."""
+    dp = _launch.head_dim_bucket(d)
+    stages = pt_paged._stages(d, esz, group, 64)
+    smem = pt_paged._smem_bytes(d, esz, group, 64)
+    assert smem == stages * 64 * (2 * dp * esz + 16) + group * dp * 4 \
+        + group * 64 * 4
+    assert smem <= pt_paged._SMEM_LIMIT
+    assert stages == (1 if (dp, esz) == (256, 4) else 2)
+    assert pt_paged._smem_bytes(d, esz, group, 64, 1) == \
+        pt_ragged._smem_bytes(d, esz, group, 64)
+
+
+@pytest.mark.parametrize("group", [8, 32])
+@pytest.mark.parametrize("d", [16, 96, 256])
+def test_quant_smem_fits_at_every_bucket(d, group):
+    """#10's block at the padded head dim (one-byte pages: int8 and fp8
+    alike) fits the H100's 227 KB at block 64 with two stages (each about
+    34 KB at 256), a GQA group of 8 or 32."""
+    dp = _launch.head_dim_bucket(d)
+    stage = -(-64 * (2 * dp + 16 + 8) // 16) * 16
+    smem = pt_quant.smem_bytes(64, d, group)
+    assert smem == 2 * stage + group * dp * 4 + group * 64 * 4
+    assert smem <= pt_quant._SMEM_LIMIT

@@ -260,7 +260,8 @@ def test_scan_and_paged_kernels_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="no backward"):
         pt_pa.paged_decode_attention(q.requires_grad_(True), kc, kc, tables,
                                      lens, 16)
-    assert not pt_pa.eligible((2, 8, 96), 2, 96)
+    assert pt_pa.eligible((2, 8, 96), 2, 96)       # a multiple of 16
+    assert not pt_pa.eligible((2, 8, 72), 2, 72)   # a multiple of 8 only
     x = torch.empty(1, 40, 4, 16, **meta)
     dt = torch.empty(1, 40, 4, **meta)
     a = torch.empty(4, **meta)

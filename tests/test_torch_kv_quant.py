@@ -330,13 +330,16 @@ def test_gather_paged_scales_matches_jax():
     ((4, 4, 128), 2, 128, torch.int8, True),
     ((4, 4, 64), 2, 64, torch.int8, True),
     ((4, 8, 64), 1, 64, torch.float8_e4m3fn, True),
-    ((4, 4, 96), 2, 96, torch.int8, False),
+    ((4, 4, 96), 2, 96, torch.int8, True),
     ((4, 6, 128), 4, 128, torch.int8, False),
     ((4, 64, 128), 1, 128, torch.int8, False),
-    ((4, 4, 128), 2, 128, torch.bfloat16, False)])
+    ((4, 4, 128), 2, 128, torch.bfloat16, False),
+    ((4, 4, 256), 2, 256, torch.float8_e4m3fn, True),
+    ((4, 4, 72), 2, 72, torch.int8, False)])
 def test_kernel_eligible(q_shape, kv, d, page, ok):
-    """head_dim 64 or 128, whole GQA groups of at most 32 query heads,
-    int8 or fp8 pages (the reference's kernel: int8 and d % 128 == 0)."""
+    """A head_dim that is a multiple of 16 up to 256 (72 is refused),
+    whole GQA groups of at most 32 query heads, int8 or fp8 pages (the
+    reference's kernel: int8 and d % 128 == 0)."""
     assert pq.eligible(q_shape, kv, d, page) is ok
 
 

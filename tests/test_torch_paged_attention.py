@@ -130,9 +130,10 @@ def test_twin_is_differentiable_on_the_cpu():
 
 @pytest.mark.parametrize("shape,kv,d,ok", [
     ((2, 8, 128), 2, 128, True), ((2, 4, 64), 4, 64, True),
-    ((2, 8, 96), 2, 96, False), ((2, 6, 128), 4, 128, False),
-    ((2, 64, 128), 1, 128, False)])
+    ((2, 8, 96), 2, 96, True), ((2, 6, 128), 4, 128, False),
+    ((2, 64, 128), 1, 128, False), ((2, 8, 256), 2, 256, True),
+    ((2, 8, 72), 2, 72, False)])
 def test_eligible(shape, kv, d, ok):
-    """head_dim 64 or 128 (the flash kernel's) and whole GQA groups of at
-    most 32 query heads."""
+    """A head_dim that is a multiple of 16 up to 256 (72, a multiple of 8
+    only, is refused) and whole GQA groups of at most 32 query heads."""
     assert ppa.eligible(shape, kv, d) is ok

@@ -5,13 +5,17 @@ turns.
     python3 tools/torch_phase_ab.py PARENT_DIR CHANGE_DIR PHASE [PHASE ...]
 
 Each checkout runs the named phases of its own ``chip_smoke.py`` (e.g.
-``phase_flash_bwd``, ``phase_tgmm``) in a process of its own, in the order
+``phase_flash_bwd``, ``phase_tgmm``, or a path such as ``phase_train``,
+each given the arguments its signature names: ``torch``, ``timer``,
+``np``, ``card``, ``rng``) in a process of its own, in the order
 parent, change, change, parent, so that both versions are measured on the
 same card at the same power limit. Each run prints one JSON line: the
 checkout, the turn and, for every phase, the timings of the row the phase
 returns (``ms``, ``library_ms``, ``bound_ms``, the per-launch
-``launches_ms`` and the extra shapes a phase times, such as tgmm's
-``down`` or the segment backward's ``t1``). Each checkout builds its own
+``launches_ms``, the profiler's ``device_ms``, the host's ``host_us``, a
+path's ``ms_per_step`` and ``busy_share``, and the extra shapes a phase
+times, such as tgmm's ``down``, the segment backward's ``t1`` or the
+RMSNorm phases' ``shapes``). Each checkout builds its own
 kernels into its own ``paddle_tpu_torch/_build/``. Needs a CUDA device.
 """
 
@@ -20,21 +24,31 @@ import os
 import subprocess
 import sys
 
-_KEYS = ("ms", "library_ms", "bound_ms", "launches_ms", "cp", "down", "t1")
+_KEYS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
+         "host_us", "library_host_us", "launches_ms", "cp", "down", "t1",
+         "shapes", "ms_per_step", "busy_share")
 
 _RUN = """
-import json, os, sys
+import inspect, json, os, sys
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, os.getcwd())
+import numpy as np
 import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+import paddle_tpu_torch.flags  # a path reads it as the package's attribute
 import chip_smoke as cs
-timer = cs.Timer(torch)
+keys = %r
+args = dict(torch=torch, timer=cs.Timer(torch), np=np, card=cs.smi(),
+            rng=np.random.RandomState(0))
 out = {}
 for name in sys.argv[1:]:
-    row = getattr(cs, name)(torch, timer)
-    out[name] = {k: row[k] for k in %r if k in row}
+    fn = getattr(cs, name)
+    row = fn(**{p: args[p] for p in inspect.signature(fn).parameters})
+    if isinstance(row, tuple):      # a path: (counts, perf, ...)
+        row = next(r for r in row if isinstance(r, dict)
+                   and any(k in r for k in keys))
+    out[name] = {k: row[k] for k in keys if k in row}
     torch.cuda.empty_cache()
 print("AB " + json.dumps(out))
 """ % (_KEYS,)
