@@ -13,7 +13,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. kernels: each kernel's wrapper on CUDA tensors at the shapes its path
    gives it (serving at Llama-3-8B widths: head_dim 128, 32:8 heads,
    hidden 4096; training at the flagship widths: 4 x 2048 tokens, hidden
-   1536, ffn 4096, 12:4 heads, where the flash forward is checked too;
+   1536, ffn 4096, 12:4 heads, where the flash forward is checked too,
+   and the fused block on its bf16 chain at head dims 128 and 96 and on
+   its edge kernel (bases 2 bytes off alignment), each repeat bitwise,
+   timed beside the composed forward with the chain's five launches'
+   device times;
    the grouped GEMMs at the MoE training shapes, an
    expert-major buffer of 65,536 rows with 32,768 live over 16 experts,
    one empty and one full, and gmm/gmm2 also in fp32 at the MoE serving
@@ -87,8 +91,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scales moved from rank 0 to rank 1 by the kernel and by its twin (a gloo
    ``ppermute`` through the host), bit for bit, one launch a call; then the
    bf16 segment timed (the kernel's pull from the peer's mapped slot, the
-   library's ``Tensor.copy_`` of the same view, the twin, the whole SPMD
-   call) beside its bound. Then the serve model rebuilt from its seed serves
+   library's ``Tensor.copy_`` of the same view, each also as device time
+   from the profiler, the twin, the whole SPMD call) beside its bound.
+   Then the serve model rebuilt from its seed serves
    every request of the phase one at a time through a one-process
    ``GenerationServer`` (the baselines) and leaves this process; a master,
    a ``FleetSupervisor`` and a ``FleetRouter`` bring up three
@@ -162,7 +167,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    loss and gradients through
    the kernels against the plain twins and an fp32 copy, over all
    parameters and per parameter; a second run from the seed bitwise
-   equal;
+   equal. Then the yardstick: the same model from the seed with
+   ``pallas_fused_block=off`` (the composed layer), 1+1 warmup and 3
+   timed steps, no fused block launched, its ms per step beside the
+   fused one;
 12. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
    configuration (``bench.py:122-129``: vocab 32000, hidden 1024, 16
    experts of ffn 704, top-2 gshard at capacity factor 2.0, aux weight
@@ -1562,30 +1570,75 @@ def phase_rms_bwd(torch, timer):
                 fwd_checks={"rms_norm_fwd": fwd_err})
 
 
-def phase_fused(torch, timer):
-    """One flagship decoder layer after QKV/RoPE: q [4, 2048, 12, 128],
-    k/v [4, 2048, 4, 128], resid [4, 2048, 1536], ffn 4096, bf16; weights
-    at the model's init scale (std 0.02)."""
-    from paddle_tpu_torch.ops.kernels import fused_block as fb
-    b, s, hq, hkv, d = TRAIN_B, TRAIN_S, TRAIN_HQ, TRAIN_HKV, TRAIN_D
-    hidden, ffn = TRAIN_HIDDEN, TRAIN_FFN
+# the bf16 chain's five launches (csrc/fused_block.cu), by a fragment of
+# the profiler's kernel names
+FUSED_PARTS = (("attention", "flash_fwd"), ("o-proj", "OProj"),
+               ("rmsnorm", "rms_norm_fwd"), ("gate/up", "GateUp"),
+               ("down", "chain::Down"))
+
+
+def _fused_args(torch, hq, d, seed):
+    """A flagship decoder layer's inputs after QKV/RoPE at ``hq`` query
+    heads of ``d`` (hidden ``hq * d``), 4 kv heads, ffn 4096, bf16, from
+    ``seed``; weights at the model's init scale (std 0.02)."""
+    b, s, hkv, ffn = TRAIN_B, TRAIN_S, TRAIN_HKV, TRAIN_FFN
+    hidden = hq * d
+    g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape, std=1.0):
-        return (torch.randn(*shape, device="cuda") * std).bfloat16()
+        return (torch.randn(*shape, device="cuda", generator=g)
+                * std).bfloat16()
 
-    args = (rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d),
-            rnd(b, s, hidden), torch.rand(hidden, device="cuda") + 0.5,
+    return (rnd(b, s, hq, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d),
+            rnd(b, s, hidden),
+            torch.rand(hidden, device="cuda", generator=g) + 0.5,
             rnd(hq * d, hidden, std=0.02), rnd(hidden, ffn, std=0.02),
             rnd(hidden, ffn, std=0.02), rnd(ffn, hidden, std=0.02))
+
+
+def _fused_check(torch, fb, args, label):
+    """The layer through ``fused_block`` twice against its twin: within
+    rtol = atol = 2e-2 (a bf16 output), and the repeat bitwise. Returns
+    the output and its max_abs_err."""
     out = fb.fused_block(*args, eps=1e-5)
+    again = fb.fused_block(*args, eps=1e-5)
     ref = fb.fused_block_plain(*args, eps=1e-5)
     torch.cuda.synchronize()
     err = max_err(out, ref)
-    log(f"fused block: max_abs_err {err:.4g} of max "
+    log(f"fused block {label}: max_abs_err {err:.4g} of max "
         f"{float(ref.float().abs().max()):.4g}, rel L2 {_rel(out, ref):.3g}, "
-        f"smem {fb.smem_bytes(hidden, d, torch.bfloat16)} B")
+        f"repeat {'bitwise' if torch.equal(out, again) else 'DIFFERS'}")
     assert torch.allclose(out.float(), ref.float(), rtol=2e-2, atol=2e-2), \
-        f"fused block: max_abs_err {err} beyond rtol/atol 2e-2"
+        f"fused block {label}: max_abs_err {err} beyond rtol/atol 2e-2"
+    assert torch.equal(out, again), f"fused block {label}: repeat differs"
+    return out, err
+
+
+def phase_fused(torch, timer):
+    """One flagship decoder layer after QKV/RoPE: q [4, 2048, 12, 128],
+    k/v [4, 2048, 4, 128], resid [4, 2048, 1536], ffn 4096, bf16, on the
+    chain (asserted), against its twin and bitwise on repeat; the same at
+    head dim 96 (16 heads, hidden 1536: #1's edge route inside the chain)
+    and on bases 2 bytes off alignment (the edge kernel). Timed beside its
+    twin and the composed forward (``fused_block_composed``: #1, #5 and
+    cuBLAS bf16 ``torch.matmul``), the yardstick; the chain's five
+    launches' device times from one profiler session."""
+    from paddle_tpu_torch.ops.kernels import fused_block as fb
+    b, s, hq, d = TRAIN_B, TRAIN_S, TRAIN_HQ, TRAIN_D
+    hidden, ffn = TRAIN_HIDDEN, TRAIN_FFN
+    args = _fused_args(torch, hq, d, seed=0)
+    assert fb.route(args[0].shape, hidden, ffn, torch.bfloat16,
+                    True) == "chain", "the flagship layer is not on the chain"
+    n0 = fb.launches
+    out, err = _fused_check(torch, fb, args, "flagship (chain)")
+    args96 = _fused_args(torch, 16, 96, seed=1)
+    _, err96 = _fused_check(torch, fb, args96, "head dim 96 (chain)")
+    odd = tuple(_misaligned(torch, t) if i != 4 else t
+                for i, t in enumerate(args))
+    assert fb.route(odd[0].shape, hidden, ffn, torch.bfloat16,
+                    False) == "edge"
+    _, err_odd = _fused_check(torch, fb, odd, "misaligned bf16 (edge kernel)")
+    assert fb.launches - n0 == 6, fb.launches - n0
     tokens = b * s
     pairs = b * hq * s * (s + 1) // 2
     flops = (4 * d * pairs + 2 * tokens * hq * d * hidden
@@ -1593,16 +1646,66 @@ def phase_fused(torch, timer):
     nbytes = (sum(t.numel() * t.element_size() for t in args)
               + out.numel() * 2)
     b_ms, b_by = bound(nbytes, flops, "bf16")
+    ms = timer.ms(lambda: fb.fused_block(*args, eps=1e-5))
+    edge_ms = timer.ms(lambda: fb.fused_block(*odd, eps=1e-5), iters=3,
+                       warmup=1)
+    def composed():
+        with torch.no_grad():
+            return fb.fused_block_composed(*args, eps=1e-5)
+
+    def chain():
+        return fb.fused_block(*args, eps=1e-5)
+
+    def host_us(fn, n=20):
+        """The host's time to issue a call, ``n`` calls back to back."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e6 * t / n
+
+    lib_ms = library_ms(torch, timer, composed, out, "fused_block_composed "
+                        "(#1, #5, cuBLAS bf16 torch.matmul)")
+    # device time a call, one profiler session each (the chain's and the
+    # composed forward's attention and RMSNorm share kernel names), with
+    # the L2 flushed before each of 10 calls
+    flush = _flush_kernels(torch, timer)
+    rows = _profile_rows(torch, lambda: [(timer.flush.zero_(), chain())
+                                         for _ in range(10)])
+    parts = {part: sum(us for us, _, name in rows if key in name) / 1e4
+             for part, key in FUSED_PARTS}
+    lib_rows = _profile_rows(torch, lambda: [(timer.flush.zero_(), composed())
+                                             for _ in range(10)])
+    lib_dev = sum(us for us, _, name in lib_rows
+                  if not _is_flush(name, flush)) / 1e4
+    for us, n, name in lib_rows:
+        if not _is_flush(name, flush):
+            log(f"fused block, composed forward profile: {us / 1e4:.4f} ms "
+                f"a call x{n // 10} {name[:90]}")
+    hosts = dict(host_us=host_us(chain), library_host_us=host_us(composed))
+    log(f"fused block (chain): {ms:.4f} ms a call (events), device time a "
+        f"call by launch (profiler) " + ", ".join(
+            f"{p} {t:.4f}" for p, t in parts.items())
+        + f" ms, sum {sum(parts.values()):.4f}; composed forward {lib_ms} "
+        f"ms (events), {lib_dev:.4f} ms device; issued in "
+        f"{hosts['host_us']:.1f} us (composed {hosts['library_host_us']:.1f}"
+        f"); edge kernel (misaligned bf16) {edge_ms:.4f} ms")
+    assert all(t > 0 for t in parts.values()), parts
     return dict(name="fused_block_fwd", route="cuda",
                 source="paddle_tpu_torch/csrc/fused_block.cu",
                 replaces="paddle_tpu/ops/pallas/fused_block.py:222",
-                path="train", max_abs_err=err,
-                tolerance="rtol=atol=2e-2 (bf16 output)",
-                ms=timer.ms(lambda: fb.fused_block(*args, eps=1e-5), iters=5),
+                path="train", max_abs_err=max(err, err96, err_odd),
+                tolerance="rtol=atol=2e-2 (bf16 output)", ms=ms,
                 plain_ms=timer.ms(lambda: fb.fused_block_plain(*args,
                                                                eps=1e-5),
                                   iters=3, warmup=1),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library="fused_block_composed: #1, #5 and cuBLAS bf16 "
+                        "torch.matmul (no single call computes the block)",
+                parts_ms=parts, device_ms=sum(parts.values()),
+                library_device_ms=lib_dev, edge_ms=edge_ms, **hosts,
                 shape="bf16 q [4, 2048, 12, 128], k/v [4, 2048, 4, 128], "
                       "hidden 1536, ffn 4096")
 
@@ -2452,8 +2555,10 @@ def _k18_rank(rank, work_dir):
     rank 1 by the kernel and by its twin (a gloo ``ppermute`` through the
     host), bit for bit; then the bf16 segment timed: the kernel's pull
     from rank 0's mapped slot and the library's ``Tensor.copy_`` of the
-    same view by rank 1 alone on the card, then the twin and the whole SPMD
-    call (stage, sync, barrier, pull) by both."""
+    same view by rank 1 alone on the card, each also as device time a call
+    from the profiler (the kernel's launch; ``copy_``'s device copy),
+    apart from the host time of the calls, then the twin and the whole
+    SPMD call (stage, sync, barrier, pull) by both."""
     import torch
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.ops.kernels import async_collectives as hops
@@ -2504,6 +2609,11 @@ def _k18_rank(rank, work_dir):
         view = k18.device_view(theirs, nbytes, x.device).view(
             x.dtype).view(x.shape)
         res["library_ms"] = timer.ms(lambda: out.copy_(view))
+        res["device_ms"] = _device_ms(torch, timer, lambda: k18.pages_copy(
+            out, theirs, 2), "kv_pages_copy_kernel")
+        res["library_device_ms"] = _device_ms(
+            torch, timer, lambda: out.copy_(view), "Memcpy")
+        assert torch.equal(out, got)
     torch.distributed.barrier(group=group)
     res["plain_ms"] = timer.ms(lambda: k18.kv_pages_remote_copy_plain(
         x, 0, 1, 2, group), iters=3)
@@ -2533,7 +2643,9 @@ def _k18_check(torch, card):
         f"128] (64 MiB), rank 1 pulling rank 0's: kernel {r1['ms']:.4f} ms, "
         f"library copy_ {r1['library_ms']:.4f} ms, plain (gloo) "
         f"{r1['plain_ms']:.4f} ms, whole SPMD call {r1['call_ms']:.4f} ms, "
-        f"bound {r1['bound_ms']:.4f} ms ({r1['bound_by']}) on {card}")
+        f"bound {r1['bound_ms']:.4f} ms ({r1['bound_by']}); device time a "
+        f"call (profiler): kernel {r1['device_ms']:.4f} ms, copy_ "
+        f"{r1['library_device_ms']:.4f} ms, on {card}")
     return r1
 
 
@@ -2846,7 +2958,8 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
                                for c in r["checks"]),
                ms=k18["ms"], call_ms=k18["call_ms"], plain_ms=k18["plain_ms"],
                bound_ms=k18["bound_ms"], bound_by=k18["bound_by"],
-               library_ms=k18["library_ms"],
+               library_ms=k18["library_ms"], device_ms=k18["device_ms"],
+               library_device_ms=k18["library_device_ms"],
                shape=f"bf16 [{FLEET_ROWS}, 8, 128] (a 1024-token record's K "
                      f"at 32 layers), rank 1 of 2 on one card pulling rank "
                      f"0's slot; plain: a gloo ppermute through the host; "
@@ -3879,9 +3992,54 @@ def phase_train(torch, np, card):
     want = dict(fused_block_fwd=layers, flash_attention_fwd=layers,
                 flash_attention_bwd=layers, rms_norm_fwd=2 * layers + 1,
                 rms_norm_bwd=2 * layers + 1)
-    return run_train(
+    counts, perf = run_train(
         torch, np, card, "train", cfg, TRAIN_B, TRAIN_S, TRAIN_STEPS, want,
         lambda n: 6 * n + 12 * layers * cfg.hidden_size * TRAIN_S)
+    perf["off_ms_per_step"] = _train_unfused(torch, np, cfg, dict(
+        want, fused_block_fwd=0))
+    log(f"train: {perf['ms_per_step']:.1f} ms/step with the fused block "
+        f"(pallas_fused_block=auto), {perf['off_ms_per_step']:.1f} without "
+        f"(off: the composed layer) on {card}")
+    return counts, perf
+
+
+TRAIN_OFF_STEPS = 3     # the unfused yardstick's timed steps, after 1 + 1
+
+
+def _train_unfused(torch, np, cfg, want):
+    """The train step's yardstick: the same model from the seed with
+    ``pallas_fused_block=off`` (each layer composed: #1, #5 and cuBLAS
+    bf16 matmuls), 1 + 1 warmup and ``TRAIN_OFF_STEPS`` timed steps with
+    the launch counts zeroed just before and read just after (``want`` a
+    step), its loss finite. Returns ms a step; the flag is restored."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.flags.set_flags({"pallas_fused_block": "off"})
+    try:
+        model, opt, train_step = build_trainer(torch, cfg)
+        ids = torch.from_numpy(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S)).astype("int32")).cuda()
+        for _ in range(2):
+            train_step(ids)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = [train_step(ids) for _ in range(TRAIN_OFF_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        for name in kernels.KERNELS:
+            assert counts[name] == want.get(name, 0) * TRAIN_OFF_STEPS, \
+                ("train (off)", name, counts)
+        assert all(math.isfinite(float(x)) for x in losses), losses
+        del model, opt, train_step
+    finally:
+        paddle.flags.set_flags({"pallas_fused_block": "auto"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return 1e3 * dt / TRAIN_OFF_STEPS
 
 
 # the MoE training configuration (bench.py:122-129)
@@ -4460,20 +4618,24 @@ def _fused_tpu_numerics(torch, x_send, counts, inv, wg, wu, wd, plan):
     return ys[0] if plan.chunks == 1 else torch.cat(ys)
 
 
-def _pull_alone(torch, timer, group, call, pull):
+def _pull_alone(torch, timer, group, call, pull, key=None):
     """An exchange kernel's launch alone, as #18's row takes it: every rank
     makes one whole ``call`` (which stages the slot), then rank 0 times
     ``pull`` (the bare launch on that staged slot) while its peers wait at
-    a barrier; the result equals the call's. Returns rank 0's ms (None on
-    the other ranks)."""
+    a barrier; the result equals the call's. With ``key``, rank 0 also
+    reads the pull's device time a call from the profiler (the activities
+    whose name holds ``key``). Returns rank 0's ms and device ms (None on
+    the other ranks, and device ms None without ``key``)."""
     want = call()
-    ms = None
+    ms = dev_ms = None
     if torch.distributed.get_rank(group) == 0:
         ms = timer.ms(pull)
         assert torch.equal(pull(), want), "the launch alone differs from " \
             "the whole call"
+        if key is not None:
+            dev_ms = _device_ms(torch, timer, pull, key)
     torch.distributed.barrier(group=group)
-    return ms
+    return ms, dev_ms
 
 
 def _ep_kernel_checks(torch, mesh):
@@ -4508,11 +4670,13 @@ def _ep_kernel_checks(torch, mesh):
     x = torch.randn(EP * n, MOE_HIDDEN, device="cuda",
                     generator=gen).bfloat16()
     b_ms, b_by = bound(2 * x.numel() * 2, 0, "bf16")
+    ms, dev_ms = _pull_alone(
+        torch, timer, group, lambda: hops.tiled_a2a(x, group),
+        lambda: hops.tiled_a2a_pull(x, group), key="ring_copy_kernel")
     a2a = dict(call_ms=timer.ms(lambda: hops.tiled_a2a(x, group)),
                plain_ms=timer.ms(lambda: hops.tiled_a2a_plain(x, group),
                                  iters=3, warmup=1),
-               ms=_pull_alone(torch, timer, group, lambda: hops.tiled_a2a(
-                   x, group), lambda: hops.tiled_a2a_pull(x, group)),
+               ms=ms, device_ms=dev_ms,
                bound_ms=b_ms, bound_by=b_by, checked=cases,
                shape=f"bf16 x_send [{EP * n}, {MOE_HIDDEN}] on rank 0 of "
                      f"{EP} on one card (ms: the pull alone, rank 0 alone "
@@ -4520,8 +4684,9 @@ def _ep_kernel_checks(torch, mesh):
                      f"pull); plain: a gloo all_to_all through the host")
     if a2a["ms"] is not None:
         log(f"tiled_a2a (#15, the copy #16 shares): the pull alone "
-            f"{a2a['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the whole "
-            f"call {a2a['call_ms']:.4f} ms")
+            f"{a2a['ms']:.4f} ms ({dev_ms:.4f} ms of device time a call, "
+            f"profiler), bound {b_ms:.4f} ms ({b_by}); the whole call "
+            f"{a2a['call_ms']:.4f} ms")
     del x
     fused, worst = [], 0.0
     for label, kw in (("b1 bf16", dict(chunks=1, dtype=torch.bfloat16)),
@@ -4596,7 +4761,7 @@ def _ep_kernel_checks(torch, mesh):
                     torch, timer, group,
                     lambda: hops.fused_a2a_expert_mlp(*args[:6], **call),
                     lambda: hops.fused_a2a_expert_mlp_pull(*args[:6],
-                                                           **call)),
+                                                           **call))[0],
                 plain_ms=timer.ms(lambda: hops.fused_a2a_expert_mlp_plain(
                     *args[:6], **call), iters=3, warmup=1),
                 bound_ms=f_ms, bound_by=f_by, library_ms=lib_ms,
@@ -4957,8 +5122,8 @@ def phase_train_moe_ep(torch, np, card):
                  replaces="paddle_tpu/ops/pallas/async_collectives.py:187",
                  path="train-moe-ep", max_abs_err=0.0, tolerance="bitwise",
                  library_ms=None, **{x: k["a2a"][x] for x in (
-                     "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                     "shape")}),
+                     "ms", "device_ms", "call_ms", "plain_ms", "bound_ms",
+                     "bound_by", "shape")}),
             dict(name="fused_a2a_expert_mlp", route="cuda",
                  source="paddle_tpu_torch/csrc/async_collectives.cu",
                  replaces="paddle_tpu/ops/pallas/async_collectives.py:480",
@@ -4979,15 +5144,17 @@ def phase_train_moe_ep(torch, np, card):
 
 
 # the kernels redesigned around wgmma (#1's bf16 forward, #17's bf16
-# gate/up and down launches, #2's dQ and dK/dV, #11/#13's gmm, #12's tgmm),
-# by a fragment of their mangled names; #4's bf16 route is #2's kernels
-# and #3's is #1's, instantiated with the segment mask, checked by the
-# fragments of both
+# gate/up and down launches, #2's dQ and dK/dV, #11/#13's gmm, #12's tgmm,
+# #7's chain GEMMs), by a fragment of their mangled names; #4's bf16 route
+# is #2's kernels and #3's is #1's, instantiated with the segment mask,
+# checked by the fragments of both, as is each epilogue of #7's GEMM
 WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
                  "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "gmm_wgmma",
                  "tgmm_wgmma", ("flash_bwd_dq_wgmma", "SegMask"),
                  ("flash_bwd_dkv_wgmma", "SegMask"),
-                 ("flash_fwd_wgmma", "SegMask"))
+                 ("flash_fwd_wgmma", "SegMask"),
+                 ("fused_block_gemm", "OProj"), ("fused_block_gemm", "GateUp"),
+                 ("fused_block_gemm", "Down"))
 
 
 # redesigned kernels of no tensor-core product: they must not spill either

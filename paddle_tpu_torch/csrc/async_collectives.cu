@@ -41,24 +41,20 @@
 //
 // The copies (#16's stage and pull, #15's pull): up to kMaxSeg segments per
 // launch, blockIdx.y picks one. Bound: bytes, each segment in once and out
-// once. When every pointer and size is a multiple of 16 bytes, each thread
-// of a grid-stride loop issues kUnroll independent 16-byte streaming loads
-// (ld.global.cs: read once, no reuse to keep in cache) before their
-// streaming stores, and the grid fills every SM at full occupancy (8 blocks
-// of 256 threads an SM, split over the segments): ~17 MB in flight across
-// the card, far past the bandwidth-delay product, where one load in flight
-// a thread on a grid of 4 x 132 blocks kept ~2 MB. Bytes otherwise.
+// once. When every pointer and size is a multiple of 16 bytes, the segment
+// takes copy.cuh's streaming loop (kUnroll independent 16-byte streaming
+// loads a thread, a full-occupancy grid split over the segments; #18 shares
+// it). Bytes otherwise.
 #include <string.h>
 
 #include "common.cuh"
+#include "copy.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = stream_copy::kThreads;
 constexpr int kMaxSeg = 8;  // segments of one copy launch: the peers of #15
-constexpr int kUnroll = 8;  // independent 16-byte loads a thread keeps in flight
-constexpr int kBlocksPerSm = 2048 / kThreads;  // full occupancy
 
 struct Segments {
   const unsigned char* src[kMaxSeg];
@@ -73,17 +69,8 @@ __global__ void __launch_bounds__(kThreads) ring_copy_kernel(Segments seg) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (kVec) {
-    const uint4* src = reinterpret_cast<const uint4*>(seg.src[s]);
-    uint4* dst = reinterpret_cast<uint4*>(seg.dst[s]);
-    const long long n16 = n / 16;
-    for (; i + (kUnroll - 1) * stride < n16; i += kUnroll * stride) {
-      uint4 v[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) v[u] = __ldcs(src + i + u * stride);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) __stcs(dst + i + u * stride, v[u]);
-    }
-    for (; i < n16; i += stride) __stcs(dst + i, __ldcs(src + i));
+    stream_copy::vectors(reinterpret_cast<const uint4*>(seg.src[s]),
+                         reinterpret_cast<uint4*>(seg.dst[s]), n / 16, i, stride);
   } else {
     for (; i < n; i += stride) seg.dst[s][i] = seg.src[s][i];
   }
@@ -100,13 +87,7 @@ int copy_segments(const Segments& seg, int n, cudaStream_t stream) {
     vec = vec && (bits % 16 == 0);
     most = seg.bytes[i] > most ? seg.bytes[i] : most;
   }
-  // enough blocks for one pass of kUnroll vectors a thread, at most the
-  // card's full occupancy shared by the segments
-  const long long per_block = static_cast<long long>(kThreads) * (vec ? kUnroll : 1);
-  const long long units = vec ? most / 16 : most;
-  const long long cap = static_cast<long long>(hopper::sm_count()) * kBlocksPerSm / n;
-  long long blocks = (units + per_block - 1) / per_block;
-  blocks = blocks < 1 ? 1 : (blocks > cap ? (cap < 1 ? 1 : cap) : blocks);
+  const long long blocks = stream_copy::blocks(vec ? most / 16 : most, n, vec);
   const dim3 grid(static_cast<unsigned>(blocks), n);
   if (vec)
     ring_copy_kernel<true><<<grid, kThreads, 0, stream>>>(seg);

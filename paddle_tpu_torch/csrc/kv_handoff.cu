@@ -22,20 +22,26 @@
 // the piece, and all pieces are in flight at once, so the count only
 // partitions the grid (the caller's chunk count is kept, as the reference
 // clamps it, to a divisor of the rows). No semaphores are copied block by
-// block: each block grid-strides over its piece with 16-byte vector loads
-// and stores, and the bytes past the last whole vector (rows that do not
+// block: each block grid-strides over its piece with copy.cuh's streaming
+// loop (8 independent 16-byte streaming loads a thread before their stores,
+// #16's copy), and the bytes past the last whole vector (rows that do not
 // divide by 16 bytes) take a masked byte loop. A pointer that is not
-// 16-byte aligned takes the byte loop throughout.
+// 16-byte aligned takes the byte loop throughout. The grid is #16's rule:
+// enough blocks for one pass of 8 vectors a thread, capped at full
+// occupancy (8 blocks of 256 an SM) shared by the pieces: one load in
+// flight a thread on ~4 blocks an SM keeps too few bytes in flight (it took
+// 1.1-1.25x Tensor.copy_'s time on an H100 80GB HBM3 at 700 W, PERF.md).
 //
 // Bound on the H100: bytes. The segment is read once (from the peer's
 // buffer: a global read on one card, an NVLink read across cards) and
 // written once: 2 * bytes / 3.35 TB/s, 0.040 ms for the 64 MiB K (or V)
 // segment of a 1024-token record at Llama-3-8B widths.
 #include "common.cuh"
+#include "copy.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = stream_copy::kThreads;
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -52,9 +58,8 @@ __global__ void __launch_bounds__(kThreads)
   if (kVec) {
     // piece is a multiple of 16, so every piece starts on a vector
     const long long n16 = (end - begin) / 16;
-    const uint4* s = reinterpret_cast<const uint4*>(src + begin);
-    uint4* d = reinterpret_cast<uint4*>(dst + begin);
-    for (long long i = first; i < n16; i += stride) d[i] = s[i];
+    stream_copy::vectors(reinterpret_cast<const uint4*>(src + begin),
+                         reinterpret_cast<uint4*>(dst + begin), n16, first, stride);
     tail = begin + n16 * 16;
   }
   for (long long i = tail + first; i < end; i += stride) dst[i] = src[i];
@@ -73,11 +78,7 @@ extern "C" int ptt_kv_pages_copy(const void* src, void* dst, long long bytes,
   const bool vec = bits % 16 == 0;
   long long piece = (bytes + chunks - 1) / chunks;
   piece = (piece + 15) / 16 * 16;
-  const long long units = vec ? piece / 16 : piece;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  // about four blocks an SM over all pieces
-  const long long most = (4 * 132 + chunks - 1) / chunks;
-  blocks = blocks < 1 ? 1 : (blocks > most ? most : blocks);
+  const long long blocks = stream_copy::blocks(vec ? piece / 16 : piece, chunks, vec);
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(chunks));
   const unsigned char* s = static_cast<const unsigned char*>(src);
   unsigned char* d = static_cast<unsigned char*>(dst);

@@ -45,6 +45,14 @@
 // rows): the forward runs one block per row and reads the row twice (the
 // second time from L1/L2); the backward runs 256-thread blocks striding over
 // rows with dw in shared memory, then the same second launch.
+//
+// The forward also has an fp32-in, bf16-out instantiation of both routes
+// (the output type TO; TO = T everywhere else): the fused decoder block's
+// hn = T(h * rsqrt(mean(h^2) + eps) * wn) over its fp32 residual h
+// (csrc/fused_block.cu, rms_norm_fwd_f32_bf16). A thread then stores each
+// 4-float vector of x as 8 bytes of y.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -110,10 +118,25 @@ __device__ __forceinline__ void load4(float* f, const float4* p) {
 }
 
 // ------------------------------------------------------------------ forward
-template <typename T, int CPT, int TPR>
+// y's vector `at` (the V = 16 / sizeof(T) elements of x's vector `at`) from
+// the floats f: 16 bytes where TO is T, 8 bytes for fp32 in and bf16 out.
+template <typename T, typename TO>
+__device__ __forceinline__ void store_vec(TO* y, size_t at, const float* f) {
+  if constexpr (std::is_same<T, TO>::value) {
+    reinterpret_cast<uint4*>(y)[at] = pack<T>(f);
+  } else {
+    static_assert(std::is_same<T, float>::value &&
+                      std::is_same<TO, __nv_bfloat16>::value,
+                  "the mixed instantiation is fp32 in, bf16 out");
+    reinterpret_cast<uint2*>(y)[at] =
+        make_uint2(hopper::pack_bf16(f[0], f[1]), hopper::pack_bf16(f[2], f[3]));
+  }
+}
+
+template <typename T, int CPT, int TPR, typename TO = T>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_fwd_reg(const T* __restrict__ x, const float* __restrict__ w,
-                 T* __restrict__ y, int rows, int d, float eps) {
+                 TO* __restrict__ y, int rows, int d, float eps) {
   constexpr int V = 16 / sizeof(T);
   constexpr int G = kThreads / TPR;  // row groups a block
   __shared__ float red[2][kThreads / 32];
@@ -121,7 +144,6 @@ rms_norm_fwd_reg(const T* __restrict__ x, const float* __restrict__ w,
   const int t = threadIdx.x % TPR, grp = threadIdx.x / TPR;
   const int step = gridDim.x * G;
   const uint4* xv = reinterpret_cast<const uint4*>(x);
-  uint4* yv = reinterpret_cast<uint4*>(y);
 
   float wf[CPT][V];  // this thread's columns of w, loaded once
 #pragma unroll
@@ -163,7 +185,7 @@ rms_norm_fwd_reg(const T* __restrict__ x, const float* __restrict__ w,
         unpack<T>(cur[i], f);
 #pragma unroll
         for (int e = 0; e < V; ++e) f[e] = f[e] * r * wf[i][e];
-        yv[base + c] = pack<T>(f);
+        store_vec<T, TO>(y, base + c, f);
       }
     }
 #pragma unroll
@@ -172,14 +194,14 @@ rms_norm_fwd_reg(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 // The general route: one block per row, two passes.
-template <typename T, bool kVec>
+template <typename T, bool kVec, typename TO = T>
 __global__ void __launch_bounds__(kThreads)
 rms_norm_fwd_any(const T* __restrict__ x, const float* __restrict__ w,
-                 T* __restrict__ y, int d, float eps) {
+                 TO* __restrict__ y, int d, float eps) {
   constexpr int V = 16 / sizeof(T);
   const size_t row = blockIdx.x;
   const T* xr = x + row * d;
-  T* yr = y + row * d;
+  TO* yr = y + row * d;
 
   float ss = 0.f;
   if (kVec) {
@@ -201,17 +223,16 @@ rms_norm_fwd_any(const T* __restrict__ x, const float* __restrict__ w,
 
   if (kVec) {
     const uint4* xv = reinterpret_cast<const uint4*>(xr);
-    uint4* yv = reinterpret_cast<uint4*>(yr);
     for (int i = threadIdx.x; i < d / V; i += blockDim.x) {
       float f[V];
       unpack<T>(xv[i], f);
 #pragma unroll
       for (int e = 0; e < V; ++e) f[e] = f[e] * r * w[i * V + e];
-      yv[i] = pack<T>(f);
+      store_vec<T, TO>(yr, i, f);
     }
   } else {
     for (int c = threadIdx.x; c < d; c += blockDim.x)
-      yr[c] = from_f<T>(to_f<T>(xr[c]) * r * w[c]);
+      yr[c] = from_f<TO>(to_f<T>(xr[c]) * r * w[c]);
   }
 }
 
@@ -415,10 +436,10 @@ int occupancy(Kern kern, size_t smem) {
   return n;
 }
 
-template <typename T, int CPT, int TPR>
-int fwd_reg(const T* x, const float* w, T* y, int rows, int d, float eps,
+template <typename T, int CPT, int TPR, typename TO>
+int fwd_reg(const T* x, const float* w, TO* y, int rows, int d, float eps,
             cudaStream_t s) {
-  auto kern = rms_norm_fwd_reg<T, CPT, TPR>;
+  auto kern = rms_norm_fwd_reg<T, CPT, TPR, TO>;
   static int occ = 0;
   if (occ == 0) occ = occupancy(kern, 0);
   constexpr int G = kThreads / TPR;
@@ -429,8 +450,8 @@ int fwd_reg(const T* x, const float* w, T* y, int rows, int d, float eps,
   PTT_RETURN_LAUNCH_ERROR();
 }
 
-template <typename T, int TPR>
-int fwd_cpt(const T* x, const float* w, T* y, int rows, int d, float eps,
+template <typename T, int TPR, typename TO>
+int fwd_cpt(const T* x, const float* w, TO* y, int rows, int d, float eps,
             cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   switch (cpt_for(d / V, TPR)) {
@@ -442,22 +463,22 @@ int fwd_cpt(const T* x, const float* w, T* y, int rows, int d, float eps,
   }
 }
 
-template <typename T>
+template <typename T, typename TO = T>
 int launch_fwd(const void* xp, const void* wp, void* yp, int rows, int d,
                float eps, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const T* x = static_cast<const T*>(xp);
   const float* w = static_cast<const float*>(wp);
-  T* y = static_cast<T*>(yp);
+  TO* y = static_cast<TO*>(yp);
   switch (route<T>(d, aligned16(x) && aligned16(y) && aligned16(w))) {
     case 32: return fwd_cpt<T, 32>(x, w, y, rows, d, eps, s);
     case 128: return fwd_cpt<T, 128>(x, w, y, rows, d, eps, s);
     default: break;
   }
   if (d % V == 0 && aligned16(x) && aligned16(y))
-    rms_norm_fwd_any<T, true><<<rows, kThreads, 0, s>>>(x, w, y, d, eps);
+    rms_norm_fwd_any<T, true, TO><<<rows, kThreads, 0, s>>>(x, w, y, d, eps);
   else
-    rms_norm_fwd_any<T, false><<<rows, kThreads, 0, s>>>(x, w, y, d, eps);
+    rms_norm_fwd_any<T, false, TO><<<rows, kThreads, 0, s>>>(x, w, y, d, eps);
   PTT_RETURN_LAUNCH_ERROR();
 }
 
@@ -561,6 +582,15 @@ extern "C" int ptt_rms_norm_fwd(const void* x, const void* w, void* y, int rows,
   if (dtype == PTT_F32) return launch_fwd<float>(x, w, y, rows, d, eps, s);
   if (dtype == PTT_BF16) return launch_fwd<__nv_bfloat16>(x, w, y, rows, d, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x: [rows, d] fp32, y: [rows, d] bf16, w: [d] fp32, all contiguous: #5's
+// forward with its output rounded to bf16 (the fused decoder block's RMSNorm
+// of its fp32 residual, csrc/fused_block.cu).
+int rms_norm_fwd_f32_bf16(const void* x, const void* w, void* y, int rows, int d,
+                          float eps, cudaStream_t s) {
+  if (rows == 0 || d == 0) return 0;
+  return launch_fwd<float, __nv_bfloat16>(x, w, y, rows, d, eps, s);
 }
 
 // x, dy, dx: [rows, d] contiguous, dtype code `dtype`; w, dw: [d] fp32;

@@ -197,9 +197,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     # q, k, v, o, dout, lse, delta, dq, dk, dv, B, Sq, Sk, Hq, Hkv, D,
     # causal, scale, dtype, tma, stream
     lib.ptt_flash_attn_bwd.argtypes = [P] * 10 + [I] * 7 + [F, I, I, P]
-    # q, k, v, resid, wn, wo, wg, wu, wd, out, B, S, nh, nkv, D, hidden,
-    # ffn, scale, eps, dtype, stream
-    lib.ptt_fused_block_fwd.argtypes = [P] * 10 + [I] * 7 + [F, F, I, P]
+    # q, k, v, resid, wn, wo, wg, wu, wd, out, then the chain's scratch o,
+    # lse, h, hn, act, B, S, nh, nkv, D, hidden, ffn, scale, eps, dtype,
+    # chain, attn_tma, stream
+    lib.ptt_fused_block_fwd.argtypes = [P] * 15 + [I] * 7 + [F, F, I, I, I, P]
     lib.ptt_fused_block_smem_bytes.argtypes = [I, I, I]
     lib.ptt_fused_block_smem_bytes.restype = ctypes.c_longlong
     # x, w1, w2, o1, o2, counts, E, c_pad, K, N, trans_w, x_dtype,

@@ -364,6 +364,55 @@ def test_fused_block_gradients_on_the_card_match_the_cpu_twins(cuda_device):
                                    atol=1e-5 * np.abs(ref).max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nh,nkv,ffn", [(64, 6, 2, 320), (96, 4, 2, 320),
+                                          (128, 3, 1, 320), (80, 3, 1, 328)])
+def test_fused_block_chain_matches_twin(cuda_device, d, nh, nkv, ffn):
+    """bf16 on the chain (#1, the o-projection GEMM, #5, gate/up, down) at
+    head dims 64, 96 (#1's edge route inside), 128 and 80: s=37 (74 rows,
+    a ragged 128-row tile), hidden 384 or 240 (no multiple of 256; 240 a
+    ragged 64-deep K), ffn 320 or 328 (ragged 128-column gate/up tiles;
+    328 a ragged K of the down GEMM). One launch count a call, none of
+    #1's wrapper; a second call bitwise; atol scaled by the output's
+    largest magnitude."""
+    args = _block_args(cuda_device, "bfloat16", nh=nh, nkv=nkv, d=d, ffn=ffn)
+    assert pt_fb.route(args[0].shape, nh * d, ffn, torch.bfloat16,
+                       True) == "chain"
+    n0, f0 = pt_fb.launches, pt_flash.launches
+    out = pt_fb.fused_block(*args, eps=1e-5)
+    again = pt_fb.fused_block(*args, eps=1e-5)
+    ref = pt_fb.fused_block_plain(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    assert pt_fb.launches - n0 == 2 and pt_flash.launches == f0
+    assert torch.equal(out, again)
+    r = _np(ref)
+    np.testing.assert_allclose(_np(out), r, rtol=BF16["rtol"],
+                               atol=BF16["atol"] * np.abs(r).max())
+
+
+@pytest.mark.cuda
+def test_fused_block_misaligned_bf16_takes_the_edge_kernel(cuda_device):
+    """bf16 on bases 2 bytes off alignment (TMA cannot map them) runs the
+    edge kernel, and matches the twin as the aligned chain does."""
+    args = _block_args(cuda_device, "bfloat16")
+    odd = []
+    for i, t in enumerate(args):
+        if i == 4:      # wn: the wrapper's fp32 copy is its own
+            odd.append(t)
+            continue
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        odd.append(flat[1:].view(t.shape).copy_(t))
+    assert odd[0].data_ptr() % 16 == 2
+    assert pt_fb.route(odd[0].shape, odd[3].shape[-1], odd[6].shape[-1],
+                       torch.bfloat16, False) == "edge"
+    out = pt_fb.fused_block(*odd, eps=1e-5)
+    ref = pt_fb.fused_block_plain(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    r = _np(ref)
+    np.testing.assert_allclose(_np(out), r, rtol=BF16["rtol"],
+                               atol=BF16["atol"] * np.abs(r).max())
+
+
 # grouped GEMMs: 4 experts of c_pad 128 (two row tiles), one empty, one
 # full, one ending mid-tile; K 88 and N 200 are no multiples of the tiles.
 # At c_pad 192 (a multiple of 64, not of 128) an expert's second 128-row
@@ -1190,6 +1239,32 @@ def test_ring_copy_kernel_is_bit_equal_to_copy(cuda_device):
         torch.cuda.synchronize()
         for s_, d_ in zip(src[:segs], dst[:segs]):
             assert torch.equal(s_, d_)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 2, 3, 7])
+def test_kv_pages_copy_is_bit_equal_to_copy(cuda_device, chunks):
+    """#18's kernel (``pages_copy``) on #16's streaming loop: sizes that
+    are no multiple of 16 (a masked byte tail after the vectors), a 64 MiB
+    segment, and a source or destination base off alignment (the byte
+    loop throughout), in 1, 2, 3 and 7 pieces; each destination bit for
+    bit ``Tensor.copy_``'s, the byte past it untouched, one launch a
+    call."""
+    from paddle_tpu_torch.ops.kernels import kv_handoff as k18
+    g = torch.Generator().manual_seed(92 + chunks)
+    for n, s_off, d_off in ((64 << 20, 0, 0), ((16 << 20) + 53, 0, 0),
+                            (1000003, 1, 0), (4099, 0, 3), (15, 0, 0)):
+        src = torch.randint(0, 256, (n + 1,), generator=g,
+                            dtype=torch.uint8).to(cuda_device)[s_off:s_off + n]
+        buf = torch.zeros(n + 4, dtype=torch.uint8, device=cuda_device)
+        dst = buf[d_off:d_off + n]
+        want = torch.empty_like(dst).copy_(src)
+        n0 = k18.launches
+        k18.pages_copy(dst, src.data_ptr(), chunks)
+        torch.cuda.synchronize()
+        assert k18.launches - n0 == 1
+        assert torch.equal(dst, want), (n, s_off, d_off)
+        assert not buf[d_off + n:].any()
 
 
 @pytest.mark.cuda

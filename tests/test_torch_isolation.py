@@ -28,6 +28,7 @@ def _port_files():
                 yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_phase_ab.py")
+    yield os.path.join(ROOT, "tools", "torch_a2a_pull_ab.py")
 
 
 def _imported_modules(path):

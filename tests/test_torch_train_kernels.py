@@ -186,6 +186,26 @@ def test_fused_block_matches_jax_fused_kernel(dtype):
         _close_scaled(g, r, tol)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_block_matches_jax_fused_kernel_at_head_dim_96(dtype):
+    """Head dim 96 (hidden 384), which the bf16 chain takes on the card
+    through flash attention's edge route: the forward and all nine
+    gradients against the JAX fused kernel (interpret mode, the blocks of
+    the test above), at the same tiers."""
+    args, dy = _block_inputs(dtype, seed=15, d=96)
+    ref_out, vjp = jax.vjp(
+        lambda *a: jax_fb.fused_block(*a, eps=1e-5, blocks=(8, 8, 32)),
+        *[a[0] for a in args])
+    ref_g = vjp(dy[0])
+    out, grads = _port_vjp(lambda *a: pt_inc.fused_block(*a, eps=1e-5),
+                           [a[1] for a in args], dy[1].detach())
+    tol = FP32 if dtype == "float32" else BF16
+    _close_scaled(out, ref_out, tol)
+    for g, r, a in zip(grads, ref_g, args):
+        assert g.dtype == a[1].dtype and g.shape == a[1].shape
+        _close_scaled(g, r, tol)
+
+
 def test_fused_block_twin_is_the_composed_block_in_fp32():
     """In fp32 the kernel's rounding points are no-ops, so its twin is
     the composed block up to summation order."""
@@ -209,3 +229,45 @@ def test_fused_block_ineligible_reasons():
         (1, 8, 4, 16), (1, 8, 2, 16), 64, 96, torch.float32, cuda)
     assert "float32 or bfloat16" in pt_fb.ineligible_reason(
         (1, 8, 2, 64), (1, 8, 2, 64), 128, 96, torch.float16, cuda)
+
+
+def test_fused_block_ineligible_reasons_on_a_cuda_device():
+    """bf16 takes the chain at every head dim flash attention takes (64,
+    96, 256 among them), decided before any build; fp32 keeps the edge
+    kernel's head dims 64 and 128."""
+    cuda = torch.device("cuda")
+    for d in (64, 96, 256):
+        assert pt_fb.ineligible_reason(
+            (2, 8, 4, d), (2, 8, 2, d), 4 * d, 320, torch.bfloat16,
+            cuda) is None, d
+    assert "head_dim" in pt_fb.ineligible_reason(
+        (2, 8, 4, 96), (2, 8, 2, 96), 384, 320, torch.float32, cuda)
+    assert "head dims of flash attention" in pt_fb.ineligible_reason(
+        (2, 8, 1, 264), (2, 8, 1, 264), 264, 320, torch.bfloat16, cuda)
+
+
+def test_fused_block_routes_on_meta_shapes():
+    """The route from dtype, shapes and alignment alone (meta shapes, no
+    memory, no build): aligned bf16 at a head dim flash attention takes
+    runs the chain; fp32 and misaligned bf16 run the edge kernel at head
+    dim 64 or 128 and raise at any other; the chain's 128-row tiles stay
+    within the grid's 65535."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for d in (16, 64, 96, 128, 256):
+        assert pt_fb.route((4, 2048, 12, d), 12 * d, 4096, bf16,
+                           True) == "chain"
+    for d in (64, 128):
+        assert pt_fb.route((4, 2048, 12, d), 12 * d, 4096, bf16,
+                           False) == "edge"
+        assert pt_fb.route((4, 2048, 12, d), 12 * d, 4096, f32,
+                           True) == "edge"
+    for d, dtype, aligned in ((96, bf16, False), (96, f32, True),
+                              (256, f32, True), (16, bf16, False)):
+        with pytest.raises(ValueError, match="no CUDA route"):
+            pt_fb.route((4, 2048, 12, d), 12 * d, 4096, dtype, aligned)
+    assert pt_fb.route((1, 128 * 65535, 12, 128), 1536, 4096, bf16,
+                       True) == "chain"
+    assert pt_fb.route((1, 128 * 65535 + 1, 12, 128), 1536, 4096, bf16,
+                       True) == "edge"
+    q = torch.empty(4, 2048, 12, 128, dtype=bf16, device="meta")
+    assert pt_fb.route(q.shape, 1536, 4096, q.dtype, True) == "chain"

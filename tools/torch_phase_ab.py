@@ -15,7 +15,8 @@ returns (``ms``, ``library_ms``, ``bound_ms``, the per-launch
 ``launches_ms``, the profiler's ``device_ms``, the host's ``host_us``, a
 path's ``ms_per_step`` and ``busy_share``, and the extra shapes a phase
 times, such as tgmm's ``down``, the segment backward's ``t1`` or the
-RMSNorm phases' ``shapes``). Each checkout builds its own
+RMSNorm phases' ``shapes``, the fused block's ``parts_ms`` and
+``edge_ms``, the train phase's ``off_ms_per_step``). Each checkout builds its own
 kernels into its own ``paddle_tpu_torch/_build/``. Needs a CUDA device.
 """
 
@@ -26,7 +27,8 @@ import sys
 
 _KEYS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
          "host_us", "library_host_us", "launches_ms", "cp", "down", "t1",
-         "shapes", "ms_per_step", "busy_share")
+         "shapes", "ms_per_step", "busy_share", "parts_ms", "edge_ms",
+         "off_ms_per_step")
 
 _RUN = """
 import inspect, json, os, sys
