@@ -24,8 +24,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    shapes, gmm2 beside the unfused route's two gmm launches; the chunked
    SSD scan at the hybrid's prefill and at ``bench_ssm_pretrain``'s
    widths; paged decode attention at the eager serve step and the
-   hybrid's; ragged attention over quantized pages at #8's shape over int8
-   and fp8 pages, with a bf16 q and pads, and at the serve-quant step's;
+   hybrid's; ragged attention (#8, the split-context family of
+   ``csrc/ragged.cuh``) at its timing shape (7 decode rows, a 64-token
+   chunk, a pad), the serve decode step, a fleet decode host's step (one
+   row and 7 pads) and the hybrid's fp32 step, and over quantized pages
+   (#10) at #8's shape over int8 and fp8 pages, with a bf16 q and pads, at
+   the serve-quant step's and at the serve decode step's, each also timed
+   as device time from the profiler and with every decode row of the
+   timing shape computed alone, bit for bit its row of the full step;
    the segment-causal flash forward and backward at every zig-zag
    descriptor of sp 2 and 4 over a global 4096, 16:8 heads of 64, bf16
    and fp32, with splits no tile divides, the forward also on bf16 bases
@@ -34,8 +40,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward over the whole causal sequence and summed against the flash
    backward)
    held against its plain PyTorch twin on the same inputs (each backward
-   kernel, the dx gmm, the scan and the quantized ragged kernel also
-   twice, bitwise; tgmm at both of its path shapes, gate/up and down dW,
+   kernel, the dx gmm, the scan and both ragged kernels also twice,
+   bitwise; tgmm at both of its path shapes, gate/up and down dW,
    and with NaN and 1e30 in the dead rows, bit for bit the clean call;
    gmm, gmm2 and tgmm also at shapes TMA cannot map, K 70 and N 37 or a
    base 2 bytes off alignment, on their WMMA route; the segment-causal
@@ -339,50 +345,144 @@ def scaled_close(got, want, rtol, atol) -> bool:
 RAGGED_LENS = [130, 257, 385, 512, 640, 771, 1000]
 RAGGED_ROWS = list(range(7)) + [7] * 64 + [0]
 RAGGED_VALIDS = RAGGED_LENS + list(range(449, 513)) + [0]
+# the serve requests mid-decode (prompts of 32..1024 tokens and 16 of
+# their 32 new ones): 72 pages of 64 tokens
+SERVE_DECODE_LENS = [48, 190, 332, 473, 615, 757, 899, 1040]
+
+
+def _kernel_device_ms(torch, timer, fn, flush, calls=10):
+    """Device time a call of ``fn`` from ``torch.profiler``: every device
+    activity of ``calls`` calls but the L2 flush before each
+    (:func:`_is_flush`), per call; None where the profiler saw none (not
+    measured). Whatever the kernel's launches are named, so a parent build's
+    kernels are summed the same way."""
+    def run():
+        for _ in range(calls):
+            timer.flush.zero_()
+            fn()
+    rows = _profile_rows(torch, run)
+    ms = sum(us for us, _, n in rows if not _is_flush(n, flush)) / 1e3 / calls
+    return ms or None
+
+
+def _block_table(torch, rng, seqs, width):
+    """A block table of ``seqs`` rows of ``width`` entries over a pool of
+    ``seqs * width`` blocks, every entry distinct and shuffled, and the
+    pool's size."""
+    perm = torch.from_numpy(rng.permutation(seqs * width).astype("int32"))
+    return perm.reshape(seqs, width).cuda(), seqs * width
+
+
+def _ragged_bound(rows, valids, bs, hq, hkv, d, page_esz, q_esz, t,
+                  extra_row_bytes=0):
+    """Bytes: each visible page once (a chunk's tokens share theirs, all
+    kv heads of a page row, K and V, plus ``extra_row_bytes`` a row and
+    head), q read once, out written once, rows and valids; flops: 4*d per
+    (query head, key) on the fp32 CUDA cores."""
+    blocks = {(row, j) for row, val in zip(rows, valids)
+              for j in range(-(-val // bs))}
+    page = bs * hkv * (d * 2 * page_esz + extra_row_bytes)
+    nbytes = len(blocks) * page + t * hq * d * q_esz * 2 + t * 8
+    flops = sum(valids) * hq * 4 * d
+    return bound(nbytes, flops, "fp32")
+
+
+def _neighbours(torch, fn, args, out, valids, label):
+    """Each decode row (a live token with no live neighbour of its table
+    row, so a tile of its own) computed alone, from its own q, row and
+    valids, equals its row of the full call bit for bit."""
+    q, rows, vals = args[0], args[-3], args[-2]
+    rl = rows.tolist()
+    n = 0
+    for i, v in enumerate(valids):
+        if v <= 0 or any(0 <= j < len(rl) and valids[j] > 0
+                         and rl[j] == rl[i] for j in (i - 1, i + 1)):
+            continue
+        alone = fn(q[i:i + 1].contiguous(), *args[1:-3],
+                   rows[i:i + 1].contiguous(), vals[i:i + 1].contiguous(),
+                   args[-1])
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], out[i]), \
+            f"{label}: decode row {i} alone differs from the full step"
+        n += 1
+    return n
 
 
 def phase_ragged(torch, timer, rng):
-    """fp32 q [72, 32, 128] over bf16 pages of 64-token blocks, as the
-    compiled step feeds it: 7 decode rows, one 64-token prompt chunk and a
-    pad row."""
+    """#8 against its twin at (a) its timing shape, fp32 q [72, 32, 128]
+    over bf16 pages of 64-token blocks, as the compiled step feeds it: 7
+    decode rows, one 64-token prompt chunk and a pad row; (b) the serve
+    decode step, fp32 q [8, 32, 128], 8 rows at the serve requests'
+    mid-decode lengths (48..1040, 72 pages); (c) a fleet decode host's
+    step, one row of 1040 and 7 pads; (d) serve-ssm's step, fp32 q [8, 8,
+    128] over fp32 pages, group 1, 8 rows of 1040. Each twice, bitwise;
+    pads exactly 0; at (a) every decode row alone equals its row of the
+    full step bit for bit. Each timed as an event-timed call (L2 flushed)
+    and as device time from the profiler."""
     from paddle_tpu_torch.ops.kernels import ragged_paged_attention as rp
-    hq, hkv, d, bs, seqs, width = 32, 8, 128, 64, 8, 32
-    nblocks = seqs * width
-    perm = torch.from_numpy(rng.permutation(nblocks).astype("int32"))
-    tables = perm.reshape(seqs, width).cuda()
-    kc = torch.randn(nblocks * bs, hkv, d, device="cuda").bfloat16()
-    vc = torch.randn(nblocks * bs, hkv, d, device="cuda").bfloat16()
-    # 7 decode rows, a chunk at positions 448..511, a pad
-    rows, valids = RAGGED_ROWS, RAGGED_VALIDS
-    t = len(rows)
-    q = torch.randn(t, hq, d, device="cuda")
-    r = torch.tensor(rows, dtype=torch.int32, device="cuda")
-    v = torch.tensor(valids, dtype=torch.int32, device="cuda")
-    args = (q, kc, vc, tables, r, v, bs)
-    out = rp.ragged_paged_attention(*args)
-    ref = rp.ragged_paged_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = max_err(out, ref)
-    tol = 2e-5   # fp32 sums over up to 1000 keys in another order
-    assert err <= tol, f"ragged: max_abs_err {err} > {tol}"
-    assert float(out[-1].abs().max()) == 0.0, "ragged: pad row is not 0"
-    # bytes: each visible page once (the chunk's tokens share theirs),
-    # q read once, out written once; flops: 4*d per (query head, key)
-    blocks = {(row, j) for row, val in zip(rows, valids)
-              for j in range(-(-val // bs))}
-    page = bs * hkv * d * 2 * 2
-    nbytes = len(blocks) * page + q.numel() * 4 * 2 + t * 8
-    flops = sum(valids) * hq * 4 * d
-    b_ms, b_by = bound(nbytes, flops, "fp32")
+    bs, width, d = 64, 32, 128
+    flush = _flush_kernels(torch, timer)
+    cases = (
+        ("a", 32, 8, torch.bfloat16, RAGGED_ROWS, RAGGED_VALIDS, 8),
+        ("b", 32, 8, torch.bfloat16, list(range(8)), SERVE_DECODE_LENS, 8),
+        ("c", 32, 8, torch.bfloat16, [0] * 8, [1040] + [0] * 7, 1),
+        ("d", 8, 8, torch.float32, list(range(8)), [1040] * 8, 8))
+    shapes, err = {}, 0.0
+    for tag, hq, hkv, kv_dtype, rows, valids, seqs in cases:
+        tables, nblocks = _block_table(torch, rng, seqs, width)
+        kc = torch.randn(nblocks * bs, hkv, d, device="cuda").to(kv_dtype)
+        vc = torch.randn(nblocks * bs, hkv, d, device="cuda").to(kv_dtype)
+        t = len(rows)
+        q = torch.randn(t, hq, d, device="cuda")
+        r = torch.tensor(rows, dtype=torch.int32, device="cuda")
+        v = torch.tensor(valids, dtype=torch.int32, device="cuda")
+        args = (q, kc, vc, tables, r, v, bs)
+        out = rp.ragged_paged_attention(*args)
+        again = rp.ragged_paged_attention(*args)
+        ref = rp.ragged_paged_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again), f"ragged ({tag}): two launches differ"
+        e = max_err(out, ref)
+        tol = 2e-5   # fp32 sums over up to 1040 keys in another order
+        assert e <= tol, f"ragged ({tag}): max_abs_err {e} > {tol}"
+        pads = [i for i, x in enumerate(valids) if x == 0]
+        assert not pads or float(out[pads].abs().max()) == 0.0, \
+            f"ragged ({tag}): a pad row is not 0"
+        alone = _neighbours(torch, rp.ragged_paged_attention, args, out,
+                            valids, f"ragged ({tag})") if tag == "a" else 0
+        b_ms, b_by = _ragged_bound(rows, valids, bs, hq, hkv, d,
+                                   kc.element_size(), 4, t)
+        res = dict(max_abs_err=e, bound_ms=b_ms, bound_by=b_by,
+                   ms=timer.ms(lambda: rp.ragged_paged_attention(*args)),
+                   device_ms=_kernel_device_ms(
+                       torch, timer, lambda: rp.ragged_paged_attention(*args),
+                       flush),
+                   plain_ms=timer.ms(
+                       lambda: rp.ragged_paged_attention_plain(*args),
+                       iters=3),
+                   shape=f"fp32 q [{t}, {hq}, {d}] over "
+                         f"{str(kv_dtype)[6:]} pages, kv {hkv}, block {bs}")
+        shapes[tag] = res
+        err = max(err, e)
+        log(f"ragged ({tag}) {res['shape']}: max_abs_err {e:.3g}, bitwise "
+            f"on repeat, pads 0" + (f", {alone} decode rows alone bitwise"
+                                    if alone else "")
+            + f"; {res['ms']:.4f} ms (device {res['device_ms']}), plain "
+            f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del kc, vc
+    a = shapes["a"]
     return dict(name="ragged_paged_attention", route="cuda",
                 source="paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                 replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:105",
-                path="serve", max_abs_err=err, tolerance=tol,
-                ms=timer.ms(lambda: rp.ragged_paged_attention(*args)),
-                plain_ms=timer.ms(lambda: rp.ragged_paged_attention_plain(
-                    *args)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                shape=f"q fp32 [{t}, {hq}, {d}], bf16 pages, block 64")
+                path="serve", max_abs_err=err,
+                tolerance="2e-5 (max_abs, fp32); bitwise repeat; pads 0; "
+                          "decode rows alone bitwise",
+                ms=a["ms"], device_ms=a["device_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+                library_ms=None, shapes=shapes,
+                shape="(a) fp32 q [72, 32, 128] over bf16 pages, block 64; "
+                      "(b) the serve decode step; (c) a fleet decode step; "
+                      "(d) serve-ssm's fp32 step")
 
 
 def _sdpa_lib(torch, q, k, v):
@@ -2219,15 +2319,18 @@ def phase_quant(torch, np, timer, rng):
     pages; (b) the serve-quant step's shape (fp32 q [128, 16, 64], kv 8: 64
     decode rows of lengths up to 527 and a 64-token prompt chunk) over int8
     pages; (c) shape (a) over fp8 e4m3 pages; (d) shape (a) with a bf16 q
-    and four pad tokens. Each twice, bitwise; pads exactly 0."""
+    and four pad tokens; (e) the serve decode step (#8's (b): fp32 q [8,
+    32, 128], lengths 48..1040) over int8 pages. Each twice, bitwise; pads
+    exactly 0; at (a) every decode row alone equals its row of the full
+    step bit for bit. Each timed as an event-timed call (L2 flushed) and as
+    device time from the profiler."""
     from paddle_tpu_torch.ops.kernels import quant as pq
     from paddle_tpu_torch.quantization import kv as kvq
     bs = 64
+    flush = _flush_kernels(torch, timer)
 
-    def case(hq, hkv, d, rows, valids, seqs, width, mode, q_dtype):
-        nblocks = seqs * width
-        perm = torch.from_numpy(rng.permutation(nblocks).astype("int32"))
-        tables = perm.reshape(seqs, width).cuda()
+    def case(tag, hq, hkv, d, rows, valids, seqs, width, mode, q_dtype):
+        tables, nblocks = _block_table(torch, rng, seqs, width)
         kq, ks = kvq.quantize_kv(torch.randn(nblocks * bs, hkv, d,
                                              device="cuda"), mode)
         vq, vs = kvq.quantize_kv(torch.randn(nblocks * bs, hkv, d,
@@ -2255,59 +2358,67 @@ def phase_quant(torch, np, timer, rng):
         pads = [i for i, v in enumerate(valids) if v == 0]
         assert not pads or float(out[pads].abs().max()) == 0.0, \
             "quant: a pad token is not 0"
+        alone = _neighbours(torch, pq.ragged_paged_attention_quant, args,
+                            out, valids, f"quant ({tag})") \
+            if tag == "a" else 0
         # bytes: each visible page and its scale columns once, q read
         # once, out written once, rows/valids; flops 4*d per (query
         # head, key), as phase_ragged counts #8's
-        blocks = {(row, j) for row, val in zip(rows, valids)
-                  for j in range(-(-val // bs))}
-        page = bs * hkv * d * 2 * kq.element_size() + bs * hkv * 4 * 2
-        esz = q.element_size()
-        nbytes = len(blocks) * page + q.numel() * esz * 2 + t * 8
-        flops = sum(valids) * hq * 4 * d
-        b_ms, b_by = bound(nbytes, flops, "fp32")
-        res = dict(err=err, top=top, tol=tol, bound_ms=b_ms, bound_by=b_by,
+        b_ms, b_by = _ragged_bound(rows, valids, bs, hq, hkv, d,
+                                   kq.element_size(), q.element_size(), t,
+                                   extra_row_bytes=8)
+        res = dict(max_abs_err=err, top=top, tol=tol, bound_ms=b_ms,
+                   bound_by=b_by,
                    ms=timer.ms(lambda: pq.ragged_paged_attention_quant(*args)),
+                   device_ms=_kernel_device_ms(
+                       torch, timer,
+                       lambda: pq.ragged_paged_attention_quant(*args), flush),
                    plain_ms=timer.ms(
-                       lambda: pq.ragged_paged_attention_quant_plain(*args)))
-        log(f"quant {mode} q {str(q_dtype)[6:]} [{t}, {hq}, {d}]: max_abs_err "
-            f"{err:.3g} of max {top:.3g} (tol {tol}), bitwise on repeat, "
-            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+                       lambda: pq.ragged_paged_attention_quant_plain(*args),
+                       iters=3),
+                   shape=f"{str(q_dtype)[6:]} q [{t}, {hq}, {d}] over {mode} "
+                         f"pages, kv {hkv}, block {bs}")
+        log(f"quant ({tag}) {res['shape']}: max_abs_err {err:.3g} of max "
+            f"{top:.3g} (tol {tol}), bitwise on repeat"
+            + (f", {alone} decode rows alone bitwise" if alone else "")
+            + f"; {res['ms']:.4f} ms (device {res['device_ms']}), plain "
+            f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         return res
 
-    a = case(32, 8, 128, RAGGED_ROWS, RAGGED_VALIDS, 8, 32, "int8",
+    a = case("a", 32, 8, 128, RAGGED_ROWS, RAGGED_VALIDS, 8, 32, "int8",
              torch.float32)
     srs = np.random.RandomState(2)
     lens = srs.randint(1, 528, size=64).tolist()
     lens[17] = 527
-    b = case(16, 8, 64, list(range(64)) + [64] * 64,
+    b = case("b", 16, 8, 64, list(range(64)) + [64] * 64,
              lens + list(range(449, 513)), 65, 16, "int8", torch.float32)
-    c = case(32, 8, 128, RAGGED_ROWS, RAGGED_VALIDS, 8, 32, "fp8",
+    c = case("c", 32, 8, 128, RAGGED_ROWS, RAGGED_VALIDS, 8, 32, "fp8",
              torch.float32)
     pad_valids = [0 if i in (3, 40, 70) else v
                   for i, v in enumerate(RAGGED_VALIDS)]
-    dd = case(32, 8, 128, RAGGED_ROWS, pad_valids, 8, 32, "int8",
+    dd = case("d", 32, 8, 128, RAGGED_ROWS, pad_valids, 8, 32, "int8",
               torch.bfloat16)
+    e = case("e", 32, 8, 128, list(range(8)), SERVE_DECODE_LENS, 8, 32,
+             "int8", torch.float32)
+    shapes = dict(a=a, b=b, c=c, d=dd, e=e)
     return dict(name="ragged_paged_attention_quant", route="cuda",
                 source="paddle_tpu_torch/csrc/quant.cu",
                 replaces="paddle_tpu/ops/pallas/quant.py:110",
                 path="serve-quant",
-                max_abs_err=max(a["err"], b["err"], c["err"], dd["err"]),
+                max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
                 tolerance="fp32 output 1e-4 x max|twin|, bf16 rtol=atol=2e-2;"
-                          " bitwise repeat; pads exactly 0",
-                ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-                bound_by=a["bound_by"], library_ms=None,
+                          " bitwise repeat; pads exactly 0; decode rows "
+                          "alone bitwise",
+                ms=a["ms"], device_ms=a["device_ms"], plain_ms=a["plain_ms"],
+                bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+                library_ms=None,
                 library="none (no single PyTorch call computes it)",
-                serve_quant_ms=b["ms"], serve_quant_plain_ms=b["plain_ms"],
-                serve_quant_bound_ms=b["bound_ms"],
-                serve_quant_bound_by=b["bound_by"], fp8_ms=c["ms"],
-                fp8_plain_ms=c["plain_ms"], fp8_bound_ms=c["bound_ms"],
-                bf16_ms=dd["ms"], bf16_plain_ms=dd["plain_ms"],
-                bf16_bound_ms=dd["bound_ms"],
+                shapes=shapes,
                 shape="(a) fp32 q [72, 32, 128] over int8 pages (kv 8, block "
                       "64), #8's lengths; (b) fp32 q [128, 16, 64] int8, "
                       "lengths up to 527; (c) (a) over fp8 pages; (d) (a) "
-                      "with bf16 q and 4 pads")
+                      "with bf16 q and 4 pads; (e) fp32 q [8, 32, 128] "
+                      "int8, the serve decode step")
 
 
 # ------------------------------------------------------------ serve phase

@@ -54,8 +54,7 @@ def _smem_bytes(d: int, esz: int, group: int, block_size: int,
     """Shared memory of one block (``csrc/paged_attention.cu:smem_bytes``):
     ``stages`` (by default :func:`_stages`) of a K page of padded rows (16
     bytes past the row) and a V page, then the group's q rows and scores,
-    all at the padded head dim of ``d``. One stage is #8's block
-    (``ragged_paged_attention._smem_bytes``)."""
+    all at the padded head dim of ``d``."""
     if stages is None:
         stages = _stages(d, esz, group, block_size)
     dp = _launch.head_dim_bucket(d)

@@ -8,7 +8,10 @@ its block-table row and ``valids[t]`` how many cached positions it sees
 are in the cache). Pad tokens have ``valids = 0`` and come out exactly 0.
 The kernel takes every head dim that is a multiple of 16 up to 256: it is
 built at a padded head dim of 64, 128 or 256 and masks the columns past
-the real one.
+the real one. It splits each token's context into splits of
+:data:`SPLIT_KEYS` keys (flash decoding, ``csrc/ragged.cuh``); a token of
+several splits leaves fp32 partials that a second launch merges, in
+scratch the wrapper allocates behind the output.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from paddle_tpu_torch.ops.kernels import _launch
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
-           "gather_paged_kv", "launches"]
+           "gather_paged_kv", "launches", "SPLIT_KEYS"]
 
 #: kernel launches made by :func:`ragged_paged_attention` (never by the twin)
 launches = 0
@@ -33,13 +36,47 @@ _PAIRS = {(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
 
 
-def _smem_bytes(d: int, esz: int, group: int, block_size: int) -> int:
-    """Shared memory of one block of the kernel: a K page of padded rows
-    (16 bytes past the row), a V page, the group's q rows and scores, all
-    at the padded head dim of ``d``."""
+#: keys of a context split (``csrc/ragged.cuh:kSplitKeys``): a token's keys
+#: are cut at 0, SPLIT_KEYS, 2 * SPLIT_KEYS, ...
+SPLIT_KEYS = 256
+_STAGES, _TILE_ROWS = 3, 32      # ragged.cuh: kStages, kTileRows
+
+
+def _stage_keys(d: int, esz: int) -> int:
+    """Keys a stage of the page ring holds (``Geo::SK``): K and V about
+    16 KB at the padded head dim, 16 to 64 keys."""
+    return min(64, max(16, 8192 // (_launch.head_dim_bucket(d) * esz)))
+
+
+def _smem_bytes(d: int, esz: int) -> int:
+    """Dynamic shared memory of one block of the kernel (``csrc/ragged.cuh``
+    ``Geo::kSmem``) at the padded head dim of ``d`` over pages of ``esz``
+    bytes an element: a ring of three stages of K and V rows padded by 16
+    bytes, the tile's q rows and softmax weights in fp32, the split's table
+    entries. The layout does not depend on the GQA group or the block
+    size."""
     dp = _launch.head_dim_bucket(d)
-    return (block_size * (dp * esz + 16) + block_size * dp * esz
-            + group * dp * 4 + group * block_size * 4)
+    sk = _stage_keys(d, esz)
+    row = dp * esz + 16
+    stage = -(-(sk * 2 * row) // 16) * 16
+    return (_STAGES * stage + _TILE_ROWS * (dp + 4) * 4
+            + _TILE_ROWS * (sk + 4) * 4 + (SPLIT_KEYS + 2) * 4)
+
+
+def empty_out(q: torch.Tensor, width: int, block_size: int) -> torch.Tensor:
+    """The kernel's output like ``q``, and behind it in one allocation
+    (256-byte aligned) the fp32 partials of tokens whose keys span several
+    splits: ``[t, hq, nsp, d]`` accumulators and ``[t, hq, nsp]`` (m, l)
+    pairs, ``nsp`` the splits of a full table row (``width * block_size``
+    keys). Where a table row fits one split there are none."""
+    t, hq, d = q.shape
+    nsp = -(-width * block_size // SPLIT_KEYS)
+    if nsp <= 1:
+        return torch.empty_like(q)
+    head = q.numel() * q.element_size()
+    nbytes = -(-head // 256) * 256 + t * hq * nsp * (d + 2) * 4
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+    return buf[:head].view(q.dtype).view(q.shape)
 
 
 def gather_paged_kv(cache: torch.Tensor, block_tables: torch.Tensor,
@@ -122,11 +159,14 @@ def ragged_paged_attention(q, k_cache, v_cache, block_tables, rows, valids,
     _launch.require(k_cache.data_ptr() % 16 == 0
                     and v_cache.data_ptr() % 16 == 0,
                     "ragged_paged_attention: pages must be 16-byte aligned")
-    smem = _smem_bytes(d, k_cache.element_size(), hq // hkv, block_size)
+    smem = _smem_bytes(d, k_cache.element_size())
     _launch.require(smem <= _SMEM_LIMIT,
-                    f"ragged_paged_attention: block_size {block_size} needs "
-                    f"{smem} bytes of shared memory")
-    out = torch.empty_like(q)
+                    f"ragged_paged_attention: head_dim {d} over "
+                    f"{k_cache.dtype} pages needs {smem} bytes of shared "
+                    f"memory")
+    if q.data_ptr() % 16:   # the kernel reads q rows in 16-byte vectors
+        q = q.clone()
+    out = empty_out(q, block_tables.shape[1], block_size)
     _launch.launch("ptt_ragged_paged_attn", q.data_ptr(), k_cache.data_ptr(),
                    v_cache.data_ptr(), block_tables.data_ptr(),
                    rows.data_ptr(), valids.data_ptr(), out.data_ptr(), t, hq,

@@ -71,6 +71,145 @@ def test_ragged_kernel_matches_twin(cuda_device, q_dtype, kv_dtype):
     assert float(out[-1].abs().max()) == 0.0
 
 
+# #8 across its context splits (csrc/ragged.cuh: splits of SPLIT_KEYS keys
+# at fixed positions, partials merged by a second launch), and #10 at the
+# same lengths: decode rows inside one split, exactly on a boundary, one key
+# past it and over many (up to 2048 keys), a prompt-chunk run crossing a
+# boundary, pads
+_SPLIT_LENS = [1, 255, 256, 257, 511, 512, 513, 2048]
+_SPLIT_CHUNK = list(range(241, 265))
+
+
+def _split_inputs(dev, bs, group, pages, q_dtype, d=64, hkv=2, seed=0):
+    """Decode rows at ``_SPLIT_LENS``, a pad, the chunk run on a row of its
+    own, two pads; every table row 2048 keys of shuffled blocks. ``pages``
+    is a torch dtype name, or ``int8``/``fp8`` for quantized pages (then
+    the scales follow the pages in the argument list)."""
+    from paddle_tpu_torch.quantization import kv as kvq
+    g = torch.Generator().manual_seed(seed + 7 * bs + group)
+    width = 2048 // bs
+    nrows = len(_SPLIT_LENS) + 1
+    tables = torch.randperm(nrows * width, generator=g).reshape(nrows, width)
+    rows = list(range(len(_SPLIT_LENS))) + [0] \
+        + [nrows - 1] * len(_SPLIT_CHUNK) + [0, 0]
+    valids = _SPLIT_LENS + [0] + _SPLIT_CHUNK + [0, 0]
+    k = torch.randn(nrows * width * bs, hkv, d, generator=g)
+    v = torch.randn(nrows * width * bs, hkv, d, generator=g)
+    q = torch.randn(len(rows), hkv * group, d, generator=g).to(
+        dev, getattr(torch, q_dtype))
+    if pages in ("int8", "fp8"):
+        kq, ks = kvq.quantize_kv(k.to(dev), pages)
+        vq, vs = kvq.quantize_kv(v.to(dev), pages)
+        cache = [kq, vq, ks, vs]
+    else:
+        cache = [k.to(dev, getattr(torch, pages)),
+                 v.to(dev, getattr(torch, pages))]
+    return [q, *cache, tables.to(dev, torch.int32),
+            torch.tensor(rows, dtype=torch.int32, device=dev),
+            torch.tensor(valids, dtype=torch.int32, device=dev), bs], valids
+
+
+def _check_split_call(mod, fn, plain, args, valids, tol):
+    """Two launches bitwise equal, one launch count a call, pads exactly 0,
+    the output within ``tol`` of the twin: a number is an absolute bound,
+    ``"max"`` 1e-4 x the twin's largest magnitude, ``"bf16"`` the bf16
+    tier."""
+    mod.launches = 0
+    out = fn(*args)
+    again = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == 2
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert torch.equal(out, again)
+    err = np.abs(_np(out) - _np(ref)).max()
+    if tol == "bf16":
+        np.testing.assert_allclose(_np(out), _np(ref), **BF16)
+    elif tol == "max":
+        assert err <= 1e-4 * np.abs(_np(ref)).max(), err
+    else:
+        assert err <= tol, err
+    pads = [i for i, x in enumerate(valids) if x == 0]
+    assert float(out[pads].abs().max()) == 0.0
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("bs", [8, 16, 64])
+def test_ragged_kernel_across_splits(cuda_device, bs, group):
+    """#8, fp32 q over bf16 pages (the compiled step's pair), against its
+    twin to 2e-5: fp32 sums over up to 2048 keys, merged over splits, in
+    another order than the twin's softmax."""
+    args, valids = _split_inputs(cuda_device, bs, group, "bfloat16",
+                                 "float32")
+    _check_split_call(pt_ragged, pt_ragged.ragged_paged_attention,
+                      pt_ragged.ragged_paged_attention_plain, args, valids,
+                      2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype,group", [
+    ("float32", "float32", 4), ("bfloat16", "bfloat16", 4),
+    ("float32", "bfloat16", 16), ("float32", "bfloat16", 32)])
+def test_ragged_kernel_across_splits_dtypes(cuda_device, q_dtype, kv_dtype,
+                                            group):
+    """#8's other dtype pairs at head dim 128, and groups of 16 and 32
+    (decode rows on the register-tiled path) across the splits."""
+    args, valids = _split_inputs(cuda_device, 16, group, kv_dtype, q_dtype,
+                                 d=128)
+    _check_split_call(pt_ragged, pt_ragged.ragged_paged_attention,
+                      pt_ragged.ragged_paged_attention_plain, args, valids,
+                      2e-5 if q_dtype == "float32" else "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("bs", [8, 16, 64])
+def test_quant_kernel_across_splits(cuda_device, bs, group):
+    """#10 over int8 pages with an fp32 q against its twin to 1e-4 x the
+    twin's largest magnitude (the scales fold into scores and weights in
+    the kernel, into the pages in the twin)."""
+    args, valids = _split_inputs(cuda_device, bs, group, "int8", "float32")
+    _check_split_call(pt_quant, pt_quant.ragged_paged_attention_quant,
+                      pt_quant.ragged_paged_attention_quant_plain, args,
+                      valids, "max")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,q_dtype", [("fp8", "float32"),
+                                          ("int8", "bfloat16"),
+                                          ("fp8", "bfloat16")])
+def test_quant_kernel_across_splits_dtypes(cuda_device, mode, q_dtype):
+    """#10 over fp8 pages and with a bf16 q, head dim 128, across the
+    splits."""
+    args, valids = _split_inputs(cuda_device, 16, 4, mode, q_dtype, d=128)
+    _check_split_call(pt_quant, pt_quant.ragged_paged_attention_quant,
+                      pt_quant.ragged_paged_attention_quant_plain, args,
+                      valids, "max" if q_dtype == "float32" else "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pages", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_ragged_decode_rows_alone_are_bitwise(cuda_device, pages, group):
+    """A decode row's bits depend only on its own q, pages and valids: each
+    decode row computed alone (T = 1) equals its row of the full call,
+    whatever its splits, for #8 and #10."""
+    args, valids = _split_inputs(cuda_device, 64, group, pages, "float32")
+    mod = pt_quant if pages == "int8" else pt_ragged
+    fn = pt_quant.ragged_paged_attention_quant if pages == "int8" \
+        else pt_ragged.ragged_paged_attention
+    full = fn(*args)
+    q, rows, vals = args[0], args[-3], args[-2]
+    for i in range(len(_SPLIT_LENS)):
+        alone = fn(q[i:i + 1].contiguous(), *args[1:-3],
+                   rows[i:i + 1].contiguous(), vals[i:i + 1].contiguous(),
+                   args[-1])
+        assert torch.equal(alone[0], full[i]), (i, valids[i])
+    assert mod.launches > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])

@@ -403,16 +403,26 @@ def test_head_dim_buckets_and_refusals():
                 pt_flash._check_head_dim("flash_attention", d)
 
 
+def _ragged_family_smem(dp, esz):
+    """``csrc/ragged.cuh``'s block over bf16 or fp32 pages: three ring
+    stages of SK keys (K and V about 16 KB, 16 to 64 keys) of
+    16-byte-padded rows; 32 q rows of dp + 4 floats; 32 rows of SK + 4
+    softmax weights; a split's table entries."""
+    sk = min(64, max(16, 8192 // (dp * esz)))
+    stage = -(-(sk * 2 * (dp * esz + 16)) // 16) * 16
+    return (3 * stage + 32 * (dp + 4) * 4 + 32 * (sk + 4) * 4
+            + (pt_ragged.SPLIT_KEYS + 2) * 4)
+
+
 @pytest.mark.parametrize("d", [16, 96, 256])
 @pytest.mark.parametrize("esz", [2, 4])
 def test_ragged_smem_fits_at_every_bucket(d, esz):
-    """#8's block at the padded head dim fits the H100's 227 KB at the
-    serving block size (64) and a full GQA group of 8, bf16 or fp32
-    pages."""
-    smem = pt_ragged._smem_bytes(d, esz, 8, 64)
+    """#8's block at the padded head dim fits the H100's 227 KB, bf16 or
+    fp32 pages; since the split-context family its layout depends on
+    neither the GQA group nor the block size."""
+    smem = pt_ragged._smem_bytes(d, esz)
     dp = _launch.head_dim_bucket(d)
-    assert smem == 64 * (dp * esz + 16) + 64 * dp * esz + 8 * dp * 4 \
-        + 8 * 64 * 4
+    assert smem == _ragged_family_smem(dp, esz)
     assert smem <= pt_ragged._SMEM_LIMIT
 
 
@@ -422,8 +432,8 @@ def test_ragged_smem_fits_at_every_bucket(d, esz):
 def test_paged_smem_fits_at_every_bucket(d, esz, group):
     """#9's block at the padded head dim fits the H100's 227 KB at the
     serving block size (64), bf16 or fp32 pages, a GQA group of 8 or 32:
-    two page stages where they fit, else one (D 256 over fp32 pages), and
-    one stage is #8's block, so #9 takes every shape #8 takes."""
+    two page stages where they fit, else one (D 256 over fp32 pages); #8
+    takes the same shapes."""
     dp = _launch.head_dim_bucket(d)
     stages = pt_paged._stages(d, esz, group, 64)
     smem = pt_paged._smem_bytes(d, esz, group, 64)
@@ -431,8 +441,7 @@ def test_paged_smem_fits_at_every_bucket(d, esz, group):
         + group * 64 * 4
     assert smem <= pt_paged._SMEM_LIMIT
     assert stages == (1 if (dp, esz) == (256, 4) else 2)
-    assert pt_paged._smem_bytes(d, esz, group, 64, 1) == \
-        pt_ragged._smem_bytes(d, esz, group, 64)
+    assert pt_ragged._smem_bytes(d, esz) <= pt_ragged._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("group", [8, 32])

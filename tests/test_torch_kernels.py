@@ -105,6 +105,128 @@ def test_ragged_decode_is_special_case():
     np.testing.assert_allclose(_np(out), _np(ref), **FP32)
 
 
+# ------------------------------------------- ragged paged, split context
+def _split_combine(q, kc, vc, tables, rows, valids, bs, split):
+    """Flash decoding in plain fp32 torch, as ``csrc/ragged.cuh`` computes
+    it: each token's visible keys cut into splits of ``split`` keys at 0,
+    split, 2 * split, ...; each split's row max, sum and PV partial; the
+    partials merged in split order. A pad token (``valids <= 0``) is 0."""
+    t, hq, d = q.shape
+    kv = kc.shape[1]
+    out = torch.zeros(t, hq, d)
+    scale = 1.0 / np.sqrt(d)
+    for i in range(t):
+        v = int(valids[i])
+        if v <= 0:
+            continue
+        pos = torch.arange(v)
+        idx = torch.as_tensor(tables[int(rows[i])]).long()[pos // bs] * bs \
+            + pos % bs
+        k, vv = kc[idx].float(), vc[idx].float()          # v kv d
+        qi = q[i].float().reshape(kv, hq // kv, d)
+        parts = []
+        for s0 in range(0, v, split):
+            sc = torch.einsum("kgd,nkd->kgn", qi, k[s0:s0 + split]) * scale
+            m = sc.max(-1).values
+            p = torch.exp(sc - m[..., None])
+            parts.append((m, p.sum(-1),
+                          torch.einsum("kgn,nkd->kgd", p, vv[s0:s0 + split])))
+        big = torch.stack([m for m, _, _ in parts]).max(0).values
+        num, den = torch.zeros_like(qi), torch.zeros_like(big)
+        for m, l, acc in parts:
+            w = torch.exp(m - big)
+            den = den + w * l
+            num = num + w[..., None] * acc
+        out[i] = (num / den[..., None]).reshape(hq, d)
+    return out.to(q.dtype)
+
+
+def _split_inputs(kv_dtype, seed=5, d=64, kv=2, hq=4, bs=8):
+    """Decode rows inside one split, exactly on a split boundary of the
+    kernel's (``SPLIT_KEYS``), one key past it and ending inside a later
+    split; a pad; a 12-token prompt-chunk run that crosses the boundary."""
+    rng = np.random.RandomState(seed)
+    sk = pt_ragged.SPLIT_KEYS
+    width = -(-(sk + 62) // bs)
+    nblocks = 5 * width
+    kc = _pair(rng.randn(nblocks * bs, kv, d), kv_dtype)
+    vc = _pair(rng.randn(nblocks * bs, kv, d), kv_dtype)
+    tables = rng.permutation(nblocks).reshape(5, width).astype(np.int32)
+    rows = np.asarray([0, 1, 2, 3, 0] + [4] * 12, np.int32)
+    valids = np.asarray([13, sk, sk + 1, sk + 62, 0]
+                        + list(range(sk - 8, sk + 4)), np.int32)
+    q = _pair(rng.randn(len(rows), hq, d), "float32")
+    return q, kc, vc, tables, rows, valids, bs
+
+
+@pytest.mark.parametrize("split", [16, pt_ragged.SPLIT_KEYS])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_split_combine_matches_jax_kernel(kv_dtype, split):
+    """The kernel family's arithmetic (partials per split of ``split`` keys,
+    merged in split order; at the kernel's own SPLIT_KEYS and at 16, so
+    that short rows split too) against the TPU kernel run as
+    :func:`test_ragged_twin_matches_jax_kernel` runs it, fp32 q over fp32 or
+    bf16 pages (the same page values on both sides). Tolerance FP32: the
+    merge only reorders fp32 sums over at most SPLIT_KEYS + 62 keys. The
+    pad is 0."""
+    q, kc, vc, tables, rows, valids, bs = _split_inputs(kv_dtype)
+    ref = jax_ragged.ragged_paged_attention(
+        q[0], kc[0], vc[0], jnp.asarray(tables), jnp.asarray(rows),
+        jnp.asarray(valids), bs)
+    out = _split_combine(q[1], kc[1], vc[1], tables, rows, valids, bs, split)
+    np.testing.assert_allclose(_np(out), _np(ref), **FP32)
+    assert float(out[4].abs().max()) == 0.0
+
+
+def test_split_combine_matches_port_twin():
+    """The same arithmetic against the port's plain twin (one softmax over
+    each row's keys), at the kernel's split size."""
+    q, kc, vc, tables, rows, valids, bs = _split_inputs("float32", seed=6)
+    args = (q[1], kc[1], vc[1], torch.from_numpy(tables),
+            torch.from_numpy(rows), torch.from_numpy(valids), bs)
+    out = _split_combine(*args, pt_ragged.SPLIT_KEYS)
+    ref = pt_ragged.ragged_paged_attention_plain(*args)
+    np.testing.assert_allclose(_np(out), _np(ref), **FP32)
+
+
+def test_split_constants_mirror_the_kernel_header():
+    """``SPLIT_KEYS`` and the shared-memory mirror read the numbers
+    ``csrc/ragged.cuh`` is built with (the split size, the ring depth, the
+    tile rows, the stage bytes)."""
+    import os
+    import re
+    src = open(os.path.join(os.path.dirname(pt_ragged.__file__), "..", "..",
+                            "csrc", "ragged.cuh")).read()
+    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(const["kSplitKeys"]) == pt_ragged.SPLIT_KEYS
+    assert int(const["kStages"]) == pt_ragged._STAGES
+    assert int(const["kTileRows"]) == pt_ragged._TILE_ROWS
+    assert "kSkRaw = 8192 / kRowBytes" in src
+    assert [pt_ragged._stage_keys(d, e) for d, e in
+            ((64, 1), (128, 2), (128, 4), (256, 4))] == [64, 32, 16, 16]
+
+
+@pytest.mark.parametrize("width,block_size,partials", [
+    (4, 64, False), (32, 8, False), (33, 8, True), (32, 64, True)])
+def test_empty_out_holds_the_split_partials(width, block_size, partials):
+    """The wrapper's output is q-shaped and contiguous; where a table row
+    spans several splits, its allocation holds the fp32 partials behind it
+    (256-byte aligned): ``[t, hq, nsp, d]`` accumulators and ``[t, hq,
+    nsp]`` (m, l) pairs."""
+    q = torch.zeros(5, 4, 64, dtype=torch.bfloat16)
+    out = pt_ragged.empty_out(q, width, block_size)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert out.is_contiguous()
+    nbytes = out.untyped_storage().nbytes()
+    nsp = -(-width * block_size // pt_ragged.SPLIT_KEYS)
+    assert (nsp > 1) == partials
+    if partials:
+        head = -(-q.numel() * 2 // 256) * 256
+        assert nbytes == head + 5 * 4 * nsp * (64 + 2) * 4
+    else:
+        assert nbytes == q.numel() * 2
+
+
 # --------------------------------------------------------- flash attention
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(40, 40), (24, 40)])

@@ -2,7 +2,7 @@
 """Time ``chip_smoke.py`` kernel phases of two checkouts on one card, in
 turns.
 
-    python3 tools/torch_phase_ab.py PARENT_DIR CHANGE_DIR PHASE [PHASE ...]
+    python3 tools/torch_phase_ab.py [--smoke DIR] PARENT_DIR CHANGE_DIR PHASE [PHASE ...]
 
 Each checkout runs the named phases of its own ``chip_smoke.py`` (e.g.
 ``phase_flash_bwd``, ``phase_tgmm``, or a path such as ``phase_train``,
@@ -17,7 +17,11 @@ path's ``ms_per_step`` and ``busy_share``, and the extra shapes a phase
 times, such as tgmm's ``down``, the segment backward's ``t1`` or the
 RMSNorm phases' ``shapes``, the fused block's ``parts_ms`` and
 ``edge_ms``, the train phase's ``off_ms_per_step``). Each checkout builds its own
-kernels into its own ``paddle_tpu_torch/_build/``. Needs a CUDA device.
+kernels into its own ``paddle_tpu_torch/_build/``. With ``--smoke DIR`` both
+checkouts run the phases of ``DIR/chip_smoke.py`` over their own package, so
+that shapes a newer smoke times (``phase_ragged``'s decode steps, say) are
+timed on the parent's kernels too; the phases then call only what both
+packages have. Needs a CUDA device.
 """
 
 import json
@@ -31,7 +35,7 @@ _KEYS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
          "off_ms_per_step")
 
 _RUN = """
-import inspect, json, os, sys
+import importlib.util, inspect, json, os, sys
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 sys.path.insert(0, os.getcwd())
 import numpy as np
@@ -39,7 +43,12 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 import paddle_tpu_torch.flags  # a path reads it as the package's attribute
-import chip_smoke as cs
+smoke = os.environ.get("PTT_AB_SMOKE") or os.path.join(os.getcwd(),
+                                                       "chip_smoke.py")
+spec = importlib.util.spec_from_file_location("chip_smoke", smoke)
+cs = importlib.util.module_from_spec(spec)
+sys.modules["chip_smoke"] = cs
+spec.loader.exec_module(cs)
 keys = %r
 args = dict(torch=torch, timer=cs.Timer(torch), np=np, card=cs.smi(),
             rng=np.random.RandomState(0))
@@ -56,9 +65,13 @@ print("AB " + json.dumps(out))
 """ % (_KEYS,)
 
 
-def run(tree: str, phases) -> dict:
+def run(tree: str, phases, smoke=None) -> dict:
+    env = dict(os.environ)
+    if smoke:
+        env["PTT_AB_SMOKE"] = os.path.join(os.path.abspath(smoke),
+                                           "chip_smoke.py")
     proc = subprocess.run([sys.executable, "-c", _RUN, *phases], cwd=tree,
-                          capture_output=True, text=True)
+                          capture_output=True, text=True, env=env)
     rows = [ln[3:] for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
     if proc.returncode != 0 or not rows:
         raise RuntimeError(f"{tree}: exit {proc.returncode}\n"
@@ -67,10 +80,13 @@ def run(tree: str, phases) -> dict:
 
 
 def main() -> int:
-    if len(sys.argv) < 4:
+    argv, smoke = sys.argv[1:], None
+    if argv[:1] == ["--smoke"] and len(argv) > 1:
+        smoke, argv = argv[1], argv[2:]
+    if len(argv) < 3:
         print(__doc__, file=sys.stderr)
         return 2
-    parent, change, phases = sys.argv[1], sys.argv[2], sys.argv[3:]
+    parent, change, phases = argv[0], argv[1], argv[2:]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip().splitlines()[0]
@@ -80,7 +96,8 @@ def main() -> int:
                                           ("change", change),
                                           ("parent", parent))):
         print(json.dumps({"turn": turn, "tree": label,
-                          "phases": run(os.path.abspath(tree), phases)}),
+                          "phases": run(os.path.abspath(tree), phases,
+                                        smoke)}),
               flush=True)
     return 0
 
