@@ -1,11 +1,8 @@
 // The split-context kernel family of ragged paged attention for Hopper, with
 // the page format as a compile-time policy, as the mask is one for the flash
 // kernels (segment.cuh). #8 (csrc/ragged_paged_attention.cu) instantiates it
-// over bf16 and fp32 pages. The one-byte policies (int8 and fp8 e4m3 pages
-// with fp32 per-row scales: the K scale on the score, the V scale on the
-// softmax weight) are #10's: they were held against #10's twin on the card,
-// but #10 keeps its previous kernel (csrc/quant.cu) until the serve-int8
-// path's greedy check holds with them (PERF.md, open questions).
+// over bf16 and fp32 pages, and #9 (csrc/paged_attention.cu) over the same
+// pages for decode only (token t reads table row t).
 //
 // The function: packed token-major queries q [T, Hq, d]; token t reads
 // block-table row rows[t] and sees its first valids[t] cached positions
@@ -28,13 +25,19 @@
 //   positions (0, 256, 512, ...): a split's bounds depend only on the token's
 //   own valids[t]. A work item is (tile, split, kv head). The grid is
 //   persistent (at most the blocks the card holds at once) and block b takes
-//   items b, b + grid, ... in one fixed order, tiles of several tokens first.
-// - Copies: an item streams its split's keys through a ring of kStages stages
-//   of SK keys in shared memory with 16-byte cp.async, the scale columns of
-//   quantized pages in 4-byte copies beside them; K and V rows are padded by
-//   16 bytes against bank conflicts. Keys past the tile's last visible one and
-//   columns past d are zero-filled, not read. The block has kThreads threads
-//   whatever the group.
+//   items b, b + grid, ... in one fixed order: tiles of several tokens first,
+//   and within each class every tile's full splits before any tile's last,
+//   partial one, so that where there are more items than blocks the later
+//   rounds hold the lighter items (serve-ssm's fp32 decode step, 8 rows of
+//   1040 keys over 8 kv heads: 256 full-split items, then 64 of 16 keys).
+// - Copies: an item streams its split's keys through a ring of P::kRing
+//   stages of SK keys in shared memory with 16-byte cp.async; K and V rows are
+//   padded by 16 bytes against bank conflicts. Keys past the tile's last
+//   visible one and columns past d are zero-filled, not read. The block has
+//   kThreads threads whatever the group. A stage holds about P::kStageBytes
+//   of K rows: fp32 pages take twice bf16's, so at a group of 1 a narrow warp
+//   scores 4 keys a stage, not 2, in a ring one stage shorter, which keeps two
+//   blocks an SM.
 // - Products, fp32 on the CUDA cores: a tile of at most kNarrowRows rows (a
 //   decode token of a group up to 8) runs the narrow path: each warp takes an
 //   eighth of every stage's keys for all rows, a score a lane, keeps its own
@@ -54,15 +57,14 @@
 //
 // On the H100 an item's dependent chains (the plan, the table slice, the
 // first copy, the merge), not the copies in flight, set its time; deeper or
-// larger ring stages did not help (PERF.md).
+// larger bf16 ring stages, the next item's table slice and first stages
+// fetched during an item's merge, and a programmatic dependent launch of the
+// merge did not shorten it (PERF.md).
 //
 // Head dims: instantiated at a padded head dim D of 64, 128 or 256
 // (head_dim_bucket, common.cuh) and told the real d, a multiple of 16; only
 // the columns that exist are copied, multiplied and stored.
 #pragma once
-
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -74,19 +76,17 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSplitKeys = 256;               // keys of a context split
 constexpr int kTileRows = 32;                 // query rows of a tile
 constexpr int kNarrowRows = 8;                // a tile this small: narrow path
-constexpr int kStages = 3;                    // depth of the page ring
 constexpr int kTableSlice = kSplitKeys + 2;   // table entries one split touches
 constexpr int kPlanSpan = kThreads + 1 + kTileRows;  // tokens a plan chunk reads
 
 // The launch's arguments. part: the fp32 partials of tokens of several
 // splits, acc [T, Hq, nsp, d] then (m, l) [T, Hq, nsp], nsp the splits of a
-// full table row.
+// full table row. The decode instantiation (#9) reads no rows: token t reads
+// table row t.
 struct Args {
   const void* q;
   const uint8_t* kc;
   const uint8_t* vc;
-  const float* ks;
-  const float* vs;
   const int* tables;
   const int* rows;
   const int* valids;
@@ -98,12 +98,13 @@ struct Args {
 };
 
 // ------------------------------------------------------------ page formats
-// A page policy: bytes an element, whether each row and head carries an fp32
-// scale (page[i, g, :] * scale[i, g]), and the unpack of a 32-bit word of
-// elements into floats, element i from the low bytes up.
+// A page policy: bytes an element, the bytes of K rows a ring stage holds (as
+// many of V ride beside them), the ring's depth, and the unpack of a 32-bit
+// word of elements into floats, element i from the low bytes up.
 struct PageBF16 {
   static constexpr int kBytes = 2;
-  static constexpr bool kScaled = false;
+  static constexpr int kStageBytes = 8192;
+  static constexpr int kRing = 3;
   __device__ __forceinline__ static void word(uint32_t w, float* f) {
     f[0] = __uint_as_float(w << 16);
     f[1] = __uint_as_float(w & 0xffff0000u);
@@ -112,39 +113,10 @@ struct PageBF16 {
 
 struct PageF32 {
   static constexpr int kBytes = 4;
-  static constexpr bool kScaled = false;
+  static constexpr int kStageBytes = 16384;
+  static constexpr int kRing = 2;
   __device__ __forceinline__ static void word(uint32_t w, float* f) {
     f[0] = __uint_as_float(w);
-  }
-};
-
-// int8 without the quarter-rate integer-to-float conversion: with its sign
-// bit flipped the byte is v + 128 in [0, 255]; placed under the exponent of
-// 2^23 (0x4B0000xx) it is the float 2^23 + v + 128, exact, and one add takes
-// 2^23 + 128 off. A byte permute and an add, both full rate.
-struct PageI8 {
-  static constexpr int kBytes = 1;
-  static constexpr bool kScaled = true;
-  __device__ __forceinline__ static void word(uint32_t w, float* f) {
-    const uint32_t x = w ^ 0x80808080u;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      f[b] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540u | b)) - 8388736.f;
-  }
-};
-
-struct PageF8 {
-  static constexpr int kBytes = 1;
-  static constexpr bool kScaled = true;
-  __device__ __forceinline__ static void word(uint32_t w, float* f) {
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {  // e4m3 -> fp16 is exact, so is fp16 -> fp32
-      const __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(
-          static_cast<__nv_fp8x2_storage_t>(w >> (16 * p)), __NV_E4M3);
-      const float2 f2 = __half22float2(__half2(hr));
-      f[2 * p] = f2.x;  // the low byte is the lower element
-      f[2 * p + 1] = f2.y;
-    }
   }
 };
 
@@ -181,11 +153,11 @@ struct Geo {
   static constexpr int kRow = kRowBytes + 16;       // K and V rows in smem
   static constexpr int kChunk = 16 / P::kBytes;     // elements of 16 bytes
   static constexpr int kChunks = D / kChunk;
-  // keys a stage: K and V about 16 KB, 16 to 64 keys
-  static constexpr int kSkRaw = 8192 / kRowBytes;
+  static constexpr int kStages = P::kRing;
+  // keys a stage: about P::kStageBytes of K rows, 16 to 64 keys
+  static constexpr int kSkRaw = P::kStageBytes / kRowBytes;
   static constexpr int SK = kSkRaw < 16 ? 16 : kSkRaw > 64 ? 64 : kSkRaw;
-  static constexpr int kScaleBytes = P::kScaled ? SK * 4 : 0;
-  static constexpr int kStage = (SK * 2 * kRow + 2 * kScaleBytes + 15) / 16 * 16;
+  static constexpr int kStage = SK * 2 * kRow;
   // wide path: keys a thread a stage in scores, columns a thread in PV
   static constexpr int KM = SK / 16;
   static constexpr int CW = D / 16;
@@ -198,7 +170,7 @@ struct Geo {
   static constexpr int kPOff = kQOff + kTileRows * kQRow * 4;
   static constexpr int kTblOff = kPOff + kTileRows * kPRow * 4;
   static constexpr int kSmem = kTblOff + kTableSlice * 4;
-  static_assert(SK % 16 == 0 && KM >= 1 && CW >= 4, "lanes");
+  static_assert(kStages >= 2 && SK % 16 == 0 && KM >= 1 && CW >= 4, "lanes");
   // the narrow path's weights: each warp's [SK / kWarps][8] and 8 rescales
   static_assert(kWarps * (SK / kWarps + 1) * kNarrowRows <= kTileRows * kPRow, "weights");
   // the narrow path's merge reuses the ring, q and weight rows: each warp's
@@ -246,26 +218,38 @@ __device__ __forceinline__ int scan_max(int v, int* sh, int* all) {
   return max(pre, v);
 }
 
-// Exclusive sum of v over threads 0..tid-1; *all gets the block's sum.
-__device__ __forceinline__ int scan_sum(int v, int* sh, int* all) {
+// Exclusive sums of v and of w over threads 0..tid-1, in one scan; *all gets
+// the block's two sums.
+__device__ __forceinline__ int2 scan_sum2(int v, int w, int* sh, int2* all) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
+  int x = v, y = w;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+    const int xu = __shfl_up_sync(0xffffffffu, x, o);
+    const int yu = __shfl_up_sync(0xffffffffu, y, o);
+    if (lane >= o) {
+      x += xu;
+      y += yu;
+    }
   }
-  if (lane == 31) sh[warp] = x;
+  if (lane == 31) {
+    sh[warp] = x;
+    sh[kWarps + warp] = y;
+  }
   __syncthreads();
-  int pre = 0, tot = 0;
+  int2 pre = make_int2(0, 0), tot = make_int2(0, 0);
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    if (w < warp) pre += sh[w];
-    tot += sh[w];
+  for (int i = 0; i < kWarps; ++i) {
+    if (i < warp) {
+      pre.x += sh[i];
+      pre.y += sh[kWarps + i];
+    }
+    tot.x += sh[i];
+    tot.y += sh[kWarps + i];
   }
   __syncthreads();
   *all = tot;
-  return pre + x - v;
+  return make_int2(pre.x + x - v, pre.y + y - w);
 }
 
 __host__ __device__ __forceinline__ int splits_of(int keys) {
@@ -312,7 +296,7 @@ struct Item {
   int t0, nt, sp, g, group, R, k0, k1, nst, p0;
 
   __device__ __forceinline__ const uint8_t* stage(int st) const {
-    return smem + (st % kStages) * G::kStage;
+    return smem + (st % G::kStages) * G::kStage;
   }
 
   // the cache row of key `key` of the item's table row
@@ -349,31 +333,14 @@ struct Item {
       cp16(Ks + r * G::kRow + ch * 16, ksrc, n);
       cp16(Vs + r * G::kRow + ch * 16, vsrc, n);
     }
-    if constexpr (P::kScaled) {
-      float* Ksc = reinterpret_cast<float*>(Vs + G::SK * G::kRow);
-      float* Vsc = Ksc + G::SK;
-      for (int r = threadIdx.x; r < G::SK; r += kThreads) {
-        const float* ksrc = a.ks;
-        const float* vsrc = a.vs;
-        int n = 0;
-        if (r < kn) {
-          const size_t si = cache_row(kb + r) * a.Hkv + g;
-          ksrc += si;
-          vsrc += si;
-          n = 4;
-        }
-        cp4(Ksc + r, ksrc, n);
-        cp4(Vsc + r, vsrc, n);
-      }
-    }
   }
 
   // stage st has landed and every thread is done with stage st - 1; then the
   // copies of stage st + kStages - 1 go into the slot st - 1 freed
   __device__ __forceinline__ void next_stage(int st) const {
-    cp_wait<kStages - 2>();
+    cp_wait<G::kStages - 2>();
     __syncthreads();
-    if (st + kStages - 1 < nst) issue(st + kStages - 1);
+    if (st + G::kStages - 1 < nst) issue(st + G::kStages - 1);
     cp_commit();
   }
 
@@ -440,8 +407,6 @@ __device__ __forceinline__ void narrow(const Item<P, D>& it) {
     it.next_stage(st);
     const uint8_t* Ks = it.stage(st);
     const uint8_t* Vs = Ks + SK * kRow;
-    const float* Ksc = reinterpret_cast<const float*>(Vs + SK * kRow);
-    const float* Vsc = Ksc + SK;
     const int kb = it.k0 + st * SK;
     if (warp * KPW >= it.k1 - kb) continue;  // none of this warp's keys: a no-op stage
     float sc[NJ];
@@ -465,10 +430,7 @@ __device__ __forceinline__ void narrow(const Item<P, D>& it) {
             x = fmaf(q.w, kf[4 * e + 3], x);
           }
         }
-        if constexpr (P::kScaled)
-          sc[j] = x * Ksc[kloc] * a.scale;  // the K scale, once a key
-        else
-          sc[j] = x * a.scale;
+        sc[j] = x * a.scale;
       }
     }
     float mx = -CUDART_INF_F;
@@ -504,12 +466,9 @@ __device__ __forceinline__ void narrow(const Item<P, D>& it) {
       const int kloc = warp * KPW + k;
       float vf[8];
       load_elems<P, 8>(Vs + kloc * kRow + c * 8 * P::kBytes, vf);
-      float vsc = 1.f;
-      if constexpr (P::kScaled) vsc = Vsc[kloc];
 #pragma unroll
       for (int r = 0; r < RN; ++r) {
-        float pr = Pw[k * RN + r];
-        if constexpr (P::kScaled) pr *= vsc;  // the V scale, once a key
+        const float pr = Pw[k * RN + r];
 #pragma unroll
         for (int e = 0; e < 8; ++e) sacc[r][e] = fmaf(pr, vf[e], sacc[r][e]);
       }
@@ -606,8 +565,6 @@ __device__ __forceinline__ void wide(const Item<P, D>& it) {
     it.next_stage(st);
     const uint8_t* Ks = it.stage(st);
     const uint8_t* Vs = Ks + SK * kRow;
-    const float* Ksc = reinterpret_cast<const float*>(Vs + SK * kRow);
-    const float* Vsc = Ksc + SK;
     const int kb = it.k0 + st * SK;
     float s[RPT][KM], al[RPT];
 #pragma unroll
@@ -638,13 +595,7 @@ __device__ __forceinline__ void wide(const Item<P, D>& it) {
 #pragma unroll
       for (int u = 0; u < KM; ++u) {
         const int kloc = kl + 16 * u;
-        float sc = -CUDART_INF_F;
-        if (kb + kloc < vr[i]) {
-          if constexpr (P::kScaled)
-            sc = s[i][u] * Ksc[kloc] * a.scale;  // the K scale, once a key
-          else
-            sc = s[i][u] * a.scale;
-        }
+        const float sc = kb + kloc < vr[i] ? s[i][u] * a.scale : -CUDART_INF_F;
         s[i][u] = sc;
         mloc = fmaxf(mloc, sc);
       }
@@ -679,16 +630,8 @@ __device__ __forceinline__ void wide(const Item<P, D>& it) {
     for (int k = 0; k < SK; k += 4) {
       float4 pv[RPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
+      for (int i = 0; i < RPT; ++i)
         pv[i] = *reinterpret_cast<const float4*>(Ps + (rg + kGroups * i) * G::kPRow + k);
-        if constexpr (P::kScaled) {  // the V scale, once a key
-          const float4 v4 = *reinterpret_cast<const float4*>(Vsc + k);
-          pv[i].x *= v4.x;
-          pv[i].y *= v4.y;
-          pv[i].z *= v4.z;
-          pv[i].w *= v4.w;
-        }
-      }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         float vf[CW];
@@ -740,7 +683,7 @@ __device__ __forceinline__ void run_item(const Args& a, uint8_t* smem, int t0, i
   const Item<P, D> it{a, smem, tv, tbl, t0, nt, sp, g, group, nt * group, k0, k1,
                       (k1 - k0 + G::SK - 1) / G::SK, p0};
 #pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
+  for (int st = 0; st < G::kStages - 1; ++st) {
     if (st < it.nst) it.issue(st);
     cp_commit();
   }
@@ -756,26 +699,29 @@ __device__ __forceinline__ void run_item(const Args& a, uint8_t* smem, int t0, i
 }
 
 // ------------------------------------------------------------- kernels
-template <typename QT, class P, int D>
+// kDecode (#9): token t reads table row t, so every live token is a tile of
+// its own and only single-token tiles are planned.
+template <typename QT, class P, int D, bool kDecode>
 __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Args a) {
   extern __shared__ uint4 smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(smem_raw);
-  __shared__ int s_row[kPlanSpan], s_val[kPlanSpan], s_red[kWarps], s_item[4];
+  __shared__ int s_row[kPlanSpan], s_val[kPlanSpan], s_red[2 * kWarps], s_item[4];
+  constexpr int kFirst = kDecode ? 1 : 0;  // the first class of tiles planned
   const int tid = threadIdx.x;
   const int group = a.Hq / a.Hkv;
   const int mt = group >= kTileRows ? 1 : kTileRows / group;  // tokens a tile
   const int cap = a.width * a.bs;                              // keys a table row holds
   int next = blockIdx.x;  // this block's next item
   int base = 0;           // items before the current chunk of tokens
-  for (int cls = 0; cls < 2; ++cls) {  // tiles of several tokens first
-    int carry = -1;                    // the last run head before the chunk
+  for (int cls = kFirst; cls < 2; ++cls) {  // tiles of several tokens first
+    int carry = -1;                         // the last run head before the chunk
     for (int c0 = 0; c0 < a.T; c0 += kThreads) {
-      if (cls == 0 || a.T > kThreads) {  // one chunk is read once
+      if (cls == kFirst || a.T > kThreads) {  // one chunk is read once
         for (int i = tid; i < kPlanSpan; i += kThreads) {
           const int t = c0 - 1 + i;
           const bool in = t >= 0 && t < a.T;
           s_val[i] = in ? min(a.valids[t], cap) : 0;  // <= 0: not live
-          s_row[i] = in ? a.rows[t] : -1;
+          s_row[i] = in ? (kDecode ? t : a.rows[t]) : -1;
         }
         __syncthreads();
       }
@@ -785,7 +731,7 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Args a) {
       int chunk_head;
       const int rs = max(carry, scan_max(head ? t : -1, s_red, &chunk_head));
       carry = max(carry, chunk_head);
-      int ntok = 0, count = 0;
+      int ntok = 0, full = 0, part = 0;  // the tile's full splits, its partial one
       if (live && (t - rs) % mt == 0) {  // a tile starts at t
         int vmax = s_val[i];
         ntok = 1;
@@ -793,23 +739,29 @@ __global__ void __launch_bounds__(kThreads, 2) attn_kernel(const Args a) {
           vmax = max(vmax, s_val[i + ntok]);
           ++ntok;
         }
-        if ((ntok > 1) == (cls == 0)) count = splits_of(vmax) * a.Hkv;
+        if ((ntok > 1) == (cls == 0)) {
+          full = vmax / kSplitKeys;
+          part = splits_of(vmax) - full;
+        }
       }
-      int total;
-      const int off = base + scan_sum(count, s_red, &total);
-      for (; next < base + total; next += gridDim.x) {
-        if (count > 0 && next >= off && next < off + count) {
+      // the chunk's items: every tile's full splits, then the partial ones
+      int2 total;
+      const int2 off = scan_sum2(full * a.Hkv, part * a.Hkv, s_red, &total);
+      for (; next < base + total.x + total.y; next += gridDim.x) {
+        const int n = next - base;
+        const int m = n < total.x ? n - off.x : n - total.x - off.y;
+        if (m >= 0 && m < (n < total.x ? full : part) * a.Hkv) {
           s_item[0] = tid;
           s_item[1] = ntok;
-          s_item[2] = (next - off) / a.Hkv;  // split
-          s_item[3] = (next - off) % a.Hkv;  // kv head
+          s_item[2] = (n < total.x ? 0 : full) + m / a.Hkv;  // split
+          s_item[3] = m % a.Hkv;                             // kv head
         }
         __syncthreads();
         const int j0 = s_item[0] + 1;
         run_item<QT, P, D>(a, smem, c0 + s_item[0], s_item[1], s_item[2], s_item[3], s_row[j0],
                            s_val + j0, group);
       }
-      base += total;
+      base += total.x + total.y;
     }
   }
   // pads: this block zeroes tokens b, b + grid, ... with valids <= 0
@@ -878,10 +830,10 @@ inline size_t out_bytes(const Args& a, int q_bytes) {
   return (static_cast<size_t>(a.T) * a.Hq * a.d * q_bytes + 255) / 256 * 256;
 }
 
-template <typename QT, class P, int D>
+template <typename QT, class P, int D, bool kDecode>
 int launch(Args a, cudaStream_t stream) {
   using G = Geo<P, D>;
-  auto kern = attn_kernel<QT, P, D>;
+  auto kern = attn_kernel<QT, P, D, kDecode>;
   // blocks an SM holds, per device (the attribute is set once a device)
   static int occupancy[64] = {};
   int dev = 0;
@@ -910,15 +862,15 @@ int launch(Args a, cudaStream_t stream) {
   PTT_RETURN_LAUNCH_ERROR();
 }
 
-template <typename QT, class P>
+template <typename QT, class P, bool kDecode = false>
 int dispatch_d(const Args& a, cudaStream_t s) {
   switch (head_dim_bucket(a.d)) {
     case 64:
-      return launch<QT, P, 64>(a, s);
+      return launch<QT, P, 64, kDecode>(a, s);
     case 128:
-      return launch<QT, P, 128>(a, s);
+      return launch<QT, P, 128, kDecode>(a, s);
     case 256:
-      return launch<QT, P, 256>(a, s);
+      return launch<QT, P, 256, kDecode>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
-"""Paged decode attention: CUDA kernel ``csrc/paged_attention.cu`` and its
-plain twin.
+"""Paged decode attention: CUDA kernel ``csrc/paged_attention.cu`` (the
+split-context family of ``csrc/ragged.cuh`` instantiated for decode only)
+and its plain twin.
 
 Port of ``paddle_tpu/ops/pallas/paged_attention.py``. One decode token per
 sequence: ``q [b, hq, d]`` over a flat paged cache ``[num_blocks *
@@ -8,7 +9,13 @@ block_size, kv, d]`` (one layer), ``block_tables [b, max_blocks]`` int32 and
 the one just written. The eager engine calls it in every attention layer of
 every decode step. The kernel takes every head dim that is a multiple of 16
 up to 256: it is built at a padded head dim of 64, 128 or 256 and masks the
-columns past the real one.
+columns past the real one. The function is the ragged op's decode special
+case (``rows = arange(b)``, ``valids = seq_lens``), and the kernel is #8's
+family planned for single-token tiles: a sequence's keys are cut into splits
+of :data:`SPLIT_KEYS <.ragged_paged_attention.SPLIT_KEYS>`, whose partials a
+second launch merges in scratch behind the output
+(:func:`.ragged_paged_attention.empty_out`). A row's bits are those of the
+same row in #8's call.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.ops.kernels import _launch
+from paddle_tpu_torch.ops.kernels import ragged_paged_attention as _ragged
 from paddle_tpu_torch.ops.kernels.ragged_paged_attention import gather_paged_kv
 
 __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
@@ -27,7 +35,6 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_plain",
 #: kernel launches made by :func:`paged_decode_attention` (never by the twin)
 launches = 0
 
-_SMEM_LIMIT = 232448      # dynamic shared memory one block may use on H100
 _PAIRS = {(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
 
@@ -39,27 +46,6 @@ def eligible(q_shape, kv_heads: int, head_dim: int) -> bool:
     _, hq, _ = q_shape
     return (_launch.head_dim_bucket(head_dim) != 0 and hq % kv_heads == 0
             and hq // kv_heads <= 32)
-
-
-def _stages(d: int, esz: int, group: int, block_size: int) -> int:
-    """[K | V] page stages of one block: two (the next page's copies in
-    flight during this page) where they fit the H100's shared memory, else
-    one (``csrc/paged_attention.cu:launch``)."""
-    return 2 if _smem_bytes(d, esz, group, block_size, 2) <= _SMEM_LIMIT \
-        else 1
-
-
-def _smem_bytes(d: int, esz: int, group: int, block_size: int,
-                stages: Optional[int] = None) -> int:
-    """Shared memory of one block (``csrc/paged_attention.cu:smem_bytes``):
-    ``stages`` (by default :func:`_stages`) of a K page of padded rows (16
-    bytes past the row) and a V page, then the group's q rows and scores,
-    all at the padded head dim of ``d``."""
-    if stages is None:
-        stages = _stages(d, esz, group, block_size)
-    dp = _launch.head_dim_bucket(d)
-    return (stages * block_size * (2 * dp * esz + 16) + group * dp * 4
-            + group * block_size * 4)
 
 
 def paged_decode_attention_plain(q, k_cache, v_cache, block_tables,
@@ -133,11 +119,9 @@ def paged_decode_attention(q, k_cache, v_cache, block_tables, seq_lens,
     _launch.require(k_cache.data_ptr() % 16 == 0
                     and v_cache.data_ptr() % 16 == 0,
                     "paged_decode_attention: pages must be 16-byte aligned")
-    smem = _smem_bytes(d, k_cache.element_size(), hq // hkv, block_size)
-    _launch.require(smem <= _SMEM_LIMIT,
-                    f"paged_decode_attention: block_size {block_size} needs "
-                    f"{smem} bytes of shared memory")
-    out = torch.empty_like(q)
+    if q.data_ptr() % 16:   # the kernel reads q rows in 8- or 16-byte vectors
+        q = q.clone()
+    out = _ragged.empty_out(q, block_tables.shape[1], block_size)
     _launch.launch("ptt_paged_decode_attn", q.data_ptr(), k_cache.data_ptr(),
                    v_cache.data_ptr(), block_tables.data_ptr(),
                    seq_lens.data_ptr(), out.data_ptr(), b, hq, hkv, d,

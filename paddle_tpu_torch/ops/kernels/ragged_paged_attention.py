@@ -1,5 +1,5 @@
 """Ragged paged attention: CUDA kernel ``csrc/ragged_paged_attention.cu``
-and its plain twin.
+(the split-context family of ``csrc/ragged.cuh``) and its plain twin.
 
 Port of ``paddle_tpu/ops/pallas/ragged_paged_attention.py``. Queries are
 packed token-major, ``q[t]`` one token of some sequence; ``rows[t]`` names
@@ -11,7 +11,8 @@ built at a padded head dim of 64, 128 or 256 and masks the columns past
 the real one. It splits each token's context into splits of
 :data:`SPLIT_KEYS` keys (flash decoding, ``csrc/ragged.cuh``); a token of
 several splits leaves fp32 partials that a second launch merges, in
-scratch the wrapper allocates behind the output.
+scratch the wrapper allocates behind the output (:func:`empty_out`, which
+#9's wrapper shares: it runs the same family).
 """
 
 from __future__ import annotations
@@ -39,27 +40,32 @@ _PAIRS = {(torch.float32, torch.bfloat16), (torch.float32, torch.float32),
 #: keys of a context split (``csrc/ragged.cuh:kSplitKeys``): a token's keys
 #: are cut at 0, SPLIT_KEYS, 2 * SPLIT_KEYS, ...
 SPLIT_KEYS = 256
-_STAGES, _TILE_ROWS = 3, 32      # ragged.cuh: kStages, kTileRows
+_TILE_ROWS = 32                  # ragged.cuh: kTileRows
+#: page element bytes -> (bytes of K rows a ring stage holds, the ring's
+#: depth): ``ragged.cuh``'s page policies' ``kStageBytes`` and ``kRing``
+#: (bf16; fp32)
+PAGE_GEOMETRY = {2: (8192, 3), 4: (16384, 2)}
 
 
 def _stage_keys(d: int, esz: int) -> int:
-    """Keys a stage of the page ring holds (``Geo::SK``): K and V about
-    16 KB at the padded head dim, 16 to 64 keys."""
-    return min(64, max(16, 8192 // (_launch.head_dim_bucket(d) * esz)))
+    """Keys a stage of the page ring holds (``Geo::SK``): about the page
+    policy's stage bytes of K rows at the padded head dim, 16 to 64 keys."""
+    budget = PAGE_GEOMETRY[esz][0]
+    return min(64, max(16, budget // (_launch.head_dim_bucket(d) * esz)))
 
 
 def _smem_bytes(d: int, esz: int) -> int:
-    """Dynamic shared memory of one block of the kernel (``csrc/ragged.cuh``
-    ``Geo::kSmem``) at the padded head dim of ``d`` over pages of ``esz``
-    bytes an element: a ring of three stages of K and V rows padded by 16
-    bytes, the tile's q rows and softmax weights in fp32, the split's table
-    entries. The layout does not depend on the GQA group or the block
-    size."""
+    """Dynamic shared memory of one block of the kernel family
+    (``csrc/ragged.cuh`` ``Geo::kSmem``) at the padded head dim of ``d``
+    over pages of ``esz`` bytes an element: a ring of the policy's depth of
+    K and V stages (rows padded by 16 bytes), the tile's q rows and softmax
+    weights in fp32, the split's table entries. The layout does not depend
+    on the GQA group or the block size."""
     dp = _launch.head_dim_bucket(d)
     sk = _stage_keys(d, esz)
-    row = dp * esz + 16
-    stage = -(-(sk * 2 * row) // 16) * 16
-    return (_STAGES * stage + _TILE_ROWS * (dp + 4) * 4
+    ring = PAGE_GEOMETRY[esz][1]
+    stage = sk * 2 * (dp * esz + 16)
+    return (ring * stage + _TILE_ROWS * (dp + 4) * 4
             + _TILE_ROWS * (sk + 4) * 4 + (SPLIT_KEYS + 2) * 4)
 
 

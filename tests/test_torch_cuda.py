@@ -134,6 +134,23 @@ def _check_split_call(mod, fn, plain, args, valids, tol):
     return out
 
 
+def _repeat_and_twin(mod, fn, plain, args, tol):
+    """Two launches bitwise equal (one launch count a call) and the output
+    within ``tol`` of the twin (an absolute bound or ``"bf16"``)."""
+    mod.launches = 0
+    out = fn(*args)
+    again = fn(*args)
+    ref = plain(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == 2 and torch.equal(out, again)
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    if tol == "bf16":
+        np.testing.assert_allclose(_np(out), _np(ref), **BF16)
+    else:
+        assert np.abs(_np(out) - _np(ref)).max() <= tol
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("bs", [8, 16, 64])
@@ -190,15 +207,16 @@ def test_quant_kernel_across_splits_dtypes(cuda_device, mode, q_dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("pages", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("pages", ["bfloat16", "float32", "int8", "fp8"])
 @pytest.mark.parametrize("group", [1, 4, 8])
 def test_ragged_decode_rows_alone_are_bitwise(cuda_device, pages, group):
     """A decode row's bits depend only on its own q, pages and valids: each
     decode row computed alone (T = 1) equals its row of the full call,
     whatever its splits, for #8 and #10."""
     args, valids = _split_inputs(cuda_device, 64, group, pages, "float32")
-    mod = pt_quant if pages == "int8" else pt_ragged
-    fn = pt_quant.ragged_paged_attention_quant if pages == "int8" \
+    quant = pages in ("int8", "fp8")
+    mod = pt_quant if quant else pt_ragged
+    fn = pt_quant.ragged_paged_attention_quant if quant \
         else pt_ragged.ragged_paged_attention
     full = fn(*args)
     q, rows, vals = args[0], args[-3], args[-2]
@@ -208,6 +226,157 @@ def test_ragged_decode_rows_alone_are_bitwise(cuda_device, pages, group):
                    args[-1])
         assert torch.equal(alone[0], full[i]), (i, valids[i])
     assert mod.launches > 0
+
+
+# the paged attention kernels at every head dim the wrappers take: #8 (fp32 q
+# over bf16 or fp32 pages) and #9 (its three q/page pairs) on the
+# split-context family, and #10 (int8 or fp8 pages, fp32 or bf16 q)
+_FAMILY_CASES = [("ragged", "float32", "bfloat16"), ("ragged", "float32", "float32"),
+                 ("paged", "float32", "bfloat16"), ("paged", "float32", "float32"),
+                 ("paged", "bfloat16", "bfloat16"), ("quant", "float32", "int8"),
+                 ("quant", "bfloat16", "int8"), ("quant", "float32", "fp8"),
+                 ("quant", "bfloat16", "fp8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,q_dtype,pages", _FAMILY_CASES)
+@pytest.mark.parametrize("d", list(range(16, 257, 16)))
+def test_family_kernels_at_every_head_dim(cuda_device, d, kernel, q_dtype,
+                                          pages):
+    """#8 and #9 (``csrc/ragged.cuh``) and #10 at every multiple of 16 up to
+    256 (built at 64, 128 or 256, the columns past d masked), GQA 4:2, rows
+    across the split boundaries: two launches bitwise equal, pads exactly 0,
+    against the twin (fp32 2e-5 for #8 and #9, 1e-4 x max|twin| for #10,
+    the bf16 tier for a bf16 q), and every decode row alone equal to its
+    row of the full call."""
+    args, valids = _split_inputs(cuda_device, 16, 2, pages, q_dtype, d=d)
+    fp32 = q_dtype == "float32"
+    if kernel == "paged":   # the decode rows: sequence i reads table row i
+        n = len(_SPLIT_LENS)
+        q, tables = args[0][:n].contiguous(), args[-4][:n].contiguous()
+        lens = args[-2][:n].contiguous()
+        args = [q, args[1], args[2], tables, lens, args[-1]]
+        out = _repeat_and_twin(pt_paged, pt_paged.paged_decode_attention,
+                               pt_paged.paged_decode_attention_plain, args,
+                               2e-5 if fp32 else "bf16")
+        for i in range(n):
+            alone = pt_paged.paged_decode_attention(
+                q[i:i + 1].contiguous(), args[1], args[2],
+                tables[i:i + 1].contiguous(), lens[i:i + 1].contiguous(),
+                args[-1])
+            assert torch.equal(alone[0], out[i]), (d, i)
+        return
+    mod = pt_quant if kernel == "quant" else pt_ragged
+    fn = pt_quant.ragged_paged_attention_quant if kernel == "quant" \
+        else pt_ragged.ragged_paged_attention
+    plain = pt_quant.ragged_paged_attention_quant_plain if kernel == "quant" \
+        else pt_ragged.ragged_paged_attention_plain
+    tol = ("max" if kernel == "quant" else 2e-5) if fp32 else "bf16"
+    out = _check_split_call(mod, fn, plain, args, valids, tol)
+    q, rows, vals = args[0], args[-3], args[-2]
+    for i in range(len(_SPLIT_LENS)):
+        alone = fn(q[i:i + 1].contiguous(), *args[1:-3],
+                   rows[i:i + 1].contiguous(), vals[i:i + 1].contiguous(),
+                   args[-1])
+        assert torch.equal(alone[0], out[i]), (d, i)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [("float32", "bfloat16"),
+                                  ("float32", "float32"),
+                                  ("bfloat16", "bfloat16")])
+def test_paged_decode_rows_are_the_ragged_rows(cuda_device, pair):
+    """#9 is #8's decode case on the same family: each sequence's output
+    equals, bit for bit, #8's output for the same token (rows = arange,
+    valids = seq_lens), whatever its splits."""
+    q_dtype, kv_dtype = pair
+    args, valids = _split_inputs(cuda_device, 64, 4, kv_dtype, q_dtype)
+    n = len(_SPLIT_LENS)
+    q, tables = args[0][:n].contiguous(), args[-4][:n].contiguous()
+    lens = args[-2][:n].contiguous()
+    paged = pt_paged.paged_decode_attention(q, args[1], args[2], tables, lens,
+                                            args[-1])
+    ragged = pt_ragged.ragged_paged_attention(
+        q, args[1], args[2], tables,
+        torch.arange(n, dtype=torch.int32, device=cuda_device), lens,
+        args[-1])
+    torch.cuda.synchronize()
+    assert torch.equal(paged, ragged)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["eager", "ssm"])
+def test_paged_decode_kernel_at_path_shapes(cuda_device, path):
+    """#9 at its two paths' shapes: serve-eager's step (bf16 q [8, 32,
+    128] over bf16 pages, kv 8, block 64, lengths 64..1056) and serve-ssm's
+    eager step (fp32 q [8, 8, 128] over fp32 pages, lengths 1023..1055),
+    against the twin (bf16: 2e-2 of each sequence's max|twin|; fp32 2e-5),
+    bitwise on repeat."""
+    g = torch.Generator().manual_seed(82)
+    hq, dtype, lens = ((32, torch.bfloat16, [64 + 142 * i for i in range(7)]
+                        + [1056]) if path == "eager" else
+                       (8, torch.float32, [1023 + 32 * i // 7
+                                           for i in range(8)]))
+    bs, width, hkv, d = 64, 32, 8, 128
+    nb = 8 * width
+    kc = torch.randn(nb * bs, hkv, d, generator=g).to(cuda_device, dtype)
+    vc = torch.randn(nb * bs, hkv, d, generator=g).to(cuda_device, dtype)
+    tables = torch.randperm(nb, generator=g).reshape(8, width)
+    q = torch.randn(8, hq, d, generator=g).to(cuda_device, dtype)
+    args = [q, kc, vc, tables.to(cuda_device, torch.int32),
+            torch.tensor(lens, dtype=torch.int32, device=cuda_device), bs]
+    pt_paged.launches = 0
+    out = pt_paged.paged_decode_attention(*args)
+    again = pt_paged.paged_decode_attention(*args)
+    ref = pt_paged.paged_decode_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert pt_paged.launches == 2 and torch.equal(out, again)
+    if dtype == torch.float32:
+        assert np.abs(_np(out) - _np(ref)).max() <= 2e-5
+    else:
+        for o, r in zip(_np(out), _np(ref)):
+            assert np.abs(o - r).max() <= 2e-2 * np.abs(r).max()
+
+
+# #8 at phase_ragged's shapes (chip_smoke.py): (a) its timing shape, (b) the
+# serve decode step, (c) a fleet decode step, (d) serve-ssm's fp32 step
+_SERVE_DECODE_LENS = [48, 190, 332, 473, 615, 757, 899, 1040]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["a", "b", "c", "d"])
+def test_ragged_kernel_at_smoke_shapes(cuda_device, case):
+    """#8 at the four shapes ``chip_smoke.py`` times, against its twin to
+    2e-5, bitwise on repeat, pads exactly 0, every decode row alone equal
+    to its row."""
+    rows, valids, seqs, hq, kv_dtype = {
+        "a": (_RAGGED_ROWS, _RAGGED_VALIDS, 8, 32, torch.bfloat16),
+        "b": (list(range(8)), _SERVE_DECODE_LENS, 8, 32, torch.bfloat16),
+        "c": ([0] * 8, [1040] + [0] * 7, 1, 32, torch.bfloat16),
+        "d": (list(range(8)), [1040] * 8, 8, 8, torch.float32)}[case]
+    g = torch.Generator().manual_seed(83)
+    bs, width, hkv, d = 64, 32, 8, 128
+    tables = torch.randperm(seqs * width, generator=g).reshape(seqs, width)
+    kc = torch.randn(seqs * width * bs, hkv, d, generator=g).to(cuda_device,
+                                                               kv_dtype)
+    vc = torch.randn(seqs * width * bs, hkv, d, generator=g).to(cuda_device,
+                                                               kv_dtype)
+    q = torch.randn(len(rows), hq, d, generator=g).to(cuda_device)
+    args = [q, kc, vc, tables.to(cuda_device, torch.int32),
+            torch.tensor(rows, dtype=torch.int32, device=cuda_device),
+            torch.tensor(valids, dtype=torch.int32, device=cuda_device), bs]
+    out = _repeat_and_twin(pt_ragged, pt_ragged.ragged_paged_attention,
+                           pt_ragged.ragged_paged_attention_plain, args, 2e-5)
+    pads = [i for i, x in enumerate(valids) if x == 0]
+    assert not pads or float(out[pads].abs().max()) == 0.0
+    for i, v in enumerate(valids):
+        if v <= 0 or any(0 <= j < len(rows) and valids[j] > 0
+                         and rows[j] == rows[i] for j in (i - 1, i + 1)):
+            continue
+        alone = pt_ragged.ragged_paged_attention(
+            q[i:i + 1].contiguous(), kc, vc, args[3], args[4][i:i + 1],
+            args[5][i:i + 1], bs)
+        assert torch.equal(alone[0], out[i]), (case, i)
 
 
 @pytest.mark.cuda

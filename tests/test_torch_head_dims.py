@@ -404,14 +404,25 @@ def test_head_dim_buckets_and_refusals():
 
 
 def _ragged_family_smem(dp, esz):
-    """``csrc/ragged.cuh``'s block over bf16 or fp32 pages: three ring
-    stages of SK keys (K and V about 16 KB, 16 to 64 keys) of
-    16-byte-padded rows; 32 q rows of dp + 4 floats; 32 rows of SK + 4
-    softmax weights; a split's table entries."""
-    sk = min(64, max(16, 8192 // (dp * esz)))
-    stage = -(-(sk * 2 * (dp * esz + 16)) // 16) * 16
-    return (3 * stage + 32 * (dp + 4) * 4 + 32 * (sk + 4) * 4
+    """``csrc/ragged.cuh``'s block over bf16 (``esz`` 2) or fp32 (4) pages:
+    the page policy's ring (bf16 3 stages, fp32 2) of SK keys (K rows of
+    about 8 KB, fp32 16 KB; 16 to 64 keys) of 16-byte-padded K and V rows;
+    32 q rows of dp + 4 floats; 32 rows of SK + 4 softmax weights; a split's
+    table entries."""
+    budget, ring = {2: (8192, 3), 4: (16384, 2)}[esz]
+    sk = min(64, max(16, budget // (dp * esz)))
+    stage = sk * 2 * (dp * esz + 16)
+    return (ring * stage + 32 * (dp + 4) * 4 + 32 * (sk + 4) * 4
             + (pt_ragged.SPLIT_KEYS + 2) * 4)
+
+
+def _narrow_merge_fits(dp, esz):
+    """The narrow path's merge (eight warps' m, l and accumulator rows of a
+    tile of up to 8 query rows) reuses the ring, q and weight rows: it fits
+    the block without the table entries."""
+    merge = 8 * 8 * (dp + 4) * 4
+    return merge <= _ragged_family_smem(dp, esz) - (
+        pt_ragged.SPLIT_KEYS + 2) * 4
 
 
 @pytest.mark.parametrize("d", [16, 96, 256])
@@ -430,18 +441,17 @@ def test_ragged_smem_fits_at_every_bucket(d, esz):
 @pytest.mark.parametrize("d", [16, 96, 256])
 @pytest.mark.parametrize("esz", [2, 4])
 def test_paged_smem_fits_at_every_bucket(d, esz, group):
-    """#9's block at the padded head dim fits the H100's 227 KB at the
-    serving block size (64), bf16 or fp32 pages, a GQA group of 8 or 32:
-    two page stages where they fit, else one (D 256 over fp32 pages); #8
-    takes the same shapes."""
+    """#9 runs #8's family (``csrc/paged_attention.cu``), so its block at
+    #9's q/page pairs (bf16 or fp32 pages) is the family's layout at the
+    padded head dim, fits the H100's 227 KB twice over (two blocks an SM),
+    whatever the group: a decode token of a group of up to 8 is one narrow
+    tile, whose merge fits the block, one of 32 a wide tile of the same
+    layout."""
     dp = _launch.head_dim_bucket(d)
-    stages = pt_paged._stages(d, esz, group, 64)
-    smem = pt_paged._smem_bytes(d, esz, group, 64)
-    assert smem == stages * 64 * (2 * dp * esz + 16) + group * dp * 4 \
-        + group * 64 * 4
-    assert smem <= pt_paged._SMEM_LIMIT
-    assert stages == (1 if (dp, esz) == (256, 4) else 2)
-    assert pt_ragged._smem_bytes(d, esz) <= pt_ragged._SMEM_LIMIT
+    smem = pt_ragged._smem_bytes(d, esz)
+    assert smem == _ragged_family_smem(dp, esz)
+    assert 2 * (smem + 4096) <= 233472   # two blocks with their static smem
+    assert _narrow_merge_fits(dp, esz)
 
 
 @pytest.mark.parametrize("group", [8, 32])
@@ -455,3 +465,33 @@ def test_quant_smem_fits_at_every_bucket(d, group):
     smem = pt_quant.smem_bytes(64, d, group)
     assert smem == 2 * stage + group * dp * 4 + group * 64 * 4
     assert smem <= pt_quant._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("q_dtype,shape,width,block_size,partials", [
+    (torch.bfloat16, (8, 32, 128), 32, 64, True),
+    (torch.float32, (8, 8, 128), 32, 64, True),
+    (torch.float32, (8, 32, 96), 32, 64, True),
+    (torch.bfloat16, (3, 4, 256), 4, 64, False),
+    (torch.float32, (3, 4, 96), 4, 8, False),
+    (torch.float32, (5, 4, 64), 33, 8, True)])
+def test_paged_wrapper_allocates_the_split_partials(q_dtype, shape, width,
+                                                     block_size, partials):
+    """#9's wrapper allocates its output through
+    ``ragged_paged_attention.empty_out`` (the family's scratch), here at its
+    paths' shapes (serve-eager, serve-ssm's eager step, the head-dim-96
+    step) and at tables of one split and of one key past it: the fp32
+    partials sit behind the output only where a table row spans several
+    splits."""
+    import inspect
+    assert "_ragged.empty_out(q, block_tables.shape[1], block_size)" in \
+        inspect.getsource(pt_paged.paged_decode_attention)
+    q = torch.zeros(shape, dtype=q_dtype)
+    out = pt_ragged.empty_out(q, width, block_size)
+    assert out.shape == q.shape and out.dtype == q_dtype
+    nsp = -(-width * block_size // pt_ragged.SPLIT_KEYS)
+    assert (nsp > 1) == partials
+    head = q.numel() * q.element_size()
+    t, hq, d = shape
+    want = (-(-head // 256) * 256 + t * hq * nsp * (d + 2) * 4
+            if partials else head)
+    assert out.untyped_storage().nbytes() == want

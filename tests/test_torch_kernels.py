@@ -17,12 +17,17 @@ import jax.numpy as jnp
 from paddle_tpu.inference.attention import ragged_attention_xla as jax_ragged_xla
 from paddle_tpu.nn.functional import common as jax_common
 from paddle_tpu.ops.pallas import flash_attention as jax_flash
+from paddle_tpu.ops.pallas import paged_attention as jax_paged
+from paddle_tpu.ops.pallas import quant as jax_quant
 from paddle_tpu.ops.pallas import ragged_paged_attention as jax_ragged
 from paddle_tpu.ops.pallas import rms_norm as jax_rms
+from paddle_tpu.quantization import kv as jax_kvq
 from paddle_tpu_torch.inference.attention import paged_attention_ragged
 from paddle_tpu_torch.nn.functional import common as pt_common
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.ops.kernels import flash_attention as pt_flash
+from paddle_tpu_torch.ops.kernels import paged_attention as pt_paged
+from paddle_tpu_torch.ops.kernels import quant as pt_quant
 from paddle_tpu_torch.ops.kernels import ragged_paged_attention as pt_ragged
 from paddle_tpu_torch.ops.kernels import rms_norm as pt_rms
 from paddle_tpu_torch.weights import to_torch
@@ -106,11 +111,15 @@ def test_ragged_decode_is_special_case():
 
 
 # ------------------------------------------- ragged paged, split context
-def _split_combine(q, kc, vc, tables, rows, valids, bs, split):
+def _split_combine(q, kc, vc, tables, rows, valids, bs, split, k_scale=None,
+                   v_scale=None):
     """Flash decoding in plain fp32 torch, as ``csrc/ragged.cuh`` computes
     it: each token's visible keys cut into splits of ``split`` keys at 0,
     split, 2 * split, ...; each split's row max, sum and PV partial; the
-    partials merged in split order. A pad token (``valids <= 0``) is 0."""
+    partials merged in split order. A pad token (``valids <= 0``) is 0.
+    Over one-byte pages (``k_scale``/``v_scale`` given) each element is
+    dequantized first, ``k_q.float() * scale`` of its row, as the kernel's
+    one-byte policies unpack it."""
     t, hq, d = q.shape
     kv = kc.shape[1]
     out = torch.zeros(t, hq, d)
@@ -122,7 +131,13 @@ def _split_combine(q, kc, vc, tables, rows, valids, bs, split):
         pos = torch.arange(v)
         idx = torch.as_tensor(tables[int(rows[i])]).long()[pos // bs] * bs \
             + pos % bs
-        k, vv = kc[idx].float(), vc[idx].float()          # v kv d
+        if k_scale is None:
+            k, vv = kc[idx].float(), vc[idx].float()      # v kv d
+        else:   # gathered as bytes: fp8 has no CPU gather everywhere
+            k = (kc.view(torch.uint8)[idx].view(kc.dtype).float()
+                 * k_scale[idx].float()[..., None])
+            vv = (vc.view(torch.uint8)[idx].view(vc.dtype).float()
+                  * v_scale[idx].float()[..., None])
         qi = q[i].float().reshape(kv, hq // kv, d)
         parts = []
         for s0 in range(0, v, split):
@@ -189,21 +204,133 @@ def test_split_combine_matches_port_twin():
     np.testing.assert_allclose(_np(out), _np(ref), **FP32)
 
 
+def _quant_split_inputs(mode, seed, d=128, kv=2, hq=4, bs=8):
+    """:func:`_split_inputs`'s rows (decode rows inside one split, on a
+    boundary, one key past it and into a later split, a pad, a prompt chunk
+    across a boundary) over one-byte pages that the JAX package quantizes
+    from seeded fp32 rows, as JAX arrays and torch tensors of the same
+    bytes: (q, (kq, vq, ks, vs), tables, rows, valids, bs)."""
+    rng = np.random.RandomState(seed)
+    sk = pt_ragged.SPLIT_KEYS
+    width = -(-(sk + 62) // bs)
+    nblocks = 5 * width
+    pages = []
+    for _ in range(2):
+        jq, js = jax_kvq.quantize_kv(jnp.asarray(
+            rng.randn(nblocks * bs, kv, d).astype(np.float32)), mode)
+        raw = np.asarray(jq)
+        if raw.dtype.name == "float8_e4m3fn":
+            tq = torch.from_numpy(raw.view(np.uint8).copy()).view(
+                torch.float8_e4m3fn)
+        else:
+            tq = torch.from_numpy(raw.copy())
+        pages.append(((jq, js), (tq, torch.from_numpy(np.array(js)))))
+    (jk, jks), (tk, tks) = pages[0]
+    (jv, jvs), (tv, tvs) = pages[1]
+    tables = rng.permutation(nblocks).reshape(5, width).astype(np.int32)
+    rows = np.asarray([0, 1, 2, 3, 0] + [4] * 12, np.int32)
+    valids = np.asarray([13, sk, sk + 1, sk + 62, 0]
+                        + list(range(sk - 8, sk + 4)), np.int32)
+    q = _pair(rng.randn(len(rows), hq, d), "float32")
+    return q, ((jk, jv, jks, jvs), (tk, tv, tks, tvs)), tables, rows, \
+        valids, bs
+
+
+@pytest.mark.parametrize("split", [16, pt_ragged.SPLIT_KEYS])
+def test_split_combine_over_int8_pages_matches_jax_kernel(split):
+    """The split-context arithmetic over int8 pages, each element
+    dequantized first and then the fp32 products (partials per split of
+    ``split`` keys, merged in split order; the family's arithmetic were it
+    to run #10), against the TPU kernel of #10
+    (``paddle_tpu/ops/pallas/quant.py``, interpret mode on the CPU) at head
+    dim 128, on the same page bytes and scales. Tolerance FP32: only the
+    order of fp32 sums differs. The pad is 0."""
+    q, (jp, tp), tables, rows, valids, bs = _quant_split_inputs("int8", 11)
+    assert jax_quant.eligible(q[0].shape, 2, 128, jp[0].dtype)
+    ref = jax_quant.ragged_paged_attention_quant(
+        q[0], *jp, jnp.asarray(tables), jnp.asarray(rows),
+        jnp.asarray(valids), bs)
+    tk, tv, tks, tvs = tp
+    out = _split_combine(q[1], tk, tv, tables, rows, valids, bs, split,
+                         tks, tvs)
+    np.testing.assert_allclose(_np(out), _np(ref), **FP32)
+    assert float(out[4].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_split_combine_over_quantized_pages_matches_port_twin(mode):
+    """The same arithmetic against #10's plain twin (dequantize, one
+    softmax over each row's keys), int8 and fp8 e4m3 pages, at the kernel's
+    split size."""
+    q, (_, tp), tables, rows, valids, bs = _quant_split_inputs(mode, 12)
+    tk, tv, tks, tvs = tp
+    idx = (torch.from_numpy(tables), torch.from_numpy(rows),
+           torch.from_numpy(valids))
+    ref = pt_quant.ragged_paged_attention_quant_plain(q[1], tk, tv, tks, tvs,
+                                                      *idx, bs)
+    out = _split_combine(q[1], tk, tv, tables, rows, valids, bs,
+                         pt_ragged.SPLIT_KEYS, tks, tvs)
+    np.testing.assert_allclose(_np(out), _np(ref), **FP32)
+
+
+@pytest.mark.parametrize("split", [16, pt_ragged.SPLIT_KEYS])
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_paged_decode_is_the_split_family_decode_case(kv_dtype, split):
+    """#9 as the family computes it (``csrc/paged_attention.cu``): rows
+    ``0..b-1``, valids the sequence lengths, every token a tile of its own,
+    against the TPU kernel of #9 (``paddle_tpu/ops/pallas/paged_attention.py``,
+    interpret mode) over fp32 and bf16 pages, with lengths inside one split,
+    on a split boundary, past it, and 0 (exactly 0 out)."""
+    rng = np.random.RandomState(13)
+    sk, bs, d = pt_ragged.SPLIT_KEYS, 8, 128
+    lens = np.asarray([13, sk, 0, sk + 40], np.int32)
+    width = -(-(sk + 40) // bs)
+    nblocks = len(lens) * width + 1
+    kc = _pair(rng.randn(nblocks * bs, 2, d), kv_dtype)
+    vc = _pair(rng.randn(nblocks * bs, 2, d), kv_dtype)
+    q = _pair(rng.randn(len(lens), 4, d), "float32")
+    tables = (1 + rng.permutation(nblocks - 1)).reshape(
+        len(lens), width).astype(np.int32)
+    assert jax_paged.eligible(q[0].shape, 2, d)
+    ref = jax_paged.paged_decode_attention(q[0], kc[0], vc[0],
+                                           jnp.asarray(tables), lens, bs)
+    out = _split_combine(q[1], kc[1], vc[1], tables,
+                         np.arange(len(lens), dtype=np.int32), lens, bs,
+                         split)
+    np.testing.assert_allclose(_np(out), _np(ref), **FP32)
+    assert float(out[2].abs().max()) == 0.0
+    twin = pt_paged.paged_decode_attention(
+        q[1], kc[1], vc[1], torch.from_numpy(tables),
+        torch.from_numpy(lens), bs)
+    np.testing.assert_allclose(_np(out), _np(twin), **FP32)
+
+
 def test_split_constants_mirror_the_kernel_header():
     """``SPLIT_KEYS`` and the shared-memory mirror read the numbers
-    ``csrc/ragged.cuh`` is built with (the split size, the ring depth, the
-    tile rows, the stage bytes)."""
+    ``csrc/ragged.cuh`` is built with: the split size, the tile rows, each
+    page policy's element bytes, stage bytes and ring depth (bf16 and
+    fp32), and the stage keys they give at each padded head dim."""
     import os
     import re
     src = open(os.path.join(os.path.dirname(pt_ragged.__file__), "..", "..",
                             "csrc", "ragged.cuh")).read()
-    const = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    const = dict(re.findall(r"^constexpr int (k\w+) = (\d+);", src, re.M))
     assert int(const["kSplitKeys"]) == pt_ragged.SPLIT_KEYS
-    assert int(const["kStages"]) == pt_ragged._STAGES
     assert int(const["kTileRows"]) == pt_ragged._TILE_ROWS
-    assert "kSkRaw = 8192 / kRowBytes" in src
-    assert [pt_ragged._stage_keys(d, e) for d, e in
-            ((64, 1), (128, 2), (128, 4), (256, 4))] == [64, 32, 16, 16]
+    policies = {}
+    for name, body in re.findall(r"struct (Page\w+) \{(.*?)\n\};", src,
+                                 re.S):
+        vals = dict(re.findall(r"static constexpr int (k\w+) = (\d+);", body))
+        policies[name] = (int(vals["kBytes"]), int(vals["kStageBytes"]),
+                          int(vals["kRing"]))
+    assert set(policies) == {"PageBF16", "PageF32"}
+    for esz, stage, ring in policies.values():
+        assert pt_ragged.PAGE_GEOMETRY[esz] == (stage, ring)
+    assert "kSkRaw = P::kStageBytes / kRowBytes" in src
+    keys = {(d, e): pt_ragged._stage_keys(d, e)
+            for d in (64, 128, 256) for e in (2, 4)}
+    assert keys == {(64, 2): 64, (128, 2): 32, (256, 2): 16,
+                    (64, 4): 64, (128, 4): 32, (256, 4): 16}
 
 
 @pytest.mark.parametrize("width,block_size,partials", [
