@@ -2166,12 +2166,19 @@ def phase_scan(torch, timer):
     (``bench.py:1899-1905``: bf16 x [4, 2048, 48, 64], d_state 64, chunk
     256), each against the chunked twin (y and the final state) and a
     second launch (bitwise). The kernel and the twin are timed on the
-    padded operands the wrapper gives them."""
+    padded operands the wrapper gives them; the profiler reads each of the
+    call's launches (chunk state, state pass, chunk out) apart, and the
+    launch plan (grids over 132 SMs) is logged. Each shape's inputs come
+    from its own seed and its ``digest`` is the sha256 of y's and the
+    state's bytes (two builds in one ``tools/torch_phase_ab.py`` call)."""
+    import hashlib
     from paddle_tpu_torch.ops.kernels import selective_scan as ss
+    flush = _flush_kernels(torch, timer)
     out = {}
     for tag, (b, l, h, dh, ds, dtype) in (
             ("serve", (1, 1023, 64, 32, 16, torch.float32)),
             ("train", (4, 2048, 48, 64, 64, torch.bfloat16))):
+        torch.manual_seed(2000 + len(tag))
         x = torch.randn(b, l, h, dh, device="cuda").to(dtype)
         dt = torch.rand(b, l, h, device="cuda") * 0.1 + 0.01
         A = -torch.rand(h, device="cuda") - 0.1
@@ -2209,14 +2216,41 @@ def phase_scan(torch, timer):
             2 * pairs * dh + pairs + 4 * L * ds * dh))
         b_ms, b_by = bound(nbytes, flops,
                            "fp32" if dtype == torch.float32 else "bf16")
+        yb = y.view(torch.int16) if dtype == torch.bfloat16 else y
+        digest = hashlib.sha256(yb.cpu().numpy().tobytes()
+                                + st.cpu().numpy().tobytes()).hexdigest()[:16]
+
+        def run(calls=10):
+            for _ in range(calls):
+                timer.flush.zero_()
+                ss.scan_chunked(*args)
+        passes = {}
+        for us, _, name in _profile_rows(torch, run):
+            if not _is_flush(name, flush):
+                key = next((k for k in ("scan_chunk_state", "scan_state_pass",
+                                        "scan_chunk_out") if k in name),
+                           name[:40])
+                passes[key] = passes.get(key, 0.0) + us / 1e3 / 10
+        plan = ss.launch_plan(b, lp, h, dh, ds, L, x.element_size()) \
+            if hasattr(ss, "launch_plan") else None
         out[tag] = dict(err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
                         ms=timer.ms(lambda: ss.scan_chunked(*args)),
+                        device_ms=sum(passes.values()) or None,
+                        passes_ms=passes, digest=digest, plan=plan,
                         plain_ms=timer.ms(lambda: ss._scan_reference(*args),
-                                          iters=3, warmup=1),
-                        blocks=b * h)
-        log(f"scan {tag}: {b * h} blocks of the kernel on 132 SMs, "
-            f"{out[tag]['ms']:.4f} ms, plain {out[tag]['plain_ms']:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
+                                          iters=3, warmup=1))
+        if plan is not None:
+            log(f"scan {tag}: grids on 132 SMs: chunk state "
+                f"{plan['state']['grid']} ({plan['state']['heads']} heads a "
+                f"block, {plan['state']['smem']} B), state pass "
+                f"{plan['passes']['grid']}, chunk out {plan['out']['grid']} "
+                f"({plan['out']['heads']} heads a block, "
+                f"{plan['out']['smem']} B)")
+        log(f"scan {tag}: {out[tag]['ms']:.4f} ms (device "
+            f"{out[tag]['device_ms']}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+            + f"), plain {out[tag]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); digest {digest}")
         del x, y, y2, ry, args
         torch.cuda.empty_cache()
     s, t = out["serve"], out["train"]
@@ -2229,6 +2263,9 @@ def phase_scan(torch, timer):
                 ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                 bound_by=s["bound_by"], library_ms=None,
                 library="none (no single PyTorch call computes the scan)",
+                device_ms=s["device_ms"], passes_ms=s["passes_ms"],
+                digest=dict(serve=s["digest"], train=t["digest"]),
+                shapes=out,
                 train_ms=t["ms"], train_plain_ms=t["plain_ms"],
                 train_bound_ms=t["bound_ms"], train_bound_by=t["bound_by"],
                 shape="fp32 x [1, 1023, 64, 32], d_state 16, chunk 128 "
@@ -2327,7 +2364,7 @@ def phase_paged(torch, np, timer, rng):
                       "lengths 1023..1055)")
 
 
-def phase_quant(torch, np, timer, rng):
+def phase_quant(torch, np, timer):
     """Ragged paged attention over quantized pages (#10) against its twin:
     (a) #8's timing shape (fp32 q [72, 32, 128], kv 8, block 64) over int8
     pages; (b) the serve-quant step's shape (fp32 q [128, 16, 64], kv 8: 64
@@ -2337,14 +2374,21 @@ def phase_quant(torch, np, timer, rng):
     32, 128], lengths 48..1040) over int8 pages. Each twice, bitwise; pads
     exactly 0; at (a) every decode row alone equals its row of the full
     step bit for bit. Each timed as an event-timed call (L2 flushed) and as
-    device time from the profiler."""
+    device time from the profiler. Each case's inputs come from its own
+    seed, and its ``digest`` is the sha256 of the output's bytes, so that
+    two builds run in one ``tools/torch_phase_ab.py`` call show whether
+    their bits are the same."""
+    import hashlib
     from paddle_tpu_torch.ops.kernels import quant as pq
     from paddle_tpu_torch.quantization import kv as kvq
     bs = 64
     flush = _flush_kernels(torch, timer)
 
     def case(tag, hq, hkv, d, rows, valids, seqs, width, mode, q_dtype):
-        tables, nblocks = _block_table(torch, rng, seqs, width)
+        seed = 1000 + ord(tag)
+        torch.manual_seed(seed)
+        tables, nblocks = _block_table(torch, np.random.RandomState(seed),
+                                       seqs, width)
         kq, ks = kvq.quantize_kv(torch.randn(nblocks * bs, hkv, d,
                                              device="cuda"), mode)
         vq, vs = kvq.quantize_kv(torch.randn(nblocks * bs, hkv, d,
@@ -2381,8 +2425,12 @@ def phase_quant(torch, np, timer, rng):
         b_ms, b_by = _ragged_bound(rows, valids, bs, hq, hkv, d,
                                    kq.element_size(), q.element_size(), t,
                                    extra_row_bytes=8)
+        raw = out.view(torch.int16) if out.dtype == torch.bfloat16 else out
+        digest = hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()[:16]
+        plan = pq.launch_plan(t, hq, hkv, d, bs, width) \
+            if hasattr(pq, "launch_plan") else None
         res = dict(max_abs_err=err, top=top, tol=tol, bound_ms=b_ms,
-                   bound_by=b_by,
+                   bound_by=b_by, digest=digest, plan=plan,
                    ms=timer.ms(lambda: pq.ragged_paged_attention_quant(*args)),
                    device_ms=_kernel_device_ms(
                        torch, timer,
@@ -2396,7 +2444,8 @@ def phase_quant(torch, np, timer, rng):
             f"{top:.3g} (tol {tol}), bitwise on repeat"
             + (f", {alone} decode rows alone bitwise" if alone else "")
             + f"; {res['ms']:.4f} ms (device {res['device_ms']}), plain "
-            f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{res['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+            f"digest {digest}; plan {plan}")
         return res
 
     a = case("a", 32, 8, 128, RAGGED_ROWS, RAGGED_VALIDS, 8, 32, "int8",
@@ -2416,7 +2465,8 @@ def phase_quant(torch, np, timer, rng):
              "int8", torch.float32)
     shapes = dict(a=a, b=b, c=c, d=dd, e=e)
     return dict(name="ragged_paged_attention_quant", route="cuda",
-                source="paddle_tpu_torch/csrc/quant.cu",
+                digest={k: r["digest"] for k, r in shapes.items()},
+                source="paddle_tpu_torch/csrc/quant.cuh",
                 replaces="paddle_tpu/ops/pallas/quant.py:110",
                 path="serve-quant",
                 max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
@@ -5298,7 +5348,13 @@ WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
 
 # redesigned kernels of no tensor-core product: they must not spill either
 NO_SPILL_KERNELS = ("rms_norm_fwd_reg", "rms_norm_bwd_reg", "rms_norm_fwd_any",
-                    "rms_norm_bwd_any", "rms_norm_bwd_dw")
+                    "rms_norm_bwd_any", "rms_norm_bwd_dw",
+                    "ragged_attn_quant_kernel", "ragged_attn_quant_wide",
+                    "scan_chunk_state",
+                    "scan_state_pass", "scan_chunk_out")
+
+# kernels whose bf16 products run on mma.sync (HMMA in the SASS)
+MMA_KERNELS = ("scan_chunk_state_bf16", "scan_chunk_out_bf16")
 
 
 def check_tensor_core_kernels():
@@ -5307,7 +5363,16 @@ def check_tensor_core_kernels():
     (``ptxas -v``); so does every instantiation of #5's and #6's kernels."""
     from paddle_tpu_torch.ops.kernels import _build
     hgmma = _build.sass_opcode_counts("HGMMA")
+    hmma = _build.sass_opcode_counts("HMMA")
     spills = _build.ptxas_spills()
+    for name in MMA_KERNELS:
+        if hmma is None:
+            log(f"build: {name}: no cuobjdump in the toolkit, HMMA not "
+                f"counted")
+            continue
+        n = sum(c for f, c in hmma.items() if name in f)
+        log(f"build: {name}: {n} HMMA instructions (cuobjdump -sass)")
+        assert n > 0, f"build: {name} issues no HMMA"
     for name in NO_SPILL_KERNELS:
         fns = [f for f in spills if name in f]
         assert fns, f"build: ptxas reports no kernel named *{name}*"
@@ -5435,8 +5500,7 @@ def main() -> int:
                       lambda: phase_scan(torch, timer),
                       lambda: phase_paged(torch, np, timer,
                                           np.random.RandomState(1)),
-                      lambda: phase_quant(torch, np, timer,
-                                          np.random.RandomState(3))):
+                      lambda: phase_quant(torch, np, timer)):
             kernel_row(phase(), rows, card)
             torch.cuda.empty_cache()
         by_name = {r["name"]: r for r in rows}

@@ -211,8 +211,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # q, kc, vc, tables, lens, out, B, Hq, Hkv, D, bs, max_blocks, scale,
     # q_dtype, kv_dtype, stream
     lib.ptt_paged_decode_attn.argtypes = [P] * 6 + [I] * 6 + [F, I, I, P]
-    # dtx, la, B, C, y, state, batch, lp, H, dh, ds, L, dtype, stream
-    lib.ptt_selective_scan.argtypes = [P] * 6 + [I] * 7 + [P]
+    # dtx, la, B, C, y, state, cs, st, batch, lp, H, dh, ds, L, dtype,
+    # stream
+    lib.ptt_selective_scan.argtypes = [P] * 8 + [I] * 7 + [P]
     # q, kc, vc, k_scale, v_scale, tables, rows, valids, out, T, Hq, Hkv, D,
     # bs, width, scale, q_dtype, page_dtype, stream
     lib.ptt_ragged_paged_attn_quant.argtypes = [P] * 9 + [I] * 6 + [F, I, I, P]

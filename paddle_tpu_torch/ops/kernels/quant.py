@@ -1,5 +1,6 @@
 """Ragged paged attention over quantized KV pages: CUDA kernel
-``csrc/quant.cu`` and its plain twin.
+``csrc/quant.cuh`` (built by ``quant.cu``, fp32 q, and ``quant_bf16.cu``,
+bf16 q) and its plain twin.
 
 Port of ``paddle_tpu/ops/pallas/quant.py``. The same function as the
 ragged op (:mod:`.ragged_paged_attention`): packed token-major queries
@@ -31,13 +32,17 @@ from paddle_tpu_torch.ops.kernels.ragged_paged_attention import gather_paged_kv
 
 __all__ = ["ragged_paged_attention_quant",
            "ragged_paged_attention_quant_plain", "gather_paged_scales",
-           "eligible", "PAGE_DTYPES", "launches"]
+           "eligible", "launch_plan", "PAGE_DTYPES", "launches"]
 
 #: kernel launches made by :func:`ragged_paged_attention_quant` (never by
 #: the twin)
 launches = 0
 
 _SMEM_LIMIT = 232448      # dynamic shared memory one block may use on H100
+_MAX_STAGES, _MIN_STAGES = 4, 2   # the page ring's depth
+_SMS = 132                # SMs of an H100
+_CONSUMERS = 4            # consumer warps a pipelined block, 4 // heads a head
+_MIN_BLOCKS = 2 * 132     # two blocks an SM
 #: page dtype -> its code in the C interface (``csrc/common.cuh``)
 PAGE_DTYPES = {torch.int8: 2}
 if hasattr(torch, "float8_e4m3fn"):
@@ -162,11 +167,11 @@ def ragged_paged_attention_quant(q, k_cache, v_cache, k_scale, v_scale,
                     and v_cache.data_ptr() % 16 == 0,
                     "ragged_paged_attention_quant: pages must be 16-byte "
                     "aligned")
-    group = hq // hkv
-    smem = smem_bytes(block_size, d, group)
-    _launch.require(smem <= _SMEM_LIMIT,
+    plan = launch_plan(t, hq, hkv, d, block_size, block_tables.shape[1])
+    _launch.require(plan["stages"] > 0,
                     f"ragged_paged_attention_quant: block_size {block_size} "
-                    f"needs {smem} bytes of shared memory")
+                    f"needs {plan['smem']} bytes of shared memory at "
+                    f"{_MIN_STAGES} stages")
     out = torch.empty_like(q)
     _launch.launch("ptt_ragged_paged_attn_quant", q.data_ptr(),
                    k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
@@ -180,11 +185,116 @@ def ragged_paged_attention_quant(q, k_cache, v_cache, k_scale, v_scale,
     return out
 
 
-def smem_bytes(block_size: int, d: int, group: int) -> int:
-    """Dynamic shared memory of one block (``csrc/quant.cu:smem_bytes``):
-    two stages of a padded K page, a V page and their two scale columns,
-    each stage rounded up to 16 bytes, then the group's q rows and p rows in
-    fp32, all at the padded head dim of ``d``."""
+def heads_per_block(t: int, hq: int, hkv: int) -> int:
+    """The query heads one block takes (``heads_per_block`` in the .cu):
+    the widest of 4, 2 and 1 that divides the GQA group and still gives
+    two blocks an SM over ``t`` tokens and ``hkv`` kv heads, else 1."""
+    group = hq // hkv
+    for hb in (4, 2):
+        if group % hb == 0 and t * hkv * (group // hb) >= _MIN_BLOCKS:
+            return hb
+    return 1
+
+
+def smem_bytes(block_size: int, d: int, heads: int, stages: int,
+               width: int) -> int:
+    """Dynamic shared memory of one block (``csrc/quant.cuh:smem_bytes``):
+    ``stages`` stages of a padded K page, a V page and their two scale
+    columns (each stage rounded up to 16 bytes), three mbarriers a stage,
+    the score ring (a row of ``block_size`` fp32 scores a stage and head),
+    the block's q rows in fp32 at the padded head dim of ``d``, a row of
+    ``block_size`` fp32 softmax weights a consumer warp, four scoring-warp
+    maxima a stage and head, and the token's block-table row (``width``
+    int32 entries)."""
+    dp = _launch.head_dim_bucket(d)
+    stage = -(-block_size * ((dp + 16) + dp + 2 * 4) // 16) * 16
+    return (stages * stage + 3 * stages * 8
+            + stages * heads * block_size * 4 + heads * dp * 4
+            + _CONSUMERS * block_size * 4 + stages * heads * 4 * 4
+            + width * 4)
+
+
+def blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks an H100 SM holds at once by its 228 KB of shared memory (1 KB
+    reserved a block) and its 2048 threads (``blocks_per_sm``; registers
+    are not counted)."""
+    return min(233472 // (smem + 1024), 2048 // threads)
+
+
+def ring_stages(block_size: int, d: int, heads: int, width: int,
+                blocks: int = 1, threads: int = 192) -> int:
+    """The ring's depth (``ring_stages``): the most stages, up to 4, that
+    fit the H100's 227 KB, or 2 where the grid (``blocks`` of ``threads``)
+    is more than 132 SMs hold at that depth; 0 where not even 2 fit
+    (refused)."""
+    ns = _MAX_STAGES
+    while ns >= _MIN_STAGES and smem_bytes(block_size, d, heads, ns,
+                                           width) > _SMEM_LIMIT:
+        ns -= 1
+    if ns < _MIN_STAGES:
+        return 0
+    if blocks > _SMS * blocks_per_sm(smem_bytes(block_size, d, heads, ns,
+                                                width), threads):
+        return _MIN_STAGES
+    return ns
+
+
+def scorer_warps(heads: int) -> int:
+    """Scoring warps of a block of ``heads`` query heads: 4 for one head (a
+    decode step's small grid, latency), 2 for 2 or 4 (large grids)."""
+    return 4 if heads == 1 else 2
+
+
+def score_groups(block_size: int, stages: int, threads: int = 128) -> int:
+    """Pages a block's ``threads`` scoring threads score at once (a thread
+    a row, every head of the block): doubled while a page has a row for
+    each thread and the count divides the ring's depth (each group then
+    waits on its own stages' mbarriers one phase after another)."""
+    g = 1
+    while (g * 2 <= stages and stages % (g * 2) == 0
+           and g * 2 * block_size <= threads):
+        g *= 2
+    return g
+
+
+def wide_schedule(t: int, hkv: int) -> bool:
+    """Whether a launch takes the wide schedule (``wide_schedule`` in the
+    .cu; a block a (token, kv head), two stages): its grid already gives the
+    card more than two blocks an SM (a prefill chunk). Else the pipelined
+    one (a decode step)."""
+    return t * hkv > 2 * _SMS
+
+
+def wide_smem_bytes(block_size: int, d: int, group: int) -> int:
+    """The wide schedule's dynamic shared memory (``wide_smem_bytes``): two
+    stages of a padded K page, a V page and their scale columns, then the
+    group's q rows and p rows in fp32, at the padded head dim."""
     dp = _launch.head_dim_bucket(d)
     stage = -(-block_size * ((dp + 16) + dp + 2 * 4) // 16) * 16
     return 2 * stage + group * dp * 4 + group * block_size * 4
+
+
+def launch_plan(t: int, hq: int, hkv: int, d: int, block_size: int,
+                width: int) -> dict:
+    """The kernel's launch (``dispatch_hb`` and the launchers in the .cu).
+    Wide: a block a (token, kv head) of max(group, 4) warps, two stages.
+    Pipelined: heads a block, the ring's stages, shared memory, the grid
+    (tokens, kv heads, head groups), the block's threads (4 consumer warps,
+    a copy warp and 2 or 4 scoring warps) and the pages its scorers take at
+    once."""
+    group = hq // hkv
+    if wide_schedule(t, hkv):
+        smem = wide_smem_bytes(block_size, d, group)
+        return dict(schedule="wide", heads=group,
+                    stages=2 if smem <= _SMEM_LIMIT else 0, smem=smem,
+                    grid=(t, hkv, 1), threads=max(group, 4) * 32)
+    hb = heads_per_block(t, hq, hkv)
+    threads = (_CONSUMERS + 1 + scorer_warps(hb)) * 32
+    grid = (t, hkv, group // hb)
+    ns = ring_stages(block_size, d, hb, width, grid[0] * grid[1] * grid[2],
+                     threads)
+    return dict(schedule="pipelined", heads=hb, stages=ns,
+                smem=smem_bytes(block_size, d, hb, ns or _MIN_STAGES, width),
+                grid=grid, threads=threads,
+                score_groups=score_groups(block_size, ns,
+                                          scorer_warps(hb) * 32))

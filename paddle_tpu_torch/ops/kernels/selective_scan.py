@@ -24,6 +24,8 @@ recurrence's one step, plain torch as in the reference.
 
 from __future__ import annotations
 
+import functools
+
 from typing import Optional, Tuple
 
 import torch
@@ -33,13 +35,14 @@ from paddle_tpu_torch.ops.kernels import _launch
 
 __all__ = ["selective_scan", "scan_chunked", "xla_selective_scan",
            "selective_scan_update", "ineligible_reason", "resolve_chunk",
-           "launches"]
+           "launch_plan", "launches"]
 
 #: kernel launches made by :func:`scan_chunked` (never by the twins)
 launches = 0
 
-_ROWS = 16                # rows of the decay matrix built at once (``kRows``)
-_MAX_CHUNK = 256          # one thread per column of the decay matrix
+_MIN_CHUNK = 16           # a chunk is whole 16-row tensor-core tiles
+_MAX_CHUNK = 256
+_MIN_BLOCKS = 2 * 132     # two blocks an SM (``kMinBlocks``)
 _SMEM_LIMIT = 232448      # dynamic shared memory one block may use on H100
 
 
@@ -62,11 +65,75 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def _smem_bytes(L: int, dh: int, ds: int, esize: int) -> int:
-    """The kernel's dynamic shared memory (``scan_smem_bytes`` in the .cu)."""
-    return (2 * _align16(L * (ds + 1) * 4) + _align16(L * dh * esize)
-            + _align16(ds * dh * 4) + _align16(_ROWS * L * 4)
-            + 3 * _align16(L * 4))
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def head_groups(h: int, base: int) -> int:
+    """How many groups a launch splits the ``h`` heads into (``head_groups``
+    in the .cu): the fewest, a divisor of ``h``, that give ``base`` x
+    groups >= two blocks an SM, else ``h``."""
+    for g in range(1, h + 1):
+        if h % g == 0 and base * g >= _MIN_BLOCKS:
+            return g
+    return h
+
+
+def _row_tile(L: int) -> int:
+    """Rows of y an fp32 chunk_out block takes (``row_tile``)."""
+    return min(L, 64)
+
+
+def _state_smem(L: int, dh: int, ds: int, hg: int, esize: int) -> int:
+    """``scan_chunk_state``'s dynamic shared memory (``state_smem_f32`` /
+    ``state_smem_bf16``): fp32 keeps B, B o exp(cs_L - cs) and dtx as
+    fp32; bf16 keeps B and dtx as bf16; both the heads' cs rows and the
+    decays to the chunk's end."""
+    if esize == 4:
+        return (_align16(L * (ds + 1) * 4) + _align16(L * ds * 4)
+                + _align16(L * dh * 4) + _align16(hg * L * 4)
+                + _align16(L * 4))
+    return (_align16(L * (_round16(ds) + 8) * 2) + _align16(hg * L * 4)
+            + _align16(L * 4) + _align16(L * (dh + 8) * 2))
+
+
+def _out_smem(L: int, dh: int, ds: int, esize: int) -> int:
+    """``scan_chunk_out``'s (``out_smem_f32`` / ``out_smem_bf16``): fp32
+    keeps B, C^T and (C o exp(cs_t))^T, G^T and M^T of its row tile, dtx
+    and S_prev as fp32; bf16 (a block a head and chunk) keeps B and dtx as
+    bf16, S_prev as fp32 and the chunk's cs."""
+    if esize == 4:
+        R = _row_tile(L)
+        return (_align16(L * (ds + 1) * 4) + 2 * _align16(ds * R * 4)
+                + 2 * _align16(L * R * 4) + _align16(L * dh * 4)
+                + _align16(ds * dh * 4) + _align16(L * 4) + _align16(R * 4))
+    d16 = _round16(ds)
+    return (_align16(L * (d16 + 8) * 2) + _align16(L * (dh + 8) * 2)
+            + _align16(d16 * (dh + 4) * 4) + _align16(L * 4))
+
+
+def launch_plan(bsz: int, lp: int, h: int, dh: int, ds: int, L: int,
+                esize: int) -> dict:
+    """The three launches of a call (``ptt_selective_scan`` in the .cu):
+    grids (x, y, z), threads, heads a block and dynamic shared memory of
+    ``scan_chunk_state`` and ``scan_chunk_out``, and the state pass's
+    grid. fp32's chunk_out takes 64-row tiles of a chunk for a group of
+    heads (G shared by them); bf16's a whole chunk of one head."""
+    nc = lp // L
+    g1 = head_groups(h, nc * bsz)
+    if esize == 4:
+        rt = -(-L // _row_tile(L))
+        g3 = head_groups(h, nc * bsz * rt)
+        out = dict(grid=(rt, nc, bsz * g3), threads=256, heads=h // g3,
+                   smem=_out_smem(L, dh, ds, esize))
+    else:
+        out = dict(grid=(nc, bsz, h), threads=256, heads=1,
+                   smem=_out_smem(L, dh, ds, esize))
+    return dict(state=dict(grid=(nc, bsz, g1), threads=256, heads=h // g1,
+                           smem=_state_smem(L, dh, ds, h // g1, esize)),
+                passes=dict(grid=(-(-bsz * h * ds * dh // 256), 1, 1),
+                            threads=256),
+                out=out)
 
 
 def ineligible_reason(x_shape, d_state: int, chunk: int,
@@ -74,19 +141,29 @@ def ineligible_reason(x_shape, d_state: int, chunk: int,
     """Why the kernel cannot take this shape, or None (the reference's
     check, with the port's shared-memory limit in place of the VMEM
     budget)."""
-    _, l, _, dh = x_shape
+    return _ineligible(tuple(x_shape), int(d_state), int(chunk), dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _ineligible(x_shape, d_state: int, chunk: int, dtype) -> Optional[str]:
+    bsz, l, h, dh = x_shape
     if dtype not in (torch.float32, torch.bfloat16):
         return f"dtype {dtype} (the kernel takes float32 or bfloat16)"
     if dh % 8 or d_state % 8:
         return (f"head_dim/d_state must be multiples of 8, got dh={dh}, "
                 f"d_state={d_state}")
+    if dtype == torch.bfloat16 and (dh > 128 or d_state > 128):
+        return (f"head_dim {dh} or d_state {d_state} > 128 (the bf16 "
+                f"tensor-core tiles)")
     if l < 1:
         return f"empty sequence (l={l})"
-    if chunk < _ROWS or chunk > _MAX_CHUNK or chunk % _ROWS:
-        return (f"chunk {chunk} must be a multiple of {_ROWS} in "
-                f"[{_ROWS}, {_MAX_CHUNK}]")
+    if chunk < _MIN_CHUNK or chunk > _MAX_CHUNK or chunk % _MIN_CHUNK:
+        return (f"chunk {chunk} must be a multiple of {_MIN_CHUNK} in "
+                f"[{_MIN_CHUNK}, {_MAX_CHUNK}]")
     esize = 4 if dtype == torch.float32 else 2
-    smem = _smem_bytes(chunk, dh, d_state, esize)
+    lp = -(-l // chunk) * chunk
+    plan = launch_plan(max(bsz, 1), lp, max(h, 1), dh, d_state, chunk, esize)
+    smem = max(plan["state"]["smem"], plan["out"]["smem"])
     if smem > _SMEM_LIMIT:
         return (f"shared memory {smem} B exceeds {_SMEM_LIMIT} B at "
                 f"chunk={chunk} (dh={dh}, d_state={d_state})")
@@ -146,22 +223,32 @@ def scan_chunked(dtx, la_t, B, C, chunk: int):
     bsz, lp, h, dh = dtx.shape
     ds = B.shape[-1]
     reason = ineligible_reason(dtx.shape, ds, chunk, dtx.dtype)
-    _launch.require(reason is None, f"selective_scan: {reason}")
-    _launch.require(lp % chunk == 0 and la_t.shape == (bsz, h, lp)
-                    and la_t.dtype == torch.float32
-                    and B.shape == (bsz, lp, ds) and C.shape == B.shape,
-                    f"selective_scan: dtx {tuple(dtx.shape)}, la_t "
-                    f"{tuple(la_t.shape)} {la_t.dtype}, B {tuple(B.shape)}, "
-                    f"C {tuple(C.shape)} at chunk {chunk}")
-    _launch.require(B.dtype == dtx.dtype and C.dtype == dtx.dtype,
-                    f"selective_scan: B/C {B.dtype}/{C.dtype} must have x's "
-                    f"dtype {dtx.dtype}")
+    if reason is not None:
+        raise ValueError(f"selective_scan: {reason}")
+    if not (lp % chunk == 0 and la_t.shape == (bsz, h, lp)
+            and la_t.dtype == torch.float32
+            and B.shape == (bsz, lp, ds) and C.shape == B.shape):
+        raise ValueError(f"selective_scan: dtx {tuple(dtx.shape)}, la_t "
+                         f"{tuple(la_t.shape)} {la_t.dtype}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)} at chunk "
+                         f"{chunk}")
+    if B.dtype != dtx.dtype or C.dtype != dtx.dtype:
+        raise ValueError(f"selective_scan: B/C {B.dtype}/{C.dtype} must have "
+                         f"x's dtype {dtx.dtype}")
     y = torch.empty_like(dtx)
     state = torch.empty(bsz, h, ds, dh, dtype=torch.float32, device=dev)
+    # scratch, one allocation: each chunk's cumulative log-decays, then
+    # each chunk's state contribution (overwritten by the state entering
+    # the chunk); the second starts 4 * n_cs bytes in, 64-byte aligned
+    n_cs = bsz * h * lp
+    scratch = torch.empty(n_cs + (lp // chunk) * bsz * h * ds * dh,
+                          dtype=torch.float32, device=dev)
     _launch.launch("ptt_selective_scan", dtx.data_ptr(), la_t.data_ptr(),
                    B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                   state.data_ptr(), bsz, lp, h, dh, ds, int(chunk),
-                   _launch.DTYPE_CODE[dtx.dtype], _launch.stream_of(dev))
+                   state.data_ptr(), scratch.data_ptr(),
+                   scratch.data_ptr() + 4 * n_cs, bsz, lp, h, dh, ds,
+                   int(chunk), _launch.DTYPE_CODE[dtx.dtype],
+                   _launch.stream_of(dev))
     launches += 1
     return y, state
 

@@ -994,6 +994,117 @@ def test_selective_scan_kernel_matches_twin(cuda_device, dtype, l, dh, ds,
                                    atol=10 * tol["atol"] * np.abs(ref).max())
 
 
+# the scan's launch plans (csrc/selective_scan.cu: chunk state, state pass,
+# chunk out): one chunk, two, eight and sixteen, padded tails, batch 1-4,
+# d_state 16/64/128, head dims 32/64/128, chunks under one 64-row tile, of
+# one, two and four tiles, and heads enough to be split into groups
+_SCAN_PLANS = [(1, 64, 3, 32, 16, 64), (2, 128, 4, 64, 64, 64),
+               (3, 1000, 5, 32, 16, 128), (4, 1024, 2, 64, 128, 64),
+               (2, 500, 3, 128, 16, 32), (1, 1023, 64, 32, 16, 128),
+               (2, 1024, 48, 32, 16, 256), (1, 40, 2, 32, 128, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,dh,ds,chunk", _SCAN_PLANS)
+def test_selective_scan_plans_match_twin(cuda_device, dtype, b, l, h, dh,
+                                         ds, chunk):
+    """The chunk-parallel scan against the chunked twin at every branch of
+    its launch plan: y and the final state within the smoke's tolerance
+    (fp32 1e-5, bf16 2e-2, each x the tensor's largest magnitude plus the
+    same relative term), and a second launch bitwise equal."""
+    x, dt, A, B, C = _scan_inputs(cuda_device, dtype, b, l, h, dh, ds,
+                                  seed=l + dh)
+    with torch.no_grad():
+        pt_ss.launches = 0
+        y, s = pt_ss.selective_scan(x, dt, A, B, C, chunk=chunk)
+        y2, s2 = pt_ss.selective_scan(x, dt, A, B, C, chunk=chunk)
+        assert pt_ss.launches == 2
+        lp = -(-l // chunk) * chunk
+        dtf = dt.float()
+        la = torch.nn.functional.pad(dtf * A, (0, 0, 0, lp - l))
+        dtx = torch.nn.functional.pad((dtf[..., None] * x.float()).to(x.dtype),
+                                      (0, 0, 0, 0, 0, lp - l))
+        pad = (0, 0, 0, lp - l)
+        ry, rs = pt_ss._scan_reference(
+            dtx, la.transpose(1, 2), torch.nn.functional.pad(B, pad),
+            torch.nn.functional.pad(C, pad), chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for got, want in ((y, ry[:, :l]), (s, rs)):
+        g, w = _np(got), _np(want)
+        assert (np.abs(g - w) <= tol * np.abs(w).max()
+                + tol * np.abs(w)).all(), np.abs(g - w).max()
+
+
+# #10's schedule (producer warps scoring ahead of a consumer warp a head,
+# the group split over blocks) must not move a bit: decode rows at lengths
+# of 0, 1, a page, a page and one, more pages than the ring holds and a
+# long context, enough of them that the full call takes 4 or 2 heads a
+# block while each row alone takes 1
+_RING_LENS = [0, 1, 63, 64, 65, 5 * 64 + 1, 1000, 777]
+
+
+def _ring_inputs(dev, group, bs, mode, q_dtype, d, hkv=8, t=40, seed=0):
+    from paddle_tpu_torch.quantization import kv as kvq
+    g = torch.Generator().manual_seed(seed + bs + group + d)
+    width = -(-max(_RING_LENS) // bs)
+    tables = torch.randperm(t * width, generator=g).reshape(t, width)
+    kq, ks = kvq.quantize_kv(torch.randn(t * width * bs, hkv, d,
+                                         generator=g).to(dev), mode)
+    vq, vs = kvq.quantize_kv(torch.randn(t * width * bs, hkv, d,
+                                         generator=g).to(dev), mode)
+    valids = [_RING_LENS[i % len(_RING_LENS)] for i in range(t)]
+    q = torch.randn(t, hkv * group, d, generator=g).to(
+        dev, getattr(torch, q_dtype))
+    return [q, kq, vq, ks, vs, tables.to(dev, torch.int32),
+            torch.arange(t, dtype=torch.int32, device=dev),
+            torch.tensor(valids, dtype=torch.int32, device=dev), bs], valids
+
+
+def _check_quant_schedule(args, valids, fp32):
+    out = _check_split_call(pt_quant, pt_quant.ragged_paged_attention_quant,
+                            pt_quant.ragged_paged_attention_quant_plain, args,
+                            valids, "max" if fp32 else "bf16")
+    q, rows, vals = args[0], args[-3], args[-2]
+    for i in range(len(_RING_LENS)):
+        alone = pt_quant.ragged_paged_attention_quant(
+            q[i:i + 1].contiguous(), *args[1:-3], rows[i:i + 1].contiguous(),
+            vals[i:i + 1].contiguous(), args[-1])
+        assert torch.equal(alone[0], out[i]), (i, valids[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hkv", [4, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 32])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+def test_quant_schedule_keeps_each_heads_bits(cuda_device, group, bs, hkv):
+    """#10 over int8 pages, fp32 q, at groups 1-32 and block sizes 16-128:
+    against its twin (1e-4 x max|twin|), two launches bitwise, pads 0, and
+    each decode row alone (the pipelined schedule, one head a block)
+    bitwise its row of the full call: 40 tokens over 8 kv heads take the
+    wide schedule, over 4 the pipelined one with 1, 2 or 4 heads a block."""
+    args, valids = _ring_inputs(cuda_device, group, bs, "int8", "float32",
+                                128, hkv=hkv)
+    t, hq, _ = args[0].shape
+    plan = pt_quant.launch_plan(t, hq, hkv, 128, bs, args[5].shape[1])
+    assert plan["stages"] >= 2
+    assert plan["schedule"] == ("wide" if hkv == 8 else "pipelined")
+    _check_quant_schedule(args, valids, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("d", [16, 64, 96, 128, 256])
+def test_quant_schedule_head_dims(cuda_device, d, mode, q_dtype):
+    """The same checks at head dims 16-256, int8 and fp8 pages, fp32 and
+    bf16 q (group 4, block 64)."""
+    args, valids = _ring_inputs(cuda_device, 4, 64, mode, q_dtype, d)
+    _check_quant_schedule(args, valids, q_dtype == "float32")
+
+
 @pytest.mark.cuda
 def test_hybrid_engine_on_the_card(cuda_device):
     """A small fp32 hybrid (head_dim 64, the flash kernel's) served on the

@@ -458,12 +458,17 @@ def test_paged_smem_fits_at_every_bucket(d, esz, group):
 @pytest.mark.parametrize("d", [16, 96, 256])
 def test_quant_smem_fits_at_every_bucket(d, group):
     """#10's block at the padded head dim (one-byte pages: int8 and fp8
-    alike) fits the H100's 227 KB at block 64 with two stages (each about
-    34 KB at 256), a GQA group of 8 or 32."""
+    alike) fits the H100's 227 KB at block 64 with a ring of four stages
+    (each about 34 KB at 256), for a GQA group of 8 or 32 (four query heads
+    a block at most: the group is split over blocks)."""
     dp = _launch.head_dim_bucket(d)
     stage = -(-64 * (2 * dp + 16 + 8) // 16) * 16
-    smem = pt_quant.smem_bytes(64, d, group)
-    assert smem == 2 * stage + group * dp * 4 + group * 64 * 4
+    heads = pt_quant.heads_per_block(72, 8 * group, 8)
+    assert heads == 4
+    smem = pt_quant.smem_bytes(64, d, heads, 4, 32)
+    assert smem == (4 * stage + 4 * 24 + 4 * heads * 64 * 4 + heads * dp * 4
+                    + 4 * 64 * 4 + 4 * heads * 16 + 32 * 4)
+    assert pt_quant.ring_stages(64, d, heads, 32) == 4
     assert smem <= pt_quant._SMEM_LIMIT
 
 

@@ -16,7 +16,9 @@ returns (``ms``, ``library_ms``, ``bound_ms``, the per-launch
 path's ``ms_per_step`` and ``busy_share``, and the extra shapes a phase
 times, such as tgmm's ``down``, the segment backward's ``t1`` or the
 RMSNorm phases' ``shapes``, the fused block's ``parts_ms`` and
-``edge_ms``, the train phase's ``off_ms_per_step``). Each checkout builds its own
+``edge_ms``, the train phase's ``off_ms_per_step``, and the ``digest`` of
+the outputs a phase hashes, ``phase_quant``'s and ``phase_scan``'s, so that
+one call shows whether two builds give the same bits). Each checkout builds its own
 kernels into its own ``paddle_tpu_torch/_build/``. With ``--smoke DIR`` both
 checkouts run the phases of ``DIR/chip_smoke.py`` over their own package, so
 that shapes a newer smoke times (``phase_ragged``'s decode steps, say) are
@@ -32,7 +34,7 @@ import sys
 _KEYS = ("ms", "device_ms", "library_ms", "library_device_ms", "bound_ms",
          "host_us", "library_host_us", "launches_ms", "cp", "down", "t1",
          "shapes", "ms_per_step", "busy_share", "parts_ms", "edge_ms",
-         "off_ms_per_step")
+         "off_ms_per_step", "digest", "passes_ms")
 
 _RUN = """
 import importlib.util, inspect, json, os, sys
