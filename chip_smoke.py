@@ -23,7 +23,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    one empty and one full, and gmm/gmm2 also in fp32 at the MoE serving
    shapes, gmm2 beside the unfused route's two gmm launches; the chunked
    SSD scan at the hybrid's prefill and at ``bench_ssm_pretrain``'s
-   widths; paged decode attention at the eager serve step and the
+   widths, and its backward kernel at both (from the forward's saved
+   states, with a cotangent of the final state, also against autograd
+   through the chunked twin); paged decode attention at the eager serve step and the
    hybrid's; ragged attention (#8, the split-context family of
    ``csrc/ragged.cuh``) at its timing shape (7 decode rows, a 64-token
    chunk, a pad), the serve decode step, a fleet decode host's step (one
@@ -51,7 +53,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gmm and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
    for tgmm, memory-efficient ``scaled_dot_product_attention`` with the
    segment mask for the segment-causal pair) and the least time the card
-   could take (RMSNorm in phase 15); then head dims other than 64 and 128: the flash forward and
+   could take (RMSNorm in phase 16); then head dims other than 64 and 128: the flash forward and
    backward, the segment-causal pair, ragged attention, paged decode and
    ragged attention over int8/fp8 pages at head dims 96 and 256, bf16 and
    fp32, and the bf16 flash pair on misaligned bases, against their twins
@@ -188,7 +190,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward and backward and 13 of each RMSNorm kernel; one step's
    gradients against the twins and an fp32 copy (with the share of
    (token, k) routes the fp32 copy also takes); a second run bitwise;
-13. train-cp, the slice-6 context-parallel path: ``bench_cp_long_context``
+13. train-ssm, the slice-18 hybrid training path: ``bench_ssm_pretrain``'s
+   TPU configuration (``bench.py:1899-1905``: vocab 32000, hidden 1536,
+   ffn 4096, 12 layers "SA" (6 SSM mixers, 6 attention layers), GQA 12:4
+   at head dim 128, d_state 64, SSM head dim 64: d_inner 3072 over 48 SSM
+   heads; bf16, seeded random weights, 336.0M parameters), batch 4 x 2048,
+   trained as in phase 11 (2+1 warmup, 10 timed AdamW steps,
+   ``pallas_fused_block=auto``, no ``off`` yardstick). Reports tokens/s,
+   ms per step, the bench's MFU (``6N + 12 L h s``), busy share, top
+   kernels, peak memory. Checks: finite, falling losses; per step 6
+   launches each of the scan and its backward, 6 of the fused block,
+   flash forward and flash backward, 25 of each RMSNorm kernel; one
+   step's gradients against the twins and an fp32 copy (neither scan
+   kernel launched in the twins' leg); a second run bitwise. Then the
+   recompute leg: the model from the seed with and without
+   ``recompute``, one step each: loss within rtol 1e-5, gradients within
+   rtol 1e-4 / atol 1e-6 (the reference's recompute parity), whether
+   bitwise logged, the scan's forward launches doubled;
+14. train-cp, the slice-6 context-parallel path: ``bench_cp_long_context``
    (``bench.py:323-371``: vocab 32000, hidden 1024, ffn 2816, 4 layers,
    16:8 heads of 64, bf16, ``sequence_parallel=True``, ``sep_mode="auto"``,
    seq 32768, batch 1, seeded random weights; the bench's 64k row is left
@@ -214,7 +233,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ranks share it, so this is not context-parallel scaling) and the
    shares of (b)'s step spent in the host-staged all-gathers and in the
    IPC hops;
-14. train-moe-ep, the slice-7 expert-parallel path: the train-moe model
+15. train-moe-ep, the slice-7 expert-parallel path: the train-moe model
    and batch (phase 12) trained with AdamW on an ``["ep"]`` mesh of two
    ``distributed.spawn`` ranks sharing this card over gloo, each rank
    holding the replicated model with 8 of the 16 experts (``shard_layer``
@@ -248,11 +267,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    four, so that #15 and #17 run with three peers: its output against the
    one-device layer, then fwd + bwd + AdamW with ``moe_a2a_overlap`` off
    and on (the ratio reported, not asserted);
-15. RMSNorm (#5 and #6), checked and timed as the kernels of phase 3 are,
+16. RMSNorm (#5 and #6), checked and timed as the kernels of phase 3 are,
    but after every path and in a process of their own, so that their
    profiler sessions, library calls and host-time loops run after each
    step was read and their sessions start afresh;
-16. the ``kernels`` JSON line, then the result line.
+17. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -2273,6 +2292,145 @@ def phase_scan(torch, timer):
                       "chunk 256)")
 
 
+SCAN_BWD_PASSES = ("scan_bwd_chunk_u", "scan_bwd_state_pass", "scan_bwd_rows",
+                   "scan_bwd_cols", "scan_bwd_dla", "scan_bwd_dbc")
+
+
+def phase_scan_bwd(torch, timer):
+    """The scan's backward kernel (14b, the reference's ``jax.vjp`` of the
+    chunked form, ``selective_scan.py:237``) at ``phase_scan``'s two shapes,
+    from the forward kernel's saved states, with a random cotangent of y and
+    a nonzero one of the final state: ``(d_dtx, d_la, dB, dC)`` against
+    ``scan_chunked_bwd_plain`` on the same inputs and against autograd
+    through the chunked twin (fp32 rtol=atol=1e-5 x max|twin|, bf16 2e-2),
+    a second launch bitwise. Timed beside the plain version; the profiler
+    reads each of its six launches apart; the launch plan is logged. No
+    library call computes the backward. ``digest``: sha256 of the four
+    gradients' bytes."""
+    import hashlib
+    from paddle_tpu_torch.ops.kernels import selective_scan as ss
+    flush = _flush_kernels(torch, timer)
+    out = {}
+    for tag, (b, l, h, dh, ds, dtype) in (
+            ("serve", (1, 1023, 64, 32, 16, torch.float32)),
+            ("train", (4, 2048, 48, 64, 64, torch.bfloat16))):
+        torch.manual_seed(3000 + len(tag))
+        x = torch.randn(b, l, h, dh, device="cuda").to(dtype)
+        dt = torch.rand(b, l, h, device="cuda") * 0.1 + 0.01
+        A = -torch.rand(h, device="cuda") - 0.1
+        B = torch.randn(b, l, ds, device="cuda").to(dtype)
+        C = torch.randn(b, l, ds, device="cuda").to(dtype)
+        L = ss.resolve_chunk(l)
+        lp = -(-l // L) * L
+        pad = (0, 0, 0, lp - l)
+        args = ((torch.nn.functional.pad((dt[..., None] * x.float()).to(dtype),
+                                         (0, 0, 0, 0, 0, lp - l))
+                 .contiguous()),
+                torch.nn.functional.pad(dt * A, pad).transpose(1, 2)
+                .contiguous(),
+                torch.nn.functional.pad(B, pad).contiguous(),
+                torch.nn.functional.pad(C, pad).contiguous())
+        dy = torch.randn(b, lp, h, dh, device="cuda").to(dtype)
+        dy[:, l:] = 0          # selective_scan drops y's padded tail
+        dsf = torch.randn(b, h, ds, dh, device="cuda")
+        with torch.no_grad():
+            _, _, states = ss._scan_launch(*args, L)
+            bwd = (*args, states, dy, dsf, L)
+            got = ss.scan_chunked_bwd(*bwd)
+            again = ss.scan_chunked_bwd(*bwd)
+            plain = ss.scan_chunked_bwd_plain(*bwd)
+        leaves = [a.detach().clone().requires_grad_(True) for a in args]
+        ty, ts = ss._scan_reference(*leaves, L)
+        ((ty.float() * dy.float()).sum() + (ts * dsf).sum()).backward()
+        auto = [t.grad for t in leaves]
+        torch.cuda.synchronize()
+        names = ("d_dtx", "d_la", "dB", "dC")
+        for n, g, g2 in zip(names, got, again):
+            assert torch.equal(g, g2), \
+                f"scan bwd {tag} {n}: two launches on the same inputs differ"
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        err = 0.0
+        for n, g, p, a in zip(names, got, plain, auto):
+            e_p, e_a = max_err(g, p), max_err(g, a)
+            err = max(err, e_p, e_a)
+            log(f"scan bwd {tag} {n}: max_abs_err {e_p:.4g} vs plain, "
+                f"{e_a:.4g} vs the twin's autograd, of max "
+                f"{float(p.float().abs().max()):.4g}")
+            assert scaled_close(g, p, tol, tol), f"scan bwd {tag} {n} (plain)"
+            assert scaled_close(g, a, tol, tol), \
+                f"scan bwd {tag} {n} (twin autograd)"
+        # bytes: dtx, dy, la, B, C, the saved states and the final-state
+        # cotangent read once, the four gradients written once; operations
+        # on each chunk's causal half: G once per (batch, chunk), then per
+        # head dM and Mr^T dy (dh), dG B and dG^T C (ds), the elementwise
+        # dG, dP and decays, and the four L x ds x dh products
+        esz = x.element_size()
+        nc = lp // L
+        nbytes = (3 * b * l * h * dh * esz + 2 * b * h * l * 4
+                  + 4 * b * l * ds * esz + nc * b * h * ds * dh * 4
+                  + b * h * ds * dh * 4)
+        pairs = L * (L + 1) // 2
+        flops = nc * (b * 2 * pairs * ds + b * h * (
+            4 * pairs * dh + 4 * pairs * ds + 4 * pairs + 8 * L * ds * dh))
+        b_ms, b_by = bound(nbytes, flops,
+                           "fp32" if dtype == torch.float32 else "bf16")
+        digest = hashlib.sha256(b"".join(
+            (g.view(torch.int16) if g.dtype == torch.bfloat16 else g)
+            .cpu().numpy().tobytes() for g in got)).hexdigest()[:16]
+
+        def run(calls=10):
+            for _ in range(calls):
+                timer.flush.zero_()
+                ss.scan_chunked_bwd(*bwd)
+        passes = {}
+        for us, _, name in _profile_rows(torch, run):
+            if not _is_flush(name, flush):
+                key = next((k for k in SCAN_BWD_PASSES if k in name),
+                           name[:40])
+                passes[key] = passes.get(key, 0.0) + us / 1e3 / 10
+        plan = ss.bwd_launch_plan(b, lp, h, dh, ds, L, esz)
+        out[tag] = dict(err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                        ms=timer.ms(lambda: ss.scan_chunked_bwd(*bwd)),
+                        device_ms=sum(passes.values()) or None,
+                        passes_ms=passes, digest=digest, plan=plan,
+                        plain_ms=timer.ms(
+                            lambda: ss.scan_chunked_bwd_plain(*bwd),
+                            iters=3, warmup=1))
+        log(f"scan bwd {tag}: plan: tile rows {plan['rows']}, chunk U "
+            f"{plan['chunk_u']['grid']} ({plan['chunk_u']['smem']} B), "
+            f"rows {plan['rows_kernel']['grid']} "
+            f"({plan['rows_kernel']['smem']} B), cols "
+            f"{plan['cols_kernel']['grid']} ({plan['cols_kernel']['smem']} "
+            f"B), on 132 SMs")
+        log(f"scan bwd {tag}: {out[tag]['ms']:.4f} ms (device "
+            f"{out[tag]['device_ms']}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
+            + f"), plain {out[tag]['plain_ms']:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); digest {digest}")
+        del x, args, bwd, got, again, plain, auto, leaves, states, dy
+        torch.cuda.empty_cache()
+    s, t = out["serve"], out["train"]
+    return dict(name="selective_scan_bwd", route="cuda",
+                source="paddle_tpu_torch/csrc/selective_scan.cu",
+                replaces="paddle_tpu/ops/pallas/selective_scan.py:237",
+                path="train-ssm", max_abs_err=max(s["err"], t["err"]),
+                tolerance="fp32 rtol=atol=1e-5 x max|twin|, bf16 2e-2, "
+                          "against the plain version and the twin's "
+                          "autograd; bitwise repeat",
+                ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"], library_ms=None,
+                library="none (no single PyTorch call computes the "
+                        "scan's backward)",
+                device_ms=t["device_ms"], passes_ms=t["passes_ms"],
+                digest=dict(serve=s["digest"], train=t["digest"]),
+                shapes=out,
+                serve_ms=s["ms"], serve_plain_ms=s["plain_ms"],
+                serve_bound_ms=s["bound_ms"], serve_bound_by=s["bound_by"],
+                shape="bf16 x [4, 2048, 48, 64], d_state 64, chunk 256 "
+                      "(serve shape: fp32 x [1, 1023, 64, 32], d_state 16, "
+                      "chunk 128)")
+
+
 def phase_paged(torch, np, timer, rng):
     """Paged decode attention (#9) at the eager serve step (bf16 q [8, 32,
     128] over Llama-3-8B pages, kv 8, block 64, the serve phase's prompt
@@ -3969,13 +4127,15 @@ def flagship_config():
                        recompute=False)
 
 
-def build_trainer(torch, cfg, prepare=None):
+def build_trainer(torch, cfg, prepare=None, model_cls=None):
     """``_llama_run``'s model, optimizer and step (``bench.py:62-90``);
     ``prepare(model)`` runs before the optimizer is built (placing the
-    parameters over a mesh)."""
+    parameters over a mesh). ``model_cls`` defaults to
+    ``LlamaForCausalLM`` (the hybrid's phase passes
+    ``HybridSSMForCausalLM``)."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import LlamaForCausalLM
-    model = LlamaForCausalLM(cfg, seed=0)
+    model = (model_cls or LlamaForCausalLM)(cfg, seed=0)
     if prepare is not None:
         prepare(model)
     opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.1,
@@ -4045,14 +4205,20 @@ def check_train_step(torch, model, ids):
     kernel gradient is further from ``exact`` than 1.5x its twin
     gradient. For an MoE model it also reports the share of (token, k)
     routes of the kernel run that the fp32 copy's routing takes too."""
+    from paddle_tpu_torch.ops import kernels
     with recorded_routes(model) as routes_k:
         loss_k, g_k = loss_and_grads(torch, model, ids)
+    before = kernels.launch_counts()
     with plain_twins():
         loss_t, g_t = loss_and_grads(torch, model, ids)
         model32 = fp32_copy(model)
         with recorded_routes(model32) as routes_e:
             loss_e, g_e = loss_and_grads(torch, model32, ids)
     del model32
+    after = kernels.launch_counts()
+    for name in ("selective_scan", "selective_scan_bwd"):
+        assert after[name] == before[name], \
+            f"train check: the twin leg launched {name}"
     torch.cuda.empty_cache()
 
     def dist(a, b):
@@ -4089,7 +4255,7 @@ def check_train_step(torch, model, ids):
 
 
 def run_train(torch, np, card, label, cfg, batch, seq, steps, want,
-              flops_per_token, warmup=2):
+              flops_per_token, warmup=2, model_cls=None):
     """``bench.py:_llama_run``'s loop for ``cfg``: warmup + 1 steps, then
     ``steps`` timed steps with the launch counts zeroed just before and
     read just after (``want``: launches per step of each kernel), a
@@ -4102,7 +4268,8 @@ def run_train(torch, np, card, label, cfg, batch, seq, steps, want,
     gc.collect()
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(True, warn_only=True)
-    model, opt, train_step = build_trainer(torch, cfg)
+    model, opt, train_step = build_trainer(
+        torch, cfg, model_cls=model_cls)
     rs = np.random.RandomState(0)
     ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, size=(batch, seq))
                            .astype("int32")).cuda()
@@ -4157,7 +4324,8 @@ def run_train(torch, np, card, label, cfg, batch, seq, steps, want,
     first = losses[:warmup + 1]
     del model, opt, train_step
     torch.cuda.empty_cache()
-    model, opt, train_step = build_trainer(torch, cfg)
+    model, opt, train_step = build_trainer(
+        torch, cfg, model_cls=model_cls)
     again = [train_step(ids) for _ in range(len(first))]
     same = all(torch.equal(a, b) for a, b in zip(first, again))
     log(f"{label}: second run from the seed, {len(first)} steps: "
@@ -4274,6 +4442,109 @@ def phase_train_moe(torch, np, card):
         return 6 * activated + 12 * layers * cfg.hidden_size * MOE_S
     return run_train(torch, np, card, "train-moe", cfg, MOE_B, MOE_S,
                      TRAIN_STEPS, want, flops_per_token)
+
+
+SSM_TRAIN_STEPS = 10    # timed steps, as bench_ssm_pretrain times
+
+
+def ssm_train_config(recompute=False):
+    """``bench_ssm_pretrain``'s TPU configuration (``bench.py:1899-1905``):
+    the flagship's widths with every other layer an SSM mixer."""
+    from paddle_tpu_torch.models import ssm_tiny_config
+    return ssm_tiny_config(vocab_size=32000, hidden_size=1536,
+                           intermediate_size=4096,
+                           num_hidden_layers=TRAIN_LAYERS,
+                           num_attention_heads=12, num_key_value_heads=4,
+                           max_position_embeddings=2048, ssm_state_size=64,
+                           ssm_head_dim=64, layer_pattern="SA",
+                           dtype="bfloat16", recompute=recompute)
+
+
+def phase_train_ssm(torch, np, card):
+    """The slice-18 training path: ``bench_ssm_pretrain`` at its TPU widths
+    through ``run_train`` (2+1 warmup, ``SSM_TRAIN_STEPS`` timed AdamW
+    steps, MFU by the bench's ``6N + 12 L h s`` at 989 TFLOP/s), then the
+    recompute leg (:func:`_ssm_recompute_leg`). No ``off`` yardstick."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import HybridSSMForCausalLM
+    paddle.flags.set_flags({"pallas_fused_block": "auto"})
+    cfg = ssm_train_config()
+    layers = cfg.num_hidden_layers
+    n_ssm = cfg.resolved_pattern().count("S")
+    n_attn = layers - n_ssm
+    log(f"train-ssm: bench_ssm_pretrain (bench.py:1899: vocab 32000, hidden "
+        f"1536, ffn 4096, GQA 12:4 at head_dim 128, d_state 64, SSM head "
+        f"dim 64: d_inner 3072, 48 SSM heads), {layers} layers 'SA' "
+        f"({n_ssm} SSM, {n_attn} attention), bf16, batch {TRAIN_B} x seq "
+        f"{TRAIN_S}, AdamW(lr 1e-4, wd 0.1), seeded random weights, "
+        f"pallas_fused_block=auto")
+    # per SSM layer: the scan and its backward, the input norm and the
+    # mixer's gated norm; per attention layer as the flagship's
+    want = dict(selective_scan=n_ssm, selective_scan_bwd=n_ssm,
+                fused_block_fwd=n_attn, flash_attention_fwd=n_attn,
+                flash_attention_bwd=n_attn, rms_norm_fwd=2 * layers + 1,
+                rms_norm_bwd=2 * layers + 1)
+    counts, perf = run_train(
+        torch, np, card, "train-ssm", cfg, TRAIN_B, TRAIN_S, SSM_TRAIN_STEPS,
+        want, lambda n: 6 * n + 12 * layers * cfg.hidden_size * TRAIN_S,
+        model_cls=HybridSSMForCausalLM)
+    perf.update(_ssm_recompute_leg(torch, np, n_ssm))
+    return counts, perf
+
+
+def _ssm_recompute_leg(torch, np, n_ssm):
+    """The train-ssm model from the seed with and without ``recompute``:
+    one step's loss and every parameter's gradient, held to the reference's
+    own tolerance for recompute parity (``tests/test_ssm.py:218-239``: loss
+    rtol 1e-5, gradients rtol 1e-4 / atol 1e-6); whether they are bitwise
+    equal is logged. With recompute the scan's forward launches double
+    (the backward replays each layer), its backward's do not."""
+    from paddle_tpu_torch.models import HybridSSMForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 32000, size=(TRAIN_B, TRAIN_S)).astype("int32")).cuda()
+    res = {}
+    for rc in (False, True):
+        model = HybridSSMForCausalLM(ssm_train_config(recompute=rc), seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(torch, model, ids)
+        torch.cuda.synchronize()
+        res[rc] = dict(loss=loss, grads=grads, counts=kernels.launch_counts(),
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       s=time.perf_counter() - t0)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    plain, rec = res[False], res[True]
+    assert plain["counts"]["selective_scan"] == n_ssm, plain["counts"]
+    assert rec["counts"]["selective_scan"] == 2 * n_ssm, rec["counts"]
+    assert rec["counts"]["selective_scan_bwd"] == n_ssm, rec["counts"]
+    bitwise = plain["loss"] == rec["loss"] and all(
+        torch.equal(a, b) for a, b in zip(plain["grads"], rec["grads"]))
+    worst = max(float(((a - b).abs() - 1e-4 * b.abs()).max())
+                for a, b in zip(rec["grads"], plain["grads"]))
+    msg = (f"train-ssm recompute: loss {rec['loss']:.7f} against "
+           f"{plain['loss']:.7f}; gradients "
+           f"{'bitwise equal' if bitwise else 'not bitwise'} (worst |a-b| - "
+           f"1e-4|b| {worst:.3g}); scan launches {rec['counts']['selective_scan']}"
+           f" against {plain['counts']['selective_scan']}, backward "
+           f"{rec['counts']['selective_scan_bwd']}; peak "
+           f"{rec['peak_gib']:.2f} GiB against {plain['peak_gib']:.2f} "
+           f"(one forward and backward, {rec['s']:.2f} s against "
+           f"{plain['s']:.2f} s with the first call's set-up)")
+    log(msg)
+    assert abs(rec["loss"] - plain["loss"]) <= 1e-5 * abs(plain["loss"]), msg
+    assert worst <= 1e-6, msg
+    return dict(recompute_bitwise=bitwise,
+                recompute_peak_gib=rec["peak_gib"],
+                plain_step_peak_gib=plain["peak_gib"])
 
 
 # the context-parallel training path: bench_cp_long_context's
@@ -5351,10 +5622,14 @@ NO_SPILL_KERNELS = ("rms_norm_fwd_reg", "rms_norm_bwd_reg", "rms_norm_fwd_any",
                     "rms_norm_bwd_any", "rms_norm_bwd_dw",
                     "ragged_attn_quant_kernel", "ragged_attn_quant_wide",
                     "scan_chunk_state",
-                    "scan_state_pass", "scan_chunk_out")
+                    "scan_state_pass", "scan_chunk_out") + SCAN_BWD_PASSES
 
-# kernels whose bf16 products run on mma.sync (HMMA in the SASS)
-MMA_KERNELS = ("scan_chunk_state_bf16", "scan_chunk_out_bf16")
+# kernels whose bf16 products run on mma.sync (HMMA in the SASS); the
+# scan backward's templates by their bf16 instantiation's mangled name
+MMA_KERNELS = ("scan_chunk_state_bf16", "scan_chunk_out_bf16",
+               "scan_bwd_chunk_uI13__nv_bfloat16",
+               "scan_bwd_rowsI13__nv_bfloat16",
+               "scan_bwd_colsI13__nv_bfloat16")
 
 
 def check_tensor_core_kernels():
@@ -5498,6 +5773,7 @@ def main() -> int:
                       lambda: phase_gmm(torch, timer),
                       lambda: phase_tgmm(torch, timer),
                       lambda: phase_scan(torch, timer),
+                      lambda: phase_scan_bwd(torch, timer),
                       lambda: phase_paged(torch, np, timer,
                                           np.random.RandomState(1)),
                       lambda: phase_quant(torch, np, timer)):
@@ -5546,6 +5822,8 @@ def main() -> int:
         log(f"train done at {time.perf_counter() - t_start:.1f} s")
         counts["train-moe"] = phase_train_moe(torch, np, card)[0]
         log(f"train-moe done at {time.perf_counter() - t_start:.1f} s")
+        counts["train-ssm"] = phase_train_ssm(torch, np, card)[0]
+        log(f"train-ssm done at {time.perf_counter() - t_start:.1f} s")
         cp_counts, hop_row = phase_train_cp(torch, np, card)
         counts.update(cp_counts)
         rows.append(hop_row)

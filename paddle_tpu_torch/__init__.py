@@ -16,10 +16,10 @@ PyTorch twin — that is how the CPU tests hold the port against JAX.
 The package imports ``torch`` and never ``jax`` or ``paddle_tpu``.
 """
 
-from paddle_tpu_torch import jit, optimizer
+from paddle_tpu_torch import autograd, jit, optimizer
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.framework.random import seed
 
-__all__ = ["jit", "optimizer", "resolve_device", "seed"]
+__all__ = ["autograd", "jit", "optimizer", "resolve_device", "seed"]
 
 __version__ = "0.1.0"

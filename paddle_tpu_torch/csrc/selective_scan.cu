@@ -1,4 +1,5 @@
-// Chunked SSD selective scan for Hopper: the state-space mixer's prefill.
+// Chunked SSD selective scan for Hopper: the state-space mixer's prefill, and
+// (ptt_selective_scan_bwd, below the forward) its gradient for training.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/selective_scan.py:_scan_kernel
 // (grid (batch, heads, chunks) in _scan_pallas, :172). Per (batch, head) and
@@ -53,6 +54,8 @@
 // B o exp(cs_L - cs) and S_prev are split into two bf16 terms (hi + lo, ~16
 // mantissa bits) against exact bf16 partners, and the carried term is
 // (C @ S_prev) scaled by exp(cs_t) a row.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -721,6 +724,590 @@ int launch_out_bf16(const __nv_bfloat16* x, const __nv_bfloat16* B, const __nv_b
   PTT_RETURN_LAUNCH_ERROR();
 }
 
+// ============================================================== backward
+// The scan's gradient (ptt_selective_scan_bwd): what the reference's
+// jax.vjp of the chunked form (paddle_tpu/ops/pallas/selective_scan.py:237,
+// _scan_core_bwd; no TPU kernel) computes. Per chunk and (batch, head), with
+// cs, T = cs_{L-1}, D_ij = exp(cs_i - cs_j) on j <= i, G = C B^T, M = G o D,
+// Mr = M rounded to x's dtype, S_prev the state entering the chunk (saved by
+// the forward) and dS the cotangent of the state leaving it:
+//
+//   dX      = Mr^T dy + (B o e^{T-cs}) dS
+//   dM      = dy X^T (kept fp32), dG = dM o D, dP = dM o M
+//   dC     += dG B + (dy S_prev^T) o e^{cs}
+//   dB     += dG^T C + (X dS^T) o e^{T-cs}
+//   dS_prev = e^T dS + (C o e^{cs})^T dy
+//   dcs_i   = sum_j dP_ij - sum_j dP_ji + <(dy S_prev^T)_i o e^{cs_i}, C_i>
+//             - <(X dS^T)_i, B_i o e^{T-cs_i}>, and dcs_{L-1} += that last
+//             term summed over the chunk + e^T <dS, S_prev>
+//   d_la    = the reverse cumsum of dcs within the chunk.
+//
+// Bound on the H100 at the training shape (bf16, dh 64, ds 64, L 256): the
+// tensor-core operations of G, dM (each formed twice, below), Mr^T dy, dG B
+// and dG^T C over the causal half; at the serving shape the fp32 operations.
+//
+// Schedule, chunk-parallel as the forward, no atomics (a repeat is bitwise):
+//   1. scan_bwd_chunk_u (chunks x batch x heads): each chunk's cs (the
+//      forward's serial sum, so its bits) and its own (C o e^{cs})^T dy.
+//   2. scan_bwd_state_pass (an entry of dS a thread): the dS carry in reverse
+//      chunk order, each chunk's slot becoming the cotangent leaving it.
+//   3. scan_bwd_rows (row tiles x chunks x batch*heads): a tile of rows i
+//      walks the column tiles j <= i: dC's rows and dP's row sums.
+//   4. scan_bwd_cols (column tiles x chunks x batch*heads): a tile of columns
+//      j walks the row tiles i >= j: dX's and dB's rows and dP's column
+//      sums (the flash backward's dQ / dK-dV split: G and dM formed in both).
+//   5. scan_bwd_dla (chunks x batch*heads): <dS, S_prev> and d_la.
+//   6. scan_bwd_dbc: dB and dC summed over the heads' partials in head order.
+// fp32 runs every product as FMA chains on the CUDA cores; bf16 on mma.sync
+// (m16n8k16, fp32 accumulation), the fp32 operands (dG, S_prev, dS and the
+// decay-scaled B and C) split into two bf16 terms (hi + lo) as the forward
+// splits its own. Tiles are R rows (64, 32, 16, or 8 in fp32: the largest
+// whose shared memory fits; ops/kernels/selective_scan.py:bwd_launch_plan
+// mirrors the sums).
+
+// One element pad of a shared-memory row: 16 bytes (keeps cp.async rows
+// 16-byte aligned and moves rows across banks).
+__host__ __device__ inline int pad_el(int E) { return 16 / E; }
+
+__host__ __device__ inline size_t bwd_u_smem(int L, int dh, int ds, int R, int E) {
+  const int p = pad_el(E);
+  return 2 * align16(static_cast<size_t>(L) * 4)             // cs, exp(cs)
+         + align16(static_cast<size_t>(R) * (ds + p) * E)    // C rows
+         + align16(static_cast<size_t>(R) * (dh + p) * E)    // dy rows
+         + align16(static_cast<size_t>(ds) * (dh + 4) * 4);  // the chunk's U
+}
+__host__ __device__ inline size_t bwd_rows_smem(int L, int dh, int ds, int R, int E) {
+  const int p = pad_el(E);
+  return align16(static_cast<size_t>(L) * 4)                 // cs
+         + 2 * align16(static_cast<size_t>(R) * 4)            // exp(cs_i), row sums
+         + 2 * align16(static_cast<size_t>(R) * (dh + p) * E)  // dy_i, X_j
+         + 2 * align16(static_cast<size_t>(R) * (ds + p) * E)  // C_i, B_j
+         + align16(static_cast<size_t>(ds) * (dh + 4) * 4)    // S_prev
+         + 2 * align16(static_cast<size_t>(R) * (R + 4) * 4)  // G / dG, dM / dP
+         + align16(static_cast<size_t>(R) * (ds + 4) * 4);    // dC rows
+}
+__host__ __device__ inline size_t bwd_cols_smem(int L, int dh, int ds, int R, int E) {
+  const int p = pad_el(E);
+  return align16(static_cast<size_t>(L) * 4)                 // cs
+         + 3 * align16(static_cast<size_t>(R) * 4)            // e^{T-cs_j}, col sums, q
+         + 2 * align16(static_cast<size_t>(R) * (dh + p) * E)  // X_j, dy_i
+         + 2 * align16(static_cast<size_t>(R) * (ds + p) * E)  // B_j, C_i
+         + align16(static_cast<size_t>(ds) * (dh + 4) * 4)    // dS
+         + align16(static_cast<size_t>(R) * (R + p) * E)      // Mr
+         + 2 * align16(static_cast<size_t>(R) * (R + 4) * 4)  // G / dG, dM / dP
+         + align16(static_cast<size_t>(R) * (dh + 4) * 4)     // dX rows
+         + align16(static_cast<size_t>(R) * (ds + 4) * 4);    // dB rows
+}
+// The tile rows: the largest of 64, 32, 16 (and 8 in fp32) up to L whose
+// three kernels fit; 0 where none does.
+__host__ __device__ inline int bwd_tile_rows(int L, int dh, int ds, int E) {
+  const int opts[4] = {64, 32, 16, 8};
+  for (int i = 0; i < (E == 4 ? 4 : 3); ++i) {
+    const int R = opts[i];
+    if (R > L) continue;
+    if (bwd_u_smem(L, dh, ds, R, E) <= static_cast<size_t>(kSmemLimit) &&
+        bwd_rows_smem(L, dh, ds, R, E) <= static_cast<size_t>(kSmemLimit) &&
+        bwd_cols_smem(L, dh, ds, R, E) <= static_cast<size_t>(kSmemLimit))
+      return R;
+  }
+  return 0;
+}
+
+// A shared-memory carve: successive 16-byte-aligned regions.
+struct Carve {
+  char* p;
+  template <typename U> __device__ __forceinline__ U* take(size_t count) {
+    U* r = reinterpret_cast<U*>(p);
+    p += align16(count * sizeof(U));
+    return r;
+  }
+};
+
+// Fragments of m16n8k16 from element accessors (0 outside M x K, K x N);
+// kSplit: the fp32 values as hi + lo bf16 terms.
+template <bool kSplit, class F>
+__device__ __forceinline__ void frag_a(const F& a, int M, int K, int m0, int k0,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int f = 0; f < 4; ++f) {
+    const int r = m0 + g + 8 * (f & 1), k = k0 + 2 * q + 8 * (f >> 1);
+    const float v0 = r < M && k < K ? a(r, k) : 0.f;
+    const float v1 = r < M && k + 1 < K ? a(r, k + 1) : 0.f;
+    if (kSplit)
+      split2(v0, v1, hi[f], lo[f]);
+    else
+      hi[f] = pack2(v0, v1);
+  }
+}
+template <bool kSplit, class F>
+__device__ __forceinline__ void frag_b(const F& b, int K, int N, int k0, int n0,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int k = k0 + 2 * q + 8 * f, n = n0 + g;
+    const float v0 = n < N && k < K ? b(k, n) : 0.f;
+    const float v1 = n < N && k + 1 < K ? b(k + 1, n) : 0.f;
+    if (kSplit)
+      split2(v0, v1, hi[f], lo[f]);
+    else
+      hi[f] = pack2(v0, v1);
+  }
+}
+
+// out(m, n) = sum_k a(m, k) b(k, n) over the block, each (m, n) handed once
+// to epi(m, n, v). kMma: a warp takes a 16-row tile and four 8-column tiles
+// at a time on mma.sync (SA / SB: the operand split into hi + lo); else one
+// thread an element, one FMA chain over k in order.
+template <bool kMma, bool SA, bool SB, class FA, class FB, class Epi>
+__device__ __forceinline__ void block_gemm(int M, int N, int K, const FA& a, const FB& b,
+                                           const Epi& epi) {
+  if constexpr (kMma) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, q = lane & 3;
+    const int mt = (M + 15) / 16, ng = (N + 31) / 32;
+    for (int t = warp; t < mt * ng; t += kThreads / 32) {
+      const int m0 = (t / ng) * 16, nb = (t % ng) * 32;
+      float acc[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        uint32_t ah[4], al[4];
+        frag_a<SA>(a, M, K, m0, k0, ah, al);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          if (nb + 8 * n >= N) break;
+          uint32_t bh[2], bl[2];
+          frag_b<SB>(b, K, N, k0, nb + 8 * n, bh, bl);
+          mma16816(acc[n], ah, bh);
+          if (SA) mma16816(acc[n], al, bh);
+          if (SB) mma16816(acc[n], ah, bl);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        if (nb + 8 * n >= N) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = m0 + g + 8 * (e >> 1), c = nb + 8 * n + 2 * q + (e & 1);
+          if (r < M && c < N) epi(r, c, acc[n][e]);
+        }
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < M * N; i += kThreads) {
+      const int m = i / N, n = i % N;
+      float acc = 0.f;
+      for (int k = 0; k < K; ++k) acc = fmaf(a(m, k), b(k, n), acc);
+      epi(m, n, acc);
+    }
+  }
+}
+
+template <typename T> constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
+
+// 1. Each chunk's cs (into gcs) and U = (C o e^{cs})^T dy (into its slot of
+//    st), over k-tiles of R positions.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) scan_bwd_chunk_u(
+    const float* __restrict__ la, const T* __restrict__ Cg, const T* __restrict__ dy,
+    float* __restrict__ gcs, float* __restrict__ st, int lp, int H, int dh, int ds, int L,
+    int R) {
+  extern __shared__ uint4 smem_raw[];
+  const int c = blockIdx.x, bb = blockIdx.y, hh = blockIdx.z, tid = threadIdx.x;
+  const int nc = lp / L, E = sizeof(T), p = pad_el(E), ldc = ds + p, ldy = dh + p, lda = dh + 4;
+  Carve cv{reinterpret_cast<char*>(smem_raw)};
+  float* cs = cv.take<float>(L);
+  float* ecs = cv.take<float>(L);
+  T* Ct = cv.take<T>(static_cast<size_t>(R) * ldc);
+  T* Yt = cv.take<T>(static_cast<size_t>(R) * ldy);
+  float* U = cv.take<float>(static_cast<size_t>(ds) * lda);
+
+  const size_t p0 = static_cast<size_t>(bb) * lp + static_cast<size_t>(c) * L;
+  const size_t csoff = (static_cast<size_t>(bb) * H + hh) * lp + static_cast<size_t>(c) * L;
+  const size_t xrow = static_cast<size_t>(H) * dh;
+  copy_rows(cs, L * 4, la + csoff, 0, 1, L * 4);
+  cp_async_commit();
+  for (int i = tid; i < ds * lda; i += kThreads) U[i] = 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+  if (tid == 0) chunk_cumsum(cs, gcs + csoff, L);
+  __syncthreads();
+  for (int r = tid; r < L; r += kThreads) ecs[r] = expf(cs[r]);
+  for (int k0 = 0; k0 < L; k0 += R) {
+    const int nk = min(R, L - k0);
+    __syncthreads();  // ecs ready; the previous tile's products done
+    copy_rows(Ct, ldc * E, Cg + (p0 + k0) * ds, static_cast<size_t>(ds) * E, nk, ds * E);
+    copy_rows(Yt, ldy * E, dy + (p0 + k0) * xrow + static_cast<size_t>(hh) * dh, xrow * E, nk,
+              dh * E);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    block_gemm<kIsBf16<T>, true, false>(
+        ds, dh, nk, [=](int m, int k) { return to_f(Ct[k * ldc + m]) * ecs[k0 + k]; },
+        [=](int k, int n) { return to_f(Yt[k * ldy + n]); },
+        [=](int m, int n, float v) { U[m * lda + n] += v; });
+  }
+  __syncthreads();
+  float* out = st + ((static_cast<size_t>(bb) * nc + c) * H + hh) * ds * dh;
+  for (int i = tid; i < ds * dh; i += kThreads) out[i] = U[(i / dh) * lda + i % dh];
+}
+
+// 2. The dS carry in reverse chunk order, one thread an entry: each chunk's
+//    slot of st (its U on entry) becomes the cotangent of the state leaving
+//    the chunk; dsf (the final state's cotangent) may be null (zeros).
+__global__ void __launch_bounds__(kThreads, 1) scan_bwd_state_pass(
+    const float* __restrict__ gcs, float* __restrict__ st, const float* __restrict__ dsf,
+    int batch, int lp, int H, int dh, int ds, int L) {
+  const size_t per = static_cast<size_t>(ds) * dh;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(batch) * H * per) return;
+  const int nc = lp / L;
+  const size_t e = i % per;
+  const int hh = static_cast<int>((i / per) % H), bb = static_cast<int>(i / per / H);
+  const float* cs_bh = gcs + (static_cast<size_t>(bb) * H + hh) * lp;
+  const size_t cstride = static_cast<size_t>(H) * per;
+  float* base = st + (static_cast<size_t>(bb) * nc * H + hh) * per + e;
+  float s = dsf != nullptr ? dsf[i] : 0.f;
+  for (int c0 = nc - 1; c0 >= 0; c0 -= 8) {
+    float u[8], lg[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (c0 - k >= 0) {
+        u[k] = base[(c0 - k) * cstride];
+        lg[k] = cs_bh[static_cast<size_t>(c0 - k) * L + L - 1];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (c0 - k >= 0) {
+        base[(c0 - k) * cstride] = s;
+        s = expf(lg[k]) * s + u[k];
+      }
+    }
+  }
+}
+
+// 3. A tile of rows i: (dy S_prev^T) o e^{cs} and its row sums with C, then
+//    over the column tiles j <= i: G and dM, dP's row sums, dC += dG B_j.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) scan_bwd_rows(
+    const T* __restrict__ dtx, const T* __restrict__ Bg, const T* __restrict__ Cg,
+    const float* __restrict__ gcs, const float* __restrict__ states, const T* __restrict__ dy,
+    float* __restrict__ rr, float* __restrict__ dCp, int lp, int H, int dh, int ds, int L, int R) {
+  extern __shared__ uint4 smem_raw[];
+  constexpr bool kMma = kIsBf16<T>;
+  const int it = blockIdx.x, c = blockIdx.y, bh = blockIdx.z, tid = threadIdx.x;
+  const int bb = bh / H, hh = bh % H, nc = lp / L;
+  const int E = sizeof(T), p = pad_el(E), ldx = dh + p, ldb = ds + p, ldr = R + 4;
+  const int lds = dh + 4, lda = ds + 4;
+  const int i0 = it * R, ni = min(R, L - i0);
+  Carve cv{reinterpret_cast<char*>(smem_raw)};
+  float* cs = cv.take<float>(L);
+  float* ecs = cv.take<float>(R);
+  float* rs = cv.take<float>(R);
+  T* Yi = cv.take<T>(static_cast<size_t>(R) * ldx);
+  T* Xj = cv.take<T>(static_cast<size_t>(R) * ldx);
+  T* Ci = cv.take<T>(static_cast<size_t>(R) * ldb);
+  T* Bj = cv.take<T>(static_cast<size_t>(R) * ldb);
+  float* Sp = cv.take<float>(static_cast<size_t>(ds) * lds);
+  float* Gt = cv.take<float>(static_cast<size_t>(R) * ldr);
+  float* Dt = cv.take<float>(static_cast<size_t>(R) * ldr);
+  float* acc = cv.take<float>(static_cast<size_t>(R) * lda);
+
+  const size_t p0 = static_cast<size_t>(bb) * lp + static_cast<size_t>(c) * L;
+  const size_t csoff = static_cast<size_t>(bh) * lp + static_cast<size_t>(c) * L;
+  const size_t xrow = static_cast<size_t>(H) * dh;
+  copy_rows(cs, L * 4, gcs + csoff, 0, 1, L * 4);
+  copy_rows(Yi, ldx * E, dy + (p0 + i0) * xrow + static_cast<size_t>(hh) * dh, xrow * E, ni,
+            dh * E);
+  copy_rows(Ci, ldb * E, Cg + (p0 + i0) * ds, static_cast<size_t>(ds) * E, ni, ds * E);
+  copy_rows(Sp, lds * 4, states + ((static_cast<size_t>(bb) * nc + c) * H + hh) * ds * dh,
+            static_cast<size_t>(dh) * 4, ds, dh * 4);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  for (int m = tid; m < ni; m += kThreads) ecs[m] = expf(cs[i0 + m]);
+  __syncthreads();
+  block_gemm<kMma, false, true>(
+      ni, ds, dh, [=](int m, int k) { return to_f(Yi[m * ldx + k]); },
+      [=](int k, int n) { return Sp[n * lds + k]; },
+      [=](int m, int n, float v) { acc[m * lda + n] = v * ecs[m]; });
+  __syncthreads();
+  for (int m = tid; m < ni; m += kThreads) {
+    float s = 0.f;
+    for (int n = 0; n < ds; ++n) s = fmaf(acc[m * lda + n], to_f(Ci[m * ldb + n]), s);
+    rs[m] = s;
+  }
+  for (int jt = 0; jt <= it; ++jt) {
+    const int j0 = jt * R, nj = min(R, L - j0);
+    __syncthreads();  // the previous tile's products done
+    copy_rows(Xj, ldx * E, dtx + (p0 + j0) * xrow + static_cast<size_t>(hh) * dh, xrow * E, nj,
+              dh * E);
+    copy_rows(Bj, ldb * E, Bg + (p0 + j0) * ds, static_cast<size_t>(ds) * E, nj, ds * E);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    block_gemm<kMma, false, false>(
+        ni, nj, ds, [=](int m, int k) { return to_f(Ci[m * ldb + k]); },
+        [=](int k, int n) { return to_f(Bj[n * ldb + k]); },
+        [=](int m, int n, float v) { Gt[m * ldr + n] = v; });
+    block_gemm<kMma, false, false>(
+        ni, nj, dh, [=](int m, int k) { return to_f(Yi[m * ldx + k]); },
+        [=](int k, int n) { return to_f(Xj[n * ldx + k]); },
+        [=](int m, int n, float v) { Dt[m * ldr + n] = v; });
+    __syncthreads();
+    for (int e = tid; e < ni * nj; e += kThreads) {
+      const int m = e / nj, n = e % nj, i = i0 + m, j = j0 + n;
+      float dg = 0.f, dp = 0.f;
+      if (j <= i) {
+        const float d = expf(cs[i] - cs[j]), dm = Dt[m * ldr + n];
+        dp = dm * (Gt[m * ldr + n] * d);
+        dg = dm * d;
+      }
+      Gt[m * ldr + n] = dg;
+      Dt[m * ldr + n] = dp;
+    }
+    __syncthreads();
+    for (int m = tid; m < ni; m += kThreads) {
+      float s = rs[m];
+      for (int n = 0; n < nj; ++n) s += Dt[m * ldr + n];
+      rs[m] = s;
+    }
+    block_gemm<kMma, true, false>(
+        ni, ds, nj, [=](int m, int k) { return Gt[m * ldr + k]; },
+        [=](int k, int n) { return to_f(Bj[k * ldb + n]); },
+        [=](int m, int n, float v) { acc[m * lda + n] += v; });
+  }
+  __syncthreads();
+  for (int m = tid; m < ni; m += kThreads) rr[csoff + i0 + m] = rs[m];
+  float* out = dCp + (csoff + i0) * ds;
+  for (int e = tid; e < ni * ds; e += kThreads) out[e] = acc[(e / ds) * lda + e % ds];
+}
+
+// 4. A tile of columns j: (B o e^{T-cs}) dS, (X dS^T) o e^{T-cs} and q, then
+//    over the row tiles i >= j: G and dM, Mr, dP's column sums,
+//    dX += Mr^T dy_i, dB += dG^T C_i; dX rounded once to x's dtype.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) scan_bwd_cols(
+    const T* __restrict__ dtx, const T* __restrict__ Bg, const T* __restrict__ Cg,
+    const float* __restrict__ gcs, const float* __restrict__ st, const T* __restrict__ dy,
+    T* __restrict__ ddtx, float* __restrict__ cc, float* __restrict__ qq,
+    float* __restrict__ dBp, int lp, int H, int dh, int ds, int L, int R) {
+  extern __shared__ uint4 smem_raw[];
+  constexpr bool kMma = kIsBf16<T>;
+  const int jt = blockIdx.x, c = blockIdx.y, bh = blockIdx.z, tid = threadIdx.x;
+  const int bb = bh / H, hh = bh % H, nc = lp / L, nrt = (L + R - 1) / R;
+  const int E = sizeof(T), p = pad_el(E), ldx = dh + p, ldb = ds + p, ldr = R + 4, ldm = R + p;
+  const int lds = dh + 4, ldax = dh + 4, ldab = ds + 4;
+  const int j0 = jt * R, nj = min(R, L - j0);
+  Carve cv{reinterpret_cast<char*>(smem_raw)};
+  float* cs = cv.take<float>(L);
+  float* eb = cv.take<float>(R);
+  float* csum = cv.take<float>(R);
+  float* qv = cv.take<float>(R);
+  T* Xj = cv.take<T>(static_cast<size_t>(R) * ldx);
+  T* Yi = cv.take<T>(static_cast<size_t>(R) * ldx);
+  T* Bj = cv.take<T>(static_cast<size_t>(R) * ldb);
+  T* Ci = cv.take<T>(static_cast<size_t>(R) * ldb);
+  float* dS = cv.take<float>(static_cast<size_t>(ds) * lds);
+  T* Mt = cv.take<T>(static_cast<size_t>(R) * ldm);
+  float* Gt = cv.take<float>(static_cast<size_t>(R) * ldr);
+  float* Dt = cv.take<float>(static_cast<size_t>(R) * ldr);
+  float* ax = cv.take<float>(static_cast<size_t>(R) * ldax);
+  float* ab = cv.take<float>(static_cast<size_t>(R) * ldab);
+
+  const size_t p0 = static_cast<size_t>(bb) * lp + static_cast<size_t>(c) * L;
+  const size_t csoff = static_cast<size_t>(bh) * lp + static_cast<size_t>(c) * L;
+  const size_t xrow = static_cast<size_t>(H) * dh;
+  copy_rows(cs, L * 4, gcs + csoff, 0, 1, L * 4);
+  copy_rows(Xj, ldx * E, dtx + (p0 + j0) * xrow + static_cast<size_t>(hh) * dh, xrow * E, nj,
+            dh * E);
+  copy_rows(Bj, ldb * E, Bg + (p0 + j0) * ds, static_cast<size_t>(ds) * E, nj, ds * E);
+  copy_rows(dS, lds * 4, st + ((static_cast<size_t>(bb) * nc + c) * H + hh) * ds * dh,
+            static_cast<size_t>(dh) * 4, ds, dh * 4);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const float total = cs[L - 1];
+  for (int m = tid; m < nj; m += kThreads) eb[m] = expf(total - cs[j0 + m]);
+  __syncthreads();
+  block_gemm<kMma, true, true>(
+      nj, dh, ds, [=](int m, int k) { return to_f(Bj[m * ldb + k]) * eb[m]; },
+      [=](int k, int n) { return dS[k * lds + n]; },
+      [=](int m, int n, float v) { ax[m * ldax + n] = v; });
+  block_gemm<kMma, false, true>(
+      nj, ds, dh, [=](int m, int k) { return to_f(Xj[m * ldx + k]); },
+      [=](int k, int n) { return dS[n * lds + k]; },
+      [=](int m, int n, float v) { ab[m * ldab + n] = v * eb[m]; });
+  __syncthreads();
+  for (int m = tid; m < nj; m += kThreads) {
+    float s = 0.f;
+    for (int n = 0; n < ds; ++n) s = fmaf(ab[m * ldab + n], to_f(Bj[m * ldb + n]), s);
+    qv[m] = s;
+    csum[m] = 0.f;
+  }
+  for (int it = jt; it < nrt; ++it) {
+    const int i0 = it * R, ni = min(R, L - i0);
+    __syncthreads();  // the previous tile's products done
+    copy_rows(Yi, ldx * E, dy + (p0 + i0) * xrow + static_cast<size_t>(hh) * dh, xrow * E, ni,
+              dh * E);
+    copy_rows(Ci, ldb * E, Cg + (p0 + i0) * ds, static_cast<size_t>(ds) * E, ni, ds * E);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    block_gemm<kMma, false, false>(
+        ni, nj, ds, [=](int m, int k) { return to_f(Ci[m * ldb + k]); },
+        [=](int k, int n) { return to_f(Bj[n * ldb + k]); },
+        [=](int m, int n, float v) { Gt[m * ldr + n] = v; });
+    block_gemm<kMma, false, false>(
+        ni, nj, dh, [=](int m, int k) { return to_f(Yi[m * ldx + k]); },
+        [=](int k, int n) { return to_f(Xj[n * ldx + k]); },
+        [=](int m, int n, float v) { Dt[m * ldr + n] = v; });
+    __syncthreads();
+    for (int e = tid; e < ni * nj; e += kThreads) {
+      const int m = e / nj, n = e % nj, i = i0 + m, j = j0 + n;
+      float mm = 0.f, dg = 0.f, dp = 0.f;
+      if (j <= i) {
+        const float d = expf(cs[i] - cs[j]), dm = Dt[m * ldr + n];
+        mm = Gt[m * ldr + n] * d;
+        dp = dm * mm;
+        dg = dm * d;
+      }
+      Mt[m * ldm + n] = from_f<T>(mm);
+      Gt[m * ldr + n] = dg;
+      Dt[m * ldr + n] = dp;
+    }
+    __syncthreads();
+    for (int n = tid; n < nj; n += kThreads) {
+      float s = csum[n];
+      for (int m = 0; m < ni; ++m) s += Dt[m * ldr + n];
+      csum[n] = s;
+    }
+    block_gemm<kMma, false, false>(
+        nj, dh, ni, [=](int m, int k) { return to_f(Mt[k * ldm + m]); },
+        [=](int k, int n) { return to_f(Yi[k * ldx + n]); },
+        [=](int m, int n, float v) { ax[m * ldax + n] += v; });
+    block_gemm<kMma, true, false>(
+        nj, ds, ni, [=](int m, int k) { return Gt[k * ldr + m]; },
+        [=](int k, int n) { return to_f(Ci[k * ldb + n]); },
+        [=](int m, int n, float v) { ab[m * ldab + n] += v; });
+  }
+  __syncthreads();
+  for (int m = tid; m < nj; m += kThreads) {
+    cc[csoff + j0 + m] = csum[m];
+    qq[csoff + j0 + m] = qv[m];
+  }
+  for (int e = tid; e < nj * dh; e += kThreads) {
+    const int m = e / dh, n = e % dh;
+    ddtx[(p0 + j0 + m) * xrow + static_cast<size_t>(hh) * dh + n] = from_f<T>(ax[m * ldax + n]);
+  }
+  float* outb = dBp + (csoff + j0) * ds;
+  for (int e = tid; e < nj * ds; e += kThreads) outb[e] = ab[(e / ds) * ldab + e % ds];
+}
+
+// 5. Per (chunk, batch, head): <dS, S_prev> (a fixed tree), then dcs and its
+//    reverse cumsum in order by one thread.
+__global__ void __launch_bounds__(kThreads, 1) scan_bwd_dla(
+    const float* __restrict__ gcs, const float* __restrict__ st,
+    const float* __restrict__ states, const float* __restrict__ rr,
+    const float* __restrict__ cc, const float* __restrict__ qq, float* __restrict__ dla,
+    int lp, int H, int dh, int ds, int L) {
+  __shared__ float dcs[kMaxChunk], qs[kMaxChunk];
+  const int c = blockIdx.x, bh = blockIdx.y, tid = threadIdx.x;
+  const int bb = bh / H, hh = bh % H, nc = lp / L;
+  const size_t slot = ((static_cast<size_t>(bb) * nc + c) * H + hh) * ds * dh;
+  const size_t csoff = static_cast<size_t>(bh) * lp + static_cast<size_t>(c) * L;
+  float part = 0.f;
+  for (int i = tid; i < ds * dh; i += kThreads) part = fmaf(st[slot + i], states[slot + i], part);
+  for (int j = tid; j < L; j += kThreads) {
+    qs[j] = qq[csoff + j];
+    dcs[j] = rr[csoff + j] - cc[csoff + j] - qs[j];
+  }
+  const float inner = block_sum(part);  // syncs: dcs and qs are ready after it
+  if (tid == 0) {
+    float sq = 0.f;
+    for (int j = 0; j < L; ++j) sq += qs[j];
+    dcs[L - 1] += sq + expf(gcs[csoff + L - 1]) * inner;
+    float run = 0.f;
+    for (int j = L - 1; j >= 0; --j) {
+      run += dcs[j];
+      dla[csoff + j] = run;
+    }
+  }
+}
+
+// 6. dB and dC: the heads' fp32 partials summed in head order, rounded once.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) scan_bwd_dbc(
+    const float* __restrict__ dBp, const float* __restrict__ dCp, T* __restrict__ dB,
+    T* __restrict__ dC, int batch, int lp, int H, int ds) {
+  const size_t per = static_cast<size_t>(lp) * ds;
+  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= static_cast<size_t>(batch) * per) return;
+  const size_t bb = i / per, e = i % per;
+  float sb = 0.f, sc = 0.f;
+  for (int h = 0; h < H; ++h) {
+    sb += dBp[(bb * H + h) * per + e];
+    sc += dCp[(bb * H + h) * per + e];
+  }
+  dB[i] = from_f<T>(sb);
+  dC[i] = from_f<T>(sc);
+}
+
+template <typename K>
+int set_smem(K kern, size_t smem) {
+  if (smem > static_cast<size_t>(kSmemLimit)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem)));
+}
+
+template <typename T>
+int launch_bwd(const T* x, const float* la, const T* B, const T* C, const float* states,
+               const T* dy, const float* dsf, T* ddtx, float* dla, T* dB, T* dC, float* scratch,
+               int batch, int lp, int H, int dh, int ds, int L, cudaStream_t s) {
+  const int E = sizeof(T), R = bwd_tile_rows(L, dh, ds, E);
+  if (R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = lp / L, nrt = (L + R - 1) / R;
+  const size_t ncs = static_cast<size_t>(batch) * H * lp;
+  float* gcs = scratch;
+  float* st = gcs + ncs;
+  float* rr = st + static_cast<size_t>(batch) * nc * H * ds * dh;
+  float* cc = rr + ncs;
+  float* qq = cc + ncs;
+  float* dBp = qq + ncs;
+  float* dCp = dBp + ncs * ds;
+  int e;
+  const size_t su = bwd_u_smem(L, dh, ds, R, E), sr = bwd_rows_smem(L, dh, ds, R, E),
+               sc = bwd_cols_smem(L, dh, ds, R, E);
+  if ((e = set_smem(scan_bwd_chunk_u<T>, su)) != 0) return e;
+  if ((e = set_smem(scan_bwd_rows<T>, sr)) != 0) return e;
+  if ((e = set_smem(scan_bwd_cols<T>, sc)) != 0) return e;
+  scan_bwd_chunk_u<T><<<dim3(nc, batch, H), kThreads, su, s>>>(la, C, dy, gcs, st, lp, H, dh,
+                                                               ds, L, R);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  const size_t n = static_cast<size_t>(batch) * H * ds * dh;
+  scan_bwd_state_pass<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      gcs, st, dsf, batch, lp, H, dh, ds, L);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  scan_bwd_rows<T><<<dim3(nrt, nc, batch * H), kThreads, sr, s>>>(x, B, C, gcs, states, dy, rr,
+                                                                  dCp, lp, H, dh, ds, L, R);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  scan_bwd_cols<T><<<dim3(nrt, nc, batch * H), kThreads, sc, s>>>(
+      x, B, C, gcs, st, dy, ddtx, cc, qq, dBp, lp, H, dh, ds, L, R);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  scan_bwd_dla<<<dim3(nc, batch * H), kThreads, 0, s>>>(gcs, st, states, rr, cc, qq, dla, lp, H,
+                                                        dh, ds, L);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  const size_t nb = static_cast<size_t>(batch) * lp * ds;
+  scan_bwd_dbc<T><<<static_cast<unsigned>((nb + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      dBp, dCp, dB, dC, batch, lp, H, ds);
+  PTT_RETURN_LAUNCH_ERROR();
+}
+
 }  // namespace
 
 // dtx: [batch, lp, H, dh] (dtype); la: [batch, H, lp] fp32; B, C: [batch, lp,
@@ -771,6 +1358,44 @@ extern "C" int ptt_selective_scan(const void* dtx, const void* la, const void* B
     if (dh <= 32) return launch_out_bf16<4>(x, Bb, Cb, csf, stf, yb, batch, lp, H, dh, ds, L, s);
     if (dh <= 64) return launch_out_bf16<8>(x, Bb, Cb, csf, stf, yb, batch, lp, H, dh, ds, L, s);
     return launch_out_bf16<16>(x, Bb, Cb, csf, stf, yb, batch, lp, H, dh, ds, L, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The gradient of the call above (the backward's comment): dtx, la, B, C as
+// the forward took them; states [batch, lp / L, H, ds, dh] fp32, the state
+// entering each chunk (the forward's st scratch after its call); dy like
+// dtx; dsf [batch, H, ds, dh] fp32 the final state's cotangent, or null for
+// zeros. Outputs ddtx like dtx, dla like la, dB and dC like B. scratch, the
+// wrapper's: cs and U / dS as the forward's, then r, c, q [batch, H, lp] and
+// the heads' dB and dC partials [batch, H, lp, ds], all fp32
+// (ops/kernels/selective_scan.py:bwd_scratch_floats).
+extern "C" int ptt_selective_scan_bwd(const void* dtx, const void* la, const void* B,
+                                      const void* C, const void* states, const void* dy,
+                                      const void* dsf, void* ddtx, void* dla, void* dB,
+                                      void* dC, void* scratch, int batch, int lp, int H,
+                                      int dh, int ds, int L, int dtype, void* stream) {
+  if (L < 16 || L > kMaxChunk || L % 16 != 0 || lp % L != 0 || dh % 8 != 0 ||
+      ds % 8 != 0 || (dtype == PTT_BF16 && (dh > 128 || ds > 128)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || H == 0 || lp == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* lf = static_cast<const float*>(la);
+  const float* sf = static_cast<const float*>(states);
+  const float* dsff = static_cast<const float*>(dsf);
+  float* dlaf = static_cast<float*>(dla);
+  float* scr = static_cast<float*>(scratch);
+  if (dtype == PTT_F32)
+    return launch_bwd(static_cast<const float*>(dtx), lf, static_cast<const float*>(B),
+                      static_cast<const float*>(C), sf, static_cast<const float*>(dy), dsff,
+                      static_cast<float*>(ddtx), dlaf, static_cast<float*>(dB),
+                      static_cast<float*>(dC), scr, batch, lp, H, dh, ds, L, s);
+  if (dtype == PTT_BF16) {
+    using bf = __nv_bfloat16;
+    return launch_bwd(static_cast<const bf*>(dtx), lf, static_cast<const bf*>(B),
+                      static_cast<const bf*>(C), sf, static_cast<const bf*>(dy), dsff,
+                      static_cast<bf*>(ddtx), dlaf, static_cast<bf*>(dB), static_cast<bf*>(dC),
+                      scr, batch, lp, H, dh, ds, L, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

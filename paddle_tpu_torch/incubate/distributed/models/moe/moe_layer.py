@@ -22,9 +22,11 @@ axis, is a one-device layer and does not warn.
 
 Not ported yet, each raising ``NotImplementedError`` by ROADMAP.md item:
 mesh axes beside ``ep``, ``moe_group``/``mp_group`` and the all-gather
-path over sharded experts (A.10), recompute (A.3), and, A.8, experts other
-than bias-free SwiGLU MLPs, gates without index routing, and the
-index-form and dense paths (``moe_grouped_gemm=off``).
+path over sharded experts (A.10), and, A.8, ``recompute_interval`` (the
+vmap path's), experts other than bias-free SwiGLU MLPs, gates without
+index routing, and the index-form and dense paths
+(``moe_grouped_gemm=off``). A model's ``recompute`` wraps whole layers
+(:func:`paddle_tpu_torch.autograd.recompute`).
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class MoELayer(nn.Module):
         if mesh is not None:
             moe_a2a.require_ep_only(mesh, ep_axis, "MoELayer")
         if recompute_interval > 0:
-            raise _unported("recompute_interval", "A.3")
+            raise _unported("recompute_interval", "A.8")
         template = experts[0]
         names = [n for n, _ in template.named_parameters()]
         if sorted(names) != _SWIGLU:

@@ -34,8 +34,12 @@ model, and the state-dict keys are the JAX model's, so
 :func:`paddle_tpu_torch.weights.load_jax_state` carries a JAX model's
 weights across unchanged.
 
-Not ported yet (ROADMAP.md A): recompute, Ulysses sequence parallelism
-and the numerics taps.
+With ``LlamaConfig.recompute`` each decoder layer of a model in training
+mode runs under :func:`paddle_tpu_torch.autograd.recompute`
+(``llama.py:322-323``), dense and MoE alike.
+
+Not ported yet (ROADMAP.md A): Ulysses sequence parallelism and the
+numerics taps.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 from torch import nn
 
 from paddle_tpu_torch import distributed as dist
+from paddle_tpu_torch.autograd import recompute
 from paddle_tpu_torch.framework.dtype import to_torch_dtype
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.framework.random import seed as _seed
@@ -315,7 +320,10 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids):
         h = self.embed_tokens(input_ids)
         for layer in self.layers:
-            h = layer(h)
+            if self.config.recompute and self.training:
+                h = recompute(layer, h)
+            else:
+                h = layer(h)
         return self.norm(h)
 
 
@@ -332,9 +340,6 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, config: LlamaConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  seed: int = 0):
-        if config.recompute:
-            raise NotImplementedError(
-                "LlamaConfig.recompute is not ported yet (ROADMAP.md A.3)")
         super().__init__()
         dev = resolve_device(device)
         if generator is None:

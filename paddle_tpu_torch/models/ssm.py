@@ -22,9 +22,13 @@ Dtypes (``ssm.py:252-261``): in a bf16 model the norms and the mixer's
 exp/softplus and the fp32 state directly. (The reference's ``set_value``
 keeps those four in bf16 after ``astype``; ROADMAP.md section C.)
 
-Not ported yet: training through the scan on CUDA (its backward; ROADMAP.md
-A.9), ``recompute``, sequence parallelism and ``hybrid_ssm_shard_fn``
-(A.10).
+Training runs on CUDA through the scan's backward kernel
+(:class:`~paddle_tpu_torch.ops.kernels.selective_scan.ScanFunction`), and
+``SSMConfig.recompute`` runs each layer of a model in training mode under
+:func:`paddle_tpu_torch.autograd.recompute` (``ssm.py:290-291``).
+
+Not ported yet: sequence parallelism and ``hybrid_ssm_shard_fn``
+(ROADMAP.md A.10).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from paddle_tpu_torch.autograd import recompute
 from paddle_tpu_torch.framework.place import resolve_device
 from paddle_tpu_torch.framework.random import seed as _seed
 from paddle_tpu_torch.incubate.nn import functional as F_inc
@@ -242,7 +247,10 @@ class HybridSSMModel(nn.Module):
     def forward(self, input_ids):
         h = self.embed_tokens(input_ids)
         for layer in self.layers:
-            h = layer(h)
+            if self.config.recompute and self.training:
+                h = recompute(layer, h)
+            else:
+                h = layer(h)
         return self.norm(h)
 
 
@@ -256,14 +264,10 @@ class HybridSSMForCausalLM(nn.Module):
     def __init__(self, config: SSMConfig, device=None,
                  generator: Optional[torch.Generator] = None,
                  seed: int = 0):
-        for feature, on, item in (
-                ("sequence_parallel", config.sequence_parallel,
-                 "A.9 and A.10"),
-                ("recompute", config.recompute, "A.3")):
-            if on:
-                raise NotImplementedError(
-                    f"SSMConfig.{feature} is not ported yet (ROADMAP.md "
-                    f"{item})")
+        if config.sequence_parallel:
+            raise NotImplementedError(
+                "SSMConfig.sequence_parallel is not ported yet (ROADMAP.md "
+                "A.10)")
         super().__init__()
         dev = resolve_device(device)
         if generator is None:

@@ -46,6 +46,7 @@ KERNELS = {
     "tgmm": (grouped_gemm, "launches_tgmm"),
     "paged_attention": (paged_attention, "launches"),
     "selective_scan": (selective_scan, "launches"),
+    "selective_scan_bwd": (selective_scan, "launches_bwd"),
     "ragged_paged_attention_quant": (quant, "launches"),
     "flash_attention_seg_fwd": (flash_attention, "launches_seg"),
     "flash_attention_seg_bwd": (flash_attention, "launches_seg_bwd"),

@@ -214,6 +214,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     # dtx, la, B, C, y, state, cs, st, batch, lp, H, dh, ds, L, dtype,
     # stream
     lib.ptt_selective_scan.argtypes = [P] * 8 + [I] * 7 + [P]
+    # dtx, la, B, C, states, dy, dsf, ddtx, dla, dB, dC, scratch, batch, lp,
+    # H, dh, ds, L, dtype, stream
+    lib.ptt_selective_scan_bwd.argtypes = [P] * 12 + [I] * 7 + [P]
     # q, kc, vc, k_scale, v_scale, tables, rows, valids, out, T, Hq, Hkv, D,
     # bs, width, scale, q_dtype, page_dtype, stream
     lib.ptt_ragged_paged_attn_quant.argtypes = [P] * 9 + [I] * 6 + [F, I, I, P]
@@ -243,7 +246,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.ptt_ragged_paged_attn, lib.ptt_rms_norm_bwd,
                lib.ptt_flash_attn_bwd, lib.ptt_fused_block_fwd,
                lib.ptt_gmm, lib.ptt_tgmm, lib.ptt_paged_decode_attn,
-               lib.ptt_selective_scan, lib.ptt_ragged_paged_attn_quant,
+               lib.ptt_selective_scan, lib.ptt_selective_scan_bwd,
+               lib.ptt_ragged_paged_attn_quant,
                lib.ptt_flash_attn_fwd_seg, lib.ptt_flash_attn_bwd_seg,
                lib.ptt_ipc_alloc, lib.ptt_ipc_free, lib.ptt_ipc_open,
                lib.ptt_ipc_close, lib.ptt_ring_copy, lib.ptt_a2a_pull,

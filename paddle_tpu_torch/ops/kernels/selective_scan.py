@@ -14,9 +14,15 @@ the chunked twin :func:`_scan_reference` for CPU tensors. ``off`` takes the
 associative-scan path :func:`xla_selective_scan` (which materializes every
 position's state) on CPU tensors only; on CUDA tensors it raises, since
 that path has no kernel. On CUDA a shape the kernel cannot take raises with
-its reason, and so does a call that needs gradients: the scan's backward
-(the reference's ``jax.vjp`` of the chunked form) comes with hybrid
-training (ROADMAP.md A.9). On the CPU the twin stays differentiable.
+its reason.
+
+Gradients: on CUDA a call that needs them goes through
+:class:`ScanFunction`, whose backward is a kernel of its own
+(``ptt_selective_scan_bwd`` in the same source): what the reference's
+``jax.vjp`` of the chunked form computes (``selective_scan.py:237``; no TPU
+kernel), from the fp32 state entering each chunk that the forward keeps.
+Its plain twin is :func:`scan_chunked_bwd_plain`, the same algorithm
+written out. On the CPU autograd differentiates the chunked twin.
 
 Single-token decode never scans: :func:`selective_scan_update` is the
 recurrence's one step, plain torch as in the reference.
@@ -33,12 +39,16 @@ import torch
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.ops.kernels import _launch
 
-__all__ = ["selective_scan", "scan_chunked", "xla_selective_scan",
+__all__ = ["selective_scan", "scan_chunked", "scan_chunked_bwd",
+           "scan_chunked_bwd_plain", "ScanFunction", "xla_selective_scan",
            "selective_scan_update", "ineligible_reason", "resolve_chunk",
-           "launch_plan", "launches"]
+           "launch_plan", "bwd_launch_plan", "bwd_ineligible_reason",
+           "launches", "launches_bwd"]
 
 #: kernel launches made by :func:`scan_chunked` (never by the twins)
 launches = 0
+#: backward kernel launches made by :func:`scan_chunked_bwd`
+launches_bwd = 0
 
 _MIN_CHUNK = 16           # a chunk is whole 16-row tensor-core tiles
 _MAX_CHUNK = 256
@@ -170,6 +180,100 @@ def _ineligible(x_shape, d_state: int, chunk: int, dtype) -> Optional[str]:
     return None
 
 
+# ------------------------------------------------------- backward's plan
+def _pad_el(esize: int) -> int:
+    """A shared-memory row's pad (``pad_el``): 16 bytes."""
+    return 16 // esize
+
+
+def _bwd_u_smem(L, dh, ds, R, esize) -> int:
+    """``scan_bwd_chunk_u``'s (``bwd_u_smem``): cs and exp(cs), a k-tile
+    of C and of dy rows, the chunk's fp32 U."""
+    p = _pad_el(esize)
+    return (2 * _align16(L * 4) + _align16(R * (ds + p) * esize)
+            + _align16(R * (dh + p) * esize) + _align16(ds * (dh + 4) * 4))
+
+
+def _bwd_rows_smem(L, dh, ds, R, esize) -> int:
+    """``scan_bwd_rows``'s (``bwd_rows_smem``): cs, exp(cs_i) and the row
+    sums, dy_i and X_j, C_i and B_j, S_prev, G/dG and dM/dP tiles, dC."""
+    p = _pad_el(esize)
+    return (_align16(L * 4) + 2 * _align16(R * 4)
+            + 2 * _align16(R * (dh + p) * esize)
+            + 2 * _align16(R * (ds + p) * esize) + _align16(ds * (dh + 4) * 4)
+            + 2 * _align16(R * (R + 4) * 4) + _align16(R * (ds + 4) * 4))
+
+
+def _bwd_cols_smem(L, dh, ds, R, esize) -> int:
+    """``scan_bwd_cols``'s (``bwd_cols_smem``): cs, exp(T - cs_j), the
+    column sums and q, X_j and dy_i, B_j and C_i, dS, Mr in x's dtype,
+    G/dG and dM/dP tiles, dX and dB."""
+    p = _pad_el(esize)
+    return (_align16(L * 4) + 3 * _align16(R * 4)
+            + 2 * _align16(R * (dh + p) * esize)
+            + 2 * _align16(R * (ds + p) * esize) + _align16(ds * (dh + 4) * 4)
+            + _align16(R * (R + p) * esize) + 2 * _align16(R * (R + 4) * 4)
+            + _align16(R * (dh + 4) * 4) + _align16(R * (ds + 4) * 4))
+
+
+def bwd_tile_rows(L: int, dh: int, ds: int, esize: int) -> int:
+    """The backward's tile rows (``bwd_tile_rows``): the largest of 64,
+    32, 16 (and 8 in fp32, whose products need no 16-row tile) up to
+    ``L`` whose three tiled kernels fit; 0 where none does."""
+    for R in (64, 32, 16, 8) if esize == 4 else (64, 32, 16):
+        if R <= L and max(_bwd_u_smem(L, dh, ds, R, esize),
+                          _bwd_rows_smem(L, dh, ds, R, esize),
+                          _bwd_cols_smem(L, dh, ds, R, esize)) <= _SMEM_LIMIT:
+            return R
+    return 0
+
+
+def bwd_launch_plan(bsz: int, lp: int, h: int, dh: int, ds: int, L: int,
+                    esize: int) -> dict:
+    """The backward's six launches (``launch_bwd`` in the .cu): tile rows
+    ``R``, and each launch's grid (x, y, z) and dynamic shared memory."""
+    R = bwd_tile_rows(L, dh, ds, esize)
+    nc, nrt = lp // L, -(-L // R) if R else 0
+    return dict(
+        rows=R,
+        chunk_u=dict(grid=(nc, bsz, h), smem=_bwd_u_smem(L, dh, ds, R, esize)),
+        passes=dict(grid=(-(-bsz * h * ds * dh // 256), 1, 1), smem=0),
+        rows_kernel=dict(grid=(nrt, nc, bsz * h),
+                         smem=_bwd_rows_smem(L, dh, ds, R, esize)),
+        cols_kernel=dict(grid=(nrt, nc, bsz * h),
+                         smem=_bwd_cols_smem(L, dh, ds, R, esize)),
+        dla=dict(grid=(nc, bsz * h, 1), smem=0),
+        dbc=dict(grid=(-(-bsz * lp * ds // 256), 1, 1), smem=0),
+        threads=256)
+
+
+def bwd_scratch_floats(bsz: int, lp: int, h: int, dh: int, ds: int,
+                       L: int) -> int:
+    """fp32 scratch the backward takes (``launch_bwd``'s carve): cs, each
+    chunk's U / dS, the r, c and q rows, and the heads' dB and dC."""
+    n_cs = bsz * h * lp
+    return 5 * n_cs + (lp // L) * bsz * h * ds * dh + 2 * n_cs * ds
+
+
+def bwd_ineligible_reason(x_shape, d_state: int, chunk: int,
+                          dtype) -> Optional[str]:
+    """Why the backward kernel cannot take this shape (the forward's
+    reasons first), or None."""
+    reason = ineligible_reason(x_shape, d_state, chunk, dtype)
+    if reason is not None:
+        return reason
+    bsz, l, h, dh = tuple(x_shape)
+    esize = 4 if dtype == torch.float32 else 2
+    if bwd_tile_rows(int(chunk), dh, int(d_state), esize) == 0:
+        R = 8 if esize == 4 else 16
+        smem = _bwd_cols_smem(int(chunk), dh, int(d_state), R, esize)
+        return (f"backward shared memory {smem} B exceeds {_SMEM_LIMIT} B "
+                f"at chunk={chunk} (dh={dh}, d_state={d_state})")
+    if max(bsz, 1) * h > 65535:
+        return f"backward grid: batch x heads {bsz * h} > 65535"
+    return None
+
+
 # ------------------------------------------------------------ chunk math
 def _chunk_math(dtx_c, la_c, b_c, c_c, s_prev):
     """One chunk of the dual form for every (batch, head) at once
@@ -195,30 +299,91 @@ def _chunk_math(dtx_c, la_c, b_c, c_c, s_prev):
     return y, s_new
 
 
-def _scan_reference(dtx, la_t, B, C, chunk: int):
+def _scan_reference(dtx, la_t, B, C, chunk: int, with_states: bool = False):
     """The kernel's plain twin: :func:`_chunk_math` driven by a loop over
     the chunks. ``dtx [b, lp, h, dh]``, ``la_t [b, h, lp]`` fp32, ``B/C
     [b, lp, ds]``, ``lp`` a multiple of ``chunk``. Returns ``(y [b, lp, h,
-    dh]`` in dtx's dtype, ``state [b, h, ds, dh]`` fp32)."""
+    dh]`` in dtx's dtype, ``state [b, h, ds, dh]`` fp32)``; with
+    ``with_states`` also the state entering each chunk, ``[b, lp / chunk,
+    h, ds, dh]`` fp32 (what the kernel's forward keeps for its backward)."""
     bsz, lp, h, dh = dtx.shape
     ds = B.shape[-1]
     s = torch.zeros(bsz, h, ds, dh, dtype=torch.float32, device=dtx.device)
-    ys = []
+    ys, entering = [], []
     for c0 in range(0, lp, chunk):
         sl = slice(c0, c0 + chunk)
+        entering.append(s)
         y, s = _chunk_math(dtx[:, sl].transpose(1, 2), la_t[..., sl],
                            B[:, sl], C[:, sl], s)
         ys.append(y.to(dtx.dtype))
-    return torch.cat(ys, dim=2).transpose(1, 2), s
+    y = torch.cat(ys, dim=2).transpose(1, 2)
+    if with_states:
+        return y, s, torch.stack(entering, dim=1)
+    return y, s
 
 
-def scan_chunked(dtx, la_t, B, C, chunk: int):
-    """The chunked scan over padded inputs (see :func:`_scan_reference`).
-    CPU tensors take the twin; CUDA tensors launch the kernel, or raise for
-    a shape it cannot take."""
+def scan_chunked_bwd_plain(dtx, la_t, B, C, states, dy, ds_final,
+                           chunk: int):
+    """The backward kernel's plain twin: its algorithm written out (no
+    autograd), chunk by chunk in reverse. ``states [b, lp / chunk, h, ds,
+    dh]`` fp32 the state entering each chunk; ``dy`` like ``dtx``;
+    ``ds_final [b, h, ds, dh]`` the final state's cotangent or None
+    (zeros). Per chunk, with ``D = exp(cs_i - cs_j)`` on ``j <= i``, ``G =
+    C B^T``, ``M = G o D`` and ``Mr`` M rounded to x's dtype, ``dS`` the
+    cotangent of the state leaving the chunk: ``dX = Mr^T dy + (B o
+    e^{T-cs}) dS``; ``dM = dy X^T``, ``dG = dM o D``, ``dP = dM o M``;
+    ``dC += dG B + (dy S_prev^T) o e^{cs}``; ``dB += dG^T C + (X dS^T) o
+    e^{T-cs}`` (summed over the heads); ``dcs`` from dP's rows (+) and
+    columns (-), the two decayed terms and ``e^T <dS, S_prev>``; ``d_la``
+    its reverse cumsum; ``dS_prev = e^T dS + (C o e^{cs})^T dy``. Returns
+    ``(d_dtx, d_la_t, dB, dC)`` in the inputs' dtypes."""
+    bsz, lp, h, dh = dtx.shape
+    ds, L, dev = B.shape[-1], int(chunk), dtx.device
+    f32 = torch.float32
+    dS = (torch.zeros(bsz, h, ds, dh, dtype=f32, device=dev)
+          if ds_final is None else ds_final.float())
+    d_dtx = torch.empty_like(dtx)
+    d_la = torch.empty(bsz, h, lp, dtype=f32, device=dev)
+    dB = torch.empty(bsz, lp, ds, dtype=f32, device=dev)
+    dC = torch.empty(bsz, lp, ds, dtype=f32, device=dev)
+    causal = torch.ones(L, L, dtype=torch.bool, device=dev).tril()
+    for c in reversed(range(lp // L)):
+        sl = slice(c * L, (c + 1) * L)
+        X = dtx[:, sl].transpose(1, 2).float()                  # b h L dh
+        Y = dy[:, sl].transpose(1, 2).float()
+        Bc, Cc = B[:, sl].float()[:, None], C[:, sl].float()[:, None]
+        sp = states[:, c]                                       # b h ds dh
+        cs = torch.cumsum(la_t[..., sl], dim=-1)                # b h L
+        total = cs[..., -1:]
+        D = torch.exp((cs[..., :, None] - cs[..., None, :])
+                      .masked_fill(~causal, float("-inf")))
+        M = torch.matmul(Cc, Bc.transpose(-1, -2)) * D          # b h L L
+        dM = torch.matmul(Y, X.transpose(-1, -2))
+        dG, dP = dM * D, dM * M
+        eb, ec = torch.exp(total - cs)[..., None], torch.exp(cs)[..., None]
+        b_in = Bc * eb                                          # b h L ds
+        E = torch.matmul(Y, sp.transpose(-1, -2)) * ec          # b h L ds
+        F = torch.matmul(X, dS.transpose(-1, -2))
+        dX = (torch.matmul(M.to(dtx.dtype).float().transpose(-1, -2), Y)
+              + torch.matmul(b_in, dS))
+        dC[:, sl] = (torch.matmul(dG, Bc) + E).sum(1)
+        dB[:, sl] = (torch.matmul(dG.transpose(-1, -2), Cc) + F * eb).sum(1)
+        q = (F * b_in).sum(-1)                                  # b h L
+        dcs = dP.sum(-1) - dP.sum(-2) + (E * Cc).sum(-1) - q
+        dcs[..., -1] += q.sum(-1) + torch.exp(total[..., 0]) * (
+            dS * sp).sum((-1, -2))
+        d_la[..., sl] = torch.flip(torch.cumsum(torch.flip(dcs, [-1]), -1),
+                                   [-1])
+        d_dtx[:, sl] = dX.transpose(1, 2).to(dtx.dtype)
+        dS = (torch.exp(total)[..., None] * dS
+              + torch.matmul((Cc * ec).transpose(-1, -2), Y))
+    return d_dtx, d_la, dB.to(B.dtype), dC.to(C.dtype)
+
+
+def _scan_launch(dtx, la_t, B, C, chunk: int):
+    """The forward kernel's call: ``(y, state, states)``, the last the
+    fp32 state entering each chunk (its scratch after the call)."""
     global launches
-    if dtx.device.type == "cpu":
-        return _scan_reference(dtx, la_t, B, C, chunk)
     dev = _launch.check_cuda("selective_scan", dtx, la_t, B, C)
     bsz, lp, h, dh = dtx.shape
     ds = B.shape[-1]
@@ -250,7 +415,94 @@ def scan_chunked(dtx, la_t, B, C, chunk: int):
                    int(chunk), _launch.DTYPE_CODE[dtx.dtype],
                    _launch.stream_of(dev))
     launches += 1
-    return y, state
+    st = scratch[n_cs:].view(bsz, lp // chunk, h, ds, dh)
+    return y, state, st
+
+
+def scan_chunked_bwd(dtx, la_t, B, C, states, dy, ds_final, chunk: int):
+    """The backward of :func:`scan_chunked` (see
+    :func:`scan_chunked_bwd_plain`): ``(d_dtx, d_la_t, dB, dC)``. CPU
+    tensors take the twin; CUDA tensors launch the kernel, or raise for a
+    shape it cannot take."""
+    global launches_bwd
+    if dtx.device.type == "cpu":
+        return scan_chunked_bwd_plain(dtx, la_t, B, C, states, dy, ds_final,
+                                      chunk)
+    extra = () if ds_final is None else (ds_final,)
+    dev = _launch.check_cuda("selective_scan_bwd", dtx, la_t, B, C, states,
+                             dy, *extra)
+    bsz, lp, h, dh = dtx.shape
+    ds = B.shape[-1]
+    reason = bwd_ineligible_reason(dtx.shape, ds, chunk, dtx.dtype)
+    if reason is not None:
+        raise ValueError(f"selective_scan_bwd: {reason}")
+    f32 = torch.float32
+    if not (lp % chunk == 0 and la_t.shape == (bsz, h, lp)
+            and la_t.dtype == f32 and B.shape == (bsz, lp, ds)
+            and C.shape == B.shape and B.dtype == dtx.dtype
+            and C.dtype == dtx.dtype and dy.shape == dtx.shape
+            and dy.dtype == dtx.dtype and states.dtype == f32
+            and states.shape == (bsz, lp // chunk, h, ds, dh)
+            and (ds_final is None or (ds_final.shape == (bsz, h, ds, dh)
+                                      and ds_final.dtype == f32))):
+        raise ValueError(
+            f"selective_scan_bwd: dtx {tuple(dtx.shape)} {dtx.dtype}, la_t "
+            f"{tuple(la_t.shape)} {la_t.dtype}, B/C {tuple(B.shape)} "
+            f"{B.dtype}/{C.dtype}, states {tuple(states.shape)}, dy "
+            f"{tuple(dy.shape)} {dy.dtype} at chunk {chunk}")
+    d_dtx = torch.empty_like(dtx)
+    d_la = torch.empty_like(la_t)
+    dB, dC = torch.empty_like(B), torch.empty_like(C)
+    scratch = torch.empty(bwd_scratch_floats(bsz, lp, h, dh, ds, chunk),
+                          dtype=f32, device=dev)
+    _launch.launch("ptt_selective_scan_bwd", dtx.data_ptr(), la_t.data_ptr(),
+                   B.data_ptr(), C.data_ptr(), states.data_ptr(),
+                   dy.data_ptr(),
+                   None if ds_final is None else ds_final.data_ptr(),
+                   d_dtx.data_ptr(), d_la.data_ptr(), dB.data_ptr(),
+                   dC.data_ptr(), scratch.data_ptr(), bsz, lp, h, dh, ds,
+                   int(chunk), _launch.DTYPE_CODE[dtx.dtype],
+                   _launch.stream_of(dev))
+    launches_bwd += 1
+    return d_dtx, d_la, dB, dC
+
+
+class ScanFunction(torch.autograd.Function):
+    """The chunked scan on CUDA under autograd: the forward kernel, keeping
+    the fp32 state entering each chunk (its scratch, so no extra launch);
+    the backward kernel for ``(dtx, la_t, B, C)``. A missing cotangent of
+    the final state is zeros; of y, zeros too."""
+
+    @staticmethod
+    def forward(ctx, dtx, la_t, B, C, chunk):
+        y, state, states = _scan_launch(dtx, la_t, B, C, chunk)
+        ctx.save_for_backward(dtx, la_t, B, C, states)
+        ctx.chunk = int(chunk)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        dtx, la_t, B, C, states = ctx.saved_tensors
+        dy = torch.zeros_like(dtx) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.float().contiguous()
+        grads = scan_chunked_bwd(dtx, la_t, B, C, states, dy, dstate,
+                                 ctx.chunk)
+        return (*grads, None)
+
+
+def scan_chunked(dtx, la_t, B, C, chunk: int):
+    """The chunked scan over padded inputs (see :func:`_scan_reference`):
+    ``(y, state)``. CPU tensors take the twin (differentiable by autograd);
+    CUDA tensors launch the kernel, through :class:`ScanFunction` when a
+    gradient is wanted, or raise for a shape it cannot take."""
+    if dtx.device.type == "cpu":
+        return _scan_reference(dtx, la_t, B, C, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (dtx, la_t, B, C)):
+        return ScanFunction.apply(dtx, la_t, B, C, chunk)
+    return _scan_launch(dtx, la_t, B, C, chunk)[:2]
 
 
 # ------------------------------------------------------------- dispatch
@@ -283,11 +535,6 @@ def selective_scan(x, dt, A, B, C, chunk: Optional[int] = None
     dtx = (dtf[..., None] * x.float()).to(x.dtype)
     if not _chunked_wanted(x.device):
         return _xla_scan_core(dtx, la, B, C)
-    if x.device.type != "cpu" and torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            "selective_scan: the scan's backward on CUDA comes with hybrid "
-            "training (ROADMAP.md A.9); run the scan under torch.no_grad()")
     L = int(chunk if chunk is not None else resolve_chunk(l))
     lp = -(-l // L) * L
     if lp != l:

@@ -1038,6 +1038,167 @@ def test_selective_scan_plans_match_twin(cuda_device, dtype, b, l, h, dh,
                 + tol * np.abs(w)).all(), np.abs(g - w).max()
 
 
+def _scan_padded(x, dt, A, B, C, L):
+    """The padded operands ``selective_scan`` hands the chunked scan."""
+    l = x.shape[1]
+    lp = -(-l // L) * L
+    dtf = dt.float()
+    pad = (0, 0, 0, lp - l)
+    la = torch.nn.functional.pad(dtf * A, pad).transpose(1, 2).contiguous()
+    dtx = torch.nn.functional.pad((dtf[..., None] * x.float()).to(x.dtype),
+                                  (0, 0, 0, 0, 0, lp - l)).contiguous()
+    return (dtx, la, torch.nn.functional.pad(B, pad).contiguous(),
+            torch.nn.functional.pad(C, pad).contiguous())
+
+
+def _scaled_ok(got, want, tol):
+    g, w = _np(got), _np(want)
+    return bool((np.abs(g - w) <= tol * np.abs(w).max()
+                 + tol * np.abs(w)).all()), float(np.abs(g - w).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,dh,ds,chunk", _SCAN_PLANS)
+def test_selective_scan_bwd_kernel_matches_twin(cuda_device, dtype, b, l, h,
+                                                dh, ds, chunk):
+    """The scan's backward kernel at every branch of the forward's plans,
+    from the forward kernel's saved states and with a final-state
+    cotangent: (d_dtx, d_la, dB, dC) against ``scan_chunked_bwd_plain`` on
+    the same inputs within the smoke's tolerance (fp32 1e-5, bf16 2e-2,
+    each x the twin's largest magnitude plus the same relative term), and a
+    second launch bitwise equal; the saved states against the twin's."""
+    x, dt, A, B, C = _scan_inputs(cuda_device, dtype, b, l, h, dh, ds,
+                                  seed=l + dh + 1)
+    args = _scan_padded(x, dt, A, B, C, chunk)
+    rs = np.random.RandomState(l + ds)
+    dy = torch.from_numpy(rs.randn(*args[0].shape).astype(np.float32)).to(
+        cuda_device, args[0].dtype)
+    dsf = torch.from_numpy(rs.randn(b, h, ds, dh).astype(np.float32)).to(
+        cuda_device)
+    with torch.no_grad():
+        _, _, states = pt_ss._scan_launch(*args, chunk)
+        _, _, twin_states = pt_ss._scan_reference(*args, chunk,
+                                                  with_states=True)
+        pt_ss.launches_bwd = 0
+        got = pt_ss.scan_chunked_bwd(*args, states, dy, dsf, chunk)
+        again = pt_ss.scan_chunked_bwd(*args, states, dy, dsf, chunk)
+        assert pt_ss.launches_bwd == 2
+        want = pt_ss.scan_chunked_bwd_plain(*args, states, dy, dsf, chunk)
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    assert _scaled_ok(states, twin_states, tol)[0]
+    for name, g, g2, w in zip(("d_dtx", "d_la", "dB", "dC"), got, again,
+                              want):
+        assert torch.equal(g, g2), name
+        assert g.dtype == w.dtype, name
+        ok, err = _scaled_ok(g, w, tol)
+        assert ok, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_selective_scan_gradients_on_the_card(cuda_device, dtype):
+    """``selective_scan`` under autograd on the card (l 300, no multiple of
+    the chunk): one forward and one backward kernel launch, and the
+    gradients to x, dt, A, B and C against the chunked twin's autograd on
+    the CPU (fp32 1e-5, bf16 2e-2, scaled as above)."""
+    ins = _scan_inputs(cuda_device, dtype, 2, 300, 3, 64, 32, seed=5)
+    dy = torch.from_numpy(np.random.RandomState(6).randn(2, 300, 3, 64)
+                          .astype(np.float32)).to(cuda_device, ins[0].dtype)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in ins]
+        pt_ss.launches = pt_ss.launches_bwd = 0
+        y, s = pt_ss.selective_scan(*leaves, chunk=64)
+        ((y.float() * dy.to(dev).float()).sum() + s.square().sum()).backward()
+        if dev == "cuda":
+            assert (pt_ss.launches, pt_ss.launches_bwd) == (1, 1)
+        grads[dev] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, g, w in zip("x dt A B C".split(), grads["cuda"], grads["cpu"]):
+        ok, err = _scaled_ok(g, w, tol)
+        assert ok, (name, err)
+
+
+def _hybrid_train_model(**kw):
+    from paddle_tpu_torch.models import HybridSSMForCausalLM, ssm_tiny_config
+    cfg = ssm_tiny_config(hidden_size=256, intermediate_size=512,
+                          num_attention_heads=4, num_key_value_heads=2,
+                          num_hidden_layers=2, layer_pattern="SA",
+                          ssm_head_dim=64, ssm_state_size=32,
+                          dtype="bfloat16", **kw)
+    return HybridSSMForCausalLM(cfg, seed=4)
+
+
+def _loss_grads(model, ids):
+    loss, _ = model(ids, labels=ids)
+    loss.backward()
+    grads = [p.grad.float() for p in model.parameters()]
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _grad_dist(a, b):
+    num = sum(float((x - y).double().square().sum()) for x, y in zip(a, b))
+    return (num / sum(float(y.double().square().sum()) for y in b)) ** 0.5
+
+
+@pytest.mark.cuda
+def test_hybrid_train_step_on_the_card(cuda_device):
+    """One bf16 hybrid step (an SSM and an attention layer, 320 tokens) on
+    the card launches the scan's forward and backward kernels once each,
+    and its gradients are no further from an fp32 copy's on the CPU than
+    1.25x the same bf16 model's on the CPU twins are."""
+    import copy
+    from paddle_tpu_torch.ops import kernels
+    model = _hybrid_train_model()
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, size=(2, 160)).astype(np.int32)).to(cuda_device)
+    kernels.reset_launch_counts()
+    loss_k, g_k = _loss_grads(model, ids)
+    counts = kernels.launch_counts()
+    assert counts["selective_scan"] == 1 and \
+        counts["selective_scan_bwd"] == 1, counts
+    cpu = copy.deepcopy(model).cpu()
+    loss_t, g_t = _loss_grads(cpu, ids.cpu())
+    loss_e, g_e = _loss_grads(cpu.float(), ids.cpu())
+    g_k = [g.cpu() for g in g_k]
+    r_k, r_t = _grad_dist(g_k, g_e), _grad_dist(g_t, g_e)
+    assert abs(loss_k - loss_e) <= 2e-2 * abs(loss_e), (loss_k, loss_e)
+    assert r_k <= 1.25 * r_t + 1e-6, (r_k, r_t)
+
+
+@pytest.mark.cuda
+def test_recompute_replays_the_scan_bit_for_bit(cuda_device):
+    """With ``recompute`` the backward replays each layer: the scan kernel
+    runs twice a step and the replay's y and state equal the forward's bit
+    for bit; loss and gradients equal the step without recompute at the
+    reference's tolerance (loss rtol 1e-5, gradients rtol 1e-4 / atol
+    1e-6)."""
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, size=(2, 160)).astype(np.int32)).to(cuda_device)
+    plain = _loss_grads(_hybrid_train_model(), ids)
+    model = _hybrid_train_model(recompute=True)
+    outs, launch = [], pt_ss._scan_launch
+
+    def recording(*a):
+        out = launch(*a)
+        outs.append([t.clone() for t in out[:2]])
+        return out
+    pt_ss._scan_launch = recording
+    try:
+        loss, grads = _loss_grads(model, ids)
+    finally:
+        pt_ss._scan_launch = launch
+    assert len(outs) == 2
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    np.testing.assert_allclose(loss, plain[0], rtol=1e-5)
+    for g, w in zip(grads, plain[1]):
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-6)
+
+
 # #10's schedule (producer warps scoring ahead of a consumer warp a head,
 # the group split over blocks) must not move a bit: decode rows at lengths
 # of 0, 1, a page, a page and one, more pages than the ring holds and a

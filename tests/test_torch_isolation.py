@@ -130,12 +130,15 @@ def test_unported_flags_raise(tiny, name, value):
 
 
 def test_unported_models_raise():
-    """recompute and a sequence-parallel hybrid are not ported; a
-    sequence-parallel Llama is (``test_sep_llama_at_sp1_equals_plain``)."""
+    """A sequence-parallel hybrid is not ported (A.10); a
+    sequence-parallel Llama is (``test_sep_llama_at_sp1_equals_plain``), and
+    so is ``recompute`` (``tests/test_torch_ssm_train.py``)."""
     from paddle_tpu_torch.models import HybridSSMForCausalLM, ssm_tiny_config
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.3"):
-        LlamaForCausalLM(llama_tiny_config(recompute=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9 and A.10"):
+    assert LlamaForCausalLM(llama_tiny_config(recompute=True),
+                            device="cpu").config.recompute
+    assert HybridSSMForCausalLM(ssm_tiny_config(recompute=True),
+                                device="cpu").config.recompute
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A.10"):
         HybridSSMForCausalLM(ssm_tiny_config(sequence_parallel=True),
                              device="cpu")
 
@@ -269,7 +272,9 @@ def test_scan_and_paged_kernels_refuse_what_they_cannot_take():
     b = torch.empty(1, 40, 16, **meta)
     with pytest.raises(ValueError, match="CUDA tensors"):
         pt_ss.selective_scan(x, dt, a, b, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.9"):
+    # with gradients the scan goes through its autograd Function, whose
+    # forward is the same kernel call
+    with pytest.raises(ValueError, match="CUDA tensors"):
         pt_ss.selective_scan(x.requires_grad_(True), dt, a, b, b)
     with pytest.raises(ValueError, match="CUDA tensors"):
         pt_ss.scan_chunked(torch.empty(1, 48, 4, 12, **meta),

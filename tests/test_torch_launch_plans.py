@@ -280,6 +280,83 @@ def test_scan_takes(shape, ds, chunk, dtype):
     assert pss.ineligible_reason(shape, ds, chunk, dtype) is None
 
 
+# ----------------------------------------------- 14b, the scan's backward
+def _bwd_layouts(L, dh, ds, R, esize):
+    """The backward's three tiled kernels' shared memory, term by term
+    (``csrc/selective_scan.cu``: ``bwd_u_smem``, ``bwd_rows_smem``,
+    ``bwd_cols_smem``)."""
+    p = 16 // esize
+    u = [L * 4, L * 4, R * (ds + p) * esize, R * (dh + p) * esize,
+         ds * (dh + 4) * 4]
+    rows = [L * 4, R * 4, R * 4, R * (dh + p) * esize, R * (dh + p) * esize,
+            R * (ds + p) * esize, R * (ds + p) * esize, ds * (dh + 4) * 4,
+            R * (R + 4) * 4, R * (R + 4) * 4, R * (ds + 4) * 4]
+    cols = [L * 4, R * 4, R * 4, R * 4, R * (dh + p) * esize,
+            R * (dh + p) * esize, R * (ds + p) * esize, R * (ds + p) * esize,
+            ds * (dh + 4) * 4, R * (R + p) * esize, R * (R + 4) * 4,
+            R * (R + 4) * 4, R * (dh + 4) * 4, R * (ds + 4) * 4]
+    return [sum(_a16(n) for n in t) for t in (u, rows, cols)]
+
+
+@pytest.mark.parametrize("b,lp,h,dh,ds,L,esize,rows", [
+    # the smoke's two shapes: serve-ssm's prefill (fp32) and
+    # bench_ssm_pretrain's (bf16)
+    (1, 1024, 64, 32, 16, 128, 4, 64),
+    (4, 2048, 48, 64, 64, 256, 2, 64),
+    # bf16 at the widest tiles: 64-row tiles do not fit, 32 do
+    (2, 2048, 3, 128, 128, 256, 2, 32),
+    # a chunk under one tile; a chunk of a tile and a quarter
+    (1, 48, 3, 32, 16, 48, 4, 32),
+    (2, 160, 4, 24, 24, 80, 2, 64),
+    # fp32 at a wide head: 8-row tiles (no tensor-core tile in fp32)
+    (1, 16, 2, 392, 104, 16, 4, 8)])
+def test_scan_bwd_launch_plan(b, lp, h, dh, ds, L, esize, rows):
+    """Tile rows, grids and shared memory of the backward's six launches,
+    against the layouts written out term by term; each under 227 KB."""
+    plan = pss.bwd_launch_plan(b, lp, h, dh, ds, L, esize)
+    assert plan["rows"] == rows
+    u, r, c = _bwd_layouts(L, dh, ds, rows, esize)
+    assert (plan["chunk_u"]["smem"], plan["rows_kernel"]["smem"],
+            plan["cols_kernel"]["smem"]) == (u, r, c)
+    assert max(u, r, c) <= SMEM
+    nc, nrt = lp // L, -(-L // rows)
+    assert plan["chunk_u"]["grid"] == (nc, b, h)
+    assert plan["rows_kernel"]["grid"] == plan["cols_kernel"]["grid"] \
+        == (nrt, nc, b * h)
+    assert plan["passes"]["grid"] == (-(-b * h * ds * dh // 256), 1, 1)
+    assert plan["dla"]["grid"] == (nc, b * h, 1)
+    assert plan["dbc"]["grid"] == (-(-b * lp * ds // 256), 1, 1)
+    assert pss.bwd_scratch_floats(b, lp, h, dh, ds, L) == \
+        5 * b * h * lp + nc * b * h * ds * dh + 2 * b * h * lp * ds
+
+
+@pytest.mark.parametrize("shape,ds,chunk,dtype,match", [
+    ((1, 64, 4, 136), 16, 64, torch.bfloat16, "head_dim 136"),
+    ((1, 64, 4, 16), 16, 8, torch.float32, "chunk 8"),
+    ((1, 16, 4, 464), 96, 16, torch.float32, "backward shared memory"),
+    ((1, 16, 4, 1024), 32, 16, torch.float32, "backward shared memory"),
+    ((300, 64, 300, 16), 16, 64, torch.float32, "backward grid")])
+def test_scan_bwd_refuses(shape, ds, chunk, dtype, match):
+    """The backward refuses the forward's refusals and, by name, the fp32
+    shapes at chunk 16 with a head dim of 432 and more whose tiles do not
+    fit (the forward takes those) and a batch x heads past the grid."""
+    assert match in pss.bwd_ineligible_reason(shape, ds, chunk, dtype)
+
+
+def test_scan_bwd_takes_what_the_forward_takes():
+    """Every shape the forward takes at head dims and d_state up to 256 in
+    steps of 8 and every chunk, the backward takes too, but fp32 at chunk
+    16 with a head dim of 432 or more."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for L in range(16, 257, 16):
+            for dh in range(8, 257, 8):
+                for ds in range(8, 257, 8):
+                    shape = (2, L, 4, dh)
+                    if pss.ineligible_reason(shape, ds, L, dtype) is None:
+                        assert pss.bwd_ineligible_reason(
+                            shape, ds, L, dtype) is None, (dtype, L, dh, ds)
+
+
 # ------------------------------------- the port against JAX at the branches
 def _quant_inputs(mode, t, max_seqs, width, bs, kv, hq, d, seed,
                   q_dtype="float32"):

@@ -17,8 +17,9 @@ path's ``ms_per_step`` and ``busy_share``, and the extra shapes a phase
 times, such as tgmm's ``down``, the segment backward's ``t1`` or the
 RMSNorm phases' ``shapes``, the fused block's ``parts_ms`` and
 ``edge_ms``, the train phase's ``off_ms_per_step``, and the ``digest`` of
-the outputs a phase hashes, ``phase_quant``'s and ``phase_scan``'s, so that
-one call shows whether two builds give the same bits). Each checkout builds its own
+the outputs a phase hashes, ``phase_quant``'s, ``phase_scan``'s and
+``phase_scan_bwd``'s, so that one call shows whether two builds give the
+same bits). Each checkout builds its own
 kernels into its own ``paddle_tpu_torch/_build/``. With ``--smoke DIR`` both
 checkouts run the phases of ``DIR/chip_smoke.py`` over their own package, so
 that shapes a newer smoke times (``phase_ragged``'s decode steps, say) are
