@@ -92,10 +92,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the shares the twins and the fp32 copy would choose too (not asserted:
    32 bf16 layers of random weights differ by rounding alone);
 7. serve-fleet, the slice-8 path, right after serve-eager: the
-   disaggregated fleet at the serve phase's widths and depth. First #18 (the
+   disaggregated fleet at the serve phase's widths and ``FLEET_LAYERS`` of
+   its 32 layers. First #18 (the
    KV-page remote copy) in two ``distributed.spawn`` ranks sharing the card
-   over gloo: the path's largest record (bf16 K and V [32768, 8, 128], a
-   1024-token prompt at 32 layers) and an int8 page segment with its fp32
+   over gloo: the path's largest record (bf16 K and V [1024 x layers, 8,
+   128], a 1024-token prompt) and an int8 page segment with its fp32
    scales moved from rank 0 to rank 1 by the kernel and by its twin (a gloo
    ``ppermute`` through the host), bit for bit, one launch a call; then the
    bf16 segment timed (the kernel's pull from the peer's mapped slot, the
@@ -2292,7 +2293,11 @@ def phase_scan(torch, timer):
                       "chunk 256)")
 
 
-SCAN_BWD_PASSES = ("scan_bwd_chunk_u", "scan_bwd_state_pass", "scan_bwd_rows",
+# the backward's launches by a fragment of their names: the wgmma route's
+# launches first (their names hold the edge route's)
+SCAN_BWD_PASSES = ("scan_bwd_rows_wgmma", "scan_bwd_cols_wgmma",
+                   "scan_bwd_chunk_u_wgmma", "scan_bwd_chunk_u",
+                   "scan_bwd_state_pass", "scan_bwd_rows",
                    "scan_bwd_cols", "scan_bwd_dla", "scan_bwd_dbc")
 
 
@@ -2304,9 +2309,10 @@ def phase_scan_bwd(torch, timer):
     ``scan_chunked_bwd_plain`` on the same inputs and against autograd
     through the chunked twin (fp32 rtol=atol=1e-5 x max|twin|, bf16 2e-2),
     a second launch bitwise. Timed beside the plain version; the profiler
-    reads each of its six launches apart; the launch plan is logged. No
-    library call computes the backward. ``digest``: sha256 of the four
-    gradients' bytes."""
+    reads each of its six launches apart; the route (bf16 at the train
+    shape: the ``wgmma`` kernels; fp32: the CUDA cores), the head group and
+    the launch plan are logged. No library call computes the backward.
+    ``digest``: sha256 of the four gradients' bytes."""
     import hashlib
     from paddle_tpu_torch.ops.kernels import selective_scan as ss
     flush = _flush_kernels(torch, timer)
@@ -2389,19 +2395,31 @@ def phase_scan_bwd(torch, timer):
                            name[:40])
                 passes[key] = passes.get(key, 0.0) + us / 1e3 / 10
         plan = ss.bwd_launch_plan(b, lp, h, dh, ds, L, esz)
+        route = ss.bwd_route(args[0].shape, ds, L, dtype) \
+            if hasattr(ss, "bwd_route") else "edge"
         out[tag] = dict(err=err, tol=tol, bound_ms=b_ms, bound_by=b_by,
+                        route=route,
                         ms=timer.ms(lambda: ss.scan_chunked_bwd(*bwd)),
                         device_ms=sum(passes.values()) or None,
                         passes_ms=passes, digest=digest, plan=plan,
                         plain_ms=timer.ms(
                             lambda: ss.scan_chunked_bwd_plain(*bwd),
                             iters=3, warmup=1))
-        log(f"scan bwd {tag}: plan: tile rows {plan['rows']}, chunk U "
+        log(f"scan bwd {tag}: route {route}; plan: tile rows "
+            f"{plan['rows']}, chunk U "
             f"{plan['chunk_u']['grid']} ({plan['chunk_u']['smem']} B), "
             f"rows {plan['rows_kernel']['grid']} "
             f"({plan['rows_kernel']['smem']} B), cols "
             f"{plan['cols_kernel']['grid']} ({plan['cols_kernel']['smem']} "
             f"B), on 132 SMs")
+        if "heads" in plan:
+            log(f"scan bwd {tag}: {plan['heads']} heads a block in "
+                f"{plan['groups']} groups of {h}; "
+                f"{plan['rows_kernel'].get('threads', 256)} threads, "
+                f"{plan['rows_kernel'].get('stages', '-')} ring stages, "
+                f"{plan['rows_kernel'].get('blocks_per_sm', '-')} blocks an "
+                f"SM; the dB/dC partials move {plan['partial_bytes']} B "
+                f"(sum over {plan['dbc']['parts']} parts)")
         log(f"scan bwd {tag}: {out[tag]['ms']:.4f} ms (device "
             f"{out[tag]['device_ms']}: "
             + ", ".join(f"{k} {v:.4f}" for k, v in passes.items())
@@ -2831,7 +2849,11 @@ FLEET_ENGINE = {"max_seqs": 8, "max_seq_len": 2048, "block_size": 64}
 # turn TF32 off themselves)
 FLEET_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8",
              "FLAGS_pallas_fused_block": "off"}
-FLEET_ROWS = 32768          # the path's largest record: 1024 tokens x 32
+FLEET_PROMPT = 1024         # the path's largest record: 1024 tokens a layer
+# the fleet's depth: the serve model's widths at 8 of its 32 layers, cut
+# so that the run (three host processes, each built and respawned over
+# four legs) ends well inside its time limit
+FLEET_LAYERS = 8
 
 
 def fleet_spec(layers):
@@ -2881,10 +2903,10 @@ def fleet_baseline(torch, model, specs):
     return out
 
 
-def _k18_rank(rank, work_dir):
+def _k18_rank(rank, work_dir, rows):
     """#18 in one of two gloo ranks sharing the card (a ``["kv"]`` mesh):
-    the path's largest record, bf16 K and V [32768, 8, 128] and an int8
-    page segment with its fp32 scales [32768, 8], each moved from rank 0 to
+    the path's largest record, bf16 K and V [rows, 8, 128] and an int8
+    page segment with its fp32 scales [rows, 8], each moved from rank 0 to
     rank 1 by the kernel and by its twin (a gloo ``ppermute`` through the
     host), bit for bit; then the bf16 segment timed: the kernel's pull
     from rank 0's mapped slot and the library's ``Tensor.copy_`` of the
@@ -2908,10 +2930,10 @@ def _k18_rank(rank, work_dir):
                                  device="cuda", dtype=torch.int8)
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    cases = [("K bf16", (FLEET_ROWS, 8, 128), torch.bfloat16),
-             ("V bf16", (FLEET_ROWS, 8, 128), torch.bfloat16),
-             ("K int8", (FLEET_ROWS, 8, 128), torch.int8),
-             ("K scales fp32", (FLEET_ROWS, 8), torch.float32)]
+    cases = [("K bf16", (rows, 8, 128), torch.bfloat16),
+             ("V bf16", (rows, 8, 128), torch.bfloat16),
+             ("K int8", (rows, 8, 128), torch.int8),
+             ("K scales fp32", (rows, 8), torch.float32)]
     res = {"rank": rank, "checks": []}
     for label, shape, dtype in cases:
         x = payload(rank, shape, dtype)
@@ -2957,11 +2979,11 @@ def _k18_rank(rank, work_dir):
     torch.save(res, os.path.join(work_dir, f"k18_{rank}.pt"))
 
 
-def _k18_check(torch, card):
+def _k18_check(torch, card, rows):
     import tempfile
     import paddle_tpu_torch.distributed as dist
     with tempfile.TemporaryDirectory() as work:
-        dist.spawn(_k18_rank, (work,), nprocs=2, timeout=600)
+        dist.spawn(_k18_rank, (work, rows), nprocs=2, timeout=600)
         ranks = [torch.load(os.path.join(work, f"k18_{r}.pt"))
                  for r in range(2)]
     for r in ranks:
@@ -2972,8 +2994,9 @@ def _k18_check(torch, card):
             # the ranks' pairing is a shift: rank 0 receives rank 1's too
             assert c["equal_source"], c
     r1 = dict(ranks[1], ranks=ranks)
-    log(f"serve-fleet kernel kv_pages_remote_copy: bf16 [{FLEET_ROWS}, 8, "
-        f"128] (64 MiB), rank 1 pulling rank 0's: kernel {r1['ms']:.4f} ms, "
+    log(f"serve-fleet kernel kv_pages_remote_copy: bf16 [{rows}, 8, "
+        f"128] ({rows * 8 * 128 * 2 / 2**20:g} MiB), rank 1 pulling rank "
+        f"0's: kernel {r1['ms']:.4f} ms, "
         f"library copy_ {r1['library_ms']:.4f} ms, plain (gloo) "
         f"{r1['plain_ms']:.4f} ms, whole SPMD call {r1['call_ms']:.4f} ms, "
         f"bound {r1['bound_ms']:.4f} ms ({r1['bound_by']}); device time a "
@@ -3098,7 +3121,8 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
     from paddle_tpu_torch.models import LlamaForCausalLM, llama3_8b_config
     from paddle_tpu_torch.weights import param_digest
     t_phase = time.perf_counter()
-    k18 = _k18_check(torch, card)
+    rows = FLEET_PROMPT * layers
+    k18 = _k18_check(torch, card, rows)
     segs = 2                            # bf16 pages: K and V a record
 
     # the one-process runs on the serve model rebuilt from its seed, which
@@ -3293,8 +3317,9 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
                bound_ms=k18["bound_ms"], bound_by=k18["bound_by"],
                library_ms=k18["library_ms"], device_ms=k18["device_ms"],
                library_device_ms=k18["library_device_ms"],
-               shape=f"bf16 [{FLEET_ROWS}, 8, 128] (a 1024-token record's K "
-                     f"at 32 layers), rank 1 of 2 on one card pulling rank "
+               shape=f"bf16 [{rows}, 8, 128] (a {FLEET_PROMPT}-token "
+                     f"record's K at {layers} layers), rank 1 of 2 on one "
+                     f"card pulling rank "
                      f"0's slot; plain: a gloo ppermute through the host; "
                      f"library: Tensor.copy_ from the mapped slot")
     perf["k18_call_ms"] = k18["call_ms"]
@@ -4079,7 +4104,11 @@ def check_forward(torch, model, prompts, scored):
 def device_profile(torch, fn):
     """``fn()`` under ``torch.profiler``: device time by kernel (largest
     first) as ``(us, count, name)`` rows, their sum in seconds, and the
-    profiled wall time."""
+    profiled wall time. The rows are summed from the profiler's raw
+    events, as ``key_averages()`` sums its device events (their
+    demangled names, durations and counts), without the host op tree
+    that ``key_averages()`` builds first: over a long run (a 32-layer
+    serve) that tree took ten times the run."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -4087,16 +4116,21 @@ def device_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue      # host ops repeat their kernels' device time
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        if us > 0:
-            rows.append((us, e.count, e.key))
-    rows.sort(reverse=True)
+    cuda, by_name = torch.autograd.DeviceType.CUDA, {}
+    for e in prof.profiler.kineto_results.events():
+        # host ops repeat their kernels' device time
+        if (e.device_type() != cuda or e.is_async()
+                or e.start_thread_id() != e.end_thread_id()):
+            continue
+        n, us = by_name.get(e.name(), (0, 0.0))
+        by_name[e.name()] = (n + 1, us + (e.end_ns() - e.start_ns()) / 1e3)
+    merged = {}
+    for name, (n, us) in by_name.items():
+        key = torch._C._demangle(name) if len(name) > 1 else name
+        m, t = merged.get(key, (0, 0.0))
+        merged[key] = (m + n, t + us)
+    rows = sorted(((us, n, key) for key, (n, us) in merged.items() if us > 0),
+                  reverse=True)
     return rows, sum(r[0] for r in rows) / 1e6, wall
 
 
@@ -5605,7 +5639,8 @@ def phase_train_moe_ep(torch, np, card):
 
 # the kernels redesigned around wgmma (#1's bf16 forward, #17's bf16
 # gate/up and down launches, #2's dQ and dK/dV, #11/#13's gmm, #12's tgmm,
-# #7's chain GEMMs), by a fragment of their mangled names; #4's bf16 route
+# #7's chain GEMMs, 14b's bf16 chunk U, row and column launches), by a
+# fragment of their mangled names; #4's bf16 route
 # is #2's kernels and #3's is #1's, instantiated with the segment mask,
 # checked by the fragments of both, as is each epilogue of #7's GEMM
 WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
@@ -5614,7 +5649,8 @@ WGMMA_KERNELS = ("flash_fwd_wgmma", "fused_gate_up_wgmma", "fused_down_wgmma",
                  ("flash_bwd_dkv_wgmma", "SegMask"),
                  ("flash_fwd_wgmma", "SegMask"),
                  ("fused_block_gemm", "OProj"), ("fused_block_gemm", "GateUp"),
-                 ("fused_block_gemm", "Down"))
+                 ("fused_block_gemm", "Down"), "scan_bwd_chunk_u_wgmma",
+                 "scan_bwd_rows_wgmma", "scan_bwd_cols_wgmma")
 
 
 # redesigned kernels of no tensor-core product: they must not spill either
@@ -5805,7 +5841,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         fleet_counts, fleet_row, _ = phase_serve_fleet(
-            torch, np, args.layers, card,
+            torch, np, min(FLEET_LAYERS, args.layers), card,
             os.path.join(HERE, "chiprun_out", "serve_fleet_logs"))
         counts.update(fleet_counts)
         rows.append(fleet_row)

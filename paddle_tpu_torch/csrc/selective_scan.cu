@@ -743,27 +743,38 @@ int launch_out_bf16(const __nv_bfloat16* x, const __nv_bfloat16* B, const __nv_b
 //   d_la    = the reverse cumsum of dcs within the chunk.
 //
 // Bound on the H100 at the training shape (bf16, dh 64, ds 64, L 256): the
-// tensor-core operations of G, dM (each formed twice, below), Mr^T dy, dG B
-// and dG^T C over the causal half; at the serving shape the fp32 operations.
+// bytes of dtx, dy, d_dtx and the saved states (the operations of G, dM,
+// Mr^T dy, dG B and dG^T C over the causal half take less); at the serving
+// shape the fp32 operations.
 //
 // Schedule, chunk-parallel as the forward, no atomics (a repeat is bitwise):
-//   1. scan_bwd_chunk_u (chunks x batch x heads): each chunk's cs (the
-//      forward's serial sum, so its bits) and its own (C o e^{cs})^T dy.
+//   1. chunk U: each chunk's cs (the forward's serial sum, so its bits) and
+//      its own (C o e^{cs})^T dy.
 //   2. scan_bwd_state_pass (an entry of dS a thread): the dS carry in reverse
 //      chunk order, each chunk's slot becoming the cotangent leaving it.
-//   3. scan_bwd_rows (row tiles x chunks x batch*heads): a tile of rows i
-//      walks the column tiles j <= i: dC's rows and dP's row sums.
-//   4. scan_bwd_cols (column tiles x chunks x batch*heads): a tile of columns
-//      j walks the row tiles i >= j: dX's and dB's rows and dP's column
-//      sums (the flash backward's dQ / dK-dV split: G and dM formed in both).
+//   3. rows: a tile of rows i walks the column tiles j <= i: dC's rows and
+//      dP's row sums.
+//   4. cols: a tile of columns j walks the row tiles i >= j: dX's and dB's
+//      rows and dP's column sums (the flash backward's dQ / dK-dV split: G
+//      and dM formed in both).
 //   5. scan_bwd_dla (chunks x batch*heads): <dS, S_prev> and d_la.
-//   6. scan_bwd_dbc: dB and dC summed over the heads' partials in head order.
-// fp32 runs every product as FMA chains on the CUDA cores; bf16 on mma.sync
-// (m16n8k16, fp32 accumulation), the fp32 operands (dG, S_prev, dS and the
-// decay-scaled B and C) split into two bf16 terms (hi + lo) as the forward
-// splits its own. Tiles are R rows (64, 32, 16, or 8 in fp32: the largest
-// whose shared memory fits; ops/kernels/selective_scan.py:bwd_launch_plan
-// mirrors the sums).
+//   6. scan_bwd_dbc: dB and dC summed over the partials in order.
+// Two routes, picked by the wrapper from shape and alignment (the C entry's
+// tma flag; ops/kernels/selective_scan.py:bwd_route mirrors the rule):
+//  * wgmma (bf16, dh and ds 64 or 128, L a multiple of 64, 16-byte-aligned
+//    bases): 1, 3 and 4 are wgmma kernels over TMA rings, a block walking a
+//    group of heads (namespace wgb below); the state pass also writes dS and
+//    S_prev as bf16 hi + lo planes for their TMA loads; the partials are a
+//    head group's.
+//  * edge (every other call): 1, 3 and 4 are a block a head (scan_bwd_chunk_u,
+//    scan_bwd_rows, scan_bwd_cols over row tiles x chunks x batch*heads);
+//    fp32 runs every product as FMA chains on the CUDA cores, bf16 on
+//    mma.sync (m16n8k16, fp32 accumulation); tiles are R rows (64, 32, 16,
+//    or 8 in fp32: the largest whose shared memory fits;
+//    ops/kernels/selective_scan.py:bwd_launch_plan mirrors the sums); the
+//    partials are each head's.
+// Both routes split the fp32 operands (dG, S_prev, dS and the decay-scaled B
+// and C) into two bf16 terms (hi + lo) as the forward splits its own.
 
 // One element pad of a shared-memory row: 16 bytes (keeps cp.async rows
 // 16-byte aligned and moves rows across banks).
@@ -908,8 +919,8 @@ __device__ __forceinline__ void block_gemm(int M, int N, int K, const FA& a, con
 
 template <typename T> constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 
-// 1. Each chunk's cs (into gcs) and U = (C o e^{cs})^T dy (into its slot of
-//    st), over k-tiles of R positions.
+// 1. (edge) Each chunk's cs (into gcs) and U = (C o e^{cs})^T dy (into its
+//    slot of st), over k-tiles of R positions.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) scan_bwd_chunk_u(
     const float* __restrict__ la, const T* __restrict__ Cg, const T* __restrict__ dy,
@@ -957,10 +968,13 @@ __global__ void __launch_bounds__(kThreads, 1) scan_bwd_chunk_u(
 
 // 2. The dS carry in reverse chunk order, one thread an entry: each chunk's
 //    slot of st (its U on entry) becomes the cotangent of the state leaving
-//    the chunk; dsf (the final state's cotangent) may be null (zeros).
+//    the chunk; dsf (the final state's cotangent) may be null (zeros). The
+//    wgmma route (split non-null) also writes each slot's dS and S_prev
+//    (states) as bf16 hi + lo terms, the operand tiles its TMA loads read.
 __global__ void __launch_bounds__(kThreads, 1) scan_bwd_state_pass(
     const float* __restrict__ gcs, float* __restrict__ st, const float* __restrict__ dsf,
-    int batch, int lp, int H, int dh, int ds, int L) {
+    int batch, int lp, int H, int dh, int ds, int L, const float* __restrict__ states,
+    __nv_bfloat16* __restrict__ split) {
   const size_t per = static_cast<size_t>(ds) * dh;
   const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<size_t>(batch) * H * per) return;
@@ -969,7 +983,10 @@ __global__ void __launch_bounds__(kThreads, 1) scan_bwd_state_pass(
   const int hh = static_cast<int>((i / per) % H), bb = static_cast<int>(i / per / H);
   const float* cs_bh = gcs + (static_cast<size_t>(bb) * H + hh) * lp;
   const size_t cstride = static_cast<size_t>(H) * per;
-  float* base = st + (static_cast<size_t>(bb) * nc * H + hh) * per + e;
+  const size_t off = (static_cast<size_t>(bb) * nc * H + hh) * per + e;
+  float* base = st + off;
+  // the four bf16 planes [batch, nc, H, ds, dh]: dS hi, dS lo, S_prev hi, S_prev lo
+  const size_t plane = static_cast<size_t>(batch) * nc * H * per;
   float s = dsf != nullptr ? dsf[i] : 0.f;
   for (int c0 = nc - 1; c0 >= 0; c0 -= 8) {
     float u[8], lg[8];
@@ -983,15 +1000,25 @@ __global__ void __launch_bounds__(kThreads, 1) scan_bwd_state_pass(
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
       if (c0 - k >= 0) {
-        base[(c0 - k) * cstride] = s;
+        const size_t at = (c0 - k) * cstride;
+        base[at] = s;
+        if (split != nullptr) {
+          const float sp = states[off + at];
+          const __nv_bfloat16 dhi = __float2bfloat16_rn(s), shi = __float2bfloat16_rn(sp);
+          split[off + at] = dhi;
+          split[plane + off + at] = __float2bfloat16_rn(s - __bfloat162float(dhi));
+          split[2 * plane + off + at] = shi;
+          split[3 * plane + off + at] = __float2bfloat16_rn(sp - __bfloat162float(shi));
+        }
         s = expf(lg[k]) * s + u[k];
       }
     }
   }
 }
 
-// 3. A tile of rows i: (dy S_prev^T) o e^{cs} and its row sums with C, then
-//    over the column tiles j <= i: G and dM, dP's row sums, dC += dG B_j.
+// 3. (edge) A tile of rows i: (dy S_prev^T) o e^{cs} and its row sums with
+//    C, then over the column tiles j <= i: G and dM, dP's row sums,
+//    dC += dG B_j.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) scan_bwd_rows(
     const T* __restrict__ dtx, const T* __restrict__ Bg, const T* __restrict__ Cg,
@@ -1087,7 +1114,7 @@ __global__ void __launch_bounds__(kThreads, 1) scan_bwd_rows(
   for (int e = tid; e < ni * ds; e += kThreads) out[e] = acc[(e / ds) * lda + e % ds];
 }
 
-// 4. A tile of columns j: (B o e^{T-cs}) dS, (X dS^T) o e^{T-cs} and q, then
+// 4. (edge) A tile of columns j: (B o e^{T-cs}) dS, (X dS^T) o e^{T-cs} and q, then
 //    over the row tiles i >= j: G and dM, Mr, dP's column sums,
 //    dX += Mr^T dy_i, dB += dG^T C_i; dX rounded once to x's dtype.
 template <typename T>
@@ -1239,19 +1266,20 @@ __global__ void __launch_bounds__(kThreads, 1) scan_bwd_dla(
   }
 }
 
-// 6. dB and dC: the heads' fp32 partials summed in head order, rounded once.
+// 6. dB and dC: the fp32 partials (a head's or a head group's) summed in
+//    order, rounded once.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) scan_bwd_dbc(
     const float* __restrict__ dBp, const float* __restrict__ dCp, T* __restrict__ dB,
-    T* __restrict__ dC, int batch, int lp, int H, int ds) {
+    T* __restrict__ dC, int batch, int lp, int parts, int ds) {
   const size_t per = static_cast<size_t>(lp) * ds;
   const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= static_cast<size_t>(batch) * per) return;
   const size_t bb = i / per, e = i % per;
   float sb = 0.f, sc = 0.f;
-  for (int h = 0; h < H; ++h) {
-    sb += dBp[(bb * H + h) * per + e];
-    sc += dCp[(bb * H + h) * per + e];
+  for (int k = 0; k < parts; ++k) {
+    sb += dBp[(bb * parts + k) * per + e];
+    sc += dCp[(bb * parts + k) * per + e];
   }
   dB[i] = from_f<T>(sb);
   dC[i] = from_f<T>(sc);
@@ -1263,6 +1291,870 @@ int set_smem(K kern, size_t smem) {
   return static_cast<int>(
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem)));
+}
+
+// ------------------------------------------------------- bf16 on wgmma
+// The tiled launches of the bf16 route (dh and ds 64 or 128, chunks of
+// whole 64-row tiles, TMA-mappable bases): #2's dQ / dK-dV split
+// (csrc/flash_attention_bwd.cu) in place of scan_bwd_rows / scan_bwd_cols.
+// A block is one consumer warpgroup and a producer warp; the producer
+// TMA-loads operand tiles (hopper.cuh's 128-byte-swizzled atoms; x and dy
+// through 4-D maps over [batch, lp, H, dh], B and C through 3-D maps over
+// [batch, lp, ds], the state pass's bf16 planes of dS and S_prev through
+// 3-D maps over [slots, ds, dh]) into an mbarrier-guarded ring ahead of the
+// consumers. Every product is a wgmma; G, dM, D, M, dG and dP stay in the
+// accumulator layout, Mr and dG (hi + lo) reach the next product as
+// register-A fragments (pack_a). A block walks a group of g heads in order
+// (the last group may be smaller), so B and C tiles are loaded once a
+// group where the walk allows and dB / dC are summed over the group's heads
+// in fp32 registers: the partials are [batch, groups, lp, ds], summed over
+// the groups in order by scan_bwd_dbc. Grid (batch x chunks x groups, row
+// tiles): blockIdx.y 0 holds the longest tiles, which go out first.
+//  rows: a row tile i. Per head, E = (dy_i S_prev^T) o e^{cs_i} (S_prev's
+//    hi and lo terms) into dC and <E_i, C_i> into the row sums; then over
+//    the column tiles j <= i, G = C_i B_j^T once for the group, and per
+//    head dM = dy_i X_j^T, dG = dM o D, dP's row sums (quad shuffles, one
+//    row a quad), dC += dG B_j (B_j read MN-major in place).
+//  cols: a column tile j, the tiles formed transposed (G^T = B_j C_i^T,
+//    dM^T = X_j dy_i^T), so dX_j += Mr^T dy_i and dB_j += dG^T C_i take A
+//    from registers and dP's column sums are the tile's row sums. Per head,
+//    dX = (B_j o e^{T-cs}) dS (3 products: hi.hi, lo.hi, hi.lo) and F = X_j
+//    dS^T (dB's decayed term and q), then the row tiles i >= j; dX is the
+//    head's alone (an accumulator a head, so G^T is formed a head).
+// No atomics; every sum in a fixed order, so a repeat is bitwise.
+namespace wgb {
+
+using bf16 = __nv_bfloat16;
+constexpr int kConsumers = 128;            // one warpgroup
+constexpr int kWgThreads = kConsumers + 32;  // and one producer warp
+constexpr int kMaxGroup = 16;              // heads a block at most
+constexpr int kFill = 4 * 132;             // two waves of two blocks an SM
+constexpr float kLog2e = 1.4426950408889634f;
+
+__host__ __device__ constexpr int stages(int dh, int ds) { return dh == 128 && ds == 128 ? 3 : 4; }
+// Operand tiles of a block, in bytes (each a multiple of 1024): the
+// resident tile (C_i or B_j), the two-stage outer ring (B_j a column tile
+// for rows; X_j^h a head for cols), and the item ring's stages of slot A
+// (dy_i^h, 64 x dh) and slot B (ds x dh: X_j^h, C_i or a state term).
+__host__ __device__ inline size_t tiles_rows(int dh, int ds) {
+  return static_cast<size_t>(64) * ds * 2 * 3 +
+         static_cast<size_t>(stages(dh, ds)) * (64 * dh * 2 + ds * dh * 2);
+}
+__host__ __device__ inline size_t tiles_cols(int dh, int ds) {
+  return static_cast<size_t>(64) * ds * 2 + static_cast<size_t>(2) * 64 * dh * 2 +
+         static_cast<size_t>(stages(dh, ds)) * (64 * dh * 2 + ds * dh * 2);
+}
+__host__ __device__ inline int n_bars(int dh, int ds) { return 5 + 2 * stages(dh, ds); }
+// dynamic shared memory: the tiles, cs * log2(e) of the group's heads, the
+// row sums (rows only), the barriers and the alignment slack
+__host__ __device__ inline size_t smem_rows(int dh, int ds, int L, int g) {
+  return tiles_rows(dh, ds) + static_cast<size_t>(g) * L * 4 + static_cast<size_t>(g) * 64 * 4 +
+         n_bars(dh, ds) * 8 + hopper::kSmemAlign;
+}
+__host__ __device__ inline size_t smem_cols(int dh, int ds, int L, int g) {
+  return tiles_cols(dh, ds) + static_cast<size_t>(g) * L * 4 + n_bars(dh, ds) * 8 +
+         hopper::kSmemAlign;
+}
+// Heads a block: ceil(H / groups) for the fewest groups that give base x
+// groups >= kFill blocks (and at most kMaxGroup heads a block), no more
+// groups than heads; groups = ceil(H / g), so the last may be smaller.
+inline int heads_a_block(int H, long long base) {
+  long long groups = (kFill + base - 1) / base;
+  groups = groups > (H + kMaxGroup - 1) / kMaxGroup ? groups : (H + kMaxGroup - 1) / kMaxGroup;
+  groups = groups < H ? groups : H;
+  return static_cast<int>((H + groups - 1) / groups);
+}
+
+template <int DH, int DS> struct Cfg {
+  static constexpr int kStages = stages(DH, DS);
+  static constexpr int kMinBlocks = DH == 64 && DS == 64 ? 2 : 1;
+  static constexpr int kRes = 64 * DS * 2;  // a 64-row tile of B or C
+  static constexpr int kX = 64 * DH * 2;    // a 64-row tile of x or dy (slot A)
+  static constexpr int kSlotB = DS * DH * 2;
+  // cols at ds 128: F and dX's decayed term in two passes over dS's terms
+  // (F, dX, dB and B_j's fragments would not fit the registers together)
+  static constexpr bool kTwoPasses = DS == 128;
+};
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void release(uint64_t* empty) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(empty);
+}
+// The sum over the quad that holds an accumulator row.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+// Elements (r, c) and (r, c + 1) of a swizzled bf16 tile of `rows` rows.
+__device__ __forceinline__ float2 ld_pair(const unsigned char* tile, int rows, int r, int c) {
+  const int cc = c & 63;
+  return unpack2(*reinterpret_cast<const uint32_t*>(
+      tile + (c >> 6) * rows * 128 + r * 128 + (((cc >> 3) ^ (r & 7)) << 4) + (cc & 7) * 2));
+}
+// Register-A fragments of an fp32 accumulator as bf16 hi + lo terms.
+template <int R>
+__device__ __forceinline__ void pack_a_split(uint32_t (&hi)[R / 8][4], uint32_t (&lo)[R / 8][4],
+                                             const float (&d)[R]) {
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split2(d[8 * j + 2 * r], d[8 * j + 2 * r + 1], hi[j][r], lo[j][r]);
+}
+// K-major operand descriptor of k16 step kk of a tile of `rows` rows.
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* t, int rows, int kk) {
+  return hopper::desc_sw128(t + (kk >> 2) * rows * 128 + (kk & 3) * 32, 16, 1024);
+}
+// MN-major (B, N contiguous) descriptor of k16 step kk of a tile of `rows` K rows.
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* t, int rows, int kk) {
+  return hopper::desc_sw128(t + kk * 16 * 128, rows * 128, 1024);
+}
+
+template <int DH, int DS>
+__global__ void __launch_bounds__(kWgThreads, Cfg<DH, DS>::kMinBlocks)
+scan_bwd_rows_wgmma(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_dy,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const __grid_constant__ CUtensorMap map_c,
+                    const __grid_constant__ CUtensorMap map_sph,
+                    const __grid_constant__ CUtensorMap map_spl, const float* __restrict__ gcs,
+                    float* __restrict__ rr, float* __restrict__ dCp, int lp, int H, int L, int nc,
+                    int g, int groups) {
+  using Cf = Cfg<DH, DS>;
+  constexpr int S = Cf::kStages, kRes = Cf::kRes, kX = Cf::kX, kSlotB = Cf::kSlotB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Cs = hopper::align_smem(smem_raw);
+  unsigned char* Bs = Cs + kRes;       // 2 stages
+  unsigned char* As = Bs + 2 * kRes;   // S stages of slot A: dy_i^h
+  unsigned char* Ss = As + S * kX;     // S stages of slot B: X_j^h or S_prev^h's term
+  float* cs2 = reinterpret_cast<float*>(Ss + S * kSlotB);  // [g][L]
+  float* rs = cs2 + g * L;                                 // [g][64]
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(rs + g * 64);
+  uint64_t* b_full = c_full + 1;
+  uint64_t* b_empty = b_full + 2;
+  uint64_t* full = b_empty + 2;
+  uint64_t* empty = full + S;
+
+  const int nrt = L / 64, it = nrt - 1 - static_cast<int>(blockIdx.y);
+  const int grp = blockIdx.x % groups, bc = blockIdx.x / groups, c = bc % nc, b = bc / nc;
+  const int h0 = grp * g, gh = min(g, H - h0), i0 = it * 64, p0 = c * L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(c_full, 1);
+    for (int k = 0; k < 2; ++k) {
+      hopper::mbar_init(&b_full[k], 1);
+      hopper::mbar_init(&b_empty[k], kConsumers / 32);
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(c_full, kRes);
+      for (int a = 0; a < DS / 64; ++a)
+        hopper::tma_load_3d(Cs + a * 64 * 128, &map_c, c_full, a * 64, p0 + i0, b);
+      int n = 0;
+      auto stage = [&](int bytes) {
+        const int s = n % S;
+        if (n >= S) hopper::mbar_wait(&empty[s], ((n / S) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], bytes);
+        ++n;
+        return s;
+      };
+      auto load_dy = [&](int s, int hh) {
+        for (int a = 0; a < DH / 64; ++a)
+          hopper::tma_load_4d(As + s * kX + a * 64 * 128, &map_dy, &full[s], a * 64, h0 + hh,
+                              p0 + i0, b);
+      };
+      for (int hh = 0; hh < gh; ++hh)
+        for (int part = 0; part < 2; ++part) {
+          const int s = stage(kX + kSlotB);
+          load_dy(s, hh);
+          const int slot = (b * nc + c) * H + h0 + hh;
+          for (int a = 0; a < DH / 64; ++a)
+            hopper::tma_load_3d(Ss + s * kSlotB + a * DS * 128, part ? &map_spl : &map_sph,
+                                &full[s], a * 64, 0, slot);
+        }
+      for (int j = 0; j <= it; ++j) {
+        const int sb = j & 1;
+        if (j >= 2) hopper::mbar_wait(&b_empty[sb], ((j >> 1) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&b_full[sb], kRes);
+        for (int a = 0; a < DS / 64; ++a)
+          hopper::tma_load_3d(Bs + sb * kRes + a * 64 * 128, &map_b, &b_full[sb], a * 64,
+                              p0 + j * 64, b);
+        for (int hh = 0; hh < gh; ++hh) {
+          const int s = stage(2 * kX);
+          load_dy(s, hh);
+          for (int a = 0; a < DH / 64; ++a)
+            hopper::tma_load_4d(Ss + s * kSlotB + a * 64 * 128, &map_x, &full[s], a * 64,
+                                h0 + hh, p0 + j * 64, b);
+        }
+      }
+    }
+    return;
+  }
+
+  for (int k = threadIdx.x; k < gh * L; k += kConsumers)
+    cs2[k] = gcs[(static_cast<size_t>(b) * H + h0 + k / L) * lp + p0 + k % L] * kLog2e;
+  consumer_sync();
+  const int r_lo = 16 * warp + (lane >> 2), r_hi = r_lo + 8, qd = 2 * (lane & 3);
+
+  float dC[DS / 2];
+#pragma unroll
+  for (int k = 0; k < DS / 2; ++k) dC[k] = 0.f;
+  hopper::mbar_wait(c_full, 0);
+  int n = 0;
+  // the carried term of each head: E = (dy_i S_prev^T) o e^{cs_i}
+  for (int hh = 0; hh < gh; ++hh) {
+    float E[DS / 2];
+    for (int part = 0; part < 2; ++part, ++n) {
+      const int s = n % S;
+      hopper::mbar_wait(&full[s], (n / S) & 1);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        hopper::wgmma_ss<DS, 0>(E, desc_k(As + s * kX, 64, kk), desc_k(Ss + s * kSlotB, DS, kk),
+                                part > 0 || kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(E);
+      release(&empty[s]);
+    }
+    const float* c2 = cs2 + hh * L;
+    const float e_lo = hopper::exp2_approx(c2[i0 + r_lo]);
+    const float e_hi = hopper::exp2_approx(c2[i0 + r_hi]);
+    float s_lo = 0.f, s_hi = 0.f;
+#pragma unroll
+    for (int k = 0; k < DS / 2; k += 2) {
+      const bool hi = k & 2;
+      const int row = hi ? r_hi : r_lo, col = 8 * (k / 4) + qd;
+      const float e = hi ? e_hi : e_lo;
+      const float2 cv = ld_pair(Cs, 64, row, col);
+      const float v0 = E[k] * e, v1 = E[k + 1] * e;
+      dC[k] += v0;
+      dC[k + 1] += v1;
+      float& acc = hi ? s_hi : s_lo;
+      acc = fmaf(v0, cv.x, acc);
+      acc = fmaf(v1, cv.y, acc);
+    }
+    s_lo = quad_sum(s_lo);
+    s_hi = quad_sum(s_hi);
+    if ((lane & 3) == 0) {
+      rs[hh * 64 + r_lo] = s_lo;
+      rs[hh * 64 + r_hi] = s_hi;
+    }
+  }
+
+  // the column tiles j <= i: G once for the group, then each head's dM
+  float G[32], dM[32];
+  uint32_t ah[4][4], al[4][4];
+  for (int j = 0; j <= it; ++j) {
+    const int sb = j & 1;
+    hopper::mbar_wait(&b_full[sb], (j >> 1) & 1);
+    const unsigned char* Bt = Bs + sb * kRes;
+    const bool diag = j == it;
+    for (int hh = 0; hh < gh; ++hh, ++n) {
+      const int s = n % S;
+      hopper::mbar_wait(&full[s], (n / S) & 1);
+      hopper::wgmma_fence();
+      if (hh == 0) {
+#pragma unroll
+        for (int kk = 0; kk < DS / 16; ++kk)
+          hopper::wgmma_ss<64, 0>(G, desc_k(Cs, 64, kk), desc_k(Bt, 64, kk), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        hopper::wgmma_ss<64, 0>(dM, desc_k(As + s * kX, 64, kk), desc_k(Ss + s * kSlotB, 64, kk),
+                                kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(G);
+      hopper::fence_regs(dM);
+      const float* c2 = cs2 + hh * L;
+      const float ci_lo = c2[i0 + r_lo], ci_hi = c2[i0 + r_hi];
+      float p_lo = 0.f, p_hi = 0.f;
+#pragma unroll
+      for (int k = 0; k < 32; k += 2) {
+        const bool hi = k & 2;
+        const int row = hi ? r_hi : r_lo, col = 8 * (k / 4) + qd;
+        const float ci = hi ? ci_hi : ci_lo;
+        const float2 cj = *reinterpret_cast<const float2*>(c2 + j * 64 + col);
+        float d0 = hopper::exp2_approx(ci - cj.x), d1 = hopper::exp2_approx(ci - cj.y);
+        if (diag) {  // j <= i: column <= row
+          if (col > row) d0 = 0.f;
+          if (col + 1 > row) d1 = 0.f;
+        }
+        const float dp0 = dM[k] * (G[k] * d0), dp1 = dM[k + 1] * (G[k + 1] * d1);
+        dM[k] *= d0;  // dG
+        dM[k + 1] *= d1;
+        float& acc = hi ? p_hi : p_lo;
+        acc += dp0;
+        acc += dp1;
+      }
+      p_lo = quad_sum(p_lo);
+      p_hi = quad_sum(p_hi);
+      if ((lane & 3) == 0) {
+        rs[hh * 64 + r_lo] += p_lo;
+        rs[hh * 64 + r_hi] += p_hi;
+      }
+      pack_a_split(ah, al, dM);
+      hopper::fence_regs(dC);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        hopper::wgmma_rs<DS, 1>(dC, ah[jj], desc_mn(Bt, 64, jj), 1);
+        hopper::wgmma_rs<DS, 1>(dC, al[jj], desc_mn(Bt, 64, jj), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dC);
+      release(&empty[s]);
+    }
+    release(&b_empty[sb]);
+  }
+
+  if ((lane & 3) == 0)
+    for (int hh = 0; hh < gh; ++hh) {
+      float* out = rr + (static_cast<size_t>(b) * H + h0 + hh) * lp + p0 + i0;
+      out[r_lo] = rs[hh * 64 + r_lo];
+      out[r_hi] = rs[hh * 64 + r_hi];
+    }
+  float* out = dCp + ((static_cast<size_t>(b) * groups + grp) * lp + p0 + i0) * DS;
+#pragma unroll
+  for (int k = 0; k < DS / 2; k += 2) {
+    const int row = (k & 2) ? r_hi : r_lo, col = 8 * (k / 4) + qd;
+    *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * DS + col) =
+        make_float2(dC[k], dC[k + 1]);
+  }
+}
+
+template <int DH, int DS>
+__global__ void __launch_bounds__(kWgThreads, Cfg<DH, DS>::kMinBlocks)
+scan_bwd_cols_wgmma(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_dy,
+                    const __grid_constant__ CUtensorMap map_b,
+                    const __grid_constant__ CUtensorMap map_c,
+                    const __grid_constant__ CUtensorMap map_dsh,
+                    const __grid_constant__ CUtensorMap map_dsl, const float* __restrict__ gcs,
+                    bf16* __restrict__ ddtx, float* __restrict__ cc, float* __restrict__ qq,
+                    float* __restrict__ dBp, int lp, int H, int L, int nc, int g, int groups) {
+  using Cf = Cfg<DH, DS>;
+  constexpr int S = Cf::kStages, kRes = Cf::kRes, kX = Cf::kX, kSlotB = Cf::kSlotB;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Bsm = hopper::align_smem(smem_raw);  // B_j
+  unsigned char* Xs = Bsm + kRes;                     // 2 stages: X_j^h
+  unsigned char* As = Xs + 2 * kX;                    // S stages of slot A: dy_i^h
+  unsigned char* Ss = As + S * kX;                    // S stages of slot B: C_i or dS^h's term
+  float* cs2 = reinterpret_cast<float*>(Ss + S * kSlotB);  // [g][L]
+  uint64_t* b_full = reinterpret_cast<uint64_t*>(cs2 + g * L);
+  uint64_t* x_full = b_full + 1;
+  uint64_t* x_empty = x_full + 2;
+  uint64_t* full = x_empty + 2;
+  uint64_t* empty = full + S;
+
+  const int nrt = L / 64, jt = blockIdx.y;  // the first column tiles walk the most row tiles
+  const int grp = blockIdx.x % groups, bc = blockIdx.x / groups, c = bc % nc, b = bc / nc;
+  const int h0 = grp * g, gh = min(g, H - h0), j0 = jt * 64, p0 = c * L;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(b_full, 1);
+    for (int k = 0; k < 2; ++k) {
+      hopper::mbar_init(&x_full[k], 1);
+      hopper::mbar_init(&x_empty[k], kConsumers / 32);
+    }
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(b_full, kRes);
+      for (int a = 0; a < DS / 64; ++a)
+        hopper::tma_load_3d(Bsm + a * 64 * 128, &map_b, b_full, a * 64, p0 + j0, b);
+      int n = 0;
+      auto stage = [&](int bytes) {
+        const int s = n % S;
+        if (n >= S) hopper::mbar_wait(&empty[s], ((n / S) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], bytes);
+        ++n;
+        return s;
+      };
+      for (int hh = 0; hh < gh; ++hh) {
+        const int sx = hh & 1;
+        if (hh >= 2) hopper::mbar_wait(&x_empty[sx], ((hh >> 1) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&x_full[sx], kX);
+        for (int a = 0; a < DH / 64; ++a)
+          hopper::tma_load_4d(Xs + sx * kX + a * 64 * 128, &map_x, &x_full[sx], a * 64, h0 + hh,
+                              p0 + j0, b);
+        const int slot = (b * nc + c) * H + h0 + hh;
+        for (int part = 0; part < (Cf::kTwoPasses ? 4 : 2); ++part) {
+          const int s = stage(kSlotB);
+          for (int a = 0; a < DH / 64; ++a)
+            hopper::tma_load_3d(Ss + s * kSlotB + a * DS * 128, part & 1 ? &map_dsl : &map_dsh,
+                                &full[s], a * 64, 0, slot);
+        }
+        for (int i = jt; i < nrt; ++i) {
+          const int s = stage(kX + kRes);
+          for (int a = 0; a < DH / 64; ++a)
+            hopper::tma_load_4d(As + s * kX + a * 64 * 128, &map_dy, &full[s], a * 64, h0 + hh,
+                                p0 + i * 64, b);
+          for (int a = 0; a < DS / 64; ++a)
+            hopper::tma_load_3d(Ss + s * kSlotB + a * 64 * 128, &map_c, &full[s], a * 64,
+                                p0 + i * 64, b);
+        }
+      }
+    }
+    return;
+  }
+
+  for (int k = threadIdx.x; k < gh * L; k += kConsumers)
+    cs2[k] = gcs[(static_cast<size_t>(b) * H + h0 + k / L) * lp + p0 + k % L] * kLog2e;
+  consumer_sync();
+  const int r_lo = 16 * warp + (lane >> 2), r_hi = r_lo + 8, qd = 2 * (lane & 3);
+  const size_t xrow = static_cast<size_t>(H) * DH;
+
+  float dB[DS / 2];
+#pragma unroll
+  for (int k = 0; k < DS / 2; ++k) dB[k] = 0.f;
+  hopper::mbar_wait(b_full, 0);
+  int n = 0;
+  for (int hh = 0; hh < gh; ++hh) {
+    const int sx = hh & 1;
+    hopper::mbar_wait(&x_full[sx], (hh >> 1) & 1);
+    const unsigned char* Xt = Xs + sx * kX;
+    const float* c2 = cs2 + hh * L;
+    const float total = c2[L - 1];
+    const float cj_lo = c2[j0 + r_lo], cj_hi = c2[j0 + r_hi];
+    const float eb_lo = hopper::exp2_approx(total - cj_lo);
+    const float eb_hi = hopper::exp2_approx(total - cj_hi);
+    // the decayed term: dX = (B_j o e^{T-cs}) dS (A from registers, hi + lo)
+    // and F = X_j dS^T, over dS's hi and lo terms (twice at ds 128: F, then dX)
+    float F[DS / 2], dX[DH / 2];
+    using On = std::true_type;
+    using Off = std::false_type;
+    auto items = [&](auto with_f, auto with_x) {
+      uint32_t bh[DS / 16][4], bl[DS / 16][4];
+      if constexpr (decltype(with_x)::value) {
+#pragma unroll
+        for (int k = 0; k < DS / 2; k += 2) {
+          const bool hi = k & 2;
+          const float e = hi ? eb_hi : eb_lo;
+          const float2 bv = ld_pair(Bsm, 64, hi ? r_hi : r_lo, 8 * (k / 4) + qd);
+          split2(bv.x * e, bv.y * e, bh[k / 8][(k % 8) / 2], bl[k / 8][(k % 8) / 2]);
+        }
+      }
+      for (int part = 0; part < 2; ++part, ++n) {
+        const int s = n % S;
+        hopper::mbar_wait(&full[s], (n / S) & 1);
+        const unsigned char* St = Ss + s * kSlotB;
+        hopper::wgmma_fence();
+        if constexpr (decltype(with_f)::value) {
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk)
+            hopper::wgmma_ss<DS, 0>(F, desc_k(Xt, 64, kk), desc_k(St, DS, kk), part > 0 || kk > 0);
+        }
+        if constexpr (decltype(with_x)::value) {
+#pragma unroll
+          for (int kk = 0; kk < DS / 16; ++kk) {
+            hopper::wgmma_rs<DH, 1>(dX, bh[kk], desc_mn(St, DS, kk), part > 0 || kk > 0);
+            if (part == 0) hopper::wgmma_rs<DH, 1>(dX, bl[kk], desc_mn(St, DS, kk), 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(F);
+        hopper::fence_regs(dX);
+        release(&empty[s]);
+      }
+    };
+    if constexpr (Cf::kTwoPasses)
+      items(On{}, Off{});
+    else
+      items(On{}, On{});
+    // F o e^{T-cs}: dB's decayed term, and q = <F o e^{T-cs}, B_j>
+    float q_lo = 0.f, q_hi = 0.f;
+#pragma unroll
+    for (int k = 0; k < DS / 2; k += 2) {
+      const bool hi = k & 2;
+      const float e = hi ? eb_hi : eb_lo;
+      const float2 bv = ld_pair(Bsm, 64, hi ? r_hi : r_lo, 8 * (k / 4) + qd);
+      const float v0 = F[k] * e, v1 = F[k + 1] * e;
+      dB[k] += v0;
+      dB[k + 1] += v1;
+      float& acc = hi ? q_hi : q_lo;
+      acc = fmaf(v0, bv.x, acc);
+      acc = fmaf(v1, bv.y, acc);
+    }
+    q_lo = quad_sum(q_lo);
+    q_hi = quad_sum(q_hi);
+    if constexpr (Cf::kTwoPasses) items(Off{}, On{});
+
+    // the row tiles i >= j
+    float G[32], dM[32], p_lo = 0.f, p_hi = 0.f;
+    uint32_t mr[4][4], gh_[4][4], gl_[4][4];
+    for (int i = jt; i < nrt; ++i, ++n) {
+      const int s = n % S;
+      hopper::mbar_wait(&full[s], (n / S) & 1);
+      const unsigned char* Yt = As + s * kX;
+      const unsigned char* Ct = Ss + s * kSlotB;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DS / 16; ++kk)
+        hopper::wgmma_ss<64, 0>(G, desc_k(Bsm, 64, kk), desc_k(Ct, 64, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        hopper::wgmma_ss<64, 0>(dM, desc_k(Xt, 64, kk), desc_k(Yt, 64, kk), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(G);
+      hopper::fence_regs(dM);
+      const bool diag = i == jt;
+#pragma unroll
+      for (int k = 0; k < 32; k += 2) {
+        const bool hi = k & 2;
+        const int row = hi ? r_hi : r_lo, col = 8 * (k / 4) + qd;
+        const float cj = hi ? cj_hi : cj_lo;
+        const float2 ci = *reinterpret_cast<const float2*>(c2 + i * 64 + col);
+        float d0 = hopper::exp2_approx(ci.x - cj), d1 = hopper::exp2_approx(ci.y - cj);
+        if (diag) {  // j <= i: row <= column
+          if (row > col) d0 = 0.f;
+          if (row > col + 1) d1 = 0.f;
+        }
+        G[k] *= d0;  // M^T
+        G[k + 1] *= d1;
+        const float dp0 = dM[k] * G[k], dp1 = dM[k + 1] * G[k + 1];
+        dM[k] *= d0;  // dG^T
+        dM[k + 1] *= d1;
+        float& acc = hi ? p_hi : p_lo;
+        acc += dp0;
+        acc += dp1;
+      }
+      hopper::pack_a(mr, G);
+      pack_a_split(gh_, gl_, dM);
+      hopper::fence_regs(dX);
+      hopper::fence_regs(dB);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::wgmma_rs<DH, 1>(dX, mr[kk], desc_mn(Yt, 64, kk), 1);
+        hopper::wgmma_rs<DS, 1>(dB, gh_[kk], desc_mn(Ct, 64, kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hopper::wgmma_rs<DS, 1>(dB, gl_[kk], desc_mn(Ct, 64, kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dX);
+      hopper::fence_regs(dB);
+      release(&empty[s]);
+    }
+    release(&x_empty[sx]);
+    p_lo = quad_sum(p_lo);
+    p_hi = quad_sum(p_hi);
+    const size_t at = (static_cast<size_t>(b) * H + h0 + hh) * lp + p0 + j0;
+    if ((lane & 3) == 0) {
+      cc[at + r_lo] = p_lo;
+      cc[at + r_hi] = p_hi;
+      qq[at + r_lo] = q_lo;
+      qq[at + r_hi] = q_hi;
+    }
+    bf16* xo = ddtx + (static_cast<size_t>(b) * lp + p0 + j0) * xrow +
+               static_cast<size_t>(h0 + hh) * DH;
+#pragma unroll
+    for (int k = 0; k < DH / 2; k += 2) {
+      const int row = (k & 2) ? r_hi : r_lo, col = 8 * (k / 4) + qd;
+      *reinterpret_cast<__nv_bfloat162*>(xo + row * xrow + col) =
+          __floats2bfloat162_rn(dX[k], dX[k + 1]);
+    }
+  }
+  float* out = dBp + ((static_cast<size_t>(b) * groups + grp) * lp + p0 + j0) * DS;
+#pragma unroll
+  for (int k = 0; k < DS / 2; k += 2) {
+    const int row = (k & 2) ? r_hi : r_lo, col = 8 * (k / 4) + qd;
+    *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * DS + col) =
+        make_float2(dB[k], dB[k + 1]);
+  }
+}
+
+// Chunk U on wgmma: a block a (batch x chunk x head group). The chunk's C
+// [L x ds] stays in shared memory and is A = C^T, read MN-major in place;
+// each head's dy arrives in 64-row pieces through the TMA ring, and the
+// consumers form B' = e^{cs} o dy as bf16 hi + lo pieces (at the same
+// swizzled byte offsets, double-buffered), so U = C^T B'_hi + C^T B'_lo,
+// accumulated over the pieces in order with one product group in flight.
+// Each head's cs is the forward's serial sum (chunk_cumsum), as on the edge
+// route.
+__host__ __device__ inline size_t smem_chunk_u(int dh, int ds, int L, int g) {
+  return static_cast<size_t>(L) * ds * 2 + static_cast<size_t>(4 + 4) * 64 * dh * 2 +
+         static_cast<size_t>(g) * L * 4 + 9 * 8 + hopper::kSmemAlign;
+}
+
+template <int DH, int DS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+scan_bwd_chunk_u_wgmma(const __grid_constant__ CUtensorMap map_dy,
+                       const __grid_constant__ CUtensorMap map_c, const float* __restrict__ la,
+                       float* __restrict__ gcs, float* __restrict__ st, int lp, int H, int L,
+                       int nc, int g, int groups) {
+  constexpr int S = 4, kX = 64 * DH * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Cs = hopper::align_smem(smem_raw);  // DS / 64 atoms of L rows
+  unsigned char* Ys = Cs + L * DS * 2;               // S stages: 64-row pieces of dy
+  unsigned char* Ps = Ys + S * kX;                   // 2 buffers of (hi, lo) pieces
+  float* cs = reinterpret_cast<float*>(Ps + 4 * kX);  // [g][L]
+  uint64_t* c_full = reinterpret_cast<uint64_t*>(cs + g * L);
+  uint64_t* full = c_full + 1;
+  uint64_t* empty = full + S;
+
+  const int grp = blockIdx.x % groups, bc = blockIdx.x / groups, c = bc % nc, b = bc / nc;
+  const int h0 = grp * g, gh = min(g, H - h0), p0 = c * L, npc = L / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(c_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer warp
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(c_full, L * DS * 2);
+      for (int a = 0; a < DS / 64; ++a)
+        for (int r = 0; r < npc; ++r)
+          hopper::tma_load_3d(Cs + a * L * 128 + r * 64 * 128, &map_c, c_full, a * 64,
+                              p0 + r * 64, b);
+      for (int n = 0; n < gh * npc; ++n) {
+        const int s = n % S;
+        if (n >= S) hopper::mbar_wait(&empty[s], ((n / S) - 1) & 1);
+        hopper::mbar_arrive_expect_tx(&full[s], kX);
+        for (int a = 0; a < DH / 64; ++a)
+          hopper::tma_load_4d(Ys + s * kX + a * 64 * 128, &map_dy, &full[s], a * 64,
+                              h0 + n / npc, p0 + (n % npc) * 64, b);
+      }
+    }
+    return;
+  }
+
+  for (int k = threadIdx.x; k < gh * L; k += kConsumers)
+    cs[k] = la[(static_cast<size_t>(b) * H + h0 + k / L) * lp + p0 + k % L];
+  consumer_sync();
+  if (threadIdx.x < gh)
+    chunk_cumsum(cs + threadIdx.x * L, gcs + (static_cast<size_t>(b) * H + h0 + threadIdx.x) * lp + p0,
+                 L);
+  consumer_sync();
+  for (int k = threadIdx.x; k < gh * L; k += kConsumers) cs[k] = expf(cs[k]);
+  consumer_sync();
+  hopper::mbar_wait(c_full, 0);
+
+  const int r_lo = 16 * warp + (lane >> 2), r_hi = r_lo + 8, qd = 2 * (lane & 3);
+  float U[DS / 64][DH / 2];
+  int n = 0;
+  for (int hh = 0; hh < gh; ++hh) {
+    const float* e = cs + hh * L;
+    for (int pc = 0; pc < npc; ++pc, ++n) {
+      const int s = n % S;
+      hopper::mbar_wait(&full[s], (n / S) & 1);
+      // the product group that read this buffer (two items back) is done
+      unsigned char* Ph = Ps + (n & 1) * 2 * kX;
+      unsigned char* Pl = Ph + kX;
+      const unsigned char* Yt = Ys + s * kX;
+      for (int q = threadIdx.x; q < kX / 16; q += kConsumers) {
+        const int off = q * 16;
+        const float ep = e[pc * 64 + (off % (64 * 128)) / 128];
+        float v[8];
+        unpack<bf16>(*reinterpret_cast<const uint4*>(Yt + off), v);
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) split2(v[2 * k] * ep, v[2 * k + 1] * ep, hi[k], lo[k]);
+        *reinterpret_cast<uint4*>(Ph + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(Pl + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      hopper::fence_proxy_async();
+      consumer_sync();
+      release(&empty[s]);
+#pragma unroll
+      for (int mt = 0; mt < DS / 64; ++mt) hopper::fence_regs(U[mt]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int mt = 0; mt < DS / 64; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da =
+              hopper::desc_sw128(Cs + mt * L * 128 + (pc * 64 + kk * 16) * 128, L * 128, 1024);
+          hopper::wgmma_ss<DH, 1, 1>(U[mt], da, desc_mn(Ph, 64, kk), pc > 0 || kk > 0);
+          hopper::wgmma_ss<DH, 1, 1>(U[mt], da, desc_mn(Pl, 64, kk), 1);
+        }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+#pragma unroll
+      for (int mt = 0; mt < DS / 64; ++mt) hopper::fence_regs(U[mt]);
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int mt = 0; mt < DS / 64; ++mt) hopper::fence_regs(U[mt]);
+    float* out = st + ((static_cast<size_t>(b) * nc + c) * H + h0 + hh) * DS * DH;
+#pragma unroll
+    for (int mt = 0; mt < DS / 64; ++mt)
+#pragma unroll
+      for (int k = 0; k < DH / 2; k += 2) {
+        const int row = mt * 64 + ((k & 2) ? r_hi : r_lo), col = 8 * (k / 4) + qd;
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * DH + col) =
+            make_float2(U[mt][k], U[mt][k + 1]);
+      }
+  }
+}
+
+// [batch, lp, H, D] as a 4-D map (innermost first): a box is 64 columns of
+// one head over 64 rows of one batch
+int map_x4(CUtensorMap* m, const void* base, int batch, int lp, int H, int D) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(lp), static_cast<uint64_t>(batch)};
+  const uint64_t strides[3] = {dims[0] * 2, dims[1] * dims[0] * 2, dims[2] * dims[1] * dims[0] * 2};
+  const uint32_t box[4] = {64, 1, 64, 1};
+  return hopper::bf16_map(m, base, 4, dims, strides, box);
+}
+// [batch, lp, ds]: a box is 64 columns over 64 rows
+int map_bc3(CUtensorMap* m, const void* base, int batch, int lp, int ds) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(ds), static_cast<uint64_t>(lp),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t strides[2] = {dims[0] * 2, dims[1] * dims[0] * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  return hopper::bf16_map(m, base, 3, dims, strides, box);
+}
+// [slots, ds, dh] (a bf16 plane of the state pass): a box is 64 columns of
+// one slot's ds rows
+int map_st3(CUtensorMap* m, const void* base, size_t slots, int ds, int dh) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(dh), static_cast<uint64_t>(ds),
+                            static_cast<uint64_t>(slots)};
+  const uint64_t strides[2] = {dims[0] * 2, dims[1] * dims[0] * 2};
+  const uint32_t box[3] = {64, static_cast<uint32_t>(ds), 1};
+  return hopper::bf16_map(m, base, 3, dims, strides, box);
+}
+
+// The two tiled launches; planes: dS hi, dS lo, S_prev hi, S_prev lo.
+template <int DH, int DS>
+int launch(const bf16* x, const bf16* B, const bf16* C, const bf16* dy, const float* gcs,
+           const bf16* planes, float* rr, float* cc, float* qq, float* dBp, float* dCp,
+           bf16* ddtx, int batch, int lp, int H, int L, cudaStream_t s) {
+  const int nc = lp / L, nrt = L / 64;
+  const int g = heads_a_block(H, static_cast<long long>(batch) * nc * nrt);
+  const int groups = (H + g - 1) / g;
+  const size_t slots = static_cast<size_t>(batch) * nc * H, plane = slots * DS * DH;
+  CUtensorMap mx, mdy, mb, mc, m0, m1, m2, m3;
+  int e = map_x4(&mx, x, batch, lp, H, DH);
+  if (e == 0) e = map_x4(&mdy, dy, batch, lp, H, DH);
+  if (e == 0) e = map_bc3(&mb, B, batch, lp, DS);
+  if (e == 0) e = map_bc3(&mc, C, batch, lp, DS);
+  if (e == 0) e = map_st3(&m0, planes, slots, DS, DH);
+  if (e == 0) e = map_st3(&m1, planes + plane, slots, DS, DH);
+  if (e == 0) e = map_st3(&m2, planes + 2 * plane, slots, DS, DH);
+  if (e == 0) e = map_st3(&m3, planes + 3 * plane, slots, DS, DH);
+  if (e != 0) return e;
+  const size_t sr = smem_rows(DH, DS, L, g), sc = smem_cols(DH, DS, L, g);
+  if ((e = set_smem(scan_bwd_rows_wgmma<DH, DS>, sr)) != 0) return e;
+  if ((e = set_smem(scan_bwd_cols_wgmma<DH, DS>, sc)) != 0) return e;
+  const dim3 grid(static_cast<unsigned>(batch) * nc * groups, nrt);
+  scan_bwd_rows_wgmma<DH, DS><<<grid, kWgThreads, sr, s>>>(mx, mdy, mb, mc, m2, m3, gcs, rr, dCp,
+                                                          lp, H, L, nc, g, groups);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  scan_bwd_cols_wgmma<DH, DS><<<grid, kWgThreads, sc, s>>>(mx, mdy, mb, mc, m0, m1, gcs, ddtx, cc,
+                                                          qq, dBp, lp, H, L, nc, g, groups);
+  PTT_RETURN_LAUNCH_ERROR();
+}
+
+// Chunk U's launch: each chunk's cs into gcs and U into st.
+template <int DH, int DS>
+int launch_u(const bf16* dy, const bf16* C, const float* la, float* gcs, float* st, int batch,
+             int lp, int H, int L, cudaStream_t s) {
+  const int nc = lp / L;
+  const int g = heads_a_block(H, static_cast<long long>(batch) * nc), groups = (H + g - 1) / g;
+  CUtensorMap mdy, mc;
+  int e = map_x4(&mdy, dy, batch, lp, H, DH);
+  if (e == 0) e = map_bc3(&mc, C, batch, lp, DS);
+  if (e != 0) return e;
+  const size_t su = smem_chunk_u(DH, DS, L, g);
+  if ((e = set_smem(scan_bwd_chunk_u_wgmma<DH, DS>, su)) != 0) return e;
+  scan_bwd_chunk_u_wgmma<DH, DS><<<static_cast<unsigned>(batch) * nc * groups, kWgThreads, su, s>>>(
+      mdy, mc, la, gcs, st, lp, H, L, nc, g, groups);
+  PTT_RETURN_LAUNCH_ERROR();
+}
+
+}  // namespace wgb
+
+// The wgmma route's rule (ops/kernels/selective_scan.py:bwd_route): bf16,
+// dh and ds 64 or 128, chunks of whole 64-row tiles, 16-byte-aligned bases.
+inline bool wgmma_ok(int dtype, int dh, int ds, int L, const void* const* bases, int n) {
+  uintptr_t bits = 0;
+  for (int k = 0; k < n; ++k) bits |= reinterpret_cast<uintptr_t>(bases[k]);
+  return dtype == PTT_BF16 && (dh == 64 || dh == 128) && (ds == 64 || ds == 128) && L % 64 == 0 &&
+         bits % 16 == 0;
+}
+
+int launch_bwd_wgmma(const __nv_bfloat16* x, const float* la, const __nv_bfloat16* B,
+                     const __nv_bfloat16* C, const float* states, const __nv_bfloat16* dy,
+                     const float* dsf, __nv_bfloat16* ddtx, float* dla, __nv_bfloat16* dB,
+                     __nv_bfloat16* dC, float* scratch, int batch, int lp, int H, int dh, int ds,
+                     int L, cudaStream_t s) {
+  using bf = __nv_bfloat16;
+  const int nc = lp / L, nrt = L / 64;
+  const int g = wgb::heads_a_block(H, static_cast<long long>(batch) * nc * nrt);
+  const int groups = (H + g - 1) / g;
+  const size_t ncs = static_cast<size_t>(batch) * H * lp;
+  const size_t nst = static_cast<size_t>(batch) * nc * H * ds * dh;
+  const size_t npart = static_cast<size_t>(batch) * groups * lp * ds;
+  float* gcs = scratch;
+  float* st = gcs + ncs;
+  float* rr = st + nst;
+  float* cc = rr + ncs;
+  float* qq = cc + ncs;
+  float* dBp = qq + ncs;
+  float* dCp = dBp + npart;
+  bf* planes = reinterpret_cast<bf*>(dCp + npart);
+  int e;
+  if (dh == 64 && ds == 64)
+    e = wgb::launch_u<64, 64>(dy, C, la, gcs, st, batch, lp, H, L, s);
+  else if (dh == 64)
+    e = wgb::launch_u<64, 128>(dy, C, la, gcs, st, batch, lp, H, L, s);
+  else if (ds == 64)
+    e = wgb::launch_u<128, 64>(dy, C, la, gcs, st, batch, lp, H, L, s);
+  else
+    e = wgb::launch_u<128, 128>(dy, C, la, gcs, st, batch, lp, H, L, s);
+  if (e != 0) return e;
+  const size_t n = static_cast<size_t>(batch) * H * ds * dh;
+  scan_bwd_state_pass<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      gcs, st, dsf, batch, lp, H, dh, ds, L, states, planes);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  if (dh == 64 && ds == 64)
+    e = wgb::launch<64, 64>(x, B, C, dy, gcs, planes, rr, cc, qq, dBp, dCp, ddtx, batch, lp, H, L, s);
+  else if (dh == 64)
+    e = wgb::launch<64, 128>(x, B, C, dy, gcs, planes, rr, cc, qq, dBp, dCp, ddtx, batch, lp, H, L, s);
+  else if (ds == 64)
+    e = wgb::launch<128, 64>(x, B, C, dy, gcs, planes, rr, cc, qq, dBp, dCp, ddtx, batch, lp, H, L, s);
+  else
+    e = wgb::launch<128, 128>(x, B, C, dy, gcs, planes, rr, cc, qq, dBp, dCp, ddtx, batch, lp, H, L, s);
+  if (e != 0) return e;
+  scan_bwd_dla<<<dim3(nc, batch * H), kThreads, 0, s>>>(gcs, st, states, rr, cc, qq, dla, lp, H,
+                                                        dh, ds, L);
+  if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
+  const size_t nb = static_cast<size_t>(batch) * lp * ds;
+  scan_bwd_dbc<bf><<<static_cast<unsigned>((nb + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      dBp, dCp, dB, dC, batch, lp, groups, ds);
+  PTT_RETURN_LAUNCH_ERROR();
 }
 
 template <typename T>
@@ -1291,7 +2183,7 @@ int launch_bwd(const T* x, const float* la, const T* B, const T* C, const float*
   if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
   const size_t n = static_cast<size_t>(batch) * H * ds * dh;
   scan_bwd_state_pass<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      gcs, st, dsf, batch, lp, H, dh, ds, L);
+      gcs, st, dsf, batch, lp, H, dh, ds, L, nullptr, nullptr);
   if ((e = static_cast<int>(cudaGetLastError())) != 0) return e;
   scan_bwd_rows<T><<<dim3(nrt, nc, batch * H), kThreads, sr, s>>>(x, B, C, gcs, states, dy, rr,
                                                                   dCp, lp, H, dh, ds, L, R);
@@ -1368,16 +2260,23 @@ extern "C" int ptt_selective_scan(const void* dtx, const void* la, const void* B
 // dtx; dsf [batch, H, ds, dh] fp32 the final state's cotangent, or null for
 // zeros. Outputs ddtx like dtx, dla like la, dB and dC like B. scratch, the
 // wrapper's: cs and U / dS as the forward's, then r, c, q [batch, H, lp] and
-// the heads' dB and dC partials [batch, H, lp, ds], all fp32
-// (ops/kernels/selective_scan.py:bwd_scratch_floats).
+// the heads' dB and dC partials [batch, H, lp, ds], all fp32; tma 1 (the
+// wgmma route): cs, U / dS, r, c, q, the groups' dB and dC partials
+// [batch, groups, lp, ds] fp32, then the state pass's four bf16 planes of
+// [batch, lp / L, H, ds, dh] (ops/kernels/selective_scan.py:bwd_scratch_floats).
+// tma 1 takes the wgmma kernels (bf16, dh and ds 64 or 128, L a multiple of
+// 64, 16-byte-aligned dtx, B, C and dy); tma 0 the mma.sync (bf16) or
+// CUDA-core (fp32) kernels. The wrapper picks the route before the launch.
 extern "C" int ptt_selective_scan_bwd(const void* dtx, const void* la, const void* B,
                                       const void* C, const void* states, const void* dy,
                                       const void* dsf, void* ddtx, void* dla, void* dB,
                                       void* dC, void* scratch, int batch, int lp, int H,
-                                      int dh, int ds, int L, int dtype, void* stream) {
+                                      int dh, int ds, int L, int dtype, int tma, void* stream) {
   if (L < 16 || L > kMaxChunk || L % 16 != 0 || lp % L != 0 || dh % 8 != 0 ||
       ds % 8 != 0 || (dtype == PTT_BF16 && (dh > 128 || ds > 128)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const void* bases[4] = {dtx, B, C, dy};
+  if (tma && !wgmma_ok(dtype, dh, ds, L, bases, 4)) return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || H == 0 || lp == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* lf = static_cast<const float*>(la);
@@ -1385,6 +2284,13 @@ extern "C" int ptt_selective_scan_bwd(const void* dtx, const void* la, const voi
   const float* dsff = static_cast<const float*>(dsf);
   float* dlaf = static_cast<float*>(dla);
   float* scr = static_cast<float*>(scratch);
+  if (tma) {
+    using bf = __nv_bfloat16;
+    return launch_bwd_wgmma(static_cast<const bf*>(dtx), lf, static_cast<const bf*>(B),
+                            static_cast<const bf*>(C), sf, static_cast<const bf*>(dy), dsff,
+                            static_cast<bf*>(ddtx), dlaf, static_cast<bf*>(dB),
+                            static_cast<bf*>(dC), scr, batch, lp, H, dh, ds, L, s);
+  }
   if (dtype == PTT_F32)
     return launch_bwd(static_cast<const float*>(dtx), lf, static_cast<const float*>(B),
                       static_cast<const float*>(C), sf, static_cast<const float*>(dy), dsff,

@@ -25,6 +25,7 @@ import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from typing import Dict, Optional, Tuple
@@ -161,23 +162,54 @@ def sass_opcode_counts(opcode: str) -> Optional[Dict[str, int]]:
     warpgroup product) each kernel (mangled name) of the built library
     holds, from ``cuobjdump -sass``; None where the toolkit has no
     ``cuobjdump``."""
+    sass = _sass()
+    if sass is None:
+        return None
+    pattern = re.compile(rf"\b{opcode}\b")
+    counts, fn = {}, None
+    for ln in sass:
+        if "Function : " in ln:
+            fn = ln.split("Function : ", 1)[1].split()[0]
+            counts.setdefault(fn, 0)
+        elif fn is not None and opcode in ln and pattern.search(ln):
+            counts[fn] += 1
+    return counts
+
+
+_sass_lines: Optional[list] = None
+
+
+def _sass() -> Optional[list]:
+    """The lines of ``cuobjdump -sass`` over the built library's objects
+    (the library links them as they are), one process an object, all
+    started together; read once a process. None where the toolkit has
+    no ``cuobjdump``."""
+    global _sass_lines
+    if _sass_lines is not None:
+        return _sass_lines
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         tool = shutil.which("cuobjdump")
         if tool is None:
             return None
     so = os.path.join(BUILD_DIR, f"libpaddle_tpu_torch_{_key()}.so")
-    sass = subprocess.run([tool, "-sass", so], capture_output=True,
-                          text=True, check=True).stdout
-    counts, fn = {}, None
-    for ln in sass.splitlines():
-        m = re.search(r"Function : (\S+)", ln)
-        if m:
-            fn = m.group(1)
-            counts.setdefault(fn, 0)
-        elif fn is not None and re.search(rf"\b{opcode}\b", ln):
-            counts[fn] += 1
-    return counts
+    objs = sorted(glob.glob(so + ".objs/*.o")) or [so]
+    # each into a file of its own: a full pipe would stall the others
+    outs = [tempfile.TemporaryFile(mode="w+") for _ in objs]
+    procs = [subprocess.Popen([tool, "-sass", obj], stdout=out,
+                              stderr=subprocess.STDOUT, text=True)
+             for obj, out in zip(objs, outs)]
+    lines = []
+    for obj, out, proc in zip(objs, outs, procs):
+        proc.wait()
+        out.seek(0)
+        text = out.read()
+        out.close()
+        if proc.returncode != 0:
+            raise RuntimeError(f"cuobjdump -sass {obj} failed:\n{text}")
+        lines.extend(text.splitlines())
+    _sass_lines = lines
+    return lines
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -215,8 +247,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     # stream
     lib.ptt_selective_scan.argtypes = [P] * 8 + [I] * 7 + [P]
     # dtx, la, B, C, states, dy, dsf, ddtx, dla, dB, dC, scratch, batch, lp,
-    # H, dh, ds, L, dtype, stream
-    lib.ptt_selective_scan_bwd.argtypes = [P] * 12 + [I] * 7 + [P]
+    # H, dh, ds, L, dtype, tma, stream
+    lib.ptt_selective_scan_bwd.argtypes = [P] * 12 + [I] * 8 + [P]
     # q, kc, vc, k_scale, v_scale, tables, rows, valids, out, T, Hq, Hkv, D,
     # bs, width, scale, q_dtype, page_dtype, stream
     lib.ptt_ragged_paged_attn_quant.argtypes = [P] * 9 + [I] * 6 + [F, I, I, P]

@@ -22,7 +22,11 @@ Gradients: on CUDA a call that needs them goes through
 ``jax.vjp`` of the chunked form computes (``selective_scan.py:237``; no TPU
 kernel), from the fp32 state entering each chunk that the forward keeps.
 Its plain twin is :func:`scan_chunked_bwd_plain`, the same algorithm
-written out. On the CPU autograd differentiates the chunked twin.
+written out. On the CPU autograd differentiates the chunked twin. bf16 at
+head dim and d_state 64 or 128 on aligned bases takes the ``wgmma`` route
+(:func:`bwd_route`; a block walks a group of heads, :func:`bwd_head_group`),
+every other call the edge route (``mma.sync`` in bf16, CUDA cores in fp32);
+:func:`bwd_launch_plan` mirrors both routes' grids and shared memory.
 
 Single-token decode never scans: :func:`selective_scan_update` is the
 recurrence's one step, plain torch as in the reference.
@@ -43,7 +47,7 @@ __all__ = ["selective_scan", "scan_chunked", "scan_chunked_bwd",
            "scan_chunked_bwd_plain", "ScanFunction", "xla_selective_scan",
            "selective_scan_update", "ineligible_reason", "resolve_chunk",
            "launch_plan", "bwd_launch_plan", "bwd_ineligible_reason",
-           "launches", "launches_bwd"]
+           "bwd_route", "bwd_head_group", "launches", "launches_bwd"]
 
 #: kernel launches made by :func:`scan_chunked` (never by the twins)
 launches = 0
@@ -228,31 +232,127 @@ def bwd_tile_rows(L: int, dh: int, ds: int, esize: int) -> int:
     return 0
 
 
+# the wgmma route's tiled launches (``namespace wgb`` in the .cu)
+_WG_CONSUMERS = 128       # one warpgroup, and a producer warp
+_WG_FILL = 4 * 132        # two waves of two blocks an SM (``kFill``)
+_WG_MAX_GROUP = 16        # heads a block at most (``kMaxGroup``)
+_SMEM_ALIGN = 1024        # swizzle atoms' alignment slack (``kSmemAlign``)
+
+
+def bwd_route(x_shape, d_state: int, chunk: int, dtype,
+              aligned: bool = True) -> str:
+    """The backward's route (``wgmma_ok`` in the .cu): ``"wgmma"`` for bf16
+    at head dim and d_state 64 or 128, a chunk of whole 64-row tiles and
+    16-byte-aligned bases of dtx, B, C and dy (``aligned``); else
+    ``"edge"``: ``mma.sync`` in bf16, the CUDA cores in fp32."""
+    dh = int(tuple(x_shape)[-1])
+    if (dtype == torch.bfloat16 and dh in (64, 128)
+            and int(d_state) in (64, 128) and int(chunk) % 64 == 0
+            and aligned):
+        return "wgmma"
+    return "edge"
+
+
+def bwd_head_group(h: int, base: int) -> Tuple[int, int]:
+    """``(heads a block, groups)`` of the wgmma route's tiled launches
+    (``heads_a_block``): ``ceil(h / groups)`` heads for the fewest groups
+    that give ``base`` x groups >= two waves of two blocks an SM, at most
+    16 heads a block and no more groups than heads; the last group may be
+    smaller."""
+    groups = max(-(-_WG_FILL // base), -(-h // _WG_MAX_GROUP))
+    groups = min(groups, h)
+    g = -(-h // groups)
+    return g, -(-h // g)
+
+
+def _wg_stages(dh: int, ds: int) -> int:
+    """Item-ring stages (``stages``): 3 at 128 / 128, else 4."""
+    return 3 if (dh, ds) == (128, 128) else 4
+
+
+def _wg_smem(side: str, dh: int, ds: int, L: int, g: int) -> int:
+    """A tiled launch's dynamic shared memory (``smem_rows`` /
+    ``smem_cols``): the resident 64-row tile of C (rows) or B (cols), the
+    two-stage outer ring (B_j tiles; x_j tiles of a head), the item ring's
+    slot A (a dy tile) and slot B (ds x dh bf16), cs * log2(e) of the
+    group's heads, the row sums (rows), the barriers and the slack."""
+    S = _wg_stages(dh, ds)
+    outer = 2 * 64 * ds * 2 if side == "rows" else 2 * 64 * dh * 2
+    tiles = 64 * ds * 2 + outer + S * (64 * dh * 2 + ds * dh * 2)
+    sums = g * 64 * 4 if side == "rows" else 0
+    return tiles + g * L * 4 + sums + (5 + 2 * S) * 8 + _SMEM_ALIGN
+
+
+def _wg_smem_u(dh: int, ds: int, L: int, g: int) -> int:
+    """The wgmma route's chunk U (``smem_chunk_u``): the chunk's C, a
+    4-stage ring of 64-row dy pieces, two buffers of the scaled pieces'
+    hi and lo terms, the group's cs, the barriers and the slack."""
+    return L * ds * 2 + 8 * 64 * dh * 2 + g * L * 4 + 9 * 8 + _SMEM_ALIGN
+
+
 def bwd_launch_plan(bsz: int, lp: int, h: int, dh: int, ds: int, L: int,
-                    esize: int) -> dict:
-    """The backward's six launches (``launch_bwd`` in the .cu): tile rows
-    ``R``, and each launch's grid (x, y, z) and dynamic shared memory."""
+                    esize: int, route: Optional[str] = None) -> dict:
+    """The backward's six launches (``launch_bwd`` / ``launch_bwd_wgmma``
+    in the .cu): tile rows ``R``, each launch's grid (x, y, z), threads
+    and dynamic shared memory, the route (``route`` None: the shape's, on
+    aligned bases) and, on the wgmma route (chunk U and the two tiled
+    launches on ``wgmma``, 64-row tiles), the heads a block, the groups,
+    the ring's stages, blocks an SM by ``__launch_bounds__`` and the bytes
+    the dB / dC partials move (written once, read once)."""
+    if route is None:
+        route = bwd_route((bsz, lp, h, dh), ds, L,
+                          torch.bfloat16 if esize == 2 else torch.float32)
     R = bwd_tile_rows(L, dh, ds, esize)
-    nc, nrt = lp // L, -(-L // R) if R else 0
-    return dict(
-        rows=R,
+    nc = lp // L
+    plan = dict(
+        route=route, rows=R, threads=256,
         chunk_u=dict(grid=(nc, bsz, h), smem=_bwd_u_smem(L, dh, ds, R, esize)),
         passes=dict(grid=(-(-bsz * h * ds * dh // 256), 1, 1), smem=0),
-        rows_kernel=dict(grid=(nrt, nc, bsz * h),
-                         smem=_bwd_rows_smem(L, dh, ds, R, esize)),
-        cols_kernel=dict(grid=(nrt, nc, bsz * h),
-                         smem=_bwd_cols_smem(L, dh, ds, R, esize)),
-        dla=dict(grid=(nc, bsz * h, 1), smem=0),
-        dbc=dict(grid=(-(-bsz * lp * ds // 256), 1, 1), smem=0),
-        threads=256)
+        dla=dict(grid=(nc, bsz * h, 1), smem=0))
+    if route == "wgmma":
+        nrt = L // 64
+        gu, groups_u = bwd_head_group(h, bsz * nc)
+        plan.update(rows=64, chunk_u=dict(
+            grid=(bsz * nc * groups_u, 1, 1), threads=_WG_CONSUMERS + 32,
+            heads=gu, smem=_wg_smem_u(dh, ds, L, gu)))
+        g, groups = bwd_head_group(h, bsz * nc * nrt)
+        tiled = dict(grid=(bsz * nc * groups, nrt, 1),
+                     threads=_WG_CONSUMERS + 32,
+                     stages=_wg_stages(dh, ds),
+                     blocks_per_sm=2 if (dh, ds) == (64, 64) else 1)
+        plan.update(
+            heads=g, groups=groups,
+            rows_kernel=dict(tiled, smem=_wg_smem("rows", dh, ds, L, g)),
+            cols_kernel=dict(tiled, smem=_wg_smem("cols", dh, ds, L, g)),
+            dbc=dict(grid=(-(-bsz * lp * ds // 256), 1, 1), smem=0,
+                     parts=groups),
+            partial_bytes=2 * 2 * bsz * groups * lp * ds * 4)
+    else:
+        nrt = -(-L // R) if R else 0
+        plan.update(
+            heads=1, groups=h,
+            rows_kernel=dict(grid=(nrt, nc, bsz * h), threads=256,
+                             smem=_bwd_rows_smem(L, dh, ds, R, esize)),
+            cols_kernel=dict(grid=(nrt, nc, bsz * h), threads=256,
+                             smem=_bwd_cols_smem(L, dh, ds, R, esize)),
+            dbc=dict(grid=(-(-bsz * lp * ds // 256), 1, 1), smem=0, parts=h),
+            partial_bytes=2 * 2 * bsz * h * lp * ds * 4)
+    return plan
 
 
 def bwd_scratch_floats(bsz: int, lp: int, h: int, dh: int, ds: int,
-                       L: int) -> int:
-    """fp32 scratch the backward takes (``launch_bwd``'s carve): cs, each
-    chunk's U / dS, the r, c and q rows, and the heads' dB and dC."""
+                       L: int, route: str = "edge") -> int:
+    """fp32 scratch the backward takes (the .cu's carves): cs, each chunk's
+    U / dS, the r, c and q rows and the dB and dC partials (a head's on
+    the edge route, a group's on the wgmma route, which also keeps the
+    state pass's four bf16 planes of dS and S_prev: two floats an entry of
+    the states)."""
     n_cs = bsz * h * lp
-    return 5 * n_cs + (lp // L) * bsz * h * ds * dh + 2 * n_cs * ds
+    n_st = (lp // L) * bsz * h * ds * dh
+    if route == "wgmma":
+        groups = bwd_head_group(h, bsz * (lp // L) * (L // 64))[1]
+        return 4 * n_cs + n_st + 2 * bsz * groups * lp * ds + 2 * n_st
+    return 5 * n_cs + n_st + 2 * n_cs * ds
 
 
 def bwd_ineligible_reason(x_shape, d_state: int, chunk: int,
@@ -422,8 +522,9 @@ def _scan_launch(dtx, la_t, B, C, chunk: int):
 def scan_chunked_bwd(dtx, la_t, B, C, states, dy, ds_final, chunk: int):
     """The backward of :func:`scan_chunked` (see
     :func:`scan_chunked_bwd_plain`): ``(d_dtx, d_la_t, dB, dC)``. CPU
-    tensors take the twin; CUDA tensors launch the kernel, or raise for a
-    shape it cannot take."""
+    tensors take the twin; CUDA tensors launch the kernel on the route
+    :func:`bwd_route` picks from shape and alignment (passed as the C
+    entry's ``tma`` flag), or raise for a shape it cannot take."""
     global launches_bwd
     if dtx.device.type == "cpu":
         return scan_chunked_bwd_plain(dtx, la_t, B, C, states, dy, ds_final,
@@ -450,10 +551,18 @@ def scan_chunked_bwd(dtx, la_t, B, C, states, dy, ds_final, chunk: int):
             f"{tuple(la_t.shape)} {la_t.dtype}, B/C {tuple(B.shape)} "
             f"{B.dtype}/{C.dtype}, states {tuple(states.shape)}, dy "
             f"{tuple(dy.shape)} {dy.dtype} at chunk {chunk}")
+    route = bwd_route(dtx.shape, ds, chunk, dtx.dtype, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (dtx, B, C, dy)))
+    if route == "edge":
+        # the edge kernels copy rows with 16-byte cp.async: a misaligned
+        # operand is copied once into an aligned buffer first
+        dtx, B, C, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (dtx, B, C, dy))
     d_dtx = torch.empty_like(dtx)
     d_la = torch.empty_like(la_t)
     dB, dC = torch.empty_like(B), torch.empty_like(C)
-    scratch = torch.empty(bwd_scratch_floats(bsz, lp, h, dh, ds, chunk),
+    scratch = torch.empty(bwd_scratch_floats(bsz, lp, h, dh, ds, chunk,
+                                             route),
                           dtype=f32, device=dev)
     _launch.launch("ptt_selective_scan_bwd", dtx.data_ptr(), la_t.data_ptr(),
                    B.data_ptr(), C.data_ptr(), states.data_ptr(),
@@ -462,7 +571,7 @@ def scan_chunked_bwd(dtx, la_t, B, C, states, dy, ds_final, chunk: int):
                    d_dtx.data_ptr(), d_la.data_ptr(), dB.data_ptr(),
                    dC.data_ptr(), scratch.data_ptr(), bsz, lp, h, dh, ds,
                    int(chunk), _launch.DTYPE_CODE[dtx.dtype],
-                   _launch.stream_of(dev))
+                   int(route == "wgmma"), _launch.stream_of(dev))
     launches_bwd += 1
     return d_dtx, d_la, dB, dC
 

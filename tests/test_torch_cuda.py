@@ -1096,6 +1096,82 @@ def test_selective_scan_bwd_kernel_matches_twin(cuda_device, dtype, b, l, h,
         assert ok, (name, err)
 
 
+def _misaligned(t):
+    """``t``'s values in a buffer whose base is 2 bytes past a 16-byte
+    boundary (TMA cannot map it)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    v = buf[1:1 + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,dtype,b,l,h,dh,ds,chunk,misalign", [
+    # the wgmma route: the train shape's batch, length and widths with 7
+    # heads (4 head groups of 2, 2, 2 and 1: the group count does not
+    # divide H), and dh / ds at 128
+    ("wgmma", "bfloat16", 4, 2048, 7, 64, 64, 256, False),
+    ("wgmma", "bfloat16", 1, 500, 3, 128, 128, 128, False),
+    ("wgmma", "bfloat16", 2, 512, 5, 64, 128, 256, False),
+    ("wgmma", "bfloat16", 2, 384, 7, 128, 64, 128, False),
+    # the edge route: bf16 at head dim 32 and 24, a misaligned base, fp32
+    ("edge", "bfloat16", 2, 300, 3, 32, 32, 128, False),
+    ("edge", "bfloat16", 2, 256, 3, 24, 16, 64, False),
+    ("edge", "bfloat16", 2, 256, 3, 64, 64, 128, True),
+    ("edge", "float32", 2, 300, 3, 64, 64, 128, False)])
+def test_selective_scan_bwd_routes(cuda_device, route, dtype, b, l, h, dh,
+                                   ds, chunk, misalign):
+    """The backward on each route: (d_dtx, d_la, dB, dC) against
+    ``scan_chunked_bwd_plain`` and against autograd through the chunked
+    twin on the card (bf16 2e-2, fp32 1e-5, scaled as above), a second
+    launch bitwise; the route the wrapper picks is the plan's."""
+    x, dt, A, B, C = _scan_inputs(cuda_device, dtype, b, l, h, dh, ds,
+                                  seed=l + h)
+    args = _scan_padded(x, dt, A, B, C, chunk)
+    lp = args[0].shape[1]
+    rs = np.random.RandomState(h + ds)
+    dy = torch.from_numpy(rs.randn(*args[0].shape).astype(np.float32)).to(
+        cuda_device, args[0].dtype)
+    dy[:, l:] = 0
+    dsf = torch.from_numpy(rs.randn(b, h, ds, dh).astype(np.float32)).to(
+        cuda_device)
+    with torch.no_grad():
+        _, _, states = pt_ss._scan_launch(*args, chunk)
+    kargs = [_misaligned(t) if misalign else t
+             for t in (args[0], args[2], args[3], dy)]
+    aligned = all(t.data_ptr() % 16 == 0 for t in kargs)
+    assert aligned != misalign
+    assert pt_ss.bwd_route(args[0].shape, ds, chunk, args[0].dtype,
+                           aligned) == route
+    plan = pt_ss.bwd_launch_plan(b, lp, h, dh, ds, chunk,
+                                 args[0].element_size(),
+                                 route=None if aligned else "edge")
+    assert plan["route"] == route
+    if route == "wgmma" and h == 7 and dh == 64:
+        assert h % plan["groups"] != 0
+    bwd = (kargs[0], args[1], kargs[1], kargs[2], states, kargs[3], dsf,
+           chunk)
+    with torch.no_grad():
+        pt_ss.launches_bwd = 0
+        got = pt_ss.scan_chunked_bwd(*bwd)
+        again = pt_ss.scan_chunked_bwd(*bwd)
+        assert pt_ss.launches_bwd == 2
+        want = pt_ss.scan_chunked_bwd_plain(*args, states, dy, dsf, chunk)
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    ty, ts = pt_ss._scan_reference(*leaves, chunk)
+    ((ty.float() * dy.float()).sum() + (ts * dsf).sum()).backward()
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, g, g2, w, a in zip(("d_dtx", "d_la", "dB", "dC"), got, again,
+                                 want, leaves):
+        assert torch.equal(g, g2), name
+        assert g.dtype == w.dtype, name
+        ok, err = _scaled_ok(g, w, tol)
+        assert ok, (name, "plain", err)
+        ok, err = _scaled_ok(g, a.grad, tol)
+        assert ok, (name, "autograd", err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_selective_scan_gradients_on_the_card(cuda_device, dtype):

@@ -298,12 +298,31 @@ def _bwd_layouts(L, dh, ds, R, esize):
     return [sum(_a16(n) for n in t) for t in (u, rows, cols)]
 
 
+def _wg_layouts(dh, ds, L, g):
+    """The wgmma route's two tiled launches' shared memory, term by term
+    (``csrc/selective_scan.cu``, ``wgb::smem_rows`` / ``smem_cols``)."""
+    S = 3 if (dh, ds) == (128, 128) else 4
+    bars = (5 + 2 * S) * 8
+    rows = [64 * ds * 2, 2 * 64 * ds * 2, S * 64 * dh * 2, S * ds * dh * 2,
+            g * L * 4, g * 64 * 4, bars, 1024]
+    cols = [64 * ds * 2, 2 * 64 * dh * 2, S * 64 * dh * 2, S * ds * dh * 2,
+            g * L * 4, bars, 1024]
+    return sum(rows), sum(cols)
+
+
+# (heads a block, groups) of the wgmma route's tiled launches at the plan
+# shapes that take it: bench_ssm_pretrain's 5 groups (10 heads a block, the
+# last 8) and a head a block at the widest tiles
+_WG_GROUPS = {(4, 2048, 48, 64, 64, 256, 2): (10, 5),
+              (2, 2048, 3, 128, 128, 256, 2): (1, 3)}
+
+
 @pytest.mark.parametrize("b,lp,h,dh,ds,L,esize,rows", [
     # the smoke's two shapes: serve-ssm's prefill (fp32) and
     # bench_ssm_pretrain's (bf16)
     (1, 1024, 64, 32, 16, 128, 4, 64),
     (4, 2048, 48, 64, 64, 256, 2, 64),
-    # bf16 at the widest tiles: 64-row tiles do not fit, 32 do
+    # bf16 at the widest tiles: 64-row edge tiles do not fit, 32 do
     (2, 2048, 3, 128, 128, 256, 2, 32),
     # a chunk under one tile; a chunk of a tile and a quarter
     (1, 48, 3, 32, 16, 48, 4, 32),
@@ -311,23 +330,146 @@ def _bwd_layouts(L, dh, ds, R, esize):
     # fp32 at a wide head: 8-row tiles (no tensor-core tile in fp32)
     (1, 16, 2, 392, 104, 16, 4, 8)])
 def test_scan_bwd_launch_plan(b, lp, h, dh, ds, L, esize, rows):
-    """Tile rows, grids and shared memory of the backward's six launches,
-    against the layouts written out term by term; each under 227 KB."""
+    """Route, tile rows, grids and shared memory of the backward's six
+    launches, against the layouts written out term by term; each under
+    227 KB. The edge route (``rows``: its tiles): a block a (tile, chunk,
+    batch x head); the wgmma route (bf16 at 64 / 128 widths, 64-row
+    tiles): a block a (batch x chunk x head group, tile), the longest
+    tiles first, the dB / dC partials a group's."""
+    group = _WG_GROUPS.get((b, lp, h, dh, ds, L, esize))
+    route = "edge" if group is None else "wgmma"
+    assert pss.bwd_tile_rows(L, dh, ds, esize) == rows
+    if route == "wgmma":
+        rows = 64
     plan = pss.bwd_launch_plan(b, lp, h, dh, ds, L, esize)
+    assert plan["route"] == route
     assert plan["rows"] == rows
-    u, r, c = _bwd_layouts(L, dh, ds, rows, esize)
-    assert (plan["chunk_u"]["smem"], plan["rows_kernel"]["smem"],
-            plan["cols_kernel"]["smem"]) == (u, r, c)
-    assert max(u, r, c) <= SMEM
-    nc, nrt = lp // L, -(-L // rows)
-    assert plan["chunk_u"]["grid"] == (nc, b, h)
-    assert plan["rows_kernel"]["grid"] == plan["cols_kernel"]["grid"] \
-        == (nrt, nc, b * h)
+    nc = lp // L
+    if route == "wgmma":
+        gu, groups_u = pss.bwd_head_group(h, b * nc)
+        u = (L * ds * 2 + 4 * 64 * dh * 2 + 2 * 2 * 64 * dh * 2 + gu * L * 4
+             + 9 * 8 + 1024)
+        assert plan["chunk_u"]["grid"] == (b * nc * groups_u, 1, 1)
+        assert plan["chunk_u"]["threads"] == 160
+    else:
+        u = _bwd_layouts(L, dh, ds, rows, esize)[0]
+        assert plan["chunk_u"]["grid"] == (nc, b, h)
+    assert plan["chunk_u"]["smem"] == u and u <= SMEM
     assert plan["passes"]["grid"] == (-(-b * h * ds * dh // 256), 1, 1)
     assert plan["dla"]["grid"] == (nc, b * h, 1)
     assert plan["dbc"]["grid"] == (-(-b * lp * ds // 256), 1, 1)
+    n_cs, n_st = b * h * lp, nc * b * h * ds * dh
+    if route == "wgmma":
+        g, groups = group
+        nrt = L // 64
+        assert (plan["heads"], plan["groups"]) == (g, groups)
+        r, c = _wg_layouts(dh, ds, L, g)
+        assert (plan["rows_kernel"]["smem"], plan["cols_kernel"]["smem"]) \
+            == (r, c)
+        for k in ("rows_kernel", "cols_kernel"):
+            assert plan[k]["grid"] == (b * nc * groups, nrt, 1)
+            assert plan[k]["threads"] == 160
+        assert plan["dbc"]["parts"] == groups
+        assert plan["partial_bytes"] == 16 * b * groups * lp * ds
+        assert pss.bwd_scratch_floats(b, lp, h, dh, ds, L, route) == \
+            4 * n_cs + n_st + 2 * b * groups * lp * ds + 2 * n_st
+    else:
+        _, r, c = _bwd_layouts(L, dh, ds, rows, esize)
+        assert (plan["rows_kernel"]["smem"], plan["cols_kernel"]["smem"]) \
+            == (r, c)
+        nrt = -(-L // rows)
+        assert plan["rows_kernel"]["grid"] == plan["cols_kernel"]["grid"] \
+            == (nrt, nc, b * h)
+        assert (plan["heads"], plan["groups"], plan["dbc"]["parts"]) \
+            == (1, h, h)
+        assert plan["partial_bytes"] == 16 * b * h * lp * ds
+    assert max(r, c) <= SMEM
     assert pss.bwd_scratch_floats(b, lp, h, dh, ds, L) == \
-        5 * b * h * lp + nc * b * h * ds * dh + 2 * b * h * lp * ds
+        5 * n_cs + n_st + 2 * n_cs * ds
+
+
+@pytest.mark.parametrize("shape,ds,chunk,dtype,aligned,route", [
+    ((4, 2048, 48, 64), 64, 256, torch.bfloat16, True, "wgmma"),
+    ((2, 512, 3, 128), 64, 128, torch.bfloat16, True, "wgmma"),
+    ((2, 512, 3, 64), 128, 64, torch.bfloat16, True, "wgmma"),
+    ((4, 2048, 48, 64), 64, 256, torch.bfloat16, False, "edge"),
+    ((4, 2048, 48, 64), 64, 256, torch.float32, True, "edge"),
+    ((2, 512, 3, 96), 64, 128, torch.bfloat16, True, "edge"),
+    ((2, 512, 3, 32), 32, 128, torch.bfloat16, True, "edge"),
+    ((2, 512, 3, 64), 16, 128, torch.bfloat16, True, "edge"),
+    ((2, 512, 3, 64), 64, 96, torch.bfloat16, True, "edge"),
+    ((2, 512, 3, 64), 64, 32, torch.bfloat16, True, "edge")])
+def test_scan_bwd_route(shape, ds, chunk, dtype, aligned, route):
+    """The route rule (``wgmma_ok`` in the .cu): bf16 at head dim and
+    d_state 64 or 128, a chunk of whole 64-row tiles, aligned bases;
+    every other call the edge route. The plan names the same route."""
+    assert pss.bwd_route(shape, ds, chunk, dtype, aligned) == route
+    b, l, h, dh = shape
+    esize = 2 if dtype == torch.bfloat16 else 4
+    plan = pss.bwd_launch_plan(b, l, h, dh, ds, chunk, esize,
+                               route=None if aligned else "edge")
+    assert plan["route"] == route
+
+
+@pytest.mark.parametrize("h,base,group", [
+    (48, 128, (10, 5)),    # the train shape: 5 groups do not divide 48
+    (7, 128, (2, 4)),      # groups of 2, 2, 2 and 1
+    (17, 100, (3, 6)),     # the last group 2 heads
+    (3, 8, (1, 3)),        # few blocks: a head a block
+    (48, 1000, (16, 3)),   # the grid fills at one group: 16 heads at most
+    (64, 1, (1, 64))])
+def test_scan_bwd_head_group(h, base, group):
+    """Heads a block and groups (``heads_a_block``): the fewest groups
+    with base x groups >= 4 x 132 blocks, at most 16 heads a block, no more
+    groups than heads; every head in exactly one group."""
+    g, groups = pss.bwd_head_group(h, base)
+    assert (g, groups) == group
+    assert g <= 16 and (groups - 1) * g < h <= groups * g
+
+
+def test_scan_bwd_wgmma_smem_fits():
+    """The wgmma route's launches (chunk U and the two tiled launches) fit
+    a block's shared memory at every (head dim, d_state) it takes, every
+    chunk of whole 64-row tiles and every group size; at 64 / 64 two tiled
+    blocks fit an SM (228 KB, 1 KB a block reserved), as
+    ``__launch_bounds__`` asks."""
+    for dh in (64, 128):
+        for ds in (64, 128):
+            for L in (64, 128, 192, 256):
+                for g in range(1, 17):
+                    r, c = _wg_layouts(dh, ds, L, g)
+                    assert max(r, c) <= SMEM, (dh, ds, L, g)
+                    u = (L * ds * 2 + 8 * 64 * dh * 2 + g * L * 4 + 9 * 8
+                         + 1024)
+                    assert u <= SMEM, (dh, ds, L, g)
+                    if (dh, ds) == (64, 64):
+                        assert 2 * (max(r, c) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("shape,ds,chunk,dtype,match", [
+    ((1, 64, 4, 136), 16, 64, torch.bfloat16, "head_dim 136 or d_state 16 > 128"),
+    ((2, 2048, 3, 128), 256, 256, torch.bfloat16, "d_state 256 > 128"),
+    ((2, 512, 3, 128), 128, 128, torch.float32, "shared memory"),
+    ((2, 2048, 3, 64), 64, 256, torch.float32, "shared memory"),
+    ((1, 64, 4, 16), 16, 8, torch.float32, "chunk 8")])
+def test_scan_refuses(shape, ds, chunk, dtype, match):
+    """What the kernel refuses: a bf16 head dim or d_state past 128 (the
+    tensor-core tiles), shared memory past 227 KB, a chunk under 16."""
+    assert match in pss.ineligible_reason(shape, ds, chunk, dtype)
+
+
+@pytest.mark.parametrize("shape,ds,chunk,dtype", [
+    ((1, 1023, 64, 32), 16, 128, torch.float32),
+    ((4, 2048, 48, 64), 64, 256, torch.bfloat16),
+    ((2, 300, 3, 64), 64, 128, torch.float32),
+    ((2, 100, 3, 32), 16, 32, torch.float32),
+    ((2, 512, 3, 128), 128, 128, torch.bfloat16),
+    ((2, 2048, 3, 128), 128, 256, torch.bfloat16),
+    ((2, 2048, 3, 32), 16, 256, torch.float32),
+    ((1, 64, 4, 256), 16, 64, torch.float32)])
+def test_scan_takes(shape, ds, chunk, dtype):
+    """The path shapes, the card tests' and an fp32 head dim of 256."""
+    assert pss.ineligible_reason(shape, ds, chunk, dtype) is None
 
 
 @pytest.mark.parametrize("shape,ds,chunk,dtype,match", [
