@@ -83,14 +83,19 @@ def set_flags(values: Dict[str, Any]) -> None:
         _FLAGS[name] = value
 
 
-# serving options the engine reads. serve_kv_quant ("off", "int8", "fp8",
-# "auto"/"on" = int8) and serve_weight_quant (weight-only int8 projections)
-# are ported; the port raises NotImplementedError for every non-default
-# value of the others until its ROADMAP item lands
+# serving options the engine reads: prompt-lookup drafts a decoding
+# sequence carries (0 = off), the refcounted prefix cache, quantized KV pages
+# ("off", "int8", "fp8", "auto"/"on" = int8), the host-RAM KV tier with its
+# byte budget (whole blocks; under one block the tier has no room and
+# allocation evicts) and whether a parked slot's restore is staged one step
+# ahead (off: restored inline, the same tokens one step earlier), and
+# weight-only int8 projections
 define_flag("serve_spec_tokens", 0)
 define_flag("serve_prefix_cache", False)
 define_flag("serve_kv_quant", "off")
 define_flag("serve_kv_host_tier", False)
+define_flag("serve_kv_host_bytes", 1 << 30)
+define_flag("serve_kv_restore_ahead", True)
 define_flag("serve_weight_quant", False)
 
 # the fused decoder block (ops/kernels/fused_block.py) in LlamaDecoderLayer:

@@ -54,19 +54,32 @@ handoff leaves one engine with :meth:`~GenerationEngine.export_request` and
 enters another with :meth:`~GenerationEngine.import_request`
 (``inference/kv_handoff.py``), a hybrid's per-slot state with it.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item, in both modes and for hybrids): speculative decode
-(``spec_tokens > 0``), the prefix cache, the host KV tier; so
-:meth:`~GenerationEngine.spillable_blocks`,
-:meth:`~GenerationEngine.spill_paused` and
-:meth:`~GenerationEngine.release_prefix_cache` are 0.
+Speculative decode, the prefix cache and the host-RAM KV tier, as in the
+reference (``engine.py:31-44``): with ``spec_tokens > 0`` the compiled step
+carries, for each decoding sequence, up to ``spec_tokens`` draft tokens
+proposed by prompt lookup (the context's trailing n-gram matched against
+the request's own prompt and output; no second model), verified as one
+chunk; the accepted run is emitted in the same step (it comes back in the
+step's one host read, beside the tokens) and the KV cursor rewinds over the
+rejected tail, so greedy and seeded streams equal non-speculative decode.
+``prefix_cache`` links a new prompt onto pages an earlier request wrote
+(:meth:`~paddle_tpu_torch.inference.paged_cache.PagedKVCache.adopt_prefix`)
+and prefill resumes past the linked run. ``host_tier`` (with
+``host_tier_bytes`` and ``restore_ahead``) spills cold prefix pages and
+paused requests' pages to host RAM instead of evicting them;
+:meth:`~GenerationEngine.spill_paused` parks, and the step's restore pass
+stages a resumed slot's pages one step ahead (or restores them inline with
+``restore_ahead`` off). All three are features of the compiled step: in
+eager mode ``spec_tokens`` is kept and unused and the prefix cache is
+never consulted, as in the reference, and the tier is turned off with a
+warning; a hybrid model turns all three off with the reference's warnings.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -125,12 +138,11 @@ class GenerationRequest:
         # a paused request keeps its slot and KV pages but contributes no
         # tokens (the server's stream backpressure)
         self.paused = False
-
-
-def _unported(option: str, item: str):
-    return NotImplementedError(
-        f"GenerationEngine({option}) is not ported to paddle_tpu_torch yet "
-        f"(ROADMAP.md {item})")
+        # the prompt-lookup proposer's state: {ngram -> end index of its
+        # latest occurrence} over prompt + output, 3-grams then 2-grams,
+        # built incrementally
+        self._ngram_idx: Tuple[dict, dict] = ({}, {})
+        self._ngram_pos = 0
 
 
 class GenerationEngine:
@@ -138,7 +150,8 @@ class GenerationEngine:
                  num_blocks=None, mode="auto", prefill_chunk=64,
                  max_tokens_per_step=None, token_bucket_floor=8,
                  spec_tokens=None, prefix_cache=None, kv_quant=None,
-                 weight_quant=None, host_tier=None, use_kernel=True):
+                 weight_quant=None, host_tier=None, host_tier_bytes=None,
+                 restore_ahead=None, use_kernel=True):
         if mode not in ("auto", "compiled", "eager"):
             raise ValueError(f"mode must be 'auto', 'compiled' or 'eager', "
                              f"got {mode!r}")
@@ -157,14 +170,21 @@ class GenerationEngine:
             raise NotImplementedError(
                 f"GenerationEngine(mode='compiled'): {reason} (ROADMAP.md "
                 f"A.8/A.9)")
-        for name, value, default, item in (
-                ("spec_tokens", spec_tokens, "serve_spec_tokens", "A.6"),
-                ("prefix_cache", prefix_cache, "serve_prefix_cache", "A.6"),
-                ("host_tier", host_tier, "serve_kv_host_tier", "A.7")):
-            if value is None:
-                value = flags.flag(default)
-            if value not in (None, False, 0, "off", "none"):
-                raise _unported(f"{name}={value!r}", item)
+        if spec_tokens is None:
+            spec_tokens = flags.flag("serve_spec_tokens")
+        self.spec_tokens = max(0, int(spec_tokens))
+        if prefix_cache is None:
+            prefix_cache = flags.flag("serve_prefix_cache")
+        self._prefix_on = bool(prefix_cache)
+        if host_tier is None:
+            host_tier = flags.flag("serve_kv_host_tier")
+        self._tier_on = bool(host_tier)
+        if host_tier_bytes is None:
+            host_tier_bytes = flags.flag("serve_kv_host_bytes")
+        self._host_tier_bytes = int(host_tier_bytes)
+        if restore_ahead is None:
+            restore_ahead = flags.flag("serve_kv_restore_ahead")
+        self._restore_ahead = bool(restore_ahead)
         if kv_quant is None:
             kv_quant = flags.flag("serve_kv_quant")
         self.kv_quant = _kvq.resolve_mode(kv_quant)
@@ -187,6 +207,19 @@ class GenerationEngine:
         n_kv_layers = cfg.num_hidden_layers
         if self.is_hybrid:
             n_kv_layers = sum(1 for sp in self._ssm_specs if sp is None)
+            if self.spec_tokens > 0:
+                _warn_once(
+                    "speculative decode",
+                    "SSM recurrent state cannot roll back rejected drafts; "
+                    "forcing spec_tokens=0 for hybrid models")
+                self.spec_tokens = 0
+            if self._prefix_on:
+                _warn_once(
+                    "prefix cache",
+                    "linked KV pages carry no SSM recurrent state, so a "
+                    "prefix hit would skip the scan that builds it; "
+                    "disabling for hybrid models")
+                self._prefix_on = False
             if self.kv_quant is not None:
                 _warn_once(
                     "kv quant",
@@ -194,6 +227,13 @@ class GenerationEngine:
                     "pools and their scan state is full-width; disabling "
                     "quantized KV pages for hybrid models")
                 self.kv_quant = None
+            if self._tier_on:
+                _warn_once(
+                    "kv host tier",
+                    "parked KV pages carry no SSM recurrent state and "
+                    "hybrid prefix caching is already off; disabling the "
+                    "host tier for hybrid models")
+                self._tier_on = False
         if mode == "eager":
             # quantized pools and int8 weights are compiled-step features
             if self.kv_quant is not None:
@@ -210,12 +250,23 @@ class GenerationEngine:
                     "extracted params; the eager walk uses the model's own "
                     "full-width weights — disabling")
                 self.weight_quant = False
+            if self._tier_on:
+                _warn_once(
+                    "kv host tier",
+                    "spill/restore is a compiled-step feature (the eager "
+                    "walk is the parity oracle and stays single-tier); "
+                    "disabling in eager mode")
+                self._tier_on = False
         dtype = to_torch_dtype(cfg.dtype)
         self.cache = PagedKVCache(
             n_kv_layers, num_blocks, block_size,
             cfg.num_key_value_heads, cfg.head_dim, max_seqs, dtype=dtype,
             blocks_per_seq=_ds.bucket(blocks_per_seq), device=self.device,
-            quant=self.kv_quant)
+            quant=self.kv_quant,
+            host_tier_bytes=self._host_tier_bytes if self._tier_on else None)
+        # staged restores: slot -> the planes whose host-to-device copy was
+        # issued last step, completed before planning
+        self._pending_restore: Dict[int, object] = {}
         # per-slot recurrent state, [max_seqs + 1, ...]: the conv window in
         # the model dtype, the SSD state fp32; the last row is the pads'
         self._sstate = None
@@ -241,14 +292,19 @@ class GenerationEngine:
         self._rng = np.random.RandomState(0)   # eager host sampling
         self.max_seqs = max_seqs
         self.prefill_chunk = max(1, int(prefill_chunk))
-        self.max_tokens_per_step = int(max_tokens_per_step
-                                       or max_seqs + self.prefill_chunk)
+        self.max_tokens_per_step = int(
+            max_tokens_per_step
+            or max_seqs * (1 + self.spec_tokens) + self.prefill_chunk)
         self._tok_floor = max(1, int(token_bucket_floor))
         self._seed_counter = 0
         self._reaped: List[GenerationRequest] = []
         self.stats = {"steps": 0, "step_time_s": 0.0, "decode_tokens": 0,
                       "prefill_tokens": 0, "occupancy_sum": 0.0,
-                      "decode_rows": 0}
+                      # speculative decode
+                      "decode_rows": 0, "spec_drafted": 0,
+                      "spec_accepted": 0, "spec_rollbacks": 0,
+                      # prefix cache, counted in tokens
+                      "prefix_lookup_tokens": 0, "prefix_hit_tokens": 0}
         if mode == "compiled":
             self._params = _ds.extract_params(
                 model, weight_quant=self.weight_quant)
@@ -276,8 +332,25 @@ class GenerationEngine:
         slot = self.cache.allocate_slot()
         if slot is None:
             return False
+        matched = 0
+        if self._prefix_on and self.mode == "compiled":
+            n = len(request.input_ids)
+            matched = self.cache.adopt_prefix(slot, request.input_ids)
+            self.stats["prefix_lookup_tokens"] += n
+            self.stats["prefix_hit_tokens"] += min(matched, n - 1)
+            # re-validate the admission estimate against what the link
+            # covered: peeked entries hold no reference and may have been
+            # evicted since; capped at the pool, so an over-long request
+            # still runs alone rather than wedging the queue
+            total = min(n + int(request.max_new_tokens), self.max_seq_len)
+            need = (min(-(-total // self.cache.block_size),
+                        self.cache.num_blocks)
+                    - len(self.cache._tables[slot]))
+            if self.cache.available_blocks < need:
+                self.cache.free_slot(slot)  # unlinks the adopted pages
+                return False
         if not self.cache.ensure_capacity(slot, len(request.input_ids)):
-            self.cache.free_slot(slot)
+            self.cache.free_slot(slot)      # also unlinks adopted pages
             return False
         request.slot = slot
         if request.seed is None:
@@ -285,8 +358,11 @@ class GenerationEngine:
             self._seed_counter += 1
         self._requests[request.request_id] = request
         self._slot_req[slot] = request
-        request._prompt_pos = 0
-        self.cache.seq_lens[slot] = 0
+        # resume prefill past the linked prefix; the last prompt token
+        # always runs again, so that there are logits to sample from
+        resume = min(matched, len(request.input_ids) - 1)
+        request._prompt_pos = resume
+        self.cache.seq_lens[slot] = resume
         if self.is_hybrid:
             # both modes: the chunked scan over the whole prompt installs
             # the final state at the slot; decode is then a recurrence
@@ -299,6 +375,12 @@ class GenerationEngine:
         req.finished = True
         if req.finish_reason is None:
             req.finish_reason = reason
+        if self._prefix_on and self.mode == "compiled":
+            # index the full blocks of prompt + output before the pages go
+            # back: the next request with this prefix links them
+            toks = req.input_ids + req.output_ids
+            valid = min(int(self.cache.seq_lens[req.slot]), len(toks))
+            self.cache.register_prefix(req.slot, toks, valid)
         if self._sstate is not None:
             # completions and evictions alike hand the slot back zeroed: a
             # readmitted slot never sees an earlier request's history
@@ -329,25 +411,56 @@ class GenerationEngine:
 
     def estimated_blocks(self, req: GenerationRequest) -> int:
         """Admission estimate: KV blocks for the whole prompt and the full
-        requested output, capped at the serving max length (no prefix
-        cache to peek, A.6)."""
+        requested output, capped at the serving max length. With the prefix
+        cache on, blocks the cache can link are not new allocations: the
+        estimate peeks the index's resident run (a spilled hit still needs
+        blocks to restore into), keeping one block for the possible
+        copy-on-write. The peek takes no reference; :meth:`add_request`
+        re-validates against what the link covered."""
         total = min(len(req.input_ids) + int(req.max_new_tokens),
                     self.max_seq_len)
-        return -(-total // self.cache.block_size)
+        blocks = -(-total // self.cache.block_size)
+        if self._prefix_on and self.mode == "compiled":
+            cached = (self.cache.peek_prefix_resident(req.input_ids)
+                      // self.cache.block_size)
+            blocks = max(1, blocks - max(0, cached - 1))
+        return blocks
 
     def spillable_blocks(self) -> int:
-        """Device blocks a spill pass could free: 0 without a host tier
-        (A.7)."""
-        return 0
+        """Device blocks a spill pass could free right now: paused
+        requests' parkable page runs, capped by the host tier's room (0
+        without a tier). The server's admission adds these to
+        ``available_blocks``."""
+        cache = self.cache
+        if cache.host_tier is None:
+            return 0
+        total = sum(cache.spillable_suffix(slot)
+                    for slot, req in self._slot_req.items()
+                    if req.paused and slot not in self._pending_restore)
+        return min(total, cache.host_tier.available_blocks)
 
     def spill_paused(self, max_blocks: Optional[int] = None) -> int:
-        """Park paused requests' pages in the host tier: 0 blocks freed
-        without one (A.7)."""
-        return 0
+        """Park paused requests' pages in the host tier (pinned), freeing
+        device blocks for admission; the server calls this under pressure.
+        Returns the blocks freed."""
+        cache = self.cache
+        if cache.host_tier is None:
+            return 0
+        freed = 0
+        for slot in sorted(self._slot_req):
+            if max_blocks is not None and freed >= max_blocks:
+                break
+            req = self._slot_req[slot]
+            if not req.paused or slot in self._pending_restore:
+                continue
+            freed += cache.spill_slot(slot)
+        return freed
 
     def release_prefix_cache(self) -> int:
-        """Drop the prefix index's page holds: 0 without an index (A.6)."""
-        return 0
+        """Drop the prefix index and its page holds, both tiers (leak
+        drills call this before asserting ``free_blocks == num_blocks``).
+        Returns the entries dropped."""
+        return self.cache.clear_prefix()
 
     def export_request(self, request_id):
         """Handoff, sending side: the request's KV pages, generation state
@@ -573,30 +686,108 @@ class GenerationEngine:
         for req in survivors:
             self._reserve_next(req)
 
+    # -- speculative drafts ----------------------------------------------
+    def _propose_drafts(self, req: GenerationRequest, k: int) -> List[int]:
+        """Prompt-lookup draft proposal (``engine.py:752-789``): match the
+        context's trailing 3-gram (then 2-gram) against an incrementally
+        built index of the request's own prompt and output and return the
+        continuation after its latest occurrence, extended periodically
+        when the match sits fewer than ``k`` tokens from the end (the
+        context is cycling with that period)."""
+        if k <= 0:
+            return []
+        ctx = req.input_ids + req.output_ids
+        n = len(ctx)
+        if n < 2:
+            return []
+        idx3, idx2 = req._ngram_idx
+        # index the n-grams ending strictly before the query position n-1
+        for e in range(req._ngram_pos, n - 1):
+            if e >= 1:
+                idx2[(ctx[e - 1], ctx[e])] = e
+            if e >= 2:
+                idx3[(ctx[e - 2], ctx[e - 1], ctx[e])] = e
+        req._ngram_pos = n - 1
+        p = None
+        if n >= 3:
+            p = idx3.get((ctx[n - 3], ctx[n - 2], ctx[n - 1]))
+        if p is None:
+            p = idx2.get((ctx[n - 2], ctx[n - 1]))
+        if p is None:
+            return []
+        period = (n - 1) - p
+        return [ctx[p + 1 + (i % period)] for i in range(k)]
+
     # -- the compiled step ----------------------------------------------
+    def _restore_pass(self) -> None:
+        """The host tier's restores, before planning (``engine.py:790-824``):
+        complete the restores staged last step (their copies ran beside
+        that step), then stage the next round — every resumed slot still
+        parked — or, with ``restore_ahead`` off, restore it inline so that
+        it decodes this step."""
+        cache = self.cache
+        if cache.host_tier is None:
+            return
+        for slot, staged in list(self._pending_restore.items()):
+            if slot not in self._slot_req or cache.slot_spilled(slot) == 0:
+                del self._pending_restore[slot]     # finished or evicted
+                continue
+            if cache.restore_slot(slot, staged=staged):
+                del self._pending_restore[slot]
+            # else the pool is still too tight: keep the staged planes
+        for slot in sorted(self._slot_req):
+            req = self._slot_req[slot]
+            if (req.paused or slot in self._pending_restore
+                    or cache.slot_spilled(slot) == 0):
+                continue
+            if self._restore_ahead:
+                staged = cache.stage_restore(slot)
+                if staged is not None:
+                    self._pending_restore[slot] = staged
+            else:
+                cache.restore_slot(slot)
+
     def _plan_step(self):
         """This step's packed work: every decoding sequence contributes its
-        pending token, then the remaining token budget goes to prompt
-        chunks in slot order. Entries are ``(req, start, chunk, n_out)``
-        with ``n_out`` the number of trailing positions that sample (0 for
-        a prompt chunk that does not finish the prompt)."""
+        pending token and up to ``spec_tokens`` drafts (a verify chunk),
+        then the remaining token budget goes to prompt chunks in slot
+        order. Entries are ``(req, start, chunk, n_out, n_spec)``: ``n_out``
+        the number of trailing positions that sample (0 for a prompt chunk
+        that does not finish the prompt), ``n_spec`` the number of the
+        chunk's tokens that are unverified drafts."""
         cache = self.cache
         entries = []
         budget = self.max_tokens_per_step
+        spec_k = self.spec_tokens
         for s in sorted(self._slot_req):
             req = self._slot_req[s]
             if req.paused:          # backpressured: holds pages, no work
                 continue
-            if req._prompt_pos >= len(req.input_ids) and budget > 0:
-                start = int(cache.seq_lens[s])
-                if not cache.ensure_capacity(s, start + 1):
-                    self._finish(req, "cache_exhausted")
+            if cache.slot_spilled(s):   # restore in flight: next step
+                continue
+            if req._prompt_pos >= len(req.input_ids):      # decoding
+                if budget <= 0:
                     continue
-                entries.append((req, start, [req.output_ids[-1]], 1))
-                budget -= 1
+                start = int(cache.seq_lens[s])
+                drafts: List[int] = []
+                if spec_k > 0:
+                    k = min(spec_k,
+                            req.max_new_tokens - len(req.output_ids) - 1,
+                            budget - 1, self.max_seq_len - start - 1)
+                    if k > 0:
+                        drafts = self._propose_drafts(req, k)
+                if not cache.ensure_capacity(s, start + 1 + len(drafts)):
+                    # the pool is too tight for the draft run: retry bare
+                    drafts = []
+                    if not cache.ensure_capacity(s, start + 1):
+                        self._finish(req, "cache_exhausted")
+                        continue
+                chunk = [req.output_ids[-1]] + drafts
+                entries.append((req, start, chunk, len(chunk), len(drafts)))
+                budget -= len(chunk)
         for s in sorted(self._slot_req):
             req = self._slot_req[s]
-            if req.paused:
+            if req.paused or cache.slot_spilled(s):
                 continue
             prompt_len = len(req.input_ids)
             if req._prompt_pos < prompt_len and budget > 0:
@@ -605,7 +796,7 @@ class GenerationEngine:
                 start = req._prompt_pos
                 chunk = req.input_ids[start:start + n]
                 entries.append((req, start, chunk,
-                                1 if start + n == prompt_len else 0))
+                                1 if start + n == prompt_len else 0, 0))
                 budget -= n
         return entries
 
@@ -621,6 +812,7 @@ class GenerationEngine:
 
     def _step_compiled(self) -> None:
         cache = self.cache
+        self._restore_pass()
         entries = self._plan_step()
         if not entries:
             return
@@ -628,7 +820,7 @@ class GenerationEngine:
         sslots = []             # per-token SSM state slots (hybrids)
         n_prefill = 0
         v_b = _ds.bucket(max(max(e[3] for e in entries), 1))
-        for row, (req, start, chunk, n_out) in enumerate(entries):
+        for row, (req, start, chunk, n_out, _) in enumerate(entries):
             n = len(chunk)
             base = len(ids)
             ids.extend(chunk)
@@ -637,6 +829,8 @@ class GenerationEngine:
             wslots.extend(cache.slot_mapping(req.slot, start, n).tolist())
             sslots.extend([req.slot] * n)
             valids.extend(range(start + 1, start + n + 1))
+            # output columns: the last max(n_out, 1) chunk positions; pad
+            # columns repeat the final index (the host ignores them)
             m = max(n_out, 1)
             first = base + n - m
             out_rows.append([first + i for i in range(m)]
@@ -667,9 +861,15 @@ class GenerationEngine:
         }
         floats = {"temps": np.zeros((s_b,), np.float32),
                   "top_ps": np.ones((s_b,), np.float32)}
-        for row, (req, start, chunk, n_out) in enumerate(entries):
+        for row, (req, start, chunk, n_out, n_spec) in enumerate(entries):
             ints["row_slots"][row] = req.slot
             ints["out_idx"][row] = out_rows[row]
+            # draft_next[i]: the draft that output column i must reproduce
+            # to extend the accepted run (chunk token i + 1)
+            first = len(chunk) - max(n_out, 1)
+            ints["draft_next"][row, :n_spec] = chunk[first + 1:
+                                                     first + 1 + n_spec]
+            ints["n_spec"][row] = n_spec
             ints["seeds"][row] = req.seed or 0
             ints["counters"][row] = len(req.output_ids)
             ints["top_ks"][row] = req.top_k
@@ -684,20 +884,45 @@ class GenerationEngine:
             a["row_slots"], a["valids"], a["out_idx"], a["draft_next"],
             a["n_spec"], a["seeds"], a["counters"], f["temps"], a["top_ks"],
             f["top_ps"])
-        toks = tokens.cpu().numpy()            # the step's one host sync
+        # the step's one host sync: the tokens, with the accepted-draft
+        # counts as one more column
+        back = torch.cat([tokens, accepted[:, None]], dim=1).cpu().numpy()
+        toks, acc = back[:, :-1], back[:, -1]
         self.stats["prefill_tokens"] += n_prefill
 
         survivors = []
-        for row, (req, start, chunk, n_out) in enumerate(entries):
+        for row, (req, start, chunk, n_out, n_spec) in enumerate(entries):
             n = len(chunk)
-            cache.seq_lens[req.slot] = start + n
             if req._prompt_pos < len(req.input_ids):      # prompt chunk
+                cache.seq_lens[req.slot] = start + n
                 req._prompt_pos = start + n
+                if req._prompt_pos >= len(req.input_ids) and self._prefix_on:
+                    cache.register_prefix(req.slot, req.input_ids,
+                                          len(req.input_ids))
                 if n_out and not self._emit_token(req, int(toks[row, 0])):
                     survivors.append(req)
                 continue
+            # decode row: emit the accepted draft run and one more token
+            acc_n = int(acc[row]) if n_spec else 0
             self.stats["decode_rows"] += 1
-            if not self._emit_token(req, int(toks[row, 0])):
+            if n_spec:
+                self.stats["spec_drafted"] += n_spec
+                self.stats["spec_accepted"] += acc_n
+                if acc_n < n_spec:
+                    self.stats["spec_rollbacks"] += 1
+            new_len = start + 1 + acc_n
+            cache.seq_lens[req.slot] = new_len
+            if acc_n < n_spec:
+                # rewind the KV cursor: rows past new_len are stale (masked
+                # by valids, overwritten later); whole blocks past the next
+                # token's need go back now
+                cache.trim_slot(req.slot, new_len + 1)
+            finished = False
+            for i in range(acc_n + 1):
+                if self._emit_token(req, int(toks[row, i])):
+                    finished = True
+                    break
+            if not finished:
                 survivors.append(req)
         # reserve next-token capacity only after every finish above has
         # returned its pages

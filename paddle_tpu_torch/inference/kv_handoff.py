@@ -156,13 +156,30 @@ def export_handoff(engine, request_id) -> Optional[Dict[str, Any]]:
         return None
     t0 = time.perf_counter()
     blocks_used = -(-n // cache.block_size)
-    idx = torch.as_tensor(cache.slot_mapping(slot, 0, n).astype(np.int64),
-                          device=cache.device)
+    # a tiered cache's parked slot: the record is the resident head's
+    # gather followed by the host tier's pages (raw storage, as the record
+    # carries it), with no restore round trip through the device pool
+    parked = cache.slot_spill_pages(slot)
+    res_n, host = n, None
+    if parked is not None:
+        start, pages = parked
+        res_n = min(n, start * cache.block_size)
+        host = cache._stack_pages(pages)
+    idx = torch.as_tensor(cache.slot_mapping(slot, 0, res_n).astype(
+        np.int64), device=cache.device)
 
-    def gather(pool, out=None):
+    def gather(i, pool, out=None):
         # one-byte pages go through a byte view (no fp8 index_select)
         src = (pool if cache.quant is None or pool.dtype == torch.float32
                else pool.view(torch.uint8))
+        if host is not None:
+            tail = host[i][:, :n - res_n]
+            tail = (tail if tail.dtype == src.dtype
+                    else tail.view(src.dtype)).to(cache.device)
+            rows = torch.cat([src.index_select(1, idx), tail], dim=1)
+            if out is None:
+                return rows.view(pool.dtype)
+            return out.view(src.dtype).copy_(rows)
         if out is None:
             return src.index_select(1, idx).view(pool.dtype)
         return torch.index_select(src, 1, idx, out=out.view(src.dtype))
@@ -171,6 +188,9 @@ def export_handoff(engine, request_id) -> Optional[Dict[str, Any]]:
     if cache.quant is not None:
         # scales travel with the pages: the same slot gather
         pools += [("k_scale", cache.k_scale), ("v_scale", cache.v_scale)]
+    refs = cache.block_refs(slot)
+    if parked is not None:
+        refs = refs + [1] * len(parked[1])   # a parked page is private
 
     record = {
         "version": HANDOFF_VERSION,
@@ -184,13 +204,13 @@ def export_handoff(engine, request_id) -> Optional[Dict[str, Any]]:
         "eos_token_id": req.eos_token_id,
         "seed": req.seed,
         "seq_len": n,
-        "block_refs": cache.block_refs(slot)[:blocks_used],
+        "block_refs": refs[:blocks_used],
         "kv_quant": cache.quant,
     }
     outbox = getattr(engine, "_handoff_outbox", None)
     if outbox is None:
-        for key, pool in pools:
-            record[key] = gather(pool)
+        for i, (key, pool) in enumerate(pools):
+            record[key] = gather(i, pool)
         sstate = engine.export_slot_sstate(slot)
         if sstate is not None:
             record["ssm_state"] = sstate
@@ -205,8 +225,8 @@ def export_handoff(engine, request_id) -> Optional[Dict[str, Any]]:
                      (f"ssm_state.{i}.ssm", tuple(ssm.shape), ssm.dtype)]
         ipc, views = outbox.reserve(segs)
         try:
-            for (_, pool), out in zip(pools, views):
-                gather(pool, out)
+            for i, ((_, pool), out) in enumerate(zip(pools, views)):
+                gather(i, pool, out)
             rest = views[len(pools):]
             for i, (_, conv, ssm) in enumerate(planes):
                 rest[2 * i].copy_(conv)

@@ -1,5 +1,5 @@
 """The port stands alone: no JAX and no ``paddle_tpu`` inside it, CUDA by
-default with no silent CPU fallback, and every unported option refused
+default with no silent CPU fallback, and every unported model refused
 by name."""
 
 import ast
@@ -12,7 +12,7 @@ import torch
 
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.framework.place import resolve_device
-from paddle_tpu_torch.inference import GenerationEngine
+from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
 from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.ops.kernels import rms_norm as pt_rms
 
@@ -106,27 +106,59 @@ def tiny():
     return LlamaForCausalLM(llama_tiny_config(), device="cpu")
 
 
+def _greedy_run(model, **kw):
+    eng = GenerationEngine(model, max_seqs=2, max_seq_len=64, block_size=16,
+                           **kw)
+    return eng, eng.generate([GenerationRequest(i, p, max_new_tokens=6)
+                              for i, p in enumerate(([3, 1, 4, 1, 5, 9],
+                                                     [2, 7, 1, 8]))])
+
+
+@pytest.fixture(scope="module")
+def plain_streams(tiny):
+    return {mode: _greedy_run(tiny, mode=mode)[1]
+            for mode in ("eager", "compiled")}
+
+
 @pytest.mark.parametrize("kwargs", [
     dict(mode="eager", spec_tokens=2), dict(spec_tokens=2),
     dict(prefix_cache=True), dict(host_tier=True)])
-def test_unported_engine_options_raise(tiny, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GenerationEngine(tiny, max_seqs=2, max_seq_len=64, block_size=16,
-                         **kwargs)
+def test_unported_engine_options_raise(tiny, plain_streams, kwargs):
+    """Speculative decode, the prefix cache and the host KV tier are ported
+    (ROADMAP.md A.6, A.7): each option is taken, and the greedy streams equal
+    the engine's without it (in eager mode ``spec_tokens`` is kept and
+    unused, as in the reference). The name is kept from when the port
+    refused them."""
+    eng, out = _greedy_run(tiny, **kwargs)
+    assert out == plain_streams[eng.mode]
+    if "spec_tokens" in kwargs:
+        assert eng.spec_tokens == 2
+        assert eng.stats["spec_drafted"] == 0 or eng.mode == "compiled"
+    if "prefix_cache" in kwargs:
+        assert eng._prefix_on and eng.stats["prefix_lookup_tokens"] == 10
+    if "host_tier" in kwargs:
+        assert eng.cache.host_tier is not None
+        assert eng.cache.host_tier.num_blocks > 0
+    eng.release_prefix_cache()
+    assert eng.cache.free_blocks == eng.cache.num_blocks
 
 
 @pytest.mark.parametrize("name,value", [
     ("serve_spec_tokens", 2), ("serve_prefix_cache", True),
     ("serve_kv_host_tier", True)])
-def test_unported_flags_raise(tiny, name, value):
+def test_unported_flags_raise(tiny, plain_streams, name, value):
+    """Each serving flag is taken by a compiled engine built without the
+    option (the name is kept from when the port refused them)."""
     old = flags.flag(name)
     flags.set_flags({name: value})
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            GenerationEngine(tiny, max_seqs=2, max_seq_len=64,
-                             block_size=16)
+        eng, out = _greedy_run(tiny, mode="compiled")
     finally:
         flags.set_flags({name: old})
+    assert out == plain_streams["compiled"]
+    assert {"serve_spec_tokens": eng.spec_tokens == 2,
+            "serve_prefix_cache": eng._prefix_on,
+            "serve_kv_host_tier": eng.cache.host_tier is not None}[name]
 
 
 def test_unported_models_raise():

@@ -307,13 +307,24 @@ def test_hybrid_eager_sampled_matches_jax(fp32_pair):
         _jax_generate(jm, "eager", reqs)
 
 
-def test_unported_options_raise_for_hybrids(fp32_pair):
-    """Where the reference warns and turns an option off for hybrids and
-    the port has not ported the option, the port refuses it by name, in
-    both modes. (``kv_quant``, ported, is turned off with the reference's
-    warning: ``tests/test_torch_kv_quant.py``.)"""
+def test_unported_options_raise_for_hybrids(fp32_pair, jax_hybrid_outputs,
+                                            monkeypatch):
+    """Speculative decode, the prefix cache and the host KV tier on a
+    hybrid: as in the reference, each is turned off with its one-time
+    warning, in both modes, and the engine serves on; the streams equal the
+    JAX hybrid engine's without them. (The name is kept from when the port
+    refused these options.)"""
+    from paddle_tpu_torch.inference import engine as pt_engine
     _, pm = fp32_pair
     for mode in ("compiled", "eager"):
-        for kw in (dict(spec_tokens=2), dict(prefix_cache=True)):
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                GenerationEngine(pm, mode=mode, **ENGINE, **kw)
+        monkeypatch.setattr(pt_engine, "_warned_fallbacks", set())
+        with pytest.warns(RuntimeWarning) as rec:
+            eng, out = _port_generate(pm, mode, GREEDY, spec_tokens=2,
+                                      prefix_cache=True, host_tier=True)
+        text = " ".join(str(w.message) for w in rec)
+        for what in ("speculative decode", "prefix cache", "kv host tier"):
+            assert what in text, (mode, what, text)
+        assert eng.spec_tokens == 0 and not eng._prefix_on
+        assert eng.cache.host_tier is None
+        assert out == jax_hybrid_outputs[mode]
+        assert eng.cache.free_blocks == eng.cache.num_blocks
