@@ -53,7 +53,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    gmm and gmm2, ``torch.bmm`` with an fp32 output over the padded buffer
    for tgmm, memory-efficient ``scaled_dot_product_attention`` with the
    segment mask for the segment-causal pair) and the least time the card
-   could take (RMSNorm in phase 16); then head dims other than 64 and 128: the flash forward and
+   could take (RMSNorm in phase 17); then head dims other than 64 and 128: the flash forward and
    backward, the segment-causal pair, ragged attention, paged decode and
    ragged attention over int8/fp8 pages at head dims 96 and 256, bf16 and
    fp32, and the bf16 flash pair on misaligned bases, against their twins
@@ -139,7 +139,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    full-width ragged kernel none, a profiled repeat bitwise equal, >= 99%
    of greedy tokens equal to the plain twins, with weight-only int8 too;
 9. serve-moe, the slice-3 serving path: the train-moe configuration
-   (phase 12; seeded random weights), run before the training phases as
+   (phase 13; seeded random weights), run before the training phases as
    a serving process would, through ``GenerationEngine(max_seqs=16,
    max_seq_len=160, block_size=64)``, 16 prompts of 64 tokens, 32 new
    tokens each, 2 of them sampled. Checks: finish reasons, no page leak,
@@ -161,7 +161,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the drain, a profiled repeat bitwise equal, >= 99% of greedy tokens
    equal to the same engine on the plain twins and compiled equal to
    eager;
-11. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
+11. serve-plane, the serving memory plane (A.6, A.7) at its reference
+   benches' on-TPU configurations, nothing cut (seeded random weights,
+   fp32): (a) serve-prefix, ``bench_serve_llama_prefix``
+   (``bench.py:1568-1576``: 8 layers, hidden 1024, ffn 2816, 8:8 heads of
+   128, vocab 32000; ``max_seqs`` 16, block 64) through
+   ``GenerationServer``: a seed request, then 32 requests sharing one
+   512-token prefix (32-token tails, 8 new tokens), cold and with the
+   prefix cache; (b) serve-spec, ``bench_serve_llama_spec``
+   (``bench.py:1438-1452``, the same widths): 16 prompts of 64 tokens, 64
+   new tokens each, without drafts and with 4, each engine warmed by one
+   ``generate``; (c) serve-tiered, ``bench_serve_llama_prefix_tiered``
+   (``bench.py:1660-1700``: 4 layers, hidden 512, ffn 1024, 8:4 heads,
+   vocab 8192; 8 blocks of 64, 2 slots, a 64 MiB host tier): two
+   256-token prefix families, 16 requests alternating between them
+   (16-token tails, 8 new tokens), device-only and then tiered. Counts
+   are zeroed just before the three legs and read just after. Checks: in
+   each leg the streams of one arm equal the other's token for token
+   (where they part, the first differing stream and token and the top-2
+   margin of the model's forward are logged first), #8's launches ==
+   steps x layers and no other attention kernel; the prefix cache hits;
+   no page is left after drain and ``release_prefix_cache`` (both tiers:
+   ``free == num == available``); spec decode leaks no page; the tier
+   spills and restores. Reports mean TTFT cold and warm and their ratio,
+   the hit rate, tokens per decode row and decode tokens/s with and
+   without drafts, both hit rates, and the spills and restores with ms
+   a page (the reference's CPU floors are asserted by the CPU tests);
+12. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
    configuration (vocab 32000, hidden 1536, ffn 4096, 12 layers, GQA
    12:4, seq 2048, batch 4, bf16, ~400M parameters, seeded random
    weights, ``pallas_fused_block=auto``): AdamW(lr 1e-4, wd 0.1), the
@@ -180,23 +206,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``pallas_fused_block=off`` (the composed layer), 1+1 warmup and 3
    timed steps, no fused block launched, its ms per step beside the
    fused one;
-12. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
+13. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
    configuration (``bench.py:122-129``: vocab 32000, hidden 1024, 16
    experts of ffn 704, top-2 gshard at capacity factor 2.0, aux weight
    0.01, 6 layers, 16:16 heads, bf16), batch 8 x seq 2048, trained as in
-   phase 11 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
+   phase 12 (2+1 warmup, 10 timed steps, AdamW, one fixed batch). Reports
    tokens/s, ms per step, the bench's activated-parameter MFU, busy share
    and top kernels, peak memory. Checks: finite, falling losses; per step
    6 gmm2, 6 + 18 gmm (forward, and the dx against w^T), 18 tgmm, 6 flash
    forward and backward and 13 of each RMSNorm kernel; one step's
    gradients against the twins and an fp32 copy (with the share of
    (token, k) routes the fp32 copy also takes); a second run bitwise;
-13. train-ssm, the slice-18 hybrid training path: ``bench_ssm_pretrain``'s
+14. train-ssm, the slice-18 hybrid training path: ``bench_ssm_pretrain``'s
    TPU configuration (``bench.py:1899-1905``: vocab 32000, hidden 1536,
    ffn 4096, 12 layers "SA" (6 SSM mixers, 6 attention layers), GQA 12:4
    at head dim 128, d_state 64, SSM head dim 64: d_inner 3072 over 48 SSM
    heads; bf16, seeded random weights, 336.0M parameters), batch 4 x 2048,
-   trained as in phase 11 (2+1 warmup, 10 timed AdamW steps,
+   trained as in phase 12 (2+1 warmup, 10 timed AdamW steps,
    ``pallas_fused_block=auto``, no ``off`` yardstick). Reports tokens/s,
    ms per step, the bench's MFU (``6N + 12 L h s``), busy share, top
    kernels, peak memory. Checks: finite, falling losses; per step 6
@@ -208,7 +234,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``recompute``, one step each: loss within rtol 1e-5, gradients within
    rtol 1e-4 / atol 1e-6 (the reference's recompute parity), whether
    bitwise logged, the scan's forward launches doubled;
-14. train-cp, the slice-6 context-parallel path: ``bench_cp_long_context``
+15. train-cp, the slice-6 context-parallel path: ``bench_cp_long_context``
    (``bench.py:323-371``: vocab 32000, hidden 1024, ffn 2816, 4 layers,
    16:8 heads of 64, bf16, ``sequence_parallel=True``, ``sep_mode="auto"``,
    seq 32768, batch 1, seeded random weights; the bench's 64k row is left
@@ -234,8 +260,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ranks share it, so this is not context-parallel scaling) and the
    shares of (b)'s step spent in the host-staged all-gathers and in the
    IPC hops;
-15. train-moe-ep, the slice-7 expert-parallel path: the train-moe model
-   and batch (phase 12) trained with AdamW on an ``["ep"]`` mesh of two
+16. train-moe-ep, the slice-7 expert-parallel path: the train-moe model
+   and batch (phase 13) trained with AdamW on an ``["ep"]`` mesh of two
    ``distributed.spawn`` ranks sharing this card over gloo, each rank
    holding the replicated model with 8 of the 16 experts (``shard_layer``
    with ``llama_shard_fn``) and dispatching 8,192 of the 16,384 tokens
@@ -268,11 +294,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    four, so that #15 and #17 run with three peers: its output against the
    one-device layer, then fwd + bwd + AdamW with ``moe_a2a_overlap`` off
    and on (the ratio reported, not asserted);
-16. RMSNorm (#5 and #6), checked and timed as the kernels of phase 3 are,
+17. RMSNorm (#5 and #6), checked and timed as the kernels of phase 3 are,
    but after every path and in a process of their own, so that their
    profiler sessions, library calls and host-time loops run after each
    step was read and their sessions start afresh;
-17. the ``kernels`` JSON line, then the result line.
+18. the ``kernels`` JSON line, then the result line.
 
 fp32 matmuls run without TF32 throughout (``allow_tf32 = False``), so the
 twins and the serving step's fp32 projections are full fp32.
@@ -3550,6 +3576,334 @@ def phase_serve_ssm(torch, np, card):
     return both, perf
 
 
+# ------------------------------------------------------ serve-plane phase
+# the serving memory plane's three reference benches at their on-TPU
+# configurations (bench.py:1438-1452, 1568-1576, 1660-1700), nothing cut
+PLANE_WIDE = dict(num_hidden_layers=8, hidden_size=1024,
+                  intermediate_size=2816, num_attention_heads=8,
+                  num_key_value_heads=8, vocab_size=32000,
+                  max_position_embeddings=2048)
+PLANE_TIERED = dict(num_hidden_layers=4, hidden_size=512,
+                    intermediate_size=1024, num_attention_heads=8,
+                    num_key_value_heads=4, vocab_size=8192,
+                    max_position_embeddings=1024)
+PLANE_BLOCK = 64
+PREFIX_SEQS, PREFIX_SHARED, PREFIX_TAIL, PREFIX_NEW = 16, 512, 32, 8
+SPEC_SEQS, SPEC_PROMPT, SPEC_NEW, SPEC_K = 16, 64, 64, 4
+TIER_SHARED, TIER_TAIL, TIER_NEW, TIER_WAVE = 256, 16, 8, 16
+TIER_HOST_BYTES = 64 << 20
+
+
+def _streams_equal(torch, model, label, prompts, a, b):
+    """Assert two runs' streams equal token for token; where they part,
+    first log the first differing (stream, token), both tokens and the
+    top-2 logit margin of the model's forward over the common prefix."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x == y:
+            continue
+        j = next((j for j, (u, v) in enumerate(zip(x, y)) if u != v),
+                 min(len(x), len(y)))
+        ids = list(prompts[i]) + list(x[:j])
+        with torch.no_grad():
+            lg = model(torch.tensor([ids], device=model.device))[0, -1]
+        top = torch.topk(lg.float(), 2).values
+        log(f"{label}: streams part at stream {i}, token {j}: "
+            f"{x[j:j + 1]} against {y[j:j + 1]}, top-2 margin of the "
+            f"forward {float(top[0] - top[1]):.3e}")
+        raise AssertionError(f"{label}: stream {i} differs at token {j}")
+
+
+def _tiers_clean(cache, label):
+    assert cache.free_blocks == cache.num_blocks == cache.available_blocks, \
+        (label, cache.free_blocks, cache.num_blocks, cache.available_blocks)
+    ht = cache.host_tier
+    if ht is not None:
+        assert ht.free_blocks == ht.num_blocks == ht.available_blocks, \
+            (label, ht.free_blocks, ht.num_blocks, ht.available_blocks)
+
+
+def _leg_delta(kernels, before, eng, s0, layers, label):
+    """#8's launches in a leg against the leg's steps x layers (asserted
+    equal), and no other attention kernel."""
+    now = kernels.launch_counts()
+    d = {k: now[k] - before[k] for k in now}
+    steps = eng.stats["steps"] - s0
+    assert d["ragged_paged_attention"] == steps * layers, (label, d, steps)
+    for name in ("paged_attention", "ragged_paged_attention_quant",
+                 "flash_attention_fwd", "selective_scan"):
+        assert d[name] == 0, (label, name, d)
+    return {"ragged_launches": d["ragged_paged_attention"], "steps": steps,
+            "steps_x_layers": steps * layers}
+
+
+def _plane_prefix(torch, np, model, kernels, card):
+    """serve-prefix: a seed request, then 32 requests sharing one 512-token
+    prefix (32-token tails, 8 new tokens) through ``GenerationServer``,
+    cold and with the prefix cache."""
+    from paddle_tpu_torch.inference import (GenerationEngine,
+                                            GenerationRequest,
+                                            GenerationServer)
+    rs = np.random.RandomState(0)
+    shared = rs.randint(0, 32000, PREFIX_SHARED).tolist()
+    n_wave = 2 * PREFIX_SEQS
+    tails = [rs.randint(0, 32000, PREFIX_TAIL).tolist()
+             for _ in range(n_wave)]
+    prompts = [shared + t for t in tails]
+    layers = model.config.num_hidden_layers
+
+    def wave(prefix_on):
+        eng = GenerationEngine(
+            model, max_seqs=PREFIX_SEQS,
+            max_seq_len=PREFIX_SHARED + PREFIX_TAIL + PREFIX_NEW
+            + PLANE_BLOCK, block_size=PLANE_BLOCK, mode="compiled",
+            prefix_cache=prefix_on)
+        srv = GenerationServer(eng, max_queue=n_wave)
+        srv.submit(GenerationRequest(("seed", 0), shared + [1, 2, 3],
+                                     max_new_tokens=4))
+        srv.run_until_idle()
+        before, s0 = kernels.launch_counts(), eng.stats["steps"]
+        t0 = time.perf_counter()
+        hs = [srv.submit(GenerationRequest(("w", i), p,
+                                           max_new_tokens=PREFIX_NEW))
+              for i, p in enumerate(prompts)]
+        srv.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        leg = _leg_delta(kernels, before, eng, s0, layers,
+                         f"serve-prefix {prefix_on}")
+        assert all(h.finish_reason == "length" for h in hs), \
+            [h.finish_reason for h in hs]
+        ttft = [(h.first_token_ts - h.submit_ts) * 1e3 for h in hs]
+        outs = [list(h.output_ids) for h in hs]
+        srv.drain()
+        eng.release_prefix_cache()
+        _tiers_clean(eng.cache, "serve-prefix")
+        srv.close()
+        leg.update(mean_ttft_ms=sum(ttft) / len(ttft), wall_s=wall,
+                   hit_tokens=eng.stats["prefix_hit_tokens"],
+                   lookup_tokens=eng.stats["prefix_lookup_tokens"],
+                   prefill_tokens=eng.stats["prefill_tokens"])
+        return outs, leg
+
+    cold_out, cold = wave(False)
+    warm_out, warm = wave(True)
+    _streams_equal(torch, model, "serve-prefix", prompts, warm_out, cold_out)
+    assert warm["hit_tokens"] > 0, warm
+    perf = {"cold": cold, "warm": warm,
+            "ttft_speedup": cold["mean_ttft_ms"] / warm["mean_ttft_ms"],
+            "hit_rate": warm["hit_tokens"] / max(1, warm["lookup_tokens"]),
+            "card": card}
+    log("serve-prefix: " + json.dumps(perf))
+    log(f"serve-prefix: warm streams equal cold token for token; mean TTFT "
+        f"cold {cold['mean_ttft_ms']:.2f} ms, warm "
+        f"{warm['mean_ttft_ms']:.2f} ms ({perf['ttft_speedup']:.3f}x), hit "
+        f"rate {perf['hit_rate']:.4f}; #8 {cold['ragged_launches']} and "
+        f"{warm['ragged_launches']} launches = steps x layers; {card}")
+    return perf
+
+
+def _plane_spec(torch, np, model, kernels, card):
+    """serve-spec: 16 prompts of 64 tokens, 64 new tokens each, without
+    drafts and with 4, each engine warmed by one ``generate`` first."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 32000, SPEC_PROMPT).tolist()
+               for _ in range(SPEC_SEQS)]
+    layers = model.config.num_hidden_layers
+
+    def requests(tag):
+        return [GenerationRequest((tag, i), p, max_new_tokens=SPEC_NEW)
+                for i, p in enumerate(prompts)]
+    res = {}
+    for k in (0, SPEC_K):
+        eng = GenerationEngine(model, max_seqs=SPEC_SEQS,
+                               max_seq_len=SPEC_PROMPT + SPEC_NEW
+                               + PLANE_BLOCK, block_size=PLANE_BLOCK,
+                               mode="compiled", spec_tokens=k)
+        eng.generate(requests("warm"))
+        d0, r0 = eng.stats["decode_tokens"], eng.stats["decode_rows"]
+        a0, q0 = eng.stats["spec_accepted"], eng.stats["spec_drafted"]
+        before, s0 = kernels.launch_counts(), eng.stats["steps"]
+        t0 = time.perf_counter()
+        out = eng.generate(requests("run"))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        leg = _leg_delta(kernels, before, eng, s0, layers, f"serve-spec {k}")
+        assert eng.cache.free_blocks == eng.cache.num_blocks, \
+            f"serve-spec {k}: rollback leaked pages"
+        leg.update(
+            decode_tokens_per_s=(eng.stats["decode_tokens"] - d0) / dt,
+            tokens_per_decode_row=(eng.stats["decode_tokens"] - d0)
+            / max(1, eng.stats["decode_rows"] - r0),
+            drafted=eng.stats["spec_drafted"] - q0,
+            accepted=eng.stats["spec_accepted"] - a0, wall_s=dt)
+        res[k] = ([out[("run", i)] for i in range(SPEC_SEQS)], leg)
+        del eng
+    _streams_equal(torch, model, "serve-spec", prompts, res[SPEC_K][0],
+                   res[0][0])
+    perf = {"k0": res[0][1], f"k{SPEC_K}": res[SPEC_K][1], "card": card,
+            "speedup": res[SPEC_K][1]["decode_tokens_per_s"]
+            / res[0][1]["decode_tokens_per_s"]}
+    log("serve-spec: " + json.dumps(perf))
+    log(f"serve-spec: streams with {SPEC_K} drafts equal those without; "
+        f"{res[SPEC_K][1]['tokens_per_decode_row']:.3f} tokens per decode "
+        f"row, decode {res[0][1]['decode_tokens_per_s']:.1f} -> "
+        f"{res[SPEC_K][1]['decode_tokens_per_s']:.1f} tok/s; {card}")
+    return perf
+
+
+def _time_tier_calls(cache):
+    """Wrap a tiered cache's prefix spill and restore to record each call's
+    ms a page on the host's clock (a restore's without the spills it makes
+    room with, which are timed as spills)."""
+    calls = {"spill": [], "restore": []}
+    spill, restore = cache._spill_prefix_block, cache._restore_prefix_entries
+
+    def timed_spill(*a, **k):
+        t0 = time.perf_counter()
+        done = spill(*a, **k)
+        if done:
+            calls["spill"].append(1e3 * (time.perf_counter() - t0))
+        return done
+
+    def timed_restore(*a, **k):
+        n0, t0 = sum(calls["spill"]), time.perf_counter()
+        blocks = restore(*a, **k)
+        if blocks:
+            ms = 1e3 * (time.perf_counter() - t0) - (sum(calls["spill"]) - n0)
+            calls["restore"].append(ms / len(blocks))
+        return blocks
+    cache._spill_prefix_block = timed_spill
+    cache._restore_prefix_entries = timed_restore
+    return calls
+
+
+def _plane_tiered(torch, np, kernels, card):
+    """serve-tiered: two 256-token prefix families, 16 requests alternating
+    between them (16-token tails, 8 new tokens), over an 8-block pool with
+    two slots, device-only and then with a 64 MiB host tier."""
+    from paddle_tpu_torch.inference import (GenerationEngine,
+                                            GenerationRequest,
+                                            GenerationServer)
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    cfg = llama_tiny_config(dtype="float32", **PLANE_TIERED)
+    model = LlamaForCausalLM(cfg, seed=0).eval()
+    rs = np.random.RandomState(0)
+    families = [rs.randint(0, 8192, TIER_SHARED).tolist() for _ in range(2)]
+    tails = [rs.randint(0, 8192, TIER_TAIL).tolist()
+             for _ in range(TIER_WAVE)]
+    prompts = [families[i % 2] + tails[i] for i in range(TIER_WAVE)]
+    num_blocks = 2 * (TIER_SHARED // PLANE_BLOCK)
+
+    def wave(tiered):
+        eng = GenerationEngine(
+            model, max_seqs=2,
+            max_seq_len=TIER_SHARED + TIER_TAIL + TIER_NEW + PLANE_BLOCK,
+            block_size=PLANE_BLOCK, num_blocks=num_blocks, mode="compiled",
+            prefix_cache=True, host_tier=tiered,
+            host_tier_bytes=TIER_HOST_BYTES)
+        srv = GenerationServer(eng, max_queue=TIER_WAVE + 2)
+        calls = _time_tier_calls(eng.cache) if tiered else None
+        for f in range(2):
+            srv.submit(GenerationRequest(("seed", f), families[f] + [1, 2, 3],
+                                         max_new_tokens=4))
+            srv.run_until_idle()
+        h0 = eng.stats["prefix_hit_tokens"]
+        l0 = eng.stats["prefix_lookup_tokens"]
+        before, s0 = kernels.launch_counts(), eng.stats["steps"]
+        t0 = time.perf_counter()
+        outs = []
+        for i, p in enumerate(prompts):
+            h = srv.submit(GenerationRequest(("w", i), p,
+                                             max_new_tokens=TIER_NEW))
+            srv.run_until_idle()
+            assert h.finish_reason == "length", h.finish_reason
+            outs.append(list(h.output_ids))
+        torch.cuda.synchronize()
+        leg = _leg_delta(kernels, before, eng, s0, cfg.num_hidden_layers,
+                         f"serve-tiered {tiered}")
+        leg.update(wall_s=time.perf_counter() - t0,
+                   hit_rate=(eng.stats["prefix_hit_tokens"] - h0)
+                   / max(1, eng.stats["prefix_lookup_tokens"] - l0))
+        if tiered:
+            st = eng.cache.tier_stats()
+            leg.update({k: st[k] for k in (
+                "prefix_spills", "prefix_restores", "spills", "restores",
+                "spill_bytes", "restore_bytes", "host_evictions",
+                "host_num_blocks")})
+            leg["spill_ms_per_page"] = (1e3 * st["spill_seconds"]
+                                        / max(1, st["spills"]))
+            leg["restore_ms_per_page"] = (1e3 * st["restore_seconds"]
+                                          / max(1, st["restores"]))
+            for kind, per in calls.items():     # ms a page, call by call
+                per = sorted(per)
+                leg[f"{kind}_ms_per_page_median"] = per[len(per) // 2]
+                leg[f"{kind}_ms_per_page_max"] = per[-1]
+        srv.drain()
+        eng.release_prefix_cache()
+        _tiers_clean(eng.cache, f"serve-tiered {tiered}")
+        srv.close()
+        return outs, leg
+
+    base_out, base = wave(False)
+    tier_out, tier = wave(True)
+    _streams_equal(torch, model, "serve-tiered", prompts, tier_out, base_out)
+    assert tier["prefix_spills"] > 0 and tier["prefix_restores"] > 0, tier
+    # the device-only arm can hit nothing at all (ratio None)
+    perf = {"device_only": base, "tiered": tier, "card": card,
+            "hit_ratio": tier["hit_rate"] / base["hit_rate"]
+            if base["hit_rate"] else None}
+    log("serve-tiered: " + json.dumps(perf))
+    log(f"serve-tiered: streams equal; hit rate {base['hit_rate']:.4f} -> "
+        f"{tier['hit_rate']:.4f} (ratio {perf['hit_ratio']}); "
+        f"{tier['prefix_spills']} spills at "
+        f"{tier['spill_ms_per_page']:.3f} ms a page (median "
+        f"{tier['spill_ms_per_page_median']:.3f}), "
+        f"{tier['prefix_restores']} restores at "
+        f"{tier['restore_ms_per_page']:.3f} ms a page, the spills each "
+        f"makes room with included (median without them "
+        f"{tier['restore_ms_per_page_median']:.3f}); both tiers clean; "
+        f"{card}")
+    del model
+    return perf
+
+
+def phase_serve_plane(torch, np, card):
+    """The serving memory plane (A.6, A.7) at its reference benches'
+    on-TPU configurations: serve-prefix and serve-spec on an fp32 Llama of
+    8 layers (hidden 1024, ffn 2816, 8:8 heads of 128, vocab 32000),
+    serve-tiered on an fp32 Llama of 4 layers (hidden 512, ffn 1024, 8:4
+    heads of 64, vocab 8192); seeded random weights. Counts are zeroed
+    just before and read just after the three legs."""
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    from paddle_tpu_torch.ops import kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_tiny_config(dtype="float32", **PLANE_WIDE)
+    model = LlamaForCausalLM(cfg, seed=0).eval()
+    log(f"serve-plane: fp32 Llama (8 layers, hidden 1024, ffn 2816, 8:8 "
+        f"heads of 128, vocab 32000), "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M "
+        f"parameters; {card}")
+    t0 = time.perf_counter()
+    # ---- the path: counts zeroed just before, read just after
+    kernels.reset_launch_counts()
+    perf = {"prefix": _plane_prefix(torch, np, model, kernels, card)}
+    perf["spec"] = _plane_spec(torch, np, model, kernels, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf["tiered"] = _plane_tiered(torch, np, kernels, card)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    perf["legs_s"] = time.perf_counter() - t0
+    log(f"serve-plane: path launches {counts}; the three legs took "
+        f"{perf['legs_s']:.1f} s; {card}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, perf
+
+
 def phase_serve_int8(torch, np, model, layers, card, bf16, compiled):
     """The serve phase once more with ``kv_quant="int8"``: the same 8B-width
     model and requests over int8 pages, attention through #10 at head_dim
@@ -5854,6 +6208,8 @@ def main() -> int:
         log(f"serve-moe done at {time.perf_counter() - t_start:.1f} s")
         counts["serve-ssm"] = phase_serve_ssm(torch, np, card)[0]
         log(f"serve-ssm done at {time.perf_counter() - t_start:.1f} s")
+        counts["serve-plane"] = phase_serve_plane(torch, np, card)[0]
+        log(f"serve-plane done at {time.perf_counter() - t_start:.1f} s")
         counts["train"] = phase_train(torch, np, card)[0]
         log(f"train done at {time.perf_counter() - t_start:.1f} s")
         counts["train-moe"] = phase_train_moe(torch, np, card)[0]

@@ -2221,3 +2221,190 @@ def test_a_dead_exporters_record_is_refused(cuda_device, tmp_path):
     finally:
         sup.close()
         master.shutdown()
+
+
+# ------------------------------------------------- the serving memory plane
+def _plane_cache(dev, dtype, quant=None, host=1 << 24, num_blocks=6):
+    from paddle_tpu_torch.inference.paged_cache import PagedKVCache
+    return PagedKVCache(3, num_blocks, 16, 2, 64, 4, dtype=dtype,
+                        device=dev, quant=quant, host_tier_bytes=host)
+
+
+def _plane_fill(c, slot, n, seed):
+    """Seeded rows written at the slot's first n positions of every
+    layer (quantized on write for a quantized pool)."""
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.from_numpy(c.slot_mapping(slot, 0, n).astype(np.int64))
+    for li in range(c.num_layers):
+        k = torch.randn(n, 2, 64, generator=g).to(c.device)
+        v = torch.randn(n, 2, 64, generator=g).to(c.device)
+        c.write(li, k, v, rows.to(c.device))
+
+
+def _plane_rows(c, slot, n):
+    """The raw bytes of the slot's first n rows over every layer, pages and
+    (quantized) scales."""
+    idx = torch.from_numpy(c.slot_mapping(slot, 0, n).astype(
+        np.int64)).to(c.device)
+    out = []
+    for t in c._planes():
+        r = t.view(torch.uint8) if t.element_size() == 1 else t
+        out.append(r.index_select(1, idx).cpu())
+    return out
+
+
+def _plane_equal(a, b):
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert x.dtype == y.dtype and torch.equal(
+            x.view(torch.uint8) if x.element_size() != 1 else x,
+            y.view(torch.uint8) if y.element_size() != 1 else y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, None),
+                                         (torch.float32, None),
+                                         (torch.float32, "int8"),
+                                         (torch.float32, "fp8")])
+def test_copy_block_on_the_card_is_bitwise(cuda_device, dtype, quant):
+    """A copy-on-write copies a page and its scales over every layer bit
+    for bit, with no host sync (it runs inside stream capture)."""
+    c = _plane_cache(cuda_device, dtype, quant, host=None)
+    s = c.allocate_slot()
+    assert c.ensure_capacity(s, 32)
+    _plane_fill(c, s, 32, seed=1)
+    c.register_prefix(s, list(range(32)), 32)
+    want = _plane_rows(c, s, 32)
+    shared = c._tables[s][1]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):       # a host sync here would raise
+        assert c.cow_block(s, 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert c._tables[s][1] != shared
+    _plane_equal(_plane_rows(c, s, 32), want)
+    c.free_slot(s)
+    c.clear_prefix()
+    assert c.free_blocks == c.num_blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,quant", [(torch.bfloat16, None),
+                                         (torch.float32, None),
+                                         (torch.float32, "int8")])
+def test_spill_and_restore_on_the_card_are_bitwise(cuda_device, dtype,
+                                                   quant):
+    """A parked slot's pages and a spilled prefix page leave through
+    pinned host buffers and come back bit for bit, scales included."""
+    c = _plane_cache(cuda_device, dtype, quant, num_blocks=4)
+    s = c.allocate_slot()
+    assert c.ensure_capacity(s, 40)
+    _plane_fill(c, s, 40, seed=2)
+    want = _plane_rows(c, s, 40)
+    assert c.spill_slot(s) == 3
+    _, pages = c.slot_spill_pages(s)
+    assert all(p.k.is_pinned() and p.v.is_pinned() for p in pages)
+    assert (quant is None) == (pages[0].k_scale is None)
+    # the freed blocks are written over before the restore
+    o = c.allocate_slot()
+    assert c.ensure_capacity(o, 64)
+    _plane_fill(c, o, 64, seed=3)
+    c.free_slot(o)
+    assert c.restore_slot(s)
+    _plane_equal(_plane_rows(c, s, 40), want)
+    # a prefix page spilled under pressure comes back on adoption
+    c.register_prefix(s, list(range(40)), 40)
+    c.free_slot(s)
+    t = c.allocate_slot()
+    assert c.ensure_capacity(t, 64)      # spills both index entries
+    assert c.prefix_spills == 2
+    c.free_slot(t)
+    u = c.allocate_slot()
+    assert c.adopt_prefix(u, list(range(40))) == 32
+    assert c.prefix_restores == 2
+    _plane_equal(_plane_rows(c, u, 32), [w[:, :32] for w in want])
+    c.free_slot(u)
+    c.clear_prefix()
+    assert c.free_blocks == c.num_blocks == c.available_blocks
+    assert c.host_tier.free_blocks == c.host_tier.num_blocks
+
+
+@pytest.mark.cuda
+def test_staged_restore_is_read_only_after_its_event(cuda_device):
+    """A staged restore copies on a side stream; the compute stream waits
+    on its event before writing the pages, so a step right after reads the
+    restored rows even when the side stream is held back."""
+    c = _plane_cache(cuda_device, torch.float32, num_blocks=4)
+    s = c.allocate_slot()
+    assert c.ensure_capacity(s, 48)
+    _plane_fill(c, s, 48, seed=4)
+    want = _plane_rows(c, s, 48)
+    assert c.spill_slot(s) == 3
+    c.k.zero_()
+    c.v.zero_()
+    side = c._side_stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(200_000_000)          # hold the side stream
+    staged = c.stage_restore(s)
+    assert not staged.event.query()             # the copy is still queued
+    assert c.restore_slot(s, staged=staged)
+    _plane_equal(_plane_rows(c, s, 48), want)   # read on the compute stream
+    c.free_slot(s)
+    assert c.host_tier.free_blocks == c.host_tier.num_blocks
+
+
+@pytest.mark.cuda
+def test_serve_plane_engine_on_the_card(cuda_device):
+    """A tiny fp32 Llama on the card: four drafts give the streams of
+    none, a linked prefix the streams of a cold engine, and a parked and
+    restored request (staged and inline) the streams of an untiered run;
+    every pool drains clean."""
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_tiny_config
+    model = LlamaForCausalLM(llama_tiny_config(
+        num_hidden_layers=2, hidden_size=128, intermediate_size=256,
+        num_attention_heads=4, num_key_value_heads=2, vocab_size=128),
+        seed=7).eval()
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(0, 128, n).tolist() for n in (9, 40, 17)]
+    kw = dict(max_seqs=4, max_seq_len=128, block_size=16, mode="compiled")
+
+    def run(**opts):
+        eng = GenerationEngine(model, **kw, **opts)
+        out = eng.generate([GenerationRequest(i, p, max_new_tokens=16)
+                            for i, p in enumerate(prompts)])
+        return eng, out
+    _, base = run()
+    eng, out = run(spec_tokens=4)
+    assert out == base and eng.stats["spec_drafted"] > 0
+    assert eng.cache.free_blocks == eng.cache.num_blocks
+    eng, out = run(prefix_cache=True)
+    again = eng.generate([GenerationRequest(10 + i, p, max_new_tokens=16)
+                          for i, p in enumerate(prompts)])
+    assert [again[10 + i] for i in range(3)] == [base[i] for i in range(3)]
+    assert eng.stats["prefix_hit_tokens"] > 0
+    eng.release_prefix_cache()
+    assert eng.cache.free_blocks == eng.cache.num_blocks
+    for ahead in (True, False):
+        eng = GenerationEngine(model, host_tier=True, host_tier_bytes=1 << 24,
+                               restore_ahead=ahead, **kw)
+        for i, p in enumerate(prompts):
+            assert eng.add_request(GenerationRequest(i, p,
+                                                     max_new_tokens=16))
+        for _ in range(6):
+            eng.step()
+        victim = eng._requests[1]
+        victim.paused = True
+        assert eng.spill_paused() > 0
+        for _ in range(3):
+            eng.step()
+        victim.paused = False
+        got = {}
+        while eng._requests:
+            eng.step()
+            got.update({r.request_id: r.output_ids
+                        for r in eng.reap_finished()})
+        assert got == base
+        assert eng.cache.slot_restores > 0
+        assert eng.cache.free_blocks == eng.cache.num_blocks

@@ -40,7 +40,7 @@ TINY = dict(num_hidden_layers=2, hidden_size=64, intermediate_size=128,
             max_position_embeddings=256)
 
 
-def _port_of(jm, **over):
+def _port_of(jm):
     names = {f.name for f in dataclasses.fields(LlamaConfig)}
     pm = LlamaForCausalLM(LlamaConfig(**{
         f.name: getattr(jm.config, f.name)
