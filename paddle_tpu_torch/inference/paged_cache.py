@@ -557,6 +557,10 @@ class PagedKVCache:
             if parts[0] is None:
                 out.append(None)
                 continue
+            if len(parts) == 1 and parts[0].is_contiguous():
+                # a page spilled alone is its own (pinned) buffer already
+                out.append(parts[0])
+                continue
             dt = parts[0].dtype
             raw = [_raw(x) for x in parts]
             shape = list(raw[0].shape)

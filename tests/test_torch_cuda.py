@@ -2357,7 +2357,8 @@ def test_staged_restore_is_read_only_after_its_event(cuda_device):
 @pytest.mark.cuda
 def test_serve_plane_engine_on_the_card(cuda_device):
     """A tiny fp32 Llama on the card: four drafts give the streams of
-    none, a linked prefix the streams of a cold engine, and a parked and
+    none, a linked prefix the streams of a cold engine (over full-width
+    and over int8 pages), and a parked and
     restored request (staged and inline) the streams of an untiered run;
     every pool drains clean."""
     from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
@@ -2383,6 +2384,15 @@ def test_serve_plane_engine_on_the_card(cuda_device):
     again = eng.generate([GenerationRequest(10 + i, p, max_new_tokens=16)
                           for i, p in enumerate(prompts)])
     assert [again[10 + i] for i in range(3)] == [base[i] for i in range(3)]
+    assert eng.stats["prefix_hit_tokens"] > 0
+    eng.release_prefix_cache()
+    assert eng.cache.free_blocks == eng.cache.num_blocks
+    # int8 pages: #10 reads linked pages and their scales
+    _, qbase = run(kv_quant="int8")
+    eng, _ = run(kv_quant="int8", prefix_cache=True)
+    again = eng.generate([GenerationRequest(10 + i, p, max_new_tokens=16)
+                          for i, p in enumerate(prompts)])
+    assert [again[10 + i] for i in range(3)] == [qbase[i] for i in range(3)]
     assert eng.stats["prefix_hit_tokens"] > 0
     eng.release_prefix_cache()
     assert eng.cache.free_blocks == eng.cache.num_blocks

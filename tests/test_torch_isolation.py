@@ -133,7 +133,8 @@ def test_unported_engine_options_raise(tiny, plain_streams, kwargs):
     assert out == plain_streams[eng.mode]
     if "spec_tokens" in kwargs:
         assert eng.spec_tokens == 2
-        assert eng.stats["spec_drafted"] == 0 or eng.mode == "compiled"
+        if eng.mode == "eager":
+            assert eng.stats["spec_drafted"] == 0      # kept and unused
     if "prefix_cache" in kwargs:
         assert eng._prefix_on and eng.stats["prefix_lookup_tokens"] == 10
     if "host_tier" in kwargs:

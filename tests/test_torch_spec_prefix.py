@@ -657,18 +657,19 @@ def test_spec_and_prefix_compose(pair):
 
 
 def test_quantized_prefix_serving(pair):
-    """int8 pages under the prefix cache: a linked request reads the
-    seed request's quantized pages and scales and decodes the stream a
-    cold int8 engine decodes."""
+    """int8 pages under the prefix cache: a linked request reads the seed
+    request's quantized pages and scales; its stream and the engines'
+    counters equal the JAX int8 engine's, and the stream a cold int8
+    engine decodes."""
     _, pm = pair
     prompt = _prompts(1, 128, (40,), seed=26)[0]
     cold = _port_engine(pm, kv_quant="int8", max_seqs=2, max_seq_len=128,
                         block_size=16).generate(
         [GenerationRequest(0, prompt, max_new_tokens=8)])
-    eng = _port_engine(pm, kv_quant="int8", **PREFIX_ENGINE)
-    eng.generate([GenerationRequest(0, prompt, max_new_tokens=8)])
-    out = eng.generate([GenerationRequest(1, prompt, max_new_tokens=8)])
-    assert out[1] == cold[0] and eng.stats["prefix_hit_tokens"] == 32
+    eng, _ = _both(pair, [[(0, prompt, 8)], [(1, prompt, 8)]],
+                   kv_quant="int8", **PREFIX_ENGINE)
+    out = eng.generate([GenerationRequest(2, prompt, max_new_tokens=8)])
+    assert out[2] == cold[0] and eng.stats["prefix_hit_tokens"] == 64
     eng.release_prefix_cache()
     assert eng.cache.free_blocks == eng.cache.num_blocks
 
