@@ -29,6 +29,7 @@ def _port_files():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "torch_phase_ab.py")
     yield os.path.join(ROOT, "tools", "torch_a2a_pull_ab.py")
+    yield os.path.join(ROOT, "tools", "torch_tier_profile.py")
 
 
 def _imported_modules(path):
