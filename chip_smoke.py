@@ -206,6 +206,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``pallas_fused_block=off`` (the composed layer), 1+1 warmup and 3
    timed steps, no fused block launched, its ms per step beside the
    fused one;
+   train-opt, right after: the same model and batch under the Llama-2
+   recipe (``llama2_recipe``: AdamW 0.9/0.95, eps 1e-5, wd 0.1, fp32
+   master weights, ``ClipGradByGlobalNorm(1.0)``, ``LinearWarmup`` of 3
+   steps into ``CosineAnnealingDecay(3e-4, T_max=12)``, the scheduler
+   stepped after each step), 2+1 warmup and 10 timed steps. Reports ms
+   per step, tokens/s, MFU, peak memory and busy share beside train's.
+   Checks: train's launch counts a step; finite losses; the LR tensor
+   equal to the scheduler after every step; one step's update on the
+   card against the same step on the CPU (the global norm, masters and
+   moments at 1e-6 relative, bf16 parameters within 1 ulp); a model and
+   optimizer rebuilt from the seed, given step 3's weights and optimizer
+   state dict, repeat steps 4-13 bit for bit; then every optimizer
+   (13, each with and without master weights), gradient merge (k 4) and
+   LBFGS for a few steps on a 2-layer bf16 Llama against the same steps
+   on the CPU at the fp32/bf16 tiers;
 13. train-moe, the slice-3 training path: ``bench_moe``'s on-chip
    configuration (``bench.py:122-129``: vocab 32000, hidden 1024, 16
    experts of ffn 704, top-2 gshard at capacity factor 2.0, aux weight
@@ -4515,19 +4530,25 @@ def flagship_config():
                        recompute=False)
 
 
-def build_trainer(torch, cfg, prepare=None, model_cls=None):
+def build_trainer(torch, cfg, prepare=None, model_cls=None, optimizer=None):
     """``_llama_run``'s model, optimizer and step (``bench.py:62-90``);
     ``prepare(model)`` runs before the optimizer is built (placing the
     parameters over a mesh). ``model_cls`` defaults to
     ``LlamaForCausalLM`` (the hybrid's phase passes
-    ``HybridSSMForCausalLM``)."""
+    ``HybridSSMForCausalLM``). ``optimizer(parameters)`` gives ``(opt,
+    scheduler or None)`` in place of the bench's AdamW; the step advances
+    the scheduler after the update."""
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.models import LlamaForCausalLM
     model = (model_cls or LlamaForCausalLM)(cfg, seed=0)
     if prepare is not None:
         prepare(model)
-    opt = paddle.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.1,
-                                 parameters=model.parameters())
+    if optimizer is None:
+        opt, sched = paddle.optimizer.AdamW(
+            learning_rate=1e-4, weight_decay=0.1,
+            parameters=model.parameters()), None
+    else:
+        opt, sched = optimizer(model.parameters())
 
     @paddle.jit.to_static
     def train_step(ids):
@@ -4535,6 +4556,8 @@ def build_trainer(torch, cfg, prepare=None, model_cls=None):
         loss.backward()
         opt.step()
         opt.clear_grad()
+        if sched is not None:
+            sched.step()
         return loss.detach()
 
     return model, opt, train_step
@@ -4785,6 +4808,408 @@ def _train_unfused(torch, np, cfg, want):
     gc.collect()
     torch.cuda.empty_cache()
     return 1e3 * dt / TRAIN_OFF_STEPS
+
+
+# ------------------------------------------------- train-opt phase
+def llama2_recipe(parameters, clip=True):
+    """The Llama-2 pretraining recipe (Touvron et al. 2023, section 2.2)
+    at the phase's length: AdamW (0.9, 0.95, eps 1e-5, weight decay 0.1)
+    over fp32 master weights, global-norm clipping at 1.0, 3 steps of
+    linear warmup to 3e-4 into a cosine decay over 12. ``(opt, sched)``;
+    ``clip=False`` leaves the clip out (the CPU side of the update check
+    takes the card's clipped gradients)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    lr = paddle.optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=12),
+                            warmup_steps=3, start_lr=0.0, end_lr=3e-4)
+    opt = paddle.optimizer.AdamW(
+        learning_rate=sched, beta1=0.9, beta2=0.95, epsilon=1e-5,
+        weight_decay=0.1, multi_precision=True, parameters=parameters,
+        grad_clip=ClipGradByGlobalNorm(1.0) if clip else None)
+    return opt, sched
+
+
+def _host(t):
+    """A host copy of ``t`` (a copy also when ``t`` is on the host)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _cpu_state(opt):
+    """``opt.state_dict()`` with every tensor copied to the host."""
+    return {k: (copy.deepcopy(v) if k == "LR_Scheduler"
+                else _host(v)) for k, v in opt.state_dict().items()}
+
+
+def _rel_worst(torch, a, b, floor=None) -> float:
+    """max |a - b| / (|b| + |floor|) over the elements (0/0 counts 0), in
+    fp64 on ``a``'s device."""
+    a = a.detach().double()
+    b = b.detach().to(a.device).double()
+    d = (a - b).abs()
+    den = b.abs() if floor is None else \
+        b.abs() + floor.detach().to(a.device).double().abs()
+    r = torch.where(d == 0, torch.zeros_like(d), d / den)
+    return float(r.max()) if r.numel() else 0.0
+
+
+def _bf16_ulps(torch, a, b) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors."""
+    def key(t):
+        i = t.detach().to(a.device).view(torch.int16).int()
+        # order the bit patterns as the values: negatives count down
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((key(a) - key(b)).abs().max())
+
+
+def _opt_update_check(torch, model, opt, sched, ids):
+    """One optimizer step on the card against the same step on the CPU.
+    The card computes the gradients; the CPU takes copies of the step's
+    inputs (parameters, masters, moments, step count, scheduler state and
+    the card's clipped gradients) and steps an optimizer of the same
+    recipe without the clip. The clip's global norm is checked apart, the
+    card's against the CPU's over the same gradients: a clip factor that
+    differs in its last bit rounds some bf16 products the other way, so
+    feeding the CPU its own factor would test the reduction order, not
+    the update. Moments within 1e-6 relative, element by element; masters
+    within 1e-6 of |master| + |the step's change to it| (the update's own
+    fp32 rounding, e.g. ``pow`` in the bias corrections, shows at 1e-7 of
+    the change, which is more than 1e-6 of a master near 0); bf16
+    parameters equal or 1 ulp apart. The comparison runs on the card."""
+    t0 = time.perf_counter()
+    loss, _ = model(ids, labels=ids)
+    loss.backward()
+    params = opt._parameter_list
+    pairs = [(p, p.grad) for p in params if p.grad is not None]
+    clip = opt._grad_clip
+    norm = clip.global_norm([g for _, g in pairs])
+    # opt.step() computes these bits: the same calls on the same device
+    clipped = [_host(g) for _, g in clip(pairs)]
+    norm_cpu = clip.global_norm([_host(g) for _, g in pairs])
+    state = _cpu_state(opt)
+    cpu_params = [torch.nn.Parameter(_host(p)) for p in params]
+    old_masters = {pid: m.clone() for pid, m in opt._master_weights.items()}
+    opt.step()
+    opt.clear_grad()
+    sched.step()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cpu_opt, _ = llama2_recipe(cpu_params, clip=False)
+    cpu_opt.set_state_dict(state)
+    index = {id(p): i for i, p in enumerate(params)}
+    cpu_opt._step_pairs([(cpu_params[index[id(p)]], g)
+                         for (p, _), g in zip(pairs, clipped)])
+    t2 = time.perf_counter()
+    worst = {"norm": abs(float(norm) - float(norm_cpu)) / float(norm_cpu)}
+    ulps = 0
+    for p, cp in zip(params, cpu_params):
+        if p.dtype == torch.bfloat16:
+            ulps = max(ulps, _bf16_ulps(torch, p, cp))
+        else:
+            worst["fp32 param"] = max(worst.get("fp32 param", 0.0),
+                                      _rel_worst(torch, p, cp))
+    card_state, cpu_st = opt.state_dict(), cpu_opt.state_dict()
+    assert list(card_state) == list(cpu_st), "state keys differ"
+    for acc, store in opt._accumulators.items():
+        cpu_store = cpu_opt._accumulators[acc]
+        for p, cp in zip(params, cpu_params):
+            if id(p) in store:
+                worst[acc] = max(worst.get(acc, 0.0), _rel_worst(
+                    torch, store[id(p)], cpu_store[id(cp)]))
+    for p, cp in zip(params, cpu_params):
+        m = opt._master_weights.get(id(p))
+        if m is not None:
+            worst["master"] = max(worst.get("master", 0.0), _rel_worst(
+                torch, m, cpu_opt._master_weights[id(cp)],
+                floor=m - old_masters[id(p)]))
+    n_masters = len(opt._master_weights)
+    assert int(opt._step_count) == int(cpu_opt._step_count)
+    msg = (f"train-opt: update check, step {int(opt._step_count)} at LR "
+           f"{float(opt._lr_tensor):.6g}, global norm {float(norm):.6g} "
+           f"(clip factor {min(1.0, 1.0 / float(norm)):.6g}): card vs CPU "
+           f"worst relative {worst}, bf16 parameters within {ulps} ulp, "
+           f"{n_masters} masters; {t1 - t0:.1f} s the card's step and the "
+           f"copies, {t2 - t1:.1f} s the CPU's step, "
+           f"{time.perf_counter() - t2:.1f} s the comparison")
+    log(msg)
+    assert all(v <= 1e-6 for v in worst.values()), msg
+    assert ulps <= 1, msg
+    assert n_masters > 0 and math.isfinite(float(loss.detach()))
+    return dict(update_worst_rel=max(worst.values()), update_max_ulp=ulps)
+
+
+SWEEP_CFG = dict(vocab_size=4096, hidden_size=512, intermediate_size=1024,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 num_key_value_heads=2, max_position_embeddings=512,
+                 dtype="bfloat16", recompute=False)
+SWEEP_B, SWEEP_S, SWEEP_STEPS = 2, 256, 3
+# every optimizer of optimizers.py with an option beyond its defaults
+SWEEP = (("SGD", dict(learning_rate=1e-2, weight_decay=0.1)),
+         ("Momentum", dict(use_nesterov=True, weight_decay=0.1)),
+         ("Adagrad", dict(learning_rate=1e-2, weight_decay=0.1)),
+         ("Adadelta", dict(learning_rate=1.0, weight_decay=0.1)),
+         ("Adam", dict(amsgrad=True, weight_decay=0.1)),
+         ("AdamW", dict(weight_decay=0.1)),
+         ("Adamax", dict(weight_decay=0.1)),
+         ("Lamb", dict(lamb_weight_decay=0.1)),
+         ("RMSProp", dict(learning_rate=1e-3, centered=True, momentum=0.9)),
+         ("Rprop", dict(learning_rate=1e-3)),
+         ("ASGD", dict(weight_decay=0.1)),
+         ("NAdam", dict()),
+         ("RAdam", dict()))
+
+
+def _close_tier(torch, a, b) -> bool:
+    """Within ``tests/op_harness.py``'s tier of ``b``'s dtype (fp32
+    rtol 1e-5 / atol 1e-6, bf16 2e-2 / 2e-2)."""
+    rtol, atol = (1e-5, 1e-6) if b.dtype == torch.float32 else (2e-2, 2e-2)
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def _sweep_one(torch, np, label, make, ids, micro_steps):
+    """``make(parameters)`` on the card model and on CPU copies of its
+    parameters; ``micro_steps`` steps, the card's gradients given to both;
+    every parameter and state tensor within its dtype's tier."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig(**SWEEP_CFG), seed=1)
+    params = list(model.parameters())
+    cpu_params = [torch.nn.Parameter(_host(p)) for p in params]
+    init = [p.detach().clone() for p in cpu_params]
+    opt, cpu_opt = make(params), make(cpu_params)
+    for _ in range(micro_steps):
+        loss, _ = model(ids, labels=ids)
+        loss.backward()
+        for p, cp in zip(params, cpu_params):
+            cp.grad = _host(p.grad)
+        opt.step()
+        cpu_opt.step()
+        opt.clear_grad()
+        cpu_opt.clear_grad()
+    bad = [n for n, (p, cp) in enumerate(zip(params, cpu_params))
+           if not _close_tier(torch, p, cp)]
+    card, cpu = opt.state_dict(), cpu_opt.state_dict()
+    assert list(card) == list(cpu), (label, list(card), list(cpu))
+    bad += [k for k, v in card.items()
+            if k != "LR_Scheduler" and not _close_tier(torch, v, cpu[k])]
+    moved = max(float((p.detach().float().cpu() - w.float()).abs().max())
+                for p, w in zip(params, init))
+    assert not bad, f"train-opt sweep {label}: outside the tier: {bad}"
+    assert moved > 0, f"train-opt sweep {label}: no parameter moved"
+    assert math.isfinite(float(loss.detach())), label
+    return len(card), moved
+
+
+def _lbfgs_one(torch, np, ids):
+    """LBFGS (3 steps of up to 3 iterations, history 5) on the card model,
+    then from the same weights on CPU copies of its parameters whose
+    closure evaluates the card model at the CPU's point (their values
+    copied in, the gradients copied out): the same steps on both sides of
+    the optimizer, the card's losses and parameters against the CPU's at
+    the bf16 tier. (Evaluating the CPU side through the plain twins
+    instead lets bf16 rounding steer the quasi-Newton steps apart.)"""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    model = LlamaForCausalLM(LlamaConfig(**SWEEP_CFG), seed=1)
+    params = list(model.parameters())
+    init = [_host(p) for p in params]
+    cpu_params = [torch.nn.Parameter(w.clone()) for w in init]
+
+    def card_closure():
+        for p in params:
+            p.grad = None
+        loss, _ = model(ids, labels=ids)
+        loss.backward()
+        return loss
+
+    def cpu_closure():
+        with torch.no_grad():
+            for p, cp in zip(params, cpu_params):
+                p.copy_(cp)
+        loss = card_closure()
+        for p, cp in zip(params, cpu_params):
+            cp.grad = _host(p.grad)
+        return loss.detach().cpu()
+
+    out = []
+    for ps, closure in ((params, card_closure), (cpu_params, cpu_closure)):
+        opt = paddle.optimizer.LBFGS(learning_rate=0.5, max_iter=3,
+                                     history_size=5, parameters=ps)
+        out.append([float(opt.step(closure)) for _ in range(SWEEP_STEPS)])
+        if ps is params:
+            card = [_host(p) for p in params]
+            with torch.no_grad():
+                for p, w in zip(params, init):
+                    p.copy_(w)
+    bad = [n for (n, _), a, b in zip(model.named_parameters(), card,
+                                     cpu_params)
+           if not _close_tier(torch, a, b)]
+    moved = max(float((a.float() - w.float()).abs().max())
+                for a, w in zip(card, init))
+    msg = (f"train-opt sweep LBFGS: losses card {out[0]}, CPU {out[1]}, "
+           f"moved {moved:.3g}")
+    log(msg)
+    assert not bad, f"{msg}; outside the tier: {bad}"
+    assert moved > 0 and all(abs(a - b) <= 2e-2 + 2e-2 * abs(b)
+                             for a, b in zip(*out)), msg
+
+
+def _opt_sweep(torch, np):
+    """Every optimizer of ``optimizers.py`` with and without master
+    weights, ``GradientMergeOptimizer(k_steps=4)`` over AdamW with masters
+    (8 micro-steps: two updates) and LBFGS, on a 2-layer bf16 Llama on the
+    card against the same steps on the CPU."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(rs.randint(0, SWEEP_CFG["vocab_size"],
+                                      size=(SWEEP_B, SWEEP_S))
+                           .astype("int32")).cuda()
+    lines = []
+    for name, kw in SWEEP:
+        kw = dict(dict(learning_rate=1e-3), **kw)
+        for mp in (False, True):
+            def make(params, name=name, kw=kw, mp=mp):
+                return getattr(paddle.optimizer, name)(
+                    parameters=params, multi_precision=mp, **kw)
+            n, moved = _sweep_one(torch, np, f"{name} mp={mp}", make, ids,
+                                  SWEEP_STEPS)
+            lines.append(f"{name}{'+mp' if mp else ''} ({n} state, moved "
+                         f"{moved:.3g})")
+
+    def merge(params):
+        return paddle.optimizer.GradientMergeOptimizer(
+            paddle.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                                   multi_precision=True, parameters=params),
+            k_steps=4)
+    n, moved = _sweep_one(torch, np, "GradientMerge k=4", merge, ids, 8)
+    lines.append(f"GradientMerge k=4 ({n} state, moved {moved:.3g})")
+    _lbfgs_one(torch, np, ids)
+    lines.append("LBFGS")
+    log(f"train-opt sweep: {len(lines)} optimizers on the card within the "
+        f"CPU's tiers: {', '.join(lines)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return len(lines)
+
+
+def phase_train_opt(torch, np, card, train_perf=None):
+    """The flagship Llama of ``phase_train`` under ``llama2_recipe``:
+    2+1 warmup and ``TRAIN_STEPS`` timed steps with the launch counts
+    zeroed just before and read just after (``phase_train``'s counts a
+    step), the LR tensor against the scheduler after every step, one
+    step's update against the CPU, a profiled repeat of 2 steps; then a
+    resume from step 3's state dict that must repeat steps 4 to 13 bit
+    for bit; then every optimizer, small, against the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.weights import param_digest
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    paddle.flags.set_flags({"pallas_fused_block": "auto"})
+    layers, cfg = TRAIN_LAYERS, flagship_config()
+    log(f"train-opt: the train phase's model and batch under the Llama-2 "
+        f"recipe: AdamW(0.9, 0.95, eps 1e-5, wd 0.1, multi_precision), "
+        f"ClipGradByGlobalNorm(1.0), LinearWarmup(3 steps, 0 -> 3e-4) into "
+        f"CosineAnnealingDecay(3e-4, T_max=12)")
+    want = dict(fused_block_fwd=layers, flash_attention_fwd=layers,
+                flash_attention_bwd=layers, rms_norm_fwd=2 * layers + 1,
+                rms_norm_bwd=2 * layers + 1)
+    model, opt, train_step = build_trainer(torch, cfg,
+                                           optimizer=llama2_recipe)
+    sched = opt._lr_scheduler
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(TRAIN_B, TRAIN_S)).astype("int32")).cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    losses, lrs, sched_lrs = [], [], []
+
+    def run(n):
+        for _ in range(n):
+            losses.append(train_step(ids))
+            lrs.append(opt._lr_tensor.clone())
+            sched_lrs.append(sched())
+
+    torch.cuda.reset_peak_memory_stats()
+    run(3)
+    # step 3's state, on the host, for the resume
+    snap_w = [_host(p) for p in model.parameters()]
+    snap_o = _cpu_state(opt)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    log(f"train-opt: path launches {counts}")
+    for name in kernels.KERNELS:
+        assert counts[name] == want.get(name, 0) * TRAIN_STEPS, \
+            ("train-opt", name, counts)
+    digest = param_digest(model)
+    vals = [float(x) for x in losses]
+    log(f"train-opt: losses {vals}")
+    assert all(math.isfinite(x) for x in vals), "non-finite loss"
+    got_lr = [float(x) for x in lrs]
+    log(f"train-opt: LR tensor after each step {got_lr}")
+    assert got_lr == [float(np.float32(v)) for v in sched_lrs], \
+        ("the LR tensor is not the scheduler's", got_lr, sched_lrs)
+    assert got_lr[0] == float(np.float32(1e-4)) and \
+        max(got_lr) == float(np.float32(3e-4)), got_lr
+    tps = TRAIN_B * TRAIN_S * TRAIN_STEPS / dt
+    flops = 6 * n_params + 12 * layers * cfg.hidden_size * TRAIN_S
+    perf = dict(tokens_per_s=tps, ms_per_step=1e3 * dt / TRAIN_STEPS,
+                mfu=tps * flops / PEAK_FLOPS["bf16"], steps=TRAIN_STEPS,
+                n_params=n_params, loss_first=vals[0], loss_last=vals[-1],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                card=card)
+    perf.update(_opt_update_check(torch, model, opt, sched, ids))
+    rows, busy, pwall = device_profile(
+        torch, lambda: [train_step(ids) for _ in range(2)])
+    perf["busy_share"] = report_profile("train-opt", rows, busy, pwall,
+                                        2 * dt / TRAIN_STEPS, top=15)
+    log(f"train-opt: " + json.dumps(perf))
+    beside = "train not run in this process" if train_perf is None else (
+        f"train (plain AdamW, same smoke): {train_perf['ms_per_step']:.1f} "
+        f"ms/step, {train_perf['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{train_perf['mfu']:.4f}, peak {train_perf['peak_gib']:.2f} GiB, "
+        f"busy {train_perf.get('busy_share')}")
+    log(f"train-opt: {perf['ms_per_step']:.1f} ms/step, "
+        f"{perf['tokens_per_s']:.0f} tokens/s, MFU {perf['mfu']:.4f}, peak "
+        f"{perf['peak_gib']:.2f} GiB, busy {perf['busy_share']}; {beside} "
+        f"on {card}")
+    del model, opt, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resume: a fresh model and optimizer from the seed take step 3's
+    # weights and state dict and run steps 4 to 13
+    model, opt, train_step = build_trainer(torch, cfg,
+                                           optimizer=llama2_recipe)
+    with torch.no_grad():
+        for p, w in zip(model.parameters(), snap_w):
+            p.copy_(w)
+    opt.set_state_dict(snap_o)
+    t_resume = time.perf_counter()
+    again = [train_step(ids) for _ in range(TRAIN_STEPS)]
+    perf["resume_s"] = time.perf_counter() - t_resume
+    same = (all(torch.equal(a, b) for a, b in zip(losses[3:], again))
+            and param_digest(model) == digest)
+    log(f"train-opt: resumed at step 3, steps 4-{3 + TRAIN_STEPS}: "
+        f"{'bitwise equal' if same else 'DIFFERS'} "
+        f"({[float(x) for x in again]})")
+    assert same, "the resumed run differs from the uninterrupted one"
+    del model, opt, train_step, snap_w, snap_o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t_sweep = time.perf_counter()
+    perf["sweep_optimizers"] = _opt_sweep(torch, np)
+    perf["sweep_s"] = time.perf_counter() - t_sweep
+    torch.use_deterministic_algorithms(False)
+    perf["phase_s"] = time.perf_counter() - t_phase
+    log(f"train-opt: phase {perf['phase_s']:.1f} s")
+    return counts, perf
 
 
 # the MoE training configuration (bench.py:122-129)
@@ -6210,8 +6635,11 @@ def main() -> int:
         log(f"serve-ssm done at {time.perf_counter() - t_start:.1f} s")
         counts["serve-plane"] = phase_serve_plane(torch, np, card)[0]
         log(f"serve-plane done at {time.perf_counter() - t_start:.1f} s")
-        counts["train"] = phase_train(torch, np, card)[0]
+        counts["train"], train_perf = phase_train(torch, np, card)
         log(f"train done at {time.perf_counter() - t_start:.1f} s")
+        counts["train-opt"] = phase_train_opt(torch, np, card,
+                                              train_perf)[0]
+        log(f"train-opt done at {time.perf_counter() - t_start:.1f} s")
         counts["train-moe"] = phase_train_moe(torch, np, card)[0]
         log(f"train-moe done at {time.perf_counter() - t_start:.1f} s")
         counts["train-ssm"] = phase_train_ssm(torch, np, card)[0]

@@ -42,9 +42,11 @@ its handoff record at admission. One departure from the reference: a
 device-to-device record whose source does not confirm its buffer across
 the pull (:class:`~paddle_tpu_torch.inference.kv_handoff.HandoffRefused`)
 finishes ``"shed"`` with an error naming the refusal, so the router
-replays the request from its journal; the host tier's spill pass, the
-metrics stream and the per-process health reporter that reads the
-serving snapshot are not ported (ROADMAP.md A.7, A.12).
+replays the request from its journal. Under block pressure with a host
+tier, admission first spills paused requests' pages
+(``engine.spill_paused``), as the reference's does. The metrics stream
+and the per-process health reporter that reads the serving snapshot are
+not ported (ROADMAP.md A.12).
 """
 
 from __future__ import annotations

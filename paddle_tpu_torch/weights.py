@@ -12,6 +12,14 @@ JAX bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` rejects, so they cross as their raw 16 bits:
 ``.view(np.uint16)`` -> ``torch.from_numpy`` -> ``.view(torch.bfloat16)``.
 
+:func:`load_jax_optimizer_state` carries a JAX optimizer's
+``state_dict()`` (numpy arrays, the ``LR_Scheduler`` dict as it is) into
+the port's optimizer of the same kind. The JAX models leave parameter
+names unset, so those keys are positional (``param_{i}_moment1``,
+``master_weights.param_{i}``): it first checks that the port's model
+lists its parameters in the JAX model's order, name by name and shape by
+shape, and that the optimizer holds them in that order.
+
 A model whose MoE layers keep only this rank's experts
 (``MoELayer.shard_experts``, ``llama_shard_fn``) takes this rank's block of
 each JAX ``[E, ...]`` expert array; :func:`gather_experts` puts the ranks'
@@ -20,12 +28,14 @@ blocks back together.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import re
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["load_jax_state", "to_torch", "gather_experts", "param_digest"]
+__all__ = ["load_jax_state", "load_jax_optimizer_state", "to_torch",
+           "gather_experts", "param_digest"]
 
 
 def _expert_shards(model: torch.nn.Module) -> Dict[str, Tuple]:
@@ -89,6 +99,80 @@ def load_jax_state(model: torch.nn.Module,
                     f"{tuple(p.shape)} {p.dtype}")
             p.copy_(src.to(p.dtype))
     return model
+
+
+_PARAM_KEY = re.compile(r"param_(\d+)(?:_(.+))?$")
+
+
+def load_jax_optimizer_state(opt, model: torch.nn.Module,
+                             np_state: Dict,
+                             jax_params: Sequence[Tuple[str, Sequence[int]]]
+                             ) -> None:
+    """Load a JAX optimizer's ``state_dict()`` into ``opt``.
+
+    ``np_state`` holds numpy arrays (bf16 as ``ml_dtypes.bfloat16``) under
+    the JAX keys, and the scheduler's dict under ``LR_Scheduler``;
+    ``jax_params`` is the JAX model's ``[(name, shape), ...]`` in its
+    parameter order (``[(n, p.shape) for n, p in jm.named_parameters()]``).
+    Raises, before anything is written, on a parameter order that
+    differs from the JAX model's (the positional keys would land on the
+    wrong parameters), an optimizer that does not hold ``model``'s
+    parameters in that order, a key it cannot place, and a shape or dtype
+    mismatch. Accumulators and masters not made yet wait for the first
+    step, as ``set_state_dict`` keeps them."""
+    port = [(n, tuple(p.shape)) for n, p in model.named_parameters()]
+    jax = [(n, tuple(s)) for n, s in jax_params]
+    if port != jax:
+        diff = next((i, a, b) for i, (a, b) in enumerate(
+            zip(port + [None] * len(jax), jax + [None] * len(port)))
+            if a != b)
+        raise ValueError(f"parameter order differs from the JAX model's at "
+                         f"position {diff[0]}: port {diff[1]}, JAX {diff[2]}")
+    params = list(model.parameters())
+    if [id(p) for p in opt._parameter_list] != [id(p) for p in params]:
+        raise ValueError("the optimizer does not hold the model's parameters "
+                         "in the model's order")
+
+    def expect(key, value, shape, dtype):
+        t = to_torch(np.asarray(value))
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{key}: JAX {tuple(t.shape)} {t.dtype} vs port "
+                             f"{tuple(shape)} {dtype}")
+        return t
+
+    def param_of(key, i):
+        if i >= len(params):
+            raise KeyError(f"{key}: the model has {len(params)} parameters")
+        return params[i]
+
+    acc_names = set(opt._ACC_NAMES)
+    state = {}
+    for key, value in np_state.items():
+        if key == "LR_Scheduler":
+            if opt._lr_scheduler is None:
+                raise KeyError("LR_Scheduler: the optimizer has no scheduler")
+            state[key] = dict(value)
+        elif key == "global_step":
+            state[key] = expect(key, value, (), torch.int32)
+        elif key.startswith("master_weights."):
+            m = _PARAM_KEY.match(key[len("master_weights."):])
+            if m is None or m.group(2) is not None:
+                raise KeyError(f"{key}: no parameter of that key")
+            p = param_of(key, int(m.group(1)))
+            if not opt._use_master(p):
+                raise KeyError(f"{key}: the port keeps no master for a "
+                               f"{p.dtype} parameter (multi_precision="
+                               f"{opt._use_master_weights})")
+            state[key] = expect(key, value, p.shape, torch.float32)
+        else:
+            m = _PARAM_KEY.match(key)
+            if m is None or m.group(2) not in acc_names:
+                raise KeyError(f"{key}: not a state key of "
+                               f"{type(opt).__name__} (accumulators "
+                               f"{sorted(acc_names)})")
+            p = param_of(key, int(m.group(1)))
+            state[key] = expect(key, value, p.shape, opt._acc_dtype(p))
+    opt.set_state_dict(state)
 
 
 def gather_experts(model: torch.nn.Module,

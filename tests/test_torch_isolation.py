@@ -247,12 +247,20 @@ def test_fused_block_kernel_refuses_what_it_cannot_take():
 
 
 def test_unported_optimizer_options_raise():
-    from paddle_tpu_torch.optimizer import AdamW
+    """The optimizer options are ported (masters, clipping, schedulers);
+    what is left out is refused by name: ``TrainGuard`` (ROADMAP.md A.12)
+    is not exported, and a learning rate that is neither a float nor an
+    ``LRScheduler`` raises."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
     p = [torch.nn.Parameter(torch.zeros(3))]
-    for kw in (dict(multi_precision=True), dict(grad_clip=object()),
-               dict(learning_rate=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            AdamW(parameters=p, **kw)
+    assert not hasattr(optimizer, "TrainGuard")
+    assert "TrainGuard" not in optimizer.__all__
+    optimizer.AdamW(parameters=p, multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0),
+                    learning_rate=optimizer.lr.StepDecay(0.1, 2))
+    with pytest.raises(TypeError, match="LRScheduler"):
+        optimizer.AdamW(parameters=p, learning_rate=object())
 
 
 def test_ssm_and_eager_modules_load_no_jax():
