@@ -231,7 +231,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    6 gmm2, 6 + 18 gmm (forward, and the dx against w^T), 18 tgmm, 6 flash
    forward and backward and 13 of each RMSNorm kernel; one step's
    gradients against the twins and an fp32 copy (with the share of
-   (token, k) routes the fp32 copy also takes); a second run bitwise;
+   (token, k) routes the fp32 copy also takes); a second run bitwise.
+   Then the MoE plane beyond the grouped path (``phase_moe_plane``):
+   train-moe-index, the same model, seed and batch at
+   ``moe_grouped_gemm=off`` (the index form: the scatter into ``[E, C,
+   M]``, the vmapped experts, the gather), 1 + 1 warmup and 3 timed AdamW
+   steps, with per step no grouped GEMM, 6 flash forward and backward and
+   13 of each RMSNorm kernel, finite falling losses, and each parameter's
+   step-1 gradient no further from an fp32 copy's (index form) than 1.5x
+   the grouped arm's (floor 1e-3), reporting ms per step, tokens/s, MFU,
+   busy share, peak and ``pallas_moe_train_step_speedup`` (train-moe's
+   tokens/s over these); serve-moe-index, phase 9's model and traffic at
+   ``off`` (the decode step's per-expert einsum arm), with no grouped GEMM,
+   ragged launches == steps x layers, every page free and the 14 greedy
+   streams >= 99% token-equal to the grouped arm's; then at bench_moe's
+   layer width (hidden 1024, 16 experts, gshard cf 2.0) bias
+   ``Linear(1024, 1024)`` experts over 4,096 tokens (fp32 and bf16) and a
+   dense-only round-robin gate over 1,024 tokens, forward and backward,
+   against the same layer on the CPU; ``recompute_interval=1`` in both
+   arms (SwiGLU experts of 704, bf16, 16,384 tokens) bitwise equal to 0,
+   with both peaks; fp16 experts on the index form with one warning;
 14. train-ssm, the slice-18 hybrid training path: ``bench_ssm_pretrain``'s
    TPU configuration (``bench.py:1899-1905``: vocab 32000, hidden 1536,
    ffn 4096, 12 layers "SA" (6 SSM mixers, 6 attention layers), GQA 12:4
@@ -308,7 +327,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens a rank) as four ranks sharing the card on an ``["ep"]`` mesh of
    four, so that #15 and #17 run with three peers: its output against the
    one-device layer, then fwd + bwd + AdamW with ``moe_a2a_overlap`` off
-   and on (the ratio reported, not asserted);
+   and on (the ratio reported, not asserted). In the first spawn's ranks,
+   after (b3), the all-gather expert path over the sharded experts: (b4)
+   the index form (``moe_grouped_gemm=off``, ``moe_a2a_dispatch=auto``),
+   1 + 1 warmup and 2 timed steps: both ranks the same bits, step 1
+   against one process's index-form step within the bf16 tier (whether
+   bitwise reported), the all-gather share of the step; (b5) the grouped
+   form (``on`` with the a2a dispatch ``off``), one forward within the
+   bf16 tier of (b1)'s, and the per-rank dispatch buffer bytes against the
+   a2a path's (``bench_moe_a2a_cpu_smoke``'s ratio, ``bench.py:692``);
 17. RMSNorm (#5 and #6), checked and timed as the kernels of phase 3 are,
    but after every path and in a process of their own, so that their
    profiler sessions, library calls and host-time loops run after each
@@ -5237,7 +5264,7 @@ def phase_train_moe(torch, np, card):
     paddle.flags.set_flags({"pallas_fused_block": "auto",
                             "moe_fused_wi": True})
     cfg = moe_config()
-    layers, e = cfg.num_hidden_layers, cfg.moe_num_experts
+    layers = cfg.num_hidden_layers
     log(f"train-moe: bench_moe (bench.py:122: vocab 32000, hidden 1024, "
         f"16 experts of ffn 704, top-2 gshard, cf 2.0, 16:16 heads, "
         f"head_dim 64), {layers} layers, bf16, batch {MOE_B} x seq {MOE_S}, "
@@ -5248,13 +5275,371 @@ def phase_train_moe(torch, np, card):
                 tgmm=3 * layers, flash_attention_fwd=layers,
                 flash_attention_bwd=layers, rms_norm_fwd=2 * layers + 1,
                 rms_norm_bwd=2 * layers + 1)
-    expert = 3 * cfg.hidden_size * cfg.intermediate_size * layers * e
-
-    def flops_per_token(n_params):
-        activated = n_params - int(expert * (e - 2) / e)
-        return 6 * activated + 12 * layers * cfg.hidden_size * MOE_S
     return run_train(torch, np, card, "train-moe", cfg, MOE_B, MOE_S,
-                     TRAIN_STEPS, want, flops_per_token)
+                     TRAIN_STEPS, want,
+                     lambda n_params: moe_flops_per_token(cfg, n_params))
+
+
+# ------------------------------------------------------------ the MoE plane
+MOE_INDEX_STEPS = 3     # timed steps of train-moe-index, after 1 + 1 warmup
+#: moe-layer's width: bench_moe's layer (hidden 1024, 16 experts, gshard,
+#: cf 2.0)
+PLANE_TOKENS, PLANE_DENSE_TOKENS = 4096, 1024
+
+
+def moe_flops_per_token(cfg, n_params):
+    """``bench_moe``'s activated-parameter formula (``bench.py:139-145``)."""
+    layers, e = cfg.num_hidden_layers, cfg.moe_num_experts
+    expert = 3 * cfg.hidden_size * cfg.intermediate_size * layers * e
+    activated = n_params - int(expert * (e - 2) / e)
+    return 6 * activated + 12 * layers * cfg.hidden_size * MOE_S
+
+
+def _per_param_rel(torch, names, got, exact):
+    """``{name: ||got - exact|| / ||exact||}`` over the parameters whose
+    exact gradient is not zero."""
+    return {n: _rel(a, e) for n, a, e in zip(names, got, exact)
+            if float(e.float().norm()) > 0}
+
+
+def _train_moe_index(torch, np, card, moe_perf):
+    """train-moe-index: train-moe's model, seed and batch at
+    ``moe_grouped_gemm=off`` (the index form: scatter, vmapped experts,
+    gather; ``torch.bmm`` for the products). Step 1's gradients (index
+    form, the grouped arm and an fp32 copy's index form, same weights and
+    batch), then 1 + 1 warmup and ``MOE_INDEX_STEPS`` timed AdamW steps
+    with the launch counts zeroed just before and read just after, and a
+    profiled step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import kernels
+    cfg = moe_config()
+    layers = cfg.num_hidden_layers
+    want = dict(flash_attention_fwd=layers, flash_attention_bwd=layers,
+                rms_norm_fwd=2 * layers + 1, rms_norm_bwd=2 * layers + 1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    model, opt, train_step = build_trainer(torch, cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(MOE_B, MOE_S)).astype("int32")).cuda()
+    names = [n for n, _ in model.named_parameters()]
+    n_params = sum(p.numel() for p in model.parameters())
+    # step 1's gradients: the grouped arm, the index form, an fp32 copy
+    _, g_grouped = loss_and_grads(torch, model, ids)
+    g_grouped = [g.bfloat16() for g in g_grouped]
+    paddle.flags.set_flags({"moe_grouped_gemm": "off"})
+    _, g_index = loss_and_grads(torch, model, ids)
+    model32 = fp32_copy(model)
+    _, g_exact = loss_and_grads(torch, model32, ids)
+    del model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel_i = _per_param_rel(torch, names, g_index, g_exact)
+    rel_g = _per_param_rel(torch, names, g_grouped, g_exact)
+    del g_index, g_grouped, g_exact
+    ratio = max((rel_i[n] / max(1.5 * rel_g[n], 1e-3), n) for n in rel_i)
+    grad = dict(worst_limit_share=ratio[0], worst_name=ratio[1],
+                worst_rel_index=rel_i[ratio[1]],
+                worst_rel_grouped=rel_g[ratio[1]],
+                max_rel_index=max(rel_i.values()),
+                max_rel_grouped=max(rel_g.values()))
+    msg = (f"train-moe-index: step 1's gradients against an fp32 copy's "
+           f"(index form): the worst parameter {ratio[1]} at "
+           f"{ratio[0]:.3f} of its limit (index {grad['worst_rel_index']:.4g}"
+           f", grouped {grad['worst_rel_grouped']:.4g}; limit 1.5x the "
+           f"grouped arm's, floor 1e-3); largest rel L2 index "
+           f"{grad['max_rel_index']:.4g}, grouped {grad['max_rel_grouped']:.4g}")
+    log(msg)
+    assert ratio[0] <= 1.0, msg
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [train_step(ids) for _ in range(2)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(MOE_INDEX_STEPS):
+        losses.append(train_step(ids))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    log(f"train-moe-index: path launches {counts}")
+    for name in kernels.KERNELS:
+        assert counts[name] == want.get(name, 0) * MOE_INDEX_STEPS, \
+            ("train-moe-index", name, counts)
+    vals = [float(x) for x in losses]
+    log(f"train-moe-index: losses {vals}")
+    assert all(math.isfinite(x) for x in vals), "non-finite loss"
+    assert vals[-1] < vals[0], "train-moe-index: the loss did not fall"
+    tps = MOE_B * MOE_S * MOE_INDEX_STEPS / dt
+    perf = dict(ms_per_step=1e3 * dt / MOE_INDEX_STEPS, tokens_per_s=tps,
+                mfu=tps * moe_flops_per_token(cfg, n_params)
+                / PEAK_FLOPS["bf16"], steps=MOE_INDEX_STEPS,
+                loss_first=vals[0], loss_last=vals[-1],
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                grad_check=grad, card=card)
+    rows, busy, pwall = device_profile(torch, lambda: train_step(ids))
+    perf["busy_share"] = report_profile("train-moe-index", rows, busy, pwall,
+                                        dt / MOE_INDEX_STEPS, top=12)
+    if moe_perf is not None:
+        perf["pallas_moe_train_step_speedup"] = \
+            moe_perf["tokens_per_s"] / tps
+        perf["train_moe"] = {k: moe_perf.get(k) for k in (
+            "ms_per_step", "tokens_per_s", "mfu", "peak_gib", "busy_share")}
+    log("train-moe-index: " + json.dumps(perf))
+    del model, opt, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    return counts, perf
+
+
+def _serve_moe_index(torch, np, card):
+    """serve-moe-index: serve-moe's model and traffic with the decode
+    step's MoE MLP on the reference's einsum arm (``moe_grouped_gemm=off``)
+    against the grouped arm's streams; both compute the experts in
+    fp32."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops import kernels
+    cfg = moe_config()
+    layers = cfg.num_hidden_layers
+    model = LlamaForCausalLM(cfg, seed=1).eval()
+    kw = dict(requests=make_moe_requests, max_seqs=16, max_seq_len=160,
+              block_size=64)
+    flags.set_flags({"moe_grouped_gemm": "auto"})
+    _, _, grouped, _, _ = serve(torch, model, np, **kw)
+    flags.set_flags({"moe_grouped_gemm": "off"})
+    kernels.reset_launch_counts()
+    cpu0 = time.process_time()
+    eng, _, out, steps, wall = serve(torch, model, np, **kw)
+    torch.cuda.synchronize()
+    cpu = time.process_time() - cpu0
+    counts = kernels.launch_counts()
+    log(f"serve-moe-index: path launches {counts}")
+    n_steps = eng.stats["steps"]
+    assert counts["ragged_paged_attention"] == n_steps * layers, counts
+    for name in kernels.KERNELS:
+        if name != "ragged_paged_attention":
+            assert counts[name] == 0, (name, counts)
+    assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
+    assert all(d["finish_reason"] == "length" for d in out.values())
+    perf = serve_perf(eng, out, steps, wall, card)
+    perf["host_cpu_share"] = cpu / wall
+    perf["greedy_agreement_grouped"] = greedy_agreement(out, grouped,
+                                                        range(14))
+    perf["first_divergence_grouped"] = first_divergence(out, grouped,
+                                                        range(14))
+    log("serve-moe-index: " + json.dumps(perf))
+    assert perf["greedy_agreement_grouped"] >= 0.99, perf
+    del model, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, perf
+
+
+def _plane_layer(torch, expert, dtype, gate="gshard", recompute=0,
+                 ffn=MOE_FFN):
+    """A ``MoELayer`` at bench_moe's layer width on the CPU in fp32 from a
+    seed: 16 experts of ``pnn.Linear(1024, 1024, bias=True)`` (biases
+    drawn too) or of ``LlamaMLP`` (ffn 704); ``gate`` by name or the
+    reference test's round-robin gate, which gives only the dense
+    route."""
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.models import llama as L
+    g = torch.Generator().manual_seed(5)
+    if expert == "linear":
+        experts = [pnn.Linear(MOE_HIDDEN, MOE_HIDDEN, bias=True, generator=g)
+                   for _ in range(MOE_E)]
+        with torch.no_grad():
+            for x in experts:
+                x.bias.copy_(torch.randn(MOE_HIDDEN, generator=g) * 0.1)
+    else:
+        cfg = L.LlamaConfig(hidden_size=MOE_HIDDEN, intermediate_size=ffn)
+        init = L._Init(cfg, torch.device("cpu"), g)
+        experts = [L.LlamaMLP(cfg, init) for _ in range(MOE_E)]
+    if gate == "round-robin":
+        class RoundRobin(moe.BaseGate):
+            """The reference test's gate (``tests/test_moe.py:370-400``):
+            only the dense route."""
+            top_k = 1
+
+            def route(self, scores, capacity):
+                n, e = scores.shape
+                rows = torch.arange(n, device=scores.device)
+                combine = torch.zeros((n, e, capacity), dtype=scores.dtype,
+                                      device=scores.device)
+                combine[rows, rows % e,
+                        (rows // e).clamp(max=capacity - 1)] = 1.0
+                return combine, combine > 0, torch.zeros(
+                    (), dtype=scores.dtype, device=scores.device)
+        gate = RoundRobin(MOE_HIDDEN, MOE_E, device="cpu", generator=g)
+    layer = moe.MoELayer(MOE_HIDDEN, experts, gate=gate, capacity_factor=2.0,
+                         recompute_interval=recompute, generator=g)
+    return layer.to(dtype)
+
+
+def _layer_grads(torch, layer, x):
+    """The output and the gradients of x and of every parameter of
+    ``(y*y).sum() + aux`` (fp32 sums)."""
+    layer.zero_grad(set_to_none=True)
+    x = x.detach().requires_grad_(True)
+    y = layer(x)
+    (y.float().square().sum() + layer.gate.get_loss()).backward()
+    out = [y.detach(), x.grad] + [
+        torch.zeros_like(p) if p.grad is None else p.grad
+        for p in layer.parameters()]
+    layer.gate._loss = None
+    return out
+
+
+def _against_cpu(torch, layer, x, label, tiers):
+    """The layer on the card against a copy on the CPU in the same dtype,
+    for each dtype of ``tiers`` (dtype -> (rtol, atol)): each result
+    within ``atol x max|cpu| + rtol x |cpu|``. Returns the worst error
+    over the scale, by dtype."""
+    worst = {}
+    for dtype, (rtol, atol) in tiers.items():
+        cpu = _layer_grads(torch, copy.deepcopy(layer).to(dtype),
+                           x.to(dtype))
+        card = copy.deepcopy(layer).to("cuda", dtype)
+        got = _layer_grads(torch, card, x.to("cuda", dtype))
+        torch.cuda.synchronize()
+        errs = [max_err(a.cpu(), b) / max(float(b.float().abs().max()),
+                                          1e-30)
+                for a, b in zip(got, cpu)]
+        ok = all(scaled_close(a.cpu(), b, rtol, atol)
+                 for a, b in zip(got, cpu))
+        worst[str(dtype)] = max(errs)
+        log(f"moe-layer {label} {dtype}: card against the CPU, worst error "
+            f"{max(errs):.3g} x max|cpu| over y, dx and {len(errs) - 2} "
+            f"gradients (rtol {rtol}, atol {atol} x max|cpu|)")
+        assert ok, (label, dtype, errs)
+        del card, got, cpu
+    return worst
+
+
+def _moe_layer_checks(torch, np):
+    """moe-layer: the index form with bias-Linear experts and the dense
+    route on the card against the CPU, ``recompute_interval`` bitwise in
+    both arms, fp16's route with its one warning."""
+    import warnings
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    res = {}
+    fp32 = (1e-5, 1e-5)
+    bf16 = (2e-2, 2e-2)
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(PLANE_TOKENS, MOE_HIDDEN, generator=g)
+    res["linear_experts"] = _against_cpu(
+        torch, _plane_layer(torch, "linear", torch.float32), x,
+        "Linear(1024, 1024, bias) experts, index form, 4096 tokens",
+        {torch.float32: fp32, torch.bfloat16: bf16})
+    xd = torch.randn(PLANE_DENSE_TOKENS, MOE_HIDDEN, generator=g)
+    res["dense_route"] = _against_cpu(
+        torch, _plane_layer(torch, "linear", torch.float32,
+                            gate="round-robin"), xd,
+        "round-robin gate (dense route), 1024 tokens",
+        {torch.float32: fp32})
+
+    xr = torch.randn(MOE_B * MOE_S, MOE_HIDDEN, generator=g).to(
+        "cuda", torch.bfloat16)
+    for mode in ("auto", "off"):
+        flags.set_flags({"moe_grouped_gemm": mode})
+        runs, peaks = [], []
+        for recompute in (0, 1):
+            layer = _plane_layer(torch, "mlp", torch.bfloat16,
+                                 recompute=recompute).cuda()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            runs.append(_layer_grads(torch, layer, xr))
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+            del layer
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        res[f"recompute_{mode}"] = dict(bitwise=same, peak_gib=peaks[0],
+                                        peak_gib_recompute=peaks[1])
+        log(f"moe-layer recompute_interval=1, moe_grouped_gemm={mode} "
+            f"(LlamaMLP experts of {MOE_FFN}, bf16, {MOE_B * MOE_S} "
+            f"tokens): output and {len(runs[0]) - 1} gradients "
+            f"{'bitwise equal' if same else 'DIFFER'} to "
+            f"recompute_interval=0; peak above the inputs "
+            f"{peaks[0]:.3f} GiB without, {peaks[1]:.3f} GiB with")
+        assert same, f"recompute_interval=1 differs at {mode}"
+        del runs
+    flags.set_flags({"moe_grouped_gemm": "auto"})
+
+    half = _plane_layer(torch, "mlp", torch.float16).cuda()
+    moe_layer._warned_fallbacks.clear()
+    before = (gg.launches, gg.launches_gmm2, gg.launches_tgmm)
+    with warnings.catch_warnings(record=True) as caught, \
+            recorded_routes(half) as r16:
+        warnings.simplefilter("always")
+        y16 = _layer_grads(torch, half, x.to("cuda", torch.float16))[0]
+        _layer_grads(torch, half, x.to("cuda", torch.float16))
+    torch.cuda.synchronize()
+    msgs = [str(w.message) for w in caught
+            if "moe_grouped_gemm" in str(w.message)]
+    launched = (gg.launches, gg.launches_gmm2, gg.launches_tgmm) != before
+    with recorded_routes(half.float()) as r32:
+        y32 = _layer_grads(torch, half, x.cuda())[0]
+    # fp16 scores route a near-tie token to another expert than fp32
+    # scores do, which moves its whole row: the rows are held where both
+    # pick the same experts, and the share of such tokens is reported
+    agree = (r16[0] == r32[0]).all(dim=1)
+    scale = float(y32.abs().max())
+    err = max_err(y16[agree], y32[agree]) / scale
+    res["fp16"] = dict(warnings=msgs, grouped_launches=launched,
+                       err_vs_fp32=err,
+                       err_all_rows=max_err(y16, y32) / scale,
+                       route_agreement=float(agree.float().mean()))
+    log(f"moe-layer fp16 experts: the index form, {len(msgs)} warning "
+        f"({msgs[0] if msgs else None}), grouped GEMM launches "
+        f"{launched}; output {err:.3g} x max|y| from the fp32 layer's on "
+        f"the {res['fp16']['route_agreement']:.5f} of tokens routed alike "
+        f"({res['fp16']['err_all_rows']:.3g} over every row)")
+    assert len(msgs) == 1 and not launched and err <= 2e-2, res["fp16"]
+    del half
+    return res
+
+
+def phase_moe_plane(torch, np, card, moe_perf=None):
+    """The MoE plane beyond the grouped path: train-moe-index,
+    serve-moe-index and the moe-layer checks (``_train_moe_index``,
+    ``_serve_moe_index``, ``_moe_layer_checks``). ``moe_perf`` is
+    train-moe's result in this process, for
+    ``pallas_moe_train_step_speedup``."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.flags.set_flags({"pallas_fused_block": "auto",
+                            "moe_fused_wi": True})
+    log("moe-plane: train-moe's model and batch at moe_grouped_gemm=off "
+        "(train-moe-index), serve-moe's at off (serve-moe-index), and "
+        "bench_moe's layer width (hidden 1024, 16 experts, gshard cf 2.0) "
+        "for the other routes")
+    counts, perf = {}, {}
+    try:
+        counts["train-moe-index"], perf["train-moe-index"] = \
+            _train_moe_index(torch, np, card, moe_perf)
+        t1 = time.perf_counter()
+        counts["serve-moe-index"], perf["serve-moe-index"] = \
+            _serve_moe_index(torch, np, card)
+        t2 = time.perf_counter()
+        paddle.flags.set_flags({"moe_grouped_gemm": "auto"})
+        perf["moe-layer"] = _moe_layer_checks(torch, np)
+    finally:
+        paddle.flags.set_flags({"moe_grouped_gemm": "auto"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf["phase_s"] = time.perf_counter() - t0
+    perf["parts_s"] = dict(train=t1 - t0, serve=t2 - t1,
+                           layer=time.perf_counter() - t2)
+    log(f"moe-plane: phase {perf['phase_s']:.1f} s "
+        f"({json.dumps(perf['parts_s'])}) on {card}")
+    return counts, perf
 
 
 SSM_TRAIN_STEPS = 10    # timed steps, as bench_ssm_pretrain times
@@ -5789,6 +6174,76 @@ EPC_RANKS, EPC_HIDDEN, EPC_FFN, EPC_E, EPC_TOKENS, EPC_STEPS = (
     4, 1024, 2816, 16, 16, 6)
 
 
+# the all-gather expert path over sharded experts (the a2a path off):
+# (b4) the index form, moe_grouped_gemm=off with moe_a2a_dispatch=auto
+# (auto follows the grouped-GEMM flag), trained 1 + 1 warmup and
+# EP_GATHER_STEPS timed steps; (b5) the grouped form, on with off, one
+# forward beside (b1)'s
+EP_GATHER_MODES = {"b4": dict(moe_grouped_gemm="off", moe_a2a_dispatch="auto"),
+                   "b5": dict(moe_grouped_gemm="on", moe_a2a_dispatch="off")}
+EP_GATHER_STEPS = 2
+
+
+def ep_gather_want(layers):
+    """(b4)'s launches per step and rank: attention and the norms; no
+    grouped GEMM and no exchange kernel (the experts are composed, the
+    all-gathers host-staged)."""
+    return dict(flash_attention_fwd=layers, flash_attention_bwd=layers,
+                rms_norm_fwd=2 * layers + 1, rms_norm_bwd=2 * layers + 1)
+
+
+def ep_grouped_gather_forward(torch, np, mesh):
+    """(b5) on this rank: the model from the seed with its experts sharded,
+    one forward (no gradient) at (b1)'s flags (the a2a dispatch) and one
+    at (b5)'s (the grouped all-gather path); their losses and logits, the
+    launches of the (b5) forward, and the per-rank dispatch buffer bytes of
+    each path as ``bench_moe_a2a_cpu_smoke`` counts them
+    (``bench.py:692``)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed as dist
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_a2a
+    from paddle_tpu_torch.models import LlamaForCausalLM, llama_shard_fn
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
+    cfg = moe_config()
+    model = LlamaForCausalLM(cfg, seed=0)
+    dist.shard_layer(model, mesh, llama_shard_fn(mesh))
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(MOE_B, MOE_S)).astype("int32")).cuda()
+    out = {}
+    with torch.no_grad():
+        for mode, values in (("b1", {}), ("b5", EP_GATHER_MODES["b5"])):
+            paddle.flags.set_flags({**EP_FLAGS, "moe_grouped_gemm": "auto",
+                                    **values})
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, logits = model(ids, labels=ids)
+            torch.cuda.synchronize()
+            out[mode] = dict(loss=float(loss), logits=logits.float(),
+                             s=time.perf_counter() - t0,
+                             counts=kernels.launch_counts())
+    paddle.flags.set_flags(dict(EP_FLAGS, moe_grouped_gemm="auto"))
+    ep, n = mesh.get_dim_size("ep"), MOE_B * MOE_S
+    capacity = model.llama.layers[0].mlp.gate.capacity(n, 2.0, 2)
+    plan = moe_a2a._plan(mesh, "ep", cfg.moe_num_experts, n, 2, capacity)
+    esize = 2                                   # bf16
+    ag = cfg.moe_num_experts * gg.padded_capacity(capacity) \
+        * cfg.hidden_size * esize
+    a2a = plan.chunks * ep * plan.bucket * (cfg.hidden_size * esize + 4)
+    a, b = out["b1"]["logits"], out["b5"]["logits"]
+    res = dict(loss_b1=out["b1"]["loss"], loss_b5=out["b5"]["loss"],
+               logits_err=max_err(b, a) / float(a.abs().max()),
+               logits_close=scaled_close(b, a, 2e-2, 2e-2),
+               forward_s=out["b5"]["s"], forward_s_b1=out["b1"]["s"],
+               counts=out["b5"]["counts"], all_gather_bytes=ag,
+               a2a_bytes=a2a, bytes_ratio=ag / a2a,
+               digest=_digest_of({"logits": b}))
+    del model, out, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def ep_want(mode, layers):
     """Launches per step and rank of a mode, as the code makes them."""
     chunks = 2 if mode == "b2" else 1
@@ -6052,11 +6507,11 @@ def _ep_kernel_checks(torch, mesh):
     return dict(a2a=a2a, fused=timed)
 
 
-def ep_run(torch, np, mesh, mode, want):
+def ep_run(torch, np, mesh, mode, want, steps=EP_STEPS):
     """One mode of train-moe-ep on this rank: the model from the seed with
     its experts sharded over ep (``llama_shard_fn``), step 1's loss and
     gradients (the experts' gathered back to ``[E, ...]``), 1 + 1 warmup
-    steps, then ``EP_STEPS`` timed steps with the launch counts zeroed just
+    steps, then ``steps`` timed steps with the launch counts zeroed just
     before and read just after (``want``: per step), the host-staged
     all-gathers and the #15/#17 calls timed apart."""
     from paddle_tpu_torch import distributed as dist
@@ -6083,13 +6538,13 @@ def ep_run(torch, np, mesh, mode, want):
                              (hops, "tiled_a2a", "a2a"),
                              (hops, "fused_a2a_expert_mlp", "a2a")]) as spent:
         t0 = time.perf_counter()
-        for _ in range(EP_STEPS):
+        for _ in range(steps):
             losses.append(train_step(ids))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     counts = kernels.launch_counts()
     for name in kernels.KERNELS:
-        assert counts[name] == want.get(name, 0) * EP_STEPS, \
+        assert counts[name] == want.get(name, 0) * steps, \
             (mode, name, counts)
     vals = [float(x) for x in losses]
     assert all(math.isfinite(x) for x in vals), (mode, vals)
@@ -6100,8 +6555,8 @@ def ep_run(torch, np, mesh, mode, want):
               if full[n].shape != p.shape}
     res = dict(loss0=loss0, losses=vals, counts=counts,
                loss_bits=[x.cpu().numpy().tobytes() for x in losses],
-               ms_per_step=1e3 * dt / EP_STEPS,
-               tokens_per_s=MOE_B * MOE_S * EP_STEPS / dt,
+               ms_per_step=1e3 * dt / steps,
+               tokens_per_s=MOE_B * MOE_S * steps / dt,
                gather_share=spent["gloo"] / dt, a2a_share=spent["a2a"] / dt,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                replicated_digest=_digest_of(
@@ -6144,7 +6599,28 @@ def _ep_rank(rank, work_dir):
                                   ep_want(mode, layers))
         if rank == 0:
             torch.save(grads, os.path.join(work_dir, f"grads_{mode}.pt"))
+    _ep_gather_legs(torch, paddle, np, mesh, rank, work_dir, out)
     torch.save(out, os.path.join(work_dir, f"rank{rank}.pt"))
+
+
+def _ep_gather_legs(torch, paddle, np, mesh, rank, work_dir, out):
+    """(b4) and (b5) on this rank, into ``out``; rank 0 writes (b4)'s
+    step-1 gradients."""
+    layers = moe_config().num_hidden_layers
+    t0 = time.perf_counter()
+    paddle.flags.set_flags(dict(EP_FLAGS, **EP_GATHER_MODES["b4"]))
+    try:
+        out["b4"], grads = ep_run(torch, np, mesh, "b4",
+                                  ep_gather_want(layers),
+                                  steps=EP_GATHER_STEPS)
+    finally:
+        paddle.flags.set_flags(dict(EP_FLAGS, moe_grouped_gemm="auto"))
+    if rank == 0:
+        torch.save(grads, os.path.join(work_dir, "grads_b4.pt"))
+    del grads
+    t1 = time.perf_counter()
+    out["b5"] = ep_grouped_gather_forward(torch, np, mesh)
+    out["gather_legs_s"] = dict(b4=t1 - t0, b5=time.perf_counter() - t1)
 
 
 def _ep_rank_control(rank, work_dir):
@@ -6255,6 +6731,67 @@ def _ep_layer_rank(rank, work_dir):
     torch.save(out, os.path.join(work_dir, f"layer{rank}.pt"))
 
 
+def _ep_gather_checks(torch, ranks, grads, loss_index, grads_index, names,
+                      flops_per_token, layers):
+    """(b4) and (b5) from both ranks' results: (b4) both ranks the same
+    bits, step 1's loss and gradients against one process's index-form
+    step within the bf16 tier (2e-2 on the loss, rel L2 2e-2 over the
+    model and ``EP_LEAF_LIMIT`` a parameter), whether they are bitwise
+    equal, the all-gather share; (b5) its forward within the bf16 tier of
+    (b1)'s, its launches, the dispatch buffer bytes against the a2a
+    path's."""
+    r0 = ranks[0]["b4"]
+    for r in ranks[1:]:
+        assert r["b4"]["loss_bits"] == r0["loss_bits"] and \
+            r["b4"]["digest"] == r0["digest"], \
+            "train-moe-ep b4: the ranks' bits differ"
+        assert r["b5"]["digest"] == ranks[0]["b5"]["digest"], \
+            "train-moe-ep b5: the ranks' logits differ"
+    leaf = _leaf_rels(grads, grads_index)
+    worst = max(leaf)
+    rel = math.sqrt(sum(float((x.float() - y.float()).square().sum())
+                        for x, y in zip(grads, grads_index))
+                    / sum(float(y.float().square().sum())
+                          for y in grads_index))
+    bitwise = all(torch.equal(x, y) for x, y in zip(grads, grads_index))
+    tps = r0["tokens_per_s"]
+    b4 = dict(ms_per_step=r0["ms_per_step"], tokens_per_s=tps,
+              mfu=tps * flops_per_token / PEAK_FLOPS["bf16"],
+              gather_share=r0["gather_share"], peak_gib=r0["peak_gib"],
+              losses=r0["losses"], loss0=r0["loss0"],
+              one_process_index_loss=loss_index,
+              grad_rel_l2_vs_one_process=rel, worst_leaf=worst,
+              worst_leaf_name=names[leaf.index(worst)],
+              grads_bitwise_one_process=bitwise,
+              ms_per_step_rank1=ranks[1]["b4"]["ms_per_step"],
+              legs_s=ranks[0]["gather_legs_s"])
+    msg = (f"train-moe-ep b4 (the index-form all-gather path): step 1 "
+           f"against one process's index form: loss {r0['loss0']:.6f} vs "
+           f"{loss_index:.6f}; gradients rel L2 {rel:.4g}, worst parameter "
+           f"{b4['worst_leaf_name']} {worst:.4g}, "
+           f"{'bitwise equal' if bitwise else 'not bitwise equal'}; "
+           f"all-gather share {r0['gather_share']:.3f} of the step")
+    log(msg)
+    log("train-moe-ep b4: " + json.dumps(b4))
+    assert abs(r0["loss0"] - loss_index) <= 2e-2 * abs(loss_index) \
+        and rel <= 2e-2 and worst <= EP_LEAF_LIMIT, msg
+    b5 = {k: v for k, v in ranks[0]["b5"].items() if k != "digest"}
+    want = dict(gmm2=layers, gmm_fwd=layers, flash_attention_fwd=layers,
+                rms_norm_fwd=2 * layers + 1)
+    msg = (f"train-moe-ep b5 (the grouped all-gather path): one forward, "
+           f"loss {b5['loss_b5']:.6f} against (b1)'s {b5['loss_b1']:.6f}, "
+           f"logits {b5['logits_err']:.3g} x max|logits| from (b1)'s; per-"
+           f"rank dispatch buffer {b5['all_gather_bytes']} bytes against "
+           f"the a2a path's {b5['a2a_bytes']} (ratio "
+           f"{b5['bytes_ratio']:.3f}); launches {b5['counts']}")
+    log(msg)
+    assert b5["logits_close"] and abs(b5["loss_b5"] - b5["loss_b1"]) <= \
+        2e-2 * abs(b5["loss_b1"]), msg
+    for name, n in b5["counts"].items():
+        assert n == want.get(name, 0), (msg, name)
+    return {"b4": b4, "b5": b5}
+
+
 def phase_train_moe_ep(torch, np, card):
     """The slice-7 path, train-moe-ep: ``bench_moe``'s configuration
     (``bench.py:122-129``) trained with AdamW on an ``["ep"]`` mesh of two
@@ -6269,15 +6806,18 @@ def phase_train_moe_ep(torch, np, card):
     loss within the bf16 tier of one process at the same seed and batch,
     its gradients within 2e-2 rel L2 over the model and each parameter's
     within ``EP_LEAF_LIMIT``, which a planted combine fault must exceed.
-    Then the layer-level run (c) at ep 4. Returns the launch counts by path
-    and the #15 and #17 rows of the ``kernels`` line."""
+    In the same ranks, the all-gather expert path (``_ep_gather_legs``,
+    held by ``_ep_gather_checks``): (b4) the index form trained, (b5) the
+    grouped form's forward. Then the layer-level run (c) at ep 4. Returns
+    the launch counts by path and the #15 and #17 rows of the ``kernels``
+    line."""
     import tempfile
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch import distributed as dist
     paddle.flags.set_flags(dict(EP_FLAGS, pallas_fused_block="auto",
                                 moe_fused_wi=True))
     cfg = moe_config()
-    layers, e = cfg.num_hidden_layers, cfg.moe_num_experts
+    layers = cfg.num_hidden_layers
     log(f"train-moe-ep: bench_moe (bench.py:122: vocab 32000, hidden 1024, "
         f"16 experts of ffn 704, top-2 gshard, cf 2.0, 16:16 heads), "
         f"{layers} layers, bf16, batch {MOE_B} x seq {MOE_S}, AdamW(lr 1e-4, "
@@ -6293,13 +6833,18 @@ def phase_train_moe_ep(torch, np, card):
     names = [n for n, _ in model.named_parameters()]
     loss_one, grads_one = loss_and_grads(torch, model, ids)
     grads_one = [g.bfloat16().cpu() for g in grads_one]
+    # (b4)'s yardstick: the same step in one process on the index form
+    paddle.flags.set_flags({"moe_grouped_gemm": "off"})
+    try:
+        loss_index, grads_index = loss_and_grads(torch, model, ids)
+    finally:
+        paddle.flags.set_flags({"moe_grouped_gemm": "auto"})
+    grads_index = [g.bfloat16().cpu() for g in grads_index]
     del model
     gc.collect()
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
-    expert = 3 * cfg.hidden_size * cfg.intermediate_size * layers * e
-    flops_per_token = (6 * (n_params - int(expert * (e - 2) / e))
-                       + 12 * layers * cfg.hidden_size * MOE_S)
+    flops_per_token = moe_flops_per_token(cfg, n_params)
 
     with tempfile.TemporaryDirectory() as work:
         t0 = time.perf_counter()
@@ -6307,7 +6852,7 @@ def phase_train_moe_ep(torch, np, card):
         ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
                             weights_only=False) for r in range(EP)]
         grads = {m: torch.load(os.path.join(work, f"grads_{m}.pt"))
-                 for m in EP_MODES}
+                 for m in list(EP_MODES) + ["b4"]}
         log(f"train-moe-ep: {EP} ranks in {time.perf_counter() - t0:.1f} s "
             f"on {[r['device'] + ' ' + r['kind'] for r in ranks]}; kernels "
             f"(rank 0): {json.dumps(ranks[0]['kernels'])}")
@@ -6355,6 +6900,11 @@ def phase_train_moe_ep(torch, np, card):
     for ok, msg in checks:
         assert ok, msg
     perf["planted_fault_worst_leaf"] = worst_c
+    perf.update(_ep_gather_checks(torch, ranks, grads["b4"], loss_index,
+                                  grads_index, names, flops_per_token,
+                                  layers))
+    counts["train-moe-ep-index"] = ranks[0]["b4"]["counts"]
+    counts["train-moe-ep-grouped-gather"] = ranks[0]["b5"]["counts"]
     log("train-moe-ep: " + json.dumps(perf) + " (MFU by bench_moe's "
         "activated-parameter formula against one card's 989 TFLOP/s; the "
         "two ranks share one card, so this is not expert-parallel scaling)")
@@ -6640,8 +7190,10 @@ def main() -> int:
         counts["train-opt"] = phase_train_opt(torch, np, card,
                                               train_perf)[0]
         log(f"train-opt done at {time.perf_counter() - t_start:.1f} s")
-        counts["train-moe"] = phase_train_moe(torch, np, card)[0]
+        counts["train-moe"], moe_perf = phase_train_moe(torch, np, card)
         log(f"train-moe done at {time.perf_counter() - t_start:.1f} s")
+        counts.update(phase_moe_plane(torch, np, card, moe_perf)[0])
+        log(f"moe-plane done at {time.perf_counter() - t_start:.1f} s")
         counts["train-ssm"] = phase_train_ssm(torch, np, card)[0]
         log(f"train-ssm done at {time.perf_counter() - t_start:.1f} s")
         cp_counts, hop_row = phase_train_cp(torch, np, card)

@@ -112,10 +112,12 @@ define_flag("pallas_fused_block", "auto")
 # on CPU tensors and raises NotImplementedError on CUDA tensors
 define_flag("pallas_selective_scan", "auto")
 
-# the MoE expert path (ops/kernels/grouped_gemm.py): "auto" and "on" take
-# the grouped GEMMs on every device (the CUDA kernels for CUDA tensors,
-# their twins for CPU tensors); "off", the reference's index-form
-# scatter/vmap path, raises NotImplementedError until it is ported.
+# the MoE expert path (ops/kernels/grouped_gemm.py: fast_path_enabled):
+# "auto" and "on" take the grouped GEMMs on every device (the CUDA kernels
+# for CUDA tensors, their twins for CPU tensors) where the experts are
+# SwiGLU MLPs that opt in and the dtype is fp32 or bf16; "off" takes the
+# reference's index-form scatter/vmap path (composed PyTorch, as the
+# reference composes it), which also serves every other expert and dtype
 define_flag("moe_grouped_gemm", "auto")
 # gate and up projections of the expert MLP through the dual-output gmm2
 # kernel (one read of the token buffer) instead of two gmm launches
@@ -123,11 +125,13 @@ define_flag("moe_fused_wi", True)
 
 # expert parallelism (incubate/distributed/models/moe/moe_a2a.py,
 # ops/kernels/async_collectives.py), with the reference's defaults
-# (paddle_tpu/flags.py:173-210). moe_a2a_dispatch: "auto" and its alias
-# "on" take the capacity-bucketed ragged all-to-all on a mesh with an ep
-# axis of size > 1 (the reference's "auto" follows the grouped-GEMM path,
-# the port's only expert path, so the two agree); "off" keeps each rank on
-# the one-device grouped path over replicated experts.
+# (paddle_tpu/flags.py:173-210). moe_a2a_dispatch: "on" forces the
+# capacity-bucketed ragged all-to-all on a mesh with an ep axis of size > 1
+# (grouped experts only), "auto" follows moe_grouped_gemm as the
+# reference's does, "off" turns it off: a layer holding one rank's experts
+# then takes the all-gather path (every rank fills the whole buffer, runs
+# its experts and all-gathers the outputs), one holding all of them the
+# one-device path.
 define_flag("moe_a2a_dispatch", "auto")
 # split each rank's tokens into moe_a2a_chunks independent pipelines
 # (clamped to the largest divisor of the rank's token count)

@@ -1,7 +1,7 @@
 """Mixture of experts (port of
 ``paddle_tpu/incubate/distributed/models/moe``): the gates, :class:`MoELayer`
-over the grouped-GEMM kernels, and its expert-parallel dispatch
-(:mod:`.moe_a2a`)."""
+(the grouped-GEMM kernels, the index form, the dense route), and its
+expert-parallel paths (:mod:`.moe_a2a`)."""
 
 from paddle_tpu_torch.incubate.distributed.models.moe.gate import (
     BaseGate, GShardGate, NaiveGate, SwitchGate)

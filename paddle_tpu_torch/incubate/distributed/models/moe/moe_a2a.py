@@ -33,9 +33,14 @@ slices the rank's rows, runs the exchange with its peers and all-gathers
 the output; its backward takes the rank's rows of the cotangent and
 all-gathers the tokens' gradient and the routing weights' gradient, so the
 gate's gradient is the same bits on every rank and no all-reduce exists.
-Mesh axes other than ``ep`` (data, sequence and tensor parallelism of the
-experts) are ROADMAP.md A.10; the gauges and flight-recorder records are
-A.12.
+Off the a2a path, a layer that keeps one rank's block of the experts takes
+the all-gather path (:func:`all_gather_experts`, the reference's GSPMD
+buffer under ``ep_sharding``): every rank fills the whole expert-major
+buffer from the replicated tokens, runs its block and all-gathers the
+outputs; the backward all-gathers the buffer's gradient, and the experts'
+gradients stay local. Mesh axes other than ``ep`` (data, sequence and tensor
+parallelism of the experts) are ROADMAP.md A.10; the gauges and
+flight-recorder records are A.12.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.distributed import collective as coll
@@ -54,7 +60,7 @@ from paddle_tpu_torch.ops.kernels import grouped_gemm as gg
 
 __all__ = ["a2a_enabled", "a2a_eligible", "a2a_ineligible_reason",
            "mesh_axis_split", "dispatch_local", "combine_local",
-           "a2a_grouped_forward"]
+           "a2a_grouped_forward", "all_gather_experts"]
 
 # mesh axes along which tokens are data-sharded (sequence axes shard tokens
 # too) and those that shard the expert ffn dim: the reference's families
@@ -64,15 +70,17 @@ _MODEL_AXES = {"mp", "model", "tensor"}
 
 
 def a2a_enabled() -> bool:
-    """``moe_a2a_dispatch``: ``auto`` and its alias ``on`` take the a2a
-    path, ``off`` keeps the one-device path. The reference's ``auto``
-    follows the grouped-GEMM path, which is the port's only expert path
-    (ROADMAP.md C), so ``on`` adds nothing here."""
+    """``moe_a2a_dispatch`` (``moe_a2a.py:62-75``): ``on`` forces the a2a
+    path, ``auto`` follows the grouped-GEMM path
+    (:func:`grouped_gemm.fast_path_enabled`), ``off`` keeps the all-gather
+    path. Any other value raises."""
     mode = str(flags.flag("moe_a2a_dispatch")).lower()
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"moe_a2a_dispatch must be 'auto', 'on' or 'off', "
                          f"got {mode!r}")
-    return mode != "off"
+    if mode == "auto":
+        return gg.fast_path_enabled()
+    return mode == "on"
 
 
 def mesh_axis_split(mesh, ep_axis: str):
@@ -139,6 +147,55 @@ def require_ep_only(mesh, ep_axis: str, what: str) -> None:
             f"{what}: mesh axes {others} beside {ep_axis!r} (data, sequence "
             f"or tensor parallelism of the experts) are not ported yet "
             f"(ROADMAP.md A.10)")
+
+
+# ------------------------------------------------- the all-gather path
+class _EpBlock(torch.autograd.Function):
+    """This rank's block of a buffer every rank of the ep group holds
+    whole (dim 0 split in ``ep`` blocks). The backward all-gathers the
+    ranks' block gradients, so that every rank holds the whole buffer's
+    gradient and the tokens' gradients stay the same bits on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, x, idx: int, ep: int, group):
+        ctx.group = group
+        rows = x.shape[0] // ep
+        return x[idx * rows:(idx + 1) * rows].clone()
+
+    @staticmethod
+    def backward(ctx, dy):
+        return coll.all_gather(dy.contiguous(), ctx.group, axis=0), None, \
+            None, None
+
+
+class _EpGather(torch.autograd.Function):
+    """The ranks' blocks concatenated along dim 0 in rank order; the
+    backward keeps this rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y, idx: int, group):
+        ctx.idx, ctx.rows = idx, y.shape[0]
+        return coll.all_gather(y.contiguous(), group, axis=0)
+
+    @staticmethod
+    def backward(ctx, dy):
+        r = ctx.rows
+        return dy[ctx.idx * r:(ctx.idx + 1) * r].contiguous(), None, None
+
+
+def all_gather_experts(fn, x, mesh, ep_axis: str, *leaves):
+    """The all-gather expert path over sharded experts (the reference's
+    GSPMD buffer, ``moe_layer.py:52-96`` and ``:271-296`` under
+    ``ep_sharding``): ``x`` is the whole expert-major buffer, which every
+    rank of the ep group fills from the replicated tokens; this rank runs
+    ``fn(block, *leaves)`` on its block of ``E/ep`` experts with its
+    stacked ``leaves`` and the blocks are all-gathered. The experts'
+    gradients stay local; the buffer's gradient is all-gathered."""
+    ep, idx = mesh.get_dim_size(ep_axis), mesh.axis_index(ep_axis)
+    group = mesh.group(ep_axis)
+    y = fn(_EpBlock.apply(x, idx, ep, group), *leaves)
+    return _EpGather.apply(y, idx, group)
 
 
 # --------------------------------------------------------- the rank's half
@@ -302,10 +359,12 @@ class _Plan:
     bucket: int
     fused: bool
     full: bool          # the layer holds all E experts (slice, gather dW)
+    remat: bool = False     # recompute the composed expert MLP backward
 
 
 def _plan(mesh, ep_axis: str, num_e: int, n: int, k: int, capacity: int,
-          full: bool = False, chunks: Optional[int] = None) -> _Plan:
+          full: bool = False, chunks: Optional[int] = None,
+          remat: bool = False) -> _Plan:
     """The static sizes of the rank's half (``moe_a2a.py:327-350``): ``n``
     global tokens routed top-``k`` at ``capacity``; ``chunks`` from
     ``moe_a2a_overlap``/``moe_a2a_chunks`` unless given, clamped to the
@@ -323,7 +382,7 @@ def _plan(mesh, ep_axis: str, num_e: int, n: int, k: int, capacity: int,
                  idx=mesh.axis_index(ep_axis), num_e=num_e, e_local=e_local,
                  n_l=n_l, c_pad=c_pad, chunks=chunks,
                  bucket=min(n_l // chunks * k, e_local * c_pad),
-                 fused=hops.fused_kernel_enabled(), full=full)
+                 fused=hops.fused_kernel_enabled(), full=full, remat=remat)
 
 
 def _pack_chunks(tok, e_idx, keep, p: _Plan):
@@ -365,7 +424,10 @@ def _local_forward(tok, e_idx, w, keep, wg, wu, wd, p: _Plan):
                 s1 = part[c + 1]
                 nxt = dispatch_local(tok[s1], e_idx[s1], keep[s1], **kw)
             x_buf, cnts, st = cur
-            y_buf = gg.expert_mlp(x_buf, cnts, wg, wu, wd)
+            # the reference's jax.checkpoint(experts_fn) under remat
+            y_buf = (checkpoint(gg.expert_mlp, x_buf, cnts, wg, wu, wd,
+                                use_reentrant=False) if p.remat
+                     else gg.expert_mlp(x_buf, cnts, wg, wu, wd))
             ys.append(combine_local(y_buf, st, w[s], keep[s], group=p.group,
                                     ep=p.ep))
     return ys[0] if p.chunks == 1 else torch.cat(ys)
@@ -410,13 +472,16 @@ class _A2AGrouped(torch.autograd.Function):
 
 
 def a2a_grouped_forward(tokens, routed, wg, wu, wd, capacity, mesh,
-                        ep_axis, shape, ct, num_experts: Optional[int] = None):
+                        ep_axis, shape, ct, num_experts: Optional[int] = None,
+                        remat: bool = False):
     """The ep > 1 grouped forward (``moe_a2a.py:311-447``): global routing
     -> this rank's ragged a2a dispatch -> its local experts -> the mirrored
     combine, then the global output. ``wg``/``wu``/``wd`` are the layer's
     stacked leaves: this rank's ``E/ep`` experts (``shard_experts``) or all
-    ``E`` (``num_experts``), of which it runs its block. Returns ``(y in
-    shape[:-1] + (M,), aux)``."""
+    ``E`` (``num_experts``), of which it runs its block. ``remat``
+    recomputes the composed route's expert MLP in the backward (the fused
+    route saves only its inputs already). Returns ``(y in shape[:-1] +
+    (M,), aux)``."""
     require_ep_only(mesh, ep_axis, "the MoE a2a dispatch")
     e_idx, _, w, keep, aux = routed
     num_e = num_experts if num_experts is not None else wg.shape[0]
@@ -425,7 +490,7 @@ def a2a_grouped_forward(tokens, routed, wg, wu, wd, capacity, mesh,
         raise ValueError(f"stacked experts {wg.shape[0]}: neither all "
                          f"{num_e} nor this rank's {e_local}")
     plan = _plan(mesh, ep_axis, num_e, tokens.shape[0], e_idx.shape[1],
-                 capacity, full=wg.shape[0] == num_e)
+                 capacity, full=wg.shape[0] == num_e, remat=remat)
     y = _A2AGrouped.apply(tokens.to(ct), w, wg.to(ct), wu.to(ct), wd.to(ct),
                           e_idx, keep, plan)
     return y.reshape(tuple(shape[:-1]) + (y.shape[-1],)), aux.float()

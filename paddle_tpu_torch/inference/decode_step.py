@@ -22,7 +22,9 @@ MoE layers (the reference's compiled MoE step): the gate's index routing
 with the bucket-pad rows masked out of it, the sort-based dispatch into an
 expert-major buffer and the expert MLP as grouped GEMMs. The buffer is
 fp32 (``_rms`` promotes), the expert weights stay bf16 and the gmm/gmm2
-kernels widen them as they load them.
+kernels widen them as they load them. Under ``moe_grouped_gemm=off`` the
+expert MLP is the reference's per-expert einsum arm (``torch.bmm`` over
+the buffer at ``c_pad = capacity``, the weights widened to fp32).
 
 SSM layers of a hybrid model (:func:`ssm_layer_step`, shared with the
 eager engine): one recurrence step per token from the slot's O(1) state —
@@ -241,22 +243,34 @@ def _moe_mlp(x2, lp, spec, use_kernel: bool, valid):
     gate's index routing with ``valid [t]`` masking the bucket-pad rows out
     of it (so that pads, which all share token 0's embedding, can take no
     expert capacity from real tokens), the sort-based dispatch, the expert
-    MLP as grouped GEMMs (their plain twins with ``use_kernel=False``) and
-    the combine."""
-    t = x2.shape[0]
+    MLP and the combine. The expert MLP is the grouped GEMMs (their plain
+    twins with ``use_kernel=False``) when ``moe_grouped_gemm`` takes them
+    and the kernels take the dtype; otherwise the reference's per-expert
+    einsum arm over the expert-major buffer at ``c_pad = capacity``
+    (``torch.bmm``; no kernel of the port's)."""
+    t, m = x2.shape
     gate = spec["gate"]
     num_e = spec["num_experts"]
     capacity = gate.capacity(t, spec["cf"], spec["top_k"])
     wg, wu, wd = lp["moe_wg"], lp["moe_wu"], lp["moe_wd"]
+    ffn = wg.shape[-1]
     scores = torch.matmul(x2, lp["moe_gate_w"].to(x2.dtype))
     e_idx, slot, w, keep, _aux = gate.route_indices(scores.float(), capacity,
                                                     valid=valid)
     ct = torch.promote_types(x2.dtype, wg.dtype)
-    gg.require_grouped_path(ct)
+    fast = (gg.fast_path_enabled()
+            and gg.eligible(num_e, capacity, m, ffn, ct)
+            and gg.eligible(num_e, capacity, ffn, m, ct))
+    c_pad = gg.padded_capacity(capacity) if fast else capacity
     x_buf, counts, dest = gg.sorted_dispatch(x2.to(ct), e_idx, slot, keep,
-                                             num_e,
-                                             gg.padded_capacity(capacity))
-    y_buf = gg.expert_mlp(x_buf, counts, wg, wu, wd, plain=not use_kernel)
+                                             num_e, c_pad)
+    if fast:
+        y_buf = gg.expert_mlp(x_buf, counts, wg, wu, wd,
+                              plain=not use_kernel)
+    else:
+        xb = x_buf.reshape(num_e, capacity, m)
+        act = F.silu(torch.bmm(xb, wg.to(ct))) * torch.bmm(xb, wu.to(ct))
+        y_buf = torch.bmm(act, wd.to(ct)).reshape(num_e * capacity, m)
     return gg.sorted_combine(y_buf, dest, w, keep, t).to(x2.dtype)
 
 

@@ -159,8 +159,9 @@ class GenerationEngine:
         if llama is None or not hasattr(llama, "layers"):
             raise NotImplementedError(
                 "GenerationEngine: model has no llama-style decoder stack "
-                "(model.llama); only Llama and hybrid SSM models are ported "
-                "(ROADMAP.md A.8/A.9)")
+                "(model.llama); the port serves Llama stacks (dense or MoE) "
+                "and hybrid SSM models; other model families are ROADMAP.md "
+                "A.13")
         reason = _ds.compiled_capable(model)
         if mode == "auto":
             mode = "compiled" if reason is None else "eager"
@@ -168,8 +169,8 @@ class GenerationEngine:
                 _warn_fallback("compiled decode", reason)
         elif mode == "compiled" and reason is not None:
             raise NotImplementedError(
-                f"GenerationEngine(mode='compiled'): {reason} (ROADMAP.md "
-                f"A.8/A.9)")
+                f"GenerationEngine(mode='compiled'): {reason}; mode='eager' "
+                f"or 'auto' serves it through the layer walk")
         if spec_tokens is None:
             spec_tokens = flags.flag("serve_spec_tokens")
         self.spec_tokens = max(0, int(spec_tokens))

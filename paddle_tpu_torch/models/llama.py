@@ -12,8 +12,9 @@ A decoder layer runs one of the reference's two paths, chosen by the
 
 With ``moe_num_experts > 0`` the MLP is a
 :class:`~paddle_tpu_torch.incubate.distributed.models.moe.MoELayer` over
-``LlamaMLP`` experts (the grouped-GEMM kernels); the fused block refuses
-such a layer, as the reference's does, so it composes.
+``LlamaMLP`` experts (the grouped-GEMM kernels; the index form under
+``moe_grouped_gemm=off``); the fused block refuses such a layer, as the
+reference's does, so it composes.
 
 On CUDA the norms, attention, the fused block and the grouped GEMMs run
 the hand-written kernels, forward and backward; on CPU their plain twins.
@@ -26,8 +27,9 @@ over the segment-causal kernels when ``sep_mode`` is ``auto`` and the
 sequence divides ``2*sp``); the rest of the layer runs replicated on
 every rank of the axis, and such a layer never takes the fused block.
 With a global mesh that has an ``ep`` axis, every MoE layer takes the
-expert-parallel a2a dispatch; :func:`llama_shard_fn` (for
-``distributed.shard_layer``) keeps each rank's block of the experts.
+expert-parallel a2a dispatch, or the all-gather path where the flags turn
+it off; :func:`llama_shard_fn` (for ``distributed.shard_layer``) keeps each
+rank's block of the experts.
 Weights keep Paddle's
 ``[in, out]`` layout and are trainable, norm weights stay fp32 in a bf16
 model, and the state-dict keys are the JAX model's, so

@@ -49,8 +49,8 @@ import torch.nn.functional as F
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.ops.kernels import _launch
 
-__all__ = ["BLOCK_M", "padded_capacity", "require_grouped_path", "gmm",
-           "gmm_t", "gmm2", "tgmm", "gmm_plain", "gmm2_plain", "tgmm_plain",
+__all__ = ["BLOCK_M", "padded_capacity", "fast_path_enabled", "eligible",
+           "gmm", "gmm_t", "gmm2", "tgmm", "gmm_plain", "gmm2_plain", "tgmm_plain",
            "GmmFunction", "Gmm2Function", "sorted_dispatch",
            "sorted_combine", "expert_mlp", "launches", "launches_bwd",
            "launches_gmm2", "launches_tgmm"]
@@ -77,25 +77,30 @@ def padded_capacity(capacity: int) -> int:
     return -(-capacity // BLOCK_M) * BLOCK_M
 
 
-def require_grouped_path(dtype) -> None:
-    """The one guard of the MoE expert path. The ``moe_grouped_gemm``
-    flag's ``auto`` and ``on`` take the grouped GEMMs on every device (the
-    kernels for CUDA tensors, the twins for CPU tensors); ``off``, the
-    reference's index-form path, raises, as does a compute ``dtype`` the
-    kernels do not take (fp32 and bf16 only)."""
+def fast_path_enabled() -> bool:
+    """The ``moe_grouped_gemm`` flag (``grouped_gemm.py:129-145``):
+    ``auto`` and ``on`` take the grouped GEMMs on every device (the kernels
+    for CUDA tensors, the twins for CPU tensors), where the reference's
+    ``auto`` takes them on the TPU only; ``off`` takes the index-form
+    scatter/vmap path. Any other value raises. ``use_pallas_kernels`` does
+    not enter here: in the port it gates the KV handoff's transport
+    alone."""
     mode = str(flags.flag("moe_grouped_gemm")).lower()
     if mode not in ("auto", "on", "off"):
         raise ValueError(f"moe_grouped_gemm must be 'auto', 'on' or 'off', "
                          f"got {mode!r}")
-    if mode == "off":
-        raise NotImplementedError(
-            "moe_grouped_gemm=off (the index-form scatter/vmap MoE path) is "
-            "not ported yet (ROADMAP.md A.8)")
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"MoE experts in {dtype}: the grouped GEMMs compute in fp32 or "
-            f"bf16, and the index-form path is not ported yet (ROADMAP.md "
-            f"A.8)")
+    return mode != "off"
+
+
+def eligible(num_experts: int, capacity: int, k: int, n: int,
+             dtype) -> bool:
+    """Whether the kernels take an expert GEMM of ``num_experts`` groups
+    of ``capacity`` rows, contraction ``k`` and output width ``n`` in
+    ``dtype`` (``grouped_gemm.py:119-126``): fp32 and bf16 only, where the
+    reference takes any floating dtype its VMEM tiles fit. The caller
+    routes what this refuses to the index-form path before any launch."""
+    return (min(num_experts, capacity, k, n) >= 1
+            and dtype in (torch.float32, torch.bfloat16))
 
 
 # ------------------------------------------------------------- the twins

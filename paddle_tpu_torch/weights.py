@@ -20,10 +20,12 @@ names unset, so those keys are positional (``param_{i}_moment1``,
 lists its parameters in the JAX model's order, name by name and shape by
 shape, and that the optimizer holds them in that order.
 
-A model whose MoE layers keep only this rank's experts
-(``MoELayer.shard_experts``, ``llama_shard_fn``) takes this rank's block of
-each JAX ``[E, ...]`` expert array; :func:`gather_experts` puts the ranks'
-blocks back together.
+A ``MoELayer`` of any experts crosses the same way: each stacked leaf
+(``stacked.gate_proj__weight``, ``stacked.bias``, ...) and the gate's weight,
+a custom gate's included, under the JAX name. A model whose MoE layers keep
+only this rank's experts (``MoELayer.shard_experts``, ``llama_shard_fn``)
+takes this rank's block of each JAX ``[E, ...]`` expert array;
+:func:`gather_experts` puts the ranks' blocks back together.
 """
 
 from __future__ import annotations

@@ -126,6 +126,10 @@ def _fused_case(mesh, case):
 
 
 def _layer(case, generator_seed=0):
+    """The case's layer: SwiGLU experts, or bias ``Linear`` experts where
+    ``case["expert"]`` says ``linear``; ``recompute_interval`` from the
+    case; the JAX weights loaded."""
+    from paddle_tpu_torch import nn as pnn
     from paddle_tpu_torch.incubate.distributed.models import moe
     from paddle_tpu_torch.models import llama as L
     from paddle_tpu_torch.weights import load_jax_state
@@ -133,9 +137,14 @@ def _layer(case, generator_seed=0):
                         intermediate_size=case["ffn"])
     init = L._Init(cfg, torch.device("cpu"),
                    torch.Generator().manual_seed(generator_seed))
-    layer = moe.MoELayer(case["hidden"], [L.LlamaMLP(cfg, init)
-                                          for _ in range(case["experts"])],
-                         gate="gshard", capacity_factor=case["cf"])
+    if case.get("expert", "mlp") == "linear":
+        experts = [pnn.Linear(case["hidden"], case["hidden"], bias=True)
+                   for _ in range(case["experts"])]
+    else:
+        experts = [L.LlamaMLP(cfg, init) for _ in range(case["experts"])]
+    layer = moe.MoELayer(case["hidden"], experts, gate="gshard",
+                         capacity_factor=case["cf"],
+                         recompute_interval=case.get("recompute", 0))
     load_jax_state(layer, case["weights"])
     return layer
 
@@ -180,6 +189,30 @@ def _layer_case(mesh, case):
             y_equal_one=torch.equal(y, y1), dx_equal_one=torch.equal(dx, dx1),
             grad_err_one=max(float((g[n] - g1[n]).abs().max()) for n in g1))
     return out
+
+
+def _gather_case(mesh, case):
+    """The all-gather expert path over sharded experts: under the case's
+    flags (the a2a path off), the layer keeping this rank's block of the
+    experts against the same layer holding all of them on one device under
+    the same flags (bitwise in y and dx); the experts' gradients gathered
+    back to ``[E, ...]``."""
+    from paddle_tpu_torch.weights import gather_experts
+    old = _flags(case["flags"])
+    try:
+        one = _layer(case)
+        one._mesh = type(mesh)([0], ["ep"])      # ep 1: the one-device path
+        y1, dx1, g1 = _run_layer(one, case["x"])
+        layer = _layer(case).shard_experts(mesh)
+        y, dx, g = _run_layer(layer, case["x"])
+        g = gather_experts(layer, g)
+    finally:
+        _flags(old)
+    return dict(
+        y=y.numpy(), dx=dx.numpy(),
+        grads={n: t.numpy() for n, t in g.items()},
+        y_equal_one=torch.equal(y, y1), dx_equal_one=torch.equal(dx, dx1),
+        grad_err_one=max(float((g[n] - g1[n]).abs().max()) for n in g1))
 
 
 def _digest(tensors) -> str:
@@ -233,7 +266,7 @@ def run(rank, work_dir):
     dist.init_parallel_env(backend="gloo")
     spec = torch.load(os.path.join(work_dir, "spec.pt"), weights_only=False)
     kinds = dict(ragged=_ragged_case, tiled=_tiled_case, fused=_fused_case,
-                 layer=_layer_case, llama=_llama_case)
+                 layer=_layer_case, llama=_llama_case, gather=_gather_case)
     got = {}
     for name, (ids, dims) in spec["meshes"].items():
         mesh = dist.ProcessMesh(np.asarray(ids), dims)

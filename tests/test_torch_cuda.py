@@ -2418,3 +2418,151 @@ def test_serve_plane_engine_on_the_card(cuda_device):
         assert got == base
         assert eng.cache.slot_restores > 0
         assert eng.cache.free_blocks == eng.cache.num_blocks
+
+
+# ------------------------------------------- the MoE layer's other routes
+def _round_robin_gate(d, e):
+    """A gate with only the dense ``route`` (the reference test's)."""
+    from paddle_tpu_torch.incubate.distributed.models import moe
+
+    class RoundRobin(moe.BaseGate):
+        top_k = 1
+
+        def route(self, scores, capacity):
+            n, ne = scores.shape
+            rows = torch.arange(n, device=scores.device)
+            combine = torch.zeros((n, ne, capacity), dtype=scores.dtype,
+                                  device=scores.device)
+            combine[rows, rows % ne, (rows // ne).clamp(
+                max=capacity - 1)] = 1.0
+            return combine, combine > 0, torch.zeros(
+                (), dtype=scores.dtype, device=scores.device)
+    return RoundRobin(d, e, device="cpu")
+
+
+def _moe_layer(expert, gate="gshard", cf=1.0, recompute=0, d=64, e=8):
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.incubate.distributed.models import moe
+    from paddle_tpu_torch.models import llama as L
+    torch.manual_seed(90)
+    if expert == "linear":
+        experts = [pnn.Linear(d, d, bias=True) for _ in range(e)]
+        for x in experts:
+            torch.nn.init.normal_(x.bias, std=0.5)
+    else:
+        cfg = L.LlamaConfig(hidden_size=d, intermediate_size=96)
+        init = L._Init(cfg, torch.device("cpu"),
+                       torch.Generator().manual_seed(91))
+        experts = [L.LlamaMLP(cfg, init) for _ in range(e)]
+    if gate == "round-robin":
+        gate = _round_robin_gate(d, e)
+    return moe.MoELayer(d, experts, gate=gate, capacity_factor=cf,
+                        recompute_interval=recompute)
+
+
+def _moe_grads(layer, x):
+    """y and the gradients of x and every parameter of ``(y*y).sum() +
+    aux``."""
+    layer.zero_grad(set_to_none=True)
+    x = x.detach().requires_grad_(True)
+    y = layer(x)
+    (y.float().square().sum() + layer.gate.get_loss()).backward()
+    return [y.detach(), x.grad] + [
+        torch.zeros_like(p) if p.grad is None else p.grad
+        for p in layer.parameters()]
+
+
+def _moe_card_vs_cpu(layer, x, tol, launched=0):
+    """The layer on the card against a copy on the CPU; the grouped GEMMs
+    launched ``launched`` times a forward and backward."""
+    import copy
+    cpu = _moe_grads(layer, x)
+    layer.gate._loss = None
+    card = copy.deepcopy(layer).to("cuda")
+    before = (pt_gg.launches, pt_gg.launches_gmm2, pt_gg.launches_tgmm)
+    got = _moe_grads(card, x.to("cuda"))
+    torch.cuda.synchronize()
+    after = (pt_gg.launches, pt_gg.launches_gmm2, pt_gg.launches_tgmm)
+    assert sum(after) - sum(before) == launched, (before, after)
+    for a, b in zip(got, cpu):
+        _gg_close(a, b, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("expert", ["swiglu", "linear"])
+def test_moe_index_form_on_the_card_matches_the_cpu(cuda_device, expert):
+    """``moe_grouped_gemm=off`` (SwiGLU experts) and bias ``Linear``
+    experts: the scatter into ``[E, C, M]``, the vmapped experts and the
+    gather on the card against the CPU, fp32, cf 1.0 (drops), output and
+    every gradient; no grouped GEMM runs."""
+    from paddle_tpu_torch import flags
+    layer = _moe_layer(expert)
+    x = torch.randn(256, 64, generator=torch.Generator().manual_seed(92))
+    flags.set_flags({"moe_grouped_gemm": "off"})
+    try:
+        _moe_card_vs_cpu(layer, x, dict(rtol=1e-5, atol=1e-5))
+    finally:
+        flags.set_flags({"moe_grouped_gemm": "auto"})
+
+
+@pytest.mark.cuda
+def test_moe_dense_route_on_the_card_matches_the_cpu(cuda_device):
+    """A gate with only the dense ``route``: the ``[N, E, C]`` einsums and
+    the vmapped experts on the card against the CPU."""
+    layer = _moe_layer("linear", gate="round-robin", cf=2.0)
+    x = torch.randn(256, 64, generator=torch.Generator().manual_seed(93))
+    _moe_card_vs_cpu(layer, x, dict(rtol=1e-5, atol=1e-5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["auto", "off"])
+def test_moe_recompute_on_the_card_is_bitwise(cuda_device, mode):
+    """``recompute_interval=1`` in the grouped arm (the kernels replayed in
+    the backward: gmm2 and the down gmm twice) and the index form, bf16:
+    output and every gradient bit for bit those of
+    ``recompute_interval=0``."""
+    from paddle_tpu_torch import flags
+    x = torch.randn(512, 64, generator=torch.Generator().manual_seed(94)) \
+        .to(cuda_device, torch.bfloat16)
+    flags.set_flags({"moe_grouped_gemm": mode})
+    try:
+        runs, gmm2 = [], []
+        for recompute in (0, 1):
+            layer = _moe_layer("swiglu", recompute=recompute).to(
+                cuda_device, torch.bfloat16)
+            before = pt_gg.launches_gmm2
+            runs.append(_moe_grads(layer, x))
+            torch.cuda.synchronize()
+            gmm2.append(pt_gg.launches_gmm2 - before)
+    finally:
+        flags.set_flags({"moe_grouped_gemm": "auto"})
+    assert gmm2 == ([1, 2] if mode == "auto" else [0, 0]), gmm2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_fp16_experts_take_the_index_form_on_the_card(cuda_device):
+    """fp16 experts, which the grouped kernels refuse: the layer takes the
+    index form before any launch, with one warning naming the dtype, and
+    matches the same layer in fp32 on the card within the bf16 tier."""
+    import warnings
+    from paddle_tpu_torch.incubate.distributed.models.moe import moe_layer
+    layer = _moe_layer("swiglu").to(cuda_device)
+    x = torch.randn(256, 64, generator=torch.Generator().manual_seed(95)) \
+        .to(cuda_device)
+    want = _moe_grads(layer, x)
+    layer.gate._loss = None
+    half = layer.half()
+    moe_layer._warned_fallbacks.clear()
+    before = (pt_gg.launches, pt_gg.launches_gmm2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = _moe_grads(half, x.half())
+        _moe_grads(half, x.half())
+    torch.cuda.synchronize()
+    assert (pt_gg.launches, pt_gg.launches_gmm2) == before
+    msgs = [str(w.message) for w in caught
+            if "moe_grouped_gemm" in str(w.message)]
+    assert len(msgs) == 1 and "torch.float16" in msgs[0], msgs
+    _gg_close(got[0], want[0], BF16)

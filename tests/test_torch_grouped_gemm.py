@@ -268,22 +268,23 @@ def test_plain_expert_mlp_equals_the_wrapped_one():
 
 
 def test_grouped_path_flag_and_eligibility():
-    """``auto`` and ``on`` take the grouped path in fp32 and bf16; ``off``
-    and a dtype the kernels cannot take name their ROADMAP item."""
+    """``auto`` and ``on`` take the grouped path, ``off`` the index form
+    (``fast_path_enabled``); the kernels take fp32 and bf16 and refuse
+    fp16 (``eligible``), whose experts take the index form; any other
+    flag value raises."""
     old = pt_flags.flag("moe_grouped_gemm")
     try:
         for mode in ("auto", "on"):
             pt_flags.set_flags({"moe_grouped_gemm": mode})
+            assert pgg.fast_path_enabled()
             for dtype in (torch.float32, torch.bfloat16):
-                pgg.require_grouped_path(dtype)
-            with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
-                pgg.require_grouped_path(torch.float16)
+                assert pgg.eligible(4, 64, 16, 32, dtype)
+            assert not pgg.eligible(4, 64, 16, 32, torch.float16)
         pt_flags.set_flags({"moe_grouped_gemm": "off"})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.8"):
-            pgg.require_grouped_path(torch.float32)
+        assert not pgg.fast_path_enabled()
         pt_flags.set_flags({"moe_grouped_gemm": "sometimes"})
         with pytest.raises(ValueError, match="moe_grouped_gemm"):
-            pgg.require_grouped_path(torch.float32)
+            pgg.fast_path_enabled()
     finally:
         pt_flags.set_flags({"moe_grouped_gemm": old})
     assert [pgg.padded_capacity(c) for c in (1, 64, 65, 4096)] == \

@@ -30,6 +30,7 @@ def _port_files():
     yield os.path.join(ROOT, "tools", "torch_phase_ab.py")
     yield os.path.join(ROOT, "tools", "torch_a2a_pull_ab.py")
     yield os.path.join(ROOT, "tools", "torch_tier_profile.py")
+    yield os.path.join(ROOT, "tools", "torch_moe_plane.py")
 
 
 def _imported_modules(path):

@@ -13,7 +13,10 @@ interpret mode (``moe_grouped_gemm=on``). Tolerances follow
 scaled by their largest magnitude); exchanges and gathers are held bit for
 bit, and the port's expert-parallel layer against its own one-device layer
 bit for bit in y and dx (the reference's contract,
-``tests/test_moe_a2a.py:273-320``).
+``tests/test_moe_a2a.py:273-320``). The all-gather expert path over
+sharded experts (the a2a path off; the index form and the grouped form)
+is held against JAX's GSPMD path on the same mesh and bit for bit against
+the port's one-device layer under the same flags.
 """
 
 import dataclasses
@@ -201,6 +204,59 @@ def _layer_cases():
     return cases
 
 
+# the all-gather expert path over sharded experts (the a2a path off): id
+# -> (mesh, experts, capacity factor, expert kind, recompute, flags, the
+# same on both sides). moe_grouped_gemm=off with moe_a2a_dispatch=auto
+# is the index form (auto follows the grouped-GEMM flag); on with
+# moe_a2a_dispatch=off the grouped form
+INDEX = dict(moe_grouped_gemm="off", moe_a2a_dispatch="auto")
+GROUPED = dict(moe_grouped_gemm="on", moe_a2a_dispatch="off")
+GATHER = {
+    "ep2-index": ("ep2", 8, 2.0, "mlp", 0, INDEX),
+    "ep4-index-drops": ("ep4", 8, 1.0, "mlp", 0, INDEX),
+    "ep2-grouped": ("ep2", 8, 2.0, "mlp", 0, GROUPED),
+    "ep4-grouped-drops": ("ep4", 8, 1.0, "mlp", 0, GROUPED),
+    "ep2-linear": ("ep2", 8, 2.0, "linear", 0, INDEX),
+    "ep4-index-recompute": ("ep4", 8, 2.0, "mlp", 1, INDEX),
+    "ep2-grouped-recompute": ("ep2", 8, 1.0, "mlp", 1, GROUPED),
+}
+
+
+def _jax_gather_layer(gid):
+    """The JAX layer of an all-gather case, its stacked biases random."""
+    from paddle_tpu.incubate.distributed.models.moe.moe_layer import (
+        MoELayer)
+    _, experts, cf, kind, remat, _ = GATHER[gid]
+    paddle.seed(0)
+    if kind == "linear":
+        made = [paddle.nn.Linear(16, 16) for _ in range(experts)]
+    else:
+        cfg = jax_llama.LlamaConfig(hidden_size=16, intermediate_size=32)
+        made = [jax_llama.LlamaMLP(cfg) for _ in range(experts)]
+    layer = MoELayer(16, made, gate="gshard", capacity_factor=cf,
+                     recompute_interval=remat)
+    rs = np.random.RandomState(3)
+    layer.set_state_dict({
+        k: (rs.randn(*v.shape) * 0.5).astype(np.float32)
+        if k.endswith("bias") else np.asarray(v.numpy())
+        for k, v in layer.state_dict().items()})
+    return layer
+
+
+def _gather_cases():
+    cases = []
+    for gid, (mesh, experts, cf, kind, remat, flag_set) in GATHER.items():
+        layer = _jax_gather_layer(gid)
+        cases.append(dict(
+            id=f"gather-{gid}", mesh=mesh, kind="gather", hidden=16, ffn=32,
+            experts=experts, cf=cf, expert=kind, recompute=remat,
+            flags=flag_set,
+            weights={k: np.asarray(v.numpy())
+                     for k, v in layer.state_dict().items()},
+            x=np.random.RandomState(8).randn(4, 32, 16).astype(np.float32)))
+    return cases
+
+
 def _llama_spec():
     paddle.seed(0)
     jcfg = jax_llama.LlamaConfig(
@@ -228,15 +284,16 @@ def ranks(tmp_path_factory):
     """Every rank's results: one spawn of four gloo ranks for the module."""
     work = tmp_path_factory.mktemp("ep_ranks")
     layers = _layer_cases()
+    gathers = _gather_cases()
     jm, llama = _llama_spec()
     torch.save(dict(meshes=MESHES,
                     cases=RAGGED + TILED + FUSED + FUSED_BF16 + layers
-                    + [llama]),
+                    + gathers + [llama]),
                work / "spec.pt")
     pdist.spawn(_torch_ep_ranks.run, (str(work),), nprocs=4, timeout=600)
     got = [torch.load(work / f"rank{r}.pt", weights_only=False)
            for r in range(4)]
-    return {c["id"]: c for c in layers}, jm, llama, got
+    return {c["id"]: c for c in layers + gathers}, jm, llama, got
 
 
 @pytest.fixture(autouse=True)
@@ -484,6 +541,44 @@ def test_moe_layer_ep_matches_jax_and_its_one_device_layer(ranks, lid):
                                           got[0][case["id"]][name]["y"])
 
 
+@pytest.mark.parametrize("gid", list(GATHER))
+def test_moe_layer_all_gather_matches_jax_and_its_one_device_layer(ranks,
+                                                                   gid):
+    """The all-gather expert path over sharded experts (the a2a path off):
+    every rank fills the whole expert-major buffer from the replicated
+    tokens, runs its block of the experts and all-gathers the outputs; the
+    backward all-gathers the buffer's gradient. In the index form
+    (``moe_grouped_gemm=off``, ``moe_a2a_dispatch=auto``; SwiGLU and bias
+    ``Linear`` experts) and the grouped form (``on`` with ``off``), at ep 2
+    and 4, at cf 1.0 (drops) and under ``recompute_interval``: y, dx and
+    every gradient (the experts gathered back to ``[E, ...]``) against
+    JAX's GSPMD path on the CPU mesh at the fp32 tier, every rank the same
+    y; y and dx bit for bit against the port's one-device layer under the
+    same flags, the gradients within 1e-6."""
+    mesh_name, _, _, _, _, flag_set = GATHER[gid]
+    cases, _, _, got = ranks
+    case = cases[f"gather-{gid}"]
+    w = EP[mesh_name]
+    mesh = jdist.ProcessMesh(np.arange(w), ["ep"])
+    jdist.set_mesh(mesh)
+    jax_flags.set_flags(flag_set)
+    layer = _jax_gather_layer(gid)
+    layer.shard_experts(mesh)
+    y, dx, grads = _jax_run(layer, case["x"])
+    scale = max(np.abs(g).max() for g in grads.values())
+    for r in range(w):
+        res = got[r][case["id"]]
+        msg = f"rank {r}"
+        _close(res["y"], y, msg + " y")
+        _close(res["dx"], dx, msg + " dx")
+        for n, g in grads.items():
+            _close(res["grads"][n], g, f"{msg} {n}")
+        assert res["y_equal_one"] and res["dx_equal_one"], msg
+        assert res["grad_err_one"] <= 1e-6 * max(scale, 1.0), msg
+        np.testing.assert_array_equal(res["y"], got[0][case["id"]]["y"])
+        np.testing.assert_array_equal(res["dx"], got[0][case["id"]]["dx"])
+
+
 def test_moe_llama_ep_matches_jax_and_trains(ranks):
     """A 2-layer MoE Llama at ep 2, its experts sharded by
     ``llama_shard_fn`` and filled by ``load_jax_state`` with this rank's
@@ -532,25 +627,31 @@ def test_eligibility_matches_jax():
 
 
 def test_a2a_flag_values():
-    """``on`` is an alias of ``auto`` for the three mode flags; ``off``
-    turns each route off; any other value raises."""
+    """``on`` is an alias of ``auto`` for the two kernel flags;
+    ``moe_a2a_dispatch``'s ``on`` forces the a2a path and its ``auto``
+    follows ``moe_grouped_gemm`` (the reference's rule); ``off`` turns
+    each route off; any other value raises."""
     from paddle_tpu_torch import flags
     from paddle_tpu_torch.ops.kernels import async_collectives as hops
     gates = {"moe_a2a_dispatch": moe_a2a.a2a_enabled,
              "pallas_async_a2a": hops.async_a2a_enabled,
              "moe_a2a_fused_kernel": hops.fused_kernel_enabled}
     try:
-        for name, gate in gates.items():
-            for value, want in (("auto", True), ("on", True), ("ON", True),
-                                ("off", False)):
-                flags.set_flags({name: value})
-                assert gate() is want, (name, value)
-            flags.set_flags({name: "sometimes"})
-            with pytest.raises(ValueError, match=name):
-                gate()
-            flags.set_flags({name: "auto"})
+        for grouped in ("auto", "off"):
+            flags.set_flags({"moe_grouped_gemm": grouped})
+            for name, gate in gates.items():
+                follows = name != "moe_a2a_dispatch" or grouped != "off"
+                for value, want in (("auto", follows), ("on", True),
+                                    ("ON", True), ("off", False)):
+                    flags.set_flags({name: value})
+                    assert gate() is want, (grouped, name, value)
+                flags.set_flags({name: "sometimes"})
+                with pytest.raises(ValueError, match=name):
+                    gate()
+                flags.set_flags({name: "auto"})
     finally:
         flags.set_flags({name: "auto" for name in gates})
+        flags.set_flags({"moe_grouped_gemm": "auto"})
 
 
 def test_async_a2a_off_refuses_device_tensors():
