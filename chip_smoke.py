@@ -187,6 +187,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the hit rate, tokens per decode row and decode tokens/s with and
    without drafts, both hit rates, and the spills and restores with ms
    a page (the reference's CPU floors are asserted by the CPU tests);
+11b. jit, the jit plane (``jit.to_static`` as CUDA-graph capture) on
+   the optimizer sweep's 2-layer bf16 Llama, batch 2 x 256
+   (``phase_jit``): the differentiable region (``to_static(model)``,
+   ``backward()`` outside) and a ``no_grad`` forward, each captured,
+   re-capture on a shape change and a train/eval flip (the reference's
+   cache counts: 3 keys, 4 programs), a parameter's storage replaced
+   mid-run (a second program), draws from an explicit generator (the
+   eager sequence), gradient merge at k 4 over 8 steps (two guarded
+   programs), all bit for bit against eager; a step that reads the
+   device on the host (one warning, eager from then on, the next CUDA
+   work runs). Every training path below runs its step under
+   ``jit.to_static``: the first call eagerly, the second captured into a
+   CUDA graph, every later one replayed. train, train-opt, train-moe,
+   train-moe-index and train-ssm each assert one captured program and,
+   after their timed run, a second captured run from the seed (5 steps)
+   and an eager arm (``enable_to_static(False)``, 1+1+3 steps) whose
+   losses, parameters and optimizer state must be its bits; each reports
+   both arms' ms/step, tokens/s, MFU, busy share and peaks (the captured
+   allocated peak at most 1.25x the eager; reserved peaks beside).
+   train-cp (b) and train-moe-ep
+   (b1)-(b4) must run eagerly with one warning naming the host-staged
+   collective or the exchange's barrier; train-cp (a) is captured;
 12. train, the slice-2 path: ``bench.py:_llama_run`` at the flagship
    configuration (vocab 32000, hidden 1536, ffn 4096, 12 layers, GQA
    12:4, seq 2048, batch 4, bf16, ~400M parameters, seeded random
@@ -4692,13 +4714,168 @@ def check_train_step(torch, model, ids):
     return res
 
 
+# ------------------------------------------------- jit.to_static's arms
+ARM_STEPS = 5           # steps each arm runs from the seed (1 + 1 + 3)
+JIT_MSG = "cannot be captured"
+
+
+def jit_programs(step):
+    """``[(captured, reason)]`` of each program of a ``to_static`` step."""
+    return [(p.captured, p.reason) for p in step.concrete_programs()]
+
+
+def assert_captured(label, step):
+    """Exactly one program, captured into a graph; none runs eagerly."""
+    progs = jit_programs(step)
+    assert progs == [(True, None)], \
+        f"{label}: expected one captured program, got {progs}"
+
+
+@contextlib.contextmanager
+def jit_warnings():
+    """Inside the block, every ``to_static`` warning that a program runs
+    eagerly is appended to the returned list (each shown: the default
+    filter would hide a repeat)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = []
+        yield got
+    got.extend(str(w.message) for w in caught if JIT_MSG in str(w.message))
+
+
+#: what makes the host-staged training paths run eagerly
+EAGER_CAUSES = ("gloo host-staged", "a barrier",
+                "the exchange's synchronize and barrier")
+
+
+def assert_eager(label, jit, what=EAGER_CAUSES):
+    """``jit`` (``programs`` and ``warnings`` of a step): its one program
+    runs eagerly, the reason naming one of ``what``, and one warning said
+    so."""
+    progs, caught = jit["programs"], jit["warnings"]
+    ok = (len(progs) == 1 and not progs[0][0] and progs[0][1] is not None
+          and any(w in progs[0][1] for w in what) and len(caught) == 1
+          and progs[0][1] in caught[0])
+    log(f"{label}: runs eagerly: {progs}; warnings {caught}")
+    assert ok, (label, progs, caught)
+    return progs[0][1]
+
+
+def state_digest(torch, model, opt) -> str:
+    """A hash of the bits of every parameter and every optimizer state
+    tensor (LR, step count, moments, masters), in order."""
+    import hashlib
+    h = hashlib.sha256()
+    tensors = list(model.parameters()) + list(opt._state_tensors())
+    for t in tensors:
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def peaks(torch) -> dict:
+    return dict(peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                peak_reserved_gib=torch.cuda.max_memory_reserved() / 2**30)
+
+
+def eager_arm(torch, label, build, ids, captured, tokens, flops_per_token,
+              perf):
+    """The path's step from the seed with capture off
+    (``jit.enable_to_static(False)``): 1 + 1 warmup and 3 timed steps,
+    whose 5 losses and final state (``captured``: the captured arm's 5
+    losses and ``state_digest``) must be the captured arm's bit for bit;
+    a profiled repeat of 2 steps. ``perf`` (the captured arm's) gains
+    ``eager``: ms/step, tokens/s, MFU, busy share and peaks, and the
+    captured peak (allocated bytes, the smoke's peak everywhere; the graph
+    pool's blocks count while live) must be at most 1.25x the eager one.
+    The reserved peaks are reported beside: they also count the blocks
+    the allocator caches, which depend on what ran before, and the graph's
+    pool cannot reuse the blocks its eager first call left cached."""
+    import paddle_tpu_torch as paddle
+    gc.collect()
+    torch.cuda.empty_cache()
+    paddle.jit.enable_to_static(False)
+    try:
+        model, opt, step = build()
+        start = torch.cuda.memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(ids) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ARM_STEPS - 2):
+            losses.append(step(ids))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        mem = peaks(torch)
+        same = all(torch.equal(a, b) for a, b in zip(losses, captured[0]))
+        digest = state_digest(torch, model, opt)
+        log(f"{label} eager arm: {ARM_STEPS} steps from the seed with "
+            f"capture off: losses {'bitwise equal' if same else 'DIFFER'} "
+            f"({[float(x) for x in losses]}), parameters and optimizer "
+            f"state {'bitwise equal' if digest == captured[1] else 'DIFFER'}"
+            f" to the captured arm's")
+        assert same and digest == captured[1], \
+            f"{label}: the captured step differs from the eager one"
+        steps = ARM_STEPS - 2
+        rows, busy, pwall = device_profile(
+            torch, lambda: [step(ids) for _ in range(2)])
+        eager = dict(ms_per_step=1e3 * dt / steps,
+                     tokens_per_s=tokens * steps / dt,
+                     mfu=tokens * steps / dt * flops_per_token
+                     / PEAK_FLOPS["bf16"],
+                     busy_share=report_profile(f"{label} eager", rows, busy,
+                                               pwall, 2 * dt / steps, top=5),
+                     steps=steps, allocated_at_start_gib=start, **mem)
+    finally:
+        paddle.jit.enable_to_static(True)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf["eager"] = eager
+    ratio = perf["peak_gib"] / eager["peak_gib"]
+    reserved = perf["peak_reserved_gib"] / eager["peak_reserved_gib"]
+    log(f"{label}: captured {perf['ms_per_step']:.2f} ms/step, busy "
+        f"{perf.get('busy_share')}, peak {perf['peak_gib']:.2f} GiB "
+        f"allocated / {perf['peak_reserved_gib']:.2f} reserved; eager "
+        f"{eager['ms_per_step']:.2f} ms/step, busy {eager['busy_share']}, "
+        f"peak {eager['peak_gib']:.2f} / {eager['peak_reserved_gib']:.2f} "
+        f"({start:.2f} allocated at its start); peak ratio {ratio:.3f} "
+        f"allocated, {reserved:.3f} reserved on {perf.get('card')}")
+    assert ratio <= 1.25, f"{label}: captured peak {ratio:.3f}x the eager"
+    return eager
+
+
+def captured_arm(torch, label, build, ids, first):
+    """The path's step from the seed, captured: ``ARM_STEPS`` steps whose
+    losses must be ``first`` (the phase's run) bit for bit. Returns the
+    losses and ``state_digest`` after them."""
+    model, opt, step = build()
+    again = [step(ids) for _ in range(ARM_STEPS)]
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    log(f"{label}: second run from the seed, {ARM_STEPS} steps: "
+        f"{'bitwise equal' if same else 'DIFFERS'} "
+        f"({[float(x) for x in again]})")
+    assert same and len(first) == ARM_STEPS, \
+        "a second run from the seed differs"
+    assert_captured(label, step)
+    digest = state_digest(torch, model, opt)
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return again, digest
+
+
 def run_train(torch, np, card, label, cfg, batch, seq, steps, want,
               flops_per_token, warmup=2, model_cls=None):
     """``bench.py:_llama_run``'s loop for ``cfg``: warmup + 1 steps, then
     ``steps`` timed steps with the launch counts zeroed just before and
     read just after (``want``: launches per step of each kernel), a
     profiled repeat of 2 steps, one step's gradients against the twins
-    and an fp32 copy, and a second run from the seed, bitwise."""
+    and an fp32 copy, and a second run from the seed, bitwise. The step is
+    ``jit.to_static``'s: its first call runs eagerly, the second captures
+    it into a CUDA graph and every later one replays it; the phase asserts
+    one captured program, then runs the eager arm (``eager_arm``)."""
     from paddle_tpu_torch.ops import kernels
     # the engines of earlier phases sit in reference cycles (a timed step
     # closes over its engine): free them, so that this phase's memory is
@@ -4746,32 +4923,30 @@ def run_train(torch, np, card, label, cfg, batch, seq, steps, want,
     perf = dict(tokens_per_s=tps, ms_per_step=1e3 * dt / steps,
                 mfu=tps * flops_per_token(n_params) / PEAK_FLOPS["bf16"],
                 steps=steps, n_params=n_params, loss_first=vals[0],
-                loss_last=vals[-1],
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                card=card)
+                loss_last=vals[-1], card=card, **peaks(torch))
     log(f"{label}: " + json.dumps(perf))
 
     rows, busy, pwall = device_profile(
         torch, lambda: [train_step(ids) for _ in range(2)])
     perf["busy_share"] = report_profile(label, rows, busy, pwall,
                                         2 * dt / steps, top=15)
+    assert_captured(label, train_step)
+    log(f"{label}: the captured program's pool "
+        f"{train_step.memory_analysis()}")
 
     perf.update(check_train_step(torch, model, ids))
 
-    # a second run from the seed repeats the first steps bitwise
-    first = losses[:warmup + 1]
+    # a second run from the seed repeats the first steps bitwise; then the
+    # same steps with capture off must give the same bits
     del model, opt, train_step
+    gc.collect()
     torch.cuda.empty_cache()
-    model, opt, train_step = build_trainer(
-        torch, cfg, model_cls=model_cls)
-    again = [train_step(ids) for _ in range(len(first))]
-    same = all(torch.equal(a, b) for a, b in zip(first, again))
-    log(f"{label}: second run from the seed, {len(first)} steps: "
-        f"{'bitwise equal' if same else 'DIFFERS'} "
-        f"({[float(x) for x in again]})")
-    assert same, "a second run from the seed differs"
-    del model, opt, train_step
-    torch.cuda.empty_cache()
+
+    def build():
+        return build_trainer(torch, cfg, model_cls=model_cls)
+    captured = captured_arm(torch, label, build, ids, losses[:ARM_STEPS])
+    eager_arm(torch, label, build, ids, captured, batch * seq,
+              flops_per_token(n_params), perf)
     torch.use_deterministic_algorithms(False)
     return counts, perf
 
@@ -4835,6 +5010,184 @@ def _train_unfused(torch, np, cfg, want):
     gc.collect()
     torch.cuda.empty_cache()
     return 1e3 * dt / TRAIN_OFF_STEPS
+
+
+# ------------------------------------------------------------- jit phase
+JIT_GM_STEPS = 8        # gradient merge at k 4: two windows
+
+
+def _jit_model(torch, seed=0):
+    """The optimizer sweep's 2-layer bf16 Llama (``SWEEP_CFG``)."""
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    return LlamaForCausalLM(LlamaConfig(**SWEEP_CFG), seed=seed)
+
+
+def _jit_grads(model):
+    out = [p.grad.clone() for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = None
+    return out
+
+
+def _jit_region(torch, ids):
+    """``to_static(model)`` with ``backward()`` outside, 3 calls (eager,
+    captured, replayed) against the same model from the seed eager: every
+    loss and gradient bit for bit; one captured region program. Then a
+    ``no_grad`` forward, captured as its own self-contained program, and
+    re-capture on a shape change and on a train/eval flip."""
+    import paddle_tpu_torch as paddle
+    m_s, m_e = _jit_model(torch), _jit_model(torch)
+    paddle.jit.to_static(m_s)
+    for i in range(3):
+        ls, _ = m_s(ids, labels=ids)
+        ls.backward()
+        le, _ = m_e(ids, labels=ids)
+        le.backward()
+        assert torch.equal(ls.detach(), le.detach()), ("region loss", i)
+        for a, b in zip(_jit_grads(m_s), _jit_grads(m_e)):
+            assert torch.equal(a, b), ("region gradient", i)
+    progs = m_s.forward.concrete_programs()
+    assert [(p.captured, p.self_contained) for p in progs] == \
+        [(True, False)], progs
+    m_s.eval()
+    m_e.eval()
+    with torch.no_grad():
+        want = m_e(ids)
+        for i in range(3):
+            assert torch.equal(m_s(ids), want), ("no_grad forward", i)
+        short = ids[:, :128]
+        for i in range(3):
+            assert torch.equal(m_s(short), m_e(short)), ("shape", i)
+        m_s.train()
+        m_e.train()
+        for i in range(3):
+            assert torch.equal(m_s(ids), m_e(ids)), ("train mode", i)
+    # the reference's cache: keys (grad, 2x256), (no_grad, 2x256),
+    # (no_grad, 2x128); the eval/train flip a second program of a key
+    progs = m_s.forward.concrete_programs()
+    assert len(m_s.forward._cache) == 3 and len(progs) == 4, progs
+    assert all(p.captured for p in progs), progs
+    return dict(region_programs=1, programs=len(progs))
+
+
+def _jit_trainers(torch, make_opt):
+    """Two copies of the model from the seed, each with its step; the
+    first under ``to_static``."""
+    import paddle_tpu_torch as paddle
+    out = []
+    for static in (True, False):
+        model = _jit_model(torch)
+        opt = make_opt(model.parameters())
+
+        def step(x, model=model, opt=opt):
+            loss, _ = model(x, labels=x)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+        out.append((model, opt, paddle.jit.to_static(step) if static
+                    else step))
+    return out
+
+
+def returns_memory(torch) -> bool:
+    """Whether ``empty_cache`` still hands a freed GiB back to the device
+    (after a capture that failed inside CUDA it no longer does)."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    big = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
+    del big
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() <= before
+
+
+def _jit_equal(torch, label, a, b):
+    (ma, oa, _), (mb, ob, _) = a, b
+    assert state_digest(torch, ma, oa) == state_digest(torch, mb, ob), \
+        f"phase_jit {label}: parameters or optimizer state differ"
+
+
+def phase_jit(torch, np, card):
+    """The jit plane on the card (``jit.to_static`` as CUDA graphs) on
+    the sweep's 2-layer bf16 Llama, batch 2 x 256: the differentiable
+    region, a ``no_grad`` forward, re-capture on shape and mode changes
+    (``_jit_region``); a step after a parameter's storage is replaced (a
+    new program); draws from an explicit generator inside a captured
+    function, each different and the eager sequence; gradient merge at
+    k 4 for 8 steps through its two guarded programs; a step that reads a
+    device value on the host (one warning, eager from then on, the next
+    CUDA work runs). Everything bit for bit against the eager run."""
+    import paddle_tpu_torch as paddle
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, SWEEP_CFG["vocab_size"], size=(SWEEP_B, SWEEP_S))
+        .astype("int32")).cuda()
+    res = _jit_region(torch, ids)
+
+    # the storage guard: a parameter's storage replaced mid-run
+    def adamw(params):
+        return paddle.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.1,
+                                      parameters=params)
+    a, b = _jit_trainers(torch, adamw)
+    for i in range(6):
+        if i == 3:
+            for model in (a[0], b[0]):
+                w = model.llama.embed_tokens.weight
+                w.data = w.data.clone()
+        assert torch.equal(a[2](ids), b[2](ids)), ("storage guard", i)
+    _jit_equal(torch, "storage guard", a, b)
+    assert [p.captured for p in a[2].concrete_programs()] == [True, True]
+    del a, b
+
+    # an explicit generator inside a captured function
+    gen_s = torch.Generator(device="cuda").manual_seed(5)
+    gen_e = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.ones(4096, device="cuda")
+
+    @paddle.jit.to_static
+    def noisy(t):
+        return t * torch.rand(t.shape, device=t.device, generator=gen_s)
+    got = [noisy(x) for _ in range(5)]
+    want = [x * torch.rand(x.shape, device="cuda", generator=gen_e)
+            for _ in range(5)]
+    assert all(torch.equal(g, w) for g, w in zip(got, want)), "generator"
+    assert len({float(g.sum()) for g in got}) == 5, "repeated draws"
+    assert jit_programs(noisy) == [(True, None)], jit_programs(noisy)
+
+    # gradient merge: an accumulating and an applying program
+    def merged(params):
+        return paddle.optimizer.GradientMergeOptimizer(adamw(params),
+                                                       k_steps=4)
+    a, b = _jit_trainers(torch, merged)
+    for i in range(JIT_GM_STEPS):
+        assert torch.equal(a[2](ids), b[2](ids)), ("gradient merge", i)
+    _jit_equal(torch, "gradient merge", a, b)
+    gm_progs = jit_programs(a[2])
+    assert gm_progs == [(True, None)] * 2, gm_progs
+    assert a[1]._count == b[1]._count == JIT_GM_STEPS
+    del a, b
+
+    # a host sync inside the step: the capture ends, the step runs eagerly
+    @paddle.jit.to_static
+    def syncs(t):
+        y = t * 2
+        return y * float(y.sum())
+    with jit_warnings() as caught:
+        outs = [syncs(x) for _ in range(3)]
+    reason = assert_eager("phase_jit host sync", dict(
+        programs=jit_programs(syncs), warnings=caught), ("Error",))
+    assert all(torch.equal(o, x * 2 * 8192.0) for o in outs)
+    assert float((x + 1).sum()) == 8192.0, "the next CUDA work"
+    assert returns_memory(torch), "the allocator keeps what it frees"
+    torch.use_deterministic_algorithms(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res.update(storage_programs=2, gradient_merge_programs=len(gm_progs),
+               sync_reason=reason, seconds=time.perf_counter() - t0,
+               card=card)
+    log("jit: " + json.dumps(res))
+    return res
 
 
 # ------------------------------------------------- train-opt phase
@@ -5188,13 +5541,18 @@ def phase_train_opt(torch, np, card, train_perf=None):
     perf = dict(tokens_per_s=tps, ms_per_step=1e3 * dt / TRAIN_STEPS,
                 mfu=tps * flops / PEAK_FLOPS["bf16"], steps=TRAIN_STEPS,
                 n_params=n_params, loss_first=vals[0], loss_last=vals[-1],
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                card=card)
+                card=card, **peaks(torch))
     perf.update(_opt_update_check(torch, model, opt, sched, ids))
     rows, busy, pwall = device_profile(
         torch, lambda: [train_step(ids) for _ in range(2)])
     perf["busy_share"] = report_profile("train-opt", rows, busy, pwall,
                                         2 * dt / TRAIN_STEPS, top=15)
+    assert_captured("train-opt", train_step)
+    prog = train_step.concrete_programs()[0]
+    log(f"train-opt: the captured program stages {len(prog.slots)} host "
+        f"value(s) a replay (the LR) after {len(prog.effects)} host "
+        f"effect(s); its pool {prog.memory_analysis()}")
+    del prog                    # it holds the step's model and optimizer
     log(f"train-opt: " + json.dumps(perf))
     beside = "train not run in this process" if train_perf is None else (
         f"train (plain AdamW, same smoke): {train_perf['ms_per_step']:.1f} "
@@ -5226,9 +5584,17 @@ def phase_train_opt(torch, np, card, train_perf=None):
         f"{'bitwise equal' if same else 'DIFFERS'} "
         f"({[float(x) for x in again]})")
     assert same, "the resumed run differs from the uninterrupted one"
+    assert_captured("train-opt resumed", train_step)
     del model, opt, train_step, snap_w, snap_o
     gc.collect()
     torch.cuda.empty_cache()
+
+    def build():
+        return build_trainer(torch, cfg, optimizer=llama2_recipe)
+    captured = captured_arm(torch, "train-opt", build, ids,
+                            losses[:ARM_STEPS])
+    eager_arm(torch, "train-opt", build, ids, captured, TRAIN_B * TRAIN_S,
+              flops, perf)
 
     t_sweep = time.perf_counter()
     perf["sweep_optimizers"] = _opt_sweep(torch, np)
@@ -5373,18 +5739,29 @@ def _train_moe_index(torch, np, card, moe_perf):
                 mfu=tps * moe_flops_per_token(cfg, n_params)
                 / PEAK_FLOPS["bf16"], steps=MOE_INDEX_STEPS,
                 loss_first=vals[0], loss_last=vals[-1],
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                grad_check=grad, card=card)
+                grad_check=grad, card=card, **peaks(torch))
     rows, busy, pwall = device_profile(torch, lambda: train_step(ids))
     perf["busy_share"] = report_profile("train-moe-index", rows, busy, pwall,
                                         dt / MOE_INDEX_STEPS, top=12)
+    assert_captured("train-moe-index", train_step)
+    log(f"train-moe-index: the captured program's pool "
+        f"{train_step.memory_analysis()}")
+    del model, opt, train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def build():
+        return build_trainer(torch, cfg)
+    captured = captured_arm(torch, "train-moe-index", build, ids,
+                            losses[:ARM_STEPS])
+    eager_arm(torch, "train-moe-index", build, ids, captured, MOE_B * MOE_S,
+              moe_flops_per_token(cfg, n_params), perf)
     if moe_perf is not None:
         perf["pallas_moe_train_step_speedup"] = \
             moe_perf["tokens_per_s"] / tps
         perf["train_moe"] = {k: moe_perf.get(k) for k in (
             "ms_per_step", "tokens_per_s", "mfu", "peak_gib", "busy_share")}
     log("train-moe-index: " + json.dumps(perf))
-    del model, opt, train_step
     gc.collect()
     torch.cuda.empty_cache()
     torch.use_deterministic_algorithms(False)
@@ -5831,6 +6208,8 @@ def cp_run(torch, np, label, want, hops=False, profile=False):
     n_params = sum(p.numel() for p in model.parameters())
     loss0, grads = loss_and_grads(torch, model, ids)
     grads = [g.bfloat16().cpu() for g in grads]     # bf16 grads: exact
+    watch = contextlib.ExitStack()
+    caught = watch.enter_context(jit_warnings())
     losses = [train_step(ids) for _ in range(2)]
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -5854,7 +6233,9 @@ def cp_run(torch, np, label, want, hops=False, profile=False):
     if profile:
         rows, dev_s, pwall = device_profile(torch, lambda: train_step(ids))
         busy = report_profile(label, rows, dev_s, pwall, dt / CP_STEPS)
+    watch.close()
     res = dict(loss0=loss0, losses=vals, busy_share=busy,
+               jit=dict(programs=jit_programs(train_step), warnings=caught),
                loss_bits=[x.cpu().numpy().tobytes() for x in losses],
                counts=counts, ms_per_step=1e3 * dt / CP_STEPS,
                tokens_per_s=tps, n_params=n_params,
@@ -6058,6 +6439,8 @@ def phase_train_cp(torch, np, card):
     log(f"train-cp (a) one process, no mesh: " + json.dumps(
         {k: one[k] for k in ("ms_per_step", "tokens_per_s", "mfu",
                              "peak_gib", "losses", "n_params")}))
+    assert one["jit"]["programs"] == [(True, None)] and \
+        not one["jit"]["warnings"], ("train-cp (a)", one["jit"])
     # hops a layer: sp-1 KV hops forward, sp-1 KV hops and sp dk/dv hops
     # backward; two launches a hop (stage and pull)
     want = dict(flash_attention_seg_fwd=layers,
@@ -6091,6 +6474,9 @@ def phase_train_cp(torch, np, card):
                     f"{h['ms']} ms, the library's copy_ of K and V from the "
                     f"mapped slot {h['library_ms']} ms; bound "
                     f"{h['bound_ms']:.4f} ms ({h['bound_by']}) on {card}")
+        for r in ranks:
+            assert_eager(f"train-cp (b) run {attempt + 1} rank {r['rank']}",
+                         r["jit"])
         r0 = ranks[0]
         for r in ranks[1:]:
             assert r["loss_bits"] == r0["loss_bits"], \
@@ -6531,6 +6917,8 @@ def ep_run(torch, np, mesh, mode, want, steps=EP_STEPS):
     grads = gather_experts(model, dict(zip(names, grads)))
     grads = [grads[n].bfloat16().cpu() for n in names]
     torch.cuda.reset_peak_memory_stats()
+    watch = contextlib.ExitStack()
+    caught = watch.enter_context(jit_warnings())
     losses = [train_step(ids) for _ in range(2)]
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -6550,10 +6938,12 @@ def ep_run(torch, np, mesh, mode, want, steps=EP_STEPS):
     assert all(math.isfinite(x) for x in vals), (mode, vals)
     assert vals[-1] < vals[0], f"train-moe-ep {mode}: the loss did not " \
                                f"fall: {vals}"
+    watch.close()
     full = gather_experts(model)
     shards = {n for n, p in model.named_parameters()
               if full[n].shape != p.shape}
     res = dict(loss0=loss0, losses=vals, counts=counts,
+               jit=dict(programs=jit_programs(train_step), warnings=caught),
                loss_bits=[x.cpu().numpy().tobytes() for x in losses],
                ms_per_step=1e3 * dt / steps,
                tokens_per_s=MOE_B * MOE_S * steps / dt,
@@ -6860,6 +7250,10 @@ def phase_train_moe_ep(torch, np, card):
         dist.spawn(_ep_rank_control, (work,), nprocs=EP, timeout=600)
         grads_fault = torch.load(os.path.join(work, "grads_fault.pt"))
     counts, perf, checks = {}, dict(card=card, one_process_loss=loss_one), []
+    perf["eager_reason"] = {
+        mode: [assert_eager(f"train-moe-ep {mode} rank {r['rank']}",
+                            r[mode]["jit"]) for r in ranks]
+        for mode in list(EP_MODES) + ["b4"]}
     leaf_c = _leaf_rels(grads_fault, grads_one)
     worst_c = max(leaf_c)
     for mode in EP_MODES:
@@ -7185,6 +7579,8 @@ def main() -> int:
         log(f"serve-ssm done at {time.perf_counter() - t_start:.1f} s")
         counts["serve-plane"] = phase_serve_plane(torch, np, card)[0]
         log(f"serve-plane done at {time.perf_counter() - t_start:.1f} s")
+        phase_jit(torch, np, card)
+        log(f"jit done at {time.perf_counter() - t_start:.1f} s")
         counts["train"], train_perf = phase_train(torch, np, card)
         log(f"train done at {time.perf_counter() - t_start:.1f} s")
         counts["train-opt"] = phase_train_opt(torch, np, card,

@@ -9,7 +9,8 @@ Each takes a ``torch.distributed`` group (a mesh axis's group, from
 * a gloo group moves host tensors: a CUDA tensor is copied to the host
   (a blocking copy, which waits for the kernels that wrote it), exchanged
   and copied back to its device. This is how ranks that share one card
-  talk, since NCCL refuses two ranks on one GPU.
+  talk, since NCCL refuses two ranks on one GPU. A ``jit.to_static``
+  step that stages a collective so, or calls ``barrier``, runs eagerly.
 
 Any other pairing (a CPU tensor on NCCL, another backend) raises. In a
 world of one rank (no process group) each collective is the identity on
@@ -24,6 +25,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from paddle_tpu_torch.jit import api as _jit
 from paddle_tpu_torch.ops.kernels import async_collectives as hops
 
 __all__ = ["ppermute", "all_gather", "barrier", "all_to_all",
@@ -42,7 +44,11 @@ def _route(tensor: torch.Tensor, group, what: str) -> bool:
         if tensor.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{what}: the gloo route moves CPU and CUDA "
                              f"tensors, got one on {tensor.device}")
-        return tensor.device.type == "cuda"
+        if tensor.device.type == "cuda":
+            _jit.uncapturable(f"the gloo host-staged {what} "
+                              f"(distributed/collective.py)")
+            return True
+        return False
     raise ValueError(f"{what}: backend {backend!r} is not routed (nccl or "
                      f"gloo)")
 
@@ -107,6 +113,7 @@ def all_gather(tensor: torch.Tensor, group=None, axis: int = 0
 
 def barrier(group=None) -> None:
     if dist.is_initialized():
+        _jit.uncapturable("a barrier (distributed/collective.py)")
         dist.barrier(group=group)
 
 

@@ -367,15 +367,21 @@ class LlamaForCausalLM(nn.Module):
         ``labels``, the fp32 next-token loss and the shifted logits
         (``llama.py:354-368``). Serving and scoring callers wrap the call
         in ``torch.no_grad()``."""
+        moe = [m for m in self.modules() if isinstance(m, MoELayer)]
+        # the last forward's aux losses go first: each holds that forward's
+        # autograd graph, which would otherwise live into this one (and a
+        # graph kept from a step's eager run blocks its CUDA-graph capture)
+        for m in moe:
+            m.gate._loss = None
         logits = self.logits(self.llama(input_ids))
         if labels is None:
             return logits
         loss, shifted = _shifted_lm_loss(logits, labels)
         # the routing load-balance penalty of every MoE layer
         # (``llama.py:360-367``)
-        for sub in self.modules():
-            if isinstance(sub, MoELayer) and sub.gate.get_loss() is not None:
-                loss = loss + self.config.moe_aux_weight * sub.gate.get_loss()
+        for m in moe:
+            if m.gate.get_loss() is not None:
+                loss = loss + self.config.moe_aux_weight * m.gate.get_loss()
         return loss, shifted
 
 

@@ -38,6 +38,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from paddle_tpu_torch import flags
+from paddle_tpu_torch.jit import api as _jit
 from paddle_tpu_torch.ops.kernels import _launch
 
 __all__ = ["async_a2a_enabled", "fused_kernel_enabled", "tiled_a2a",
@@ -102,7 +103,11 @@ class _Ring:
         self.handles, self.peers = [], {}
 
     def _quiesce(self) -> None:
-        """Every rank's kernels on the buffers have finished."""
+        """Every rank's kernels on the buffers have finished (a host
+        sync and a barrier: a ``jit.to_static`` step that gets here runs
+        eagerly)."""
+        _jit.uncapturable("the exchange's synchronize and barrier "
+                          "(ops/kernels/async_collectives.py)")
         torch.cuda.current_stream(self.device).synchronize()
         dist.barrier(group=self.group)
 

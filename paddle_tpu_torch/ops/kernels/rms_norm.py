@@ -10,6 +10,8 @@ from ``x`` and gives ``dx`` in ``x``'s dtype and ``dw`` in fp32.
 
 from __future__ import annotations
 
+import contextlib
+
 from typing import Dict, Tuple
 
 import torch
@@ -27,8 +29,8 @@ launches_bwd = 0
 # the backward's grid cap an SM (``kBwdBlocksPerSm`` in the .cu)
 _BWD_BLOCKS_PER_SM = 2
 
-# (device index, stream) -> the backward's partial rows, reused
-_partial_rows: Dict[Tuple[int, int], torch.Tensor] = {}
+# (device index, stream, row width) -> the backward's partial rows, reused
+_partial_rows: Dict[Tuple[int, int, int], torch.Tensor] = {}
 
 
 def _fast_ok(x: torch.Tensor, tensors, d: int) -> bool:
@@ -51,16 +53,26 @@ def _fast_ok(x: torch.Tensor, tensors, d: int) -> bool:
 
 
 def _partials(dev: torch.device, stream: int, d: int) -> torch.Tensor:
-    """The backward's partial rows for launches on ``stream``, one a block
-    of the grid's cap (SMs x ``_BWD_BLOCKS_PER_SM``): kept and reused by
-    every call on that stream, whatever its rows, and grown for a wider
-    row."""
-    key = (dev.index, stream)
+    """The backward's partial rows for launches on ``stream`` at row width
+    ``d``, one a block of the grid's cap (SMs x ``_BWD_BLOCKS_PER_SM``):
+    kept and reused by every such call, whatever its rows. A buffer is
+    never replaced or freed: a CUDA graph captured over a launch keeps its
+    address (``jit.to_static``)."""
+    key = (dev.index, stream, d)
     part = _partial_rows.get(key)
-    if part is None or part.shape[1] < d:
+    if part is None:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        part = _partial_rows[key] = torch.empty(
-            (sms * _BWD_BLOCKS_PER_SM, d), dtype=torch.float32, device=dev)
+        # a buffer first needed inside a capture is allocated for the
+        # default stream (the graph's replays are ordered after its work),
+        # so that it comes from the common pool, not from the graph's
+        # private pool, which it would outlive
+        side = contextlib.nullcontext()
+        if torch.cuda.is_current_stream_capturing():
+            side = torch.cuda.stream(torch.cuda.default_stream(dev))
+        with side:
+            part = _partial_rows[key] = torch.empty(
+                (sms * _BWD_BLOCKS_PER_SM, d), dtype=torch.float32,
+                device=dev)
     return part
 
 

@@ -12,9 +12,13 @@ masters, as the reference's per-parameter mask keeps them.
 
 The reference runs the inner step on every call and masks its outcome
 with ``jnp.where``, so that a traced step stays one program. The port
-runs eagerly, so the window's count is a host integer and the inner step
-runs only on the apply call, which gives the same state. The state dict
-carries the count as a tensor under the reference's key, with
+keeps the window's count as a host integer and runs the inner step only
+on the apply call, which gives the same state. Under ``jit.to_static``
+the branch is a host guard (whether this call applies, and on an apply
+call which parameters the window touched), so a step captures as two
+programs, the accumulating one and the applying one, and the count and
+touched flags are host effects that run again before every replay. The
+state dict carries the count as a tensor under the reference's key, with
 ``gm_buffer.{param}`` and ``gm_touched.{param}``.
 """
 
@@ -24,6 +28,7 @@ from typing import Dict
 
 import torch
 
+from paddle_tpu_torch.jit import api as _jit
 from paddle_tpu_torch.optimizer.optimizer import _assign
 
 __all__ = ["GradientMergeOptimizer"]
@@ -63,27 +68,59 @@ class GradientMergeOptimizer:
                 self._touched[id(p)] = bool(pending.pop(f"gm_touched.{key}"))
         return buf
 
+    def _window(self):
+        """The host branch of this call: whether it applies and, if it
+        does, the parameters touched earlier in the window."""
+        if (self._count + 1) % self._k:
+            return (False,)
+        return (True, tuple(sorted(k for k, v in self._touched.items()
+                                   if v)))
+
+    def _host_state(self):
+        return self._count, dict(self._touched)
+
+    def _set_host_state(self, state) -> None:
+        self._count, touched = state
+        self._touched.clear()
+        self._touched.update(touched)
+
+    def _advance(self, touched, reset) -> None:
+        for i in touched:
+            self._touched[i] = True
+        self._count += 1
+        for i in reset:
+            self._touched[i] = False
+
+    def _state_tensors(self):
+        return list(self._buffers.values()) + self._inner._state_tensors()
+
     @torch.no_grad()
     def step(self) -> None:
         inner = self._inner
+        _jit.host_guard(self._window)
+        _jit.note_state(self._state_tensors)
+        apply = self._window()[0]
         scale = (1.0 / self._k) if self._avg else 1.0
         params = [p for p in inner._trainable_parameters()
                   if p.grad is not None or id(p) in self._buffers]
+        touched = []
         for p in params:
             buf = self._buffer(p)
             if p.grad is not None:
                 buf.copy_(buf + p.grad.to(buf.dtype) * scale)
-                self._touched[id(p)] = True
-        self._count += 1
-        if self._count % self._k:
+                touched.append(id(p))
+        if not apply:
+            _jit.host_effect(lambda: self._advance(touched, ()), owner=self)
             return
         # the merged gradients go to the inner step as its pairs: an fp32
         # buffer cannot stand in a bf16 parameter's .grad
+        now = set(touched)
         inner._step_pairs([(p, self._buffers[id(p)]) for p in params
-                           if self._touched[id(p)]])
+                           if self._touched[id(p)] or id(p) in now])
         for p in params:
             self._buffers[id(p)].zero_()
-            self._touched[id(p)] = False
+        reset = [id(p) for p in params]
+        _jit.host_effect(lambda: self._advance(touched, reset), owner=self)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):

@@ -8,7 +8,7 @@ with the learning rate or a strong-Wolfe line search
 closure. The curvature history is flat fp32 vectors on the parameters'
 device (all parameters concatenated). Like the reference, its control
 flow reads losses and dot products to the host: L-BFGS is not a
-pretraining path.
+pretraining path, and a ``jit.to_static`` step that calls it runs eagerly.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from paddle_tpu_torch.jit import api as _jit
 from paddle_tpu_torch.optimizer.optimizer import Optimizer
 
 __all__ = ["LBFGS"]
@@ -180,6 +181,8 @@ class LBFGS(Optimizer):
             raise ValueError(
                 "LBFGS.step requires a closure that reevaluates the model "
                 "and returns the loss (reference optimizer/lbfgs.py)")
+        _jit.uncapturable("LBFGS.step (its closure's losses and the line "
+                          "search are read on the host)")
         self._n_evals = 0
         loss, flat_grad = self._evaluate(closure)
         lr = self.get_lr()

@@ -5,13 +5,19 @@ A scheduler's values are Python floats, computed on the host by the
 reference's expressions. An optimizer binds its device LR tensor to its
 scheduler, and each ``step()`` writes the new value into that tensor with
 ``fill_``: the update reads the LR from the device and nothing reads it
-back to the host.
+back to the host. Inside a step captured by ``jit.to_static`` the epoch
+arithmetic is a host effect, run again before every replay, and the fill
+is staged (:func:`paddle_tpu_torch.jit.api.staged_fill`), so each replay
+reads its own step's LR.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import List, Optional
+
+from paddle_tpu_torch.jit import api as _jit
 
 __all__ = [
     "LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
@@ -36,18 +42,28 @@ class LRScheduler:
 
     def _push(self) -> None:
         if self._bound_tensor is not None:
-            self._bound_tensor.fill_(float(self.last_lr))
+            _jit.staged_fill(self._bound_tensor, lambda: float(self.last_lr))
 
     def __call__(self) -> float:
         return self.last_lr
 
     def step(self, epoch: Optional[int] = None) -> None:
+        _jit.host_effect(lambda: self._advance(epoch), owner=self)
+        self._push()
+
+    def _advance(self, epoch: Optional[int]) -> None:
         if epoch is None:
             self.last_epoch += 1
         else:
             self.last_epoch = epoch
         self.last_lr = self.get_lr()
-        self._push()
+
+    # the host state a dropped capture restores
+    def _host_state(self) -> dict:
+        return copy.deepcopy(self.state_dict())
+
+    def _set_host_state(self, state: dict) -> None:
+        self.set_state_dict(state)
 
     def get_lr(self) -> float:
         raise NotImplementedError
@@ -292,6 +308,8 @@ class ReduceOnPlateau(LRScheduler):
                 self.last_lr = self.base_lr
                 self._push()
             return
+        _jit.uncapturable("ReduceOnPlateau.step(metrics) (the metric is "
+                          "read on the host)")
         value = float(metrics.item()) if hasattr(metrics, "item") \
             else float(metrics)
         if self.best is None:

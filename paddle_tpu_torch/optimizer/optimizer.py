@@ -18,6 +18,10 @@ reference's keys (``param_{i}_{accumulator}``, ``master_weights.param_{i}``,
 uses that name in place of ``param_{i}``), and ``set_state_dict`` keeps
 what it cannot place yet for the first ``_acc``/``_master`` call that
 makes it.
+
+Inside a step captured by ``jit.to_static``, ``step()`` reports its state
+tensors to the capture (their storage is guarded) and ``set_lr`` stages
+its fill, as the scheduler's is staged.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import torch
+
+from paddle_tpu_torch.jit import api as _jit
 
 __all__ = ["Optimizer"]
 
@@ -151,7 +157,8 @@ class Optimizer:
         return float(self._lr_tensor)
 
     def set_lr(self, value: float) -> None:
-        self._lr_tensor.fill_(float(value))
+        value = float(value)
+        _jit.staged_fill(self._lr_tensor, lambda: value)
 
     def set_lr_scheduler(self, scheduler) -> None:
         self._lr_scheduler = scheduler
@@ -166,6 +173,7 @@ class Optimizer:
     def _step_pairs(self, params_grads) -> None:
         """One step over ``(parameter, gradient)`` pairs: clip, count,
         update."""
+        _jit.note_state(self._state_tensors)
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
         self._step_count += 1
@@ -175,6 +183,14 @@ class Optimizer:
 
     def _apply_one(self, p: torch.nn.Parameter, g: torch.Tensor) -> None:
         raise NotImplementedError
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The device state a step reads and writes in place."""
+        out = [self._lr_tensor, self._step_count]
+        for store in self._accumulators.values():
+            out.extend(store.values())
+        out.extend(self._master_weights.values())
+        return out
 
     def _decayed_grad_fn(self, wd_mode: str):
         """L2 regularization folded into the gradient (coupled mode)."""

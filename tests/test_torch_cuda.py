@@ -601,10 +601,11 @@ def test_rms_norm_misaligned_base_takes_the_general_route(cuda_device, d,
 
 @pytest.mark.cuda
 def test_rms_norm_backward_reuses_its_partials(cuda_device):
-    """The backward's partial rows are kept for the stream and reused by
-    calls of other row counts and widths (growing for a wider row): each
-    call equals a fresh twin, and a repeat after the others gives the first
-    call's bits."""
+    """The backward's partial rows are kept for the stream and the row
+    width and reused by calls of other row counts; a width of its own gets
+    a buffer of its own, and no buffer is ever replaced (a captured graph
+    keeps its address): each call equals a fresh twin, and a repeat after
+    the others gives the first call's bits through the first buffer."""
     from paddle_tpu_torch.ops.kernels import _launch
     first = None
     for rows, d in ((8192, 1536), (7, 1536), (1, 1024), (3000, 4096),
@@ -616,14 +617,17 @@ def test_rms_norm_backward_reuses_its_partials(cuda_device):
         np.testing.assert_allclose(_np(dx), _np(rdx), **BF16)
         np.testing.assert_allclose(_np(dw), _np(rdw), rtol=1e-4,
                                    atol=1e-5 * np.abs(_np(rdw)).max())
+        key = (cuda_device.index or 0, _launch.stream_of(x.device), d)
         if first is None:
-            first = dw
+            first, first_part = dw, pt_rms._partial_rows[key]
         elif (rows, d) == (8192, 1536):
             assert torch.equal(dw, first)
-    key = (cuda_device.index or 0, _launch.stream_of(x.device))
-    part = pt_rms._partial_rows[key]
-    assert part.shape[1] >= 4096 and part.shape[0] == 2 * \
-        torch.cuda.get_device_properties(x.device).multi_processor_count
+            assert pt_rms._partial_rows[key] is first_part
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for d in (1536, 1024, 4096):
+        part = pt_rms._partial_rows[(cuda_device.index or 0,
+                                     _launch.stream_of(x.device), d)]
+        assert part.shape == (2 * sms, d)
 
 
 def _block_args(dev, dtype, b=2, s=37, nh=4, nkv=2, d=64, ffn=320):
@@ -2566,3 +2570,172 @@ def test_moe_fp16_experts_take_the_index_form_on_the_card(cuda_device):
             if "moe_grouped_gemm" in str(w.message)]
     assert len(msgs) == 1 and "torch.float16" in msgs[0], msgs
     _gg_close(got[0], want[0], BF16)
+
+
+# --------------------------------------------- jit.to_static: CUDA graphs
+def _jit_trainer(dev, recompute=False, seed=0):
+    """A 2-layer bf16 Llama (hidden 512, ffn 1024, 4:2 heads of 128,
+    vocab 4096) under the Llama-2 recipe: AdamW over fp32 masters,
+    global-norm clip 1.0, warmup 3 into cosine 12, stepped in the step."""
+    from paddle_tpu_torch import optimizer as pt_opt
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    cfg = LlamaConfig(vocab_size=4096, hidden_size=512, intermediate_size=1024,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=512,
+                      dtype="bfloat16", recompute=recompute)
+    model = LlamaForCausalLM(cfg, device=dev, seed=seed)
+    lr = pt_opt.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(3e-4, T_max=12),
+                            warmup_steps=3, start_lr=0.0, end_lr=3e-4)
+    opt = pt_opt.AdamW(learning_rate=sched, beta1=0.9, beta2=0.95,
+                       epsilon=1e-5, weight_decay=0.1, multi_precision=True,
+                       parameters=model.parameters(),
+                       grad_clip=ClipGradByGlobalNorm(1.0))
+
+    def step(ids):
+        loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+    return model, opt, step
+
+
+def _jit_ids(dev, shape=(2, 256)):
+    g = torch.Generator().manual_seed(7)
+    return torch.randint(0, 4096, shape, generator=g,
+                         dtype=torch.int32).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recompute", [False, True])
+def test_to_static_captures_the_train_step_bitwise(cuda_device, recompute):
+    """The step captured into one graph (first call eager, second
+    captured, then replays) against the same step eager, from the same
+    seed: 5 losses, every parameter, master and moment, the step count
+    and the LR tensor bit for bit; with ``recompute`` the non-reentrant
+    checkpoint's replay runs inside the captured backward."""
+    from paddle_tpu_torch import jit as pt_jit
+    from paddle_tpu_torch.ops import kernels
+    ids = _jit_ids(cuda_device)
+    arms = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for static in (True, False):
+        model, opt, step = _jit_trainer(cuda_device, recompute)
+        f = pt_jit.to_static(step) if static else step
+        kernels.reset_launch_counts()
+        losses, lrs = [], []
+        for _ in range(5):
+            losses.append(f(ids))
+            lrs.append(opt._lr_tensor.clone())
+        torch.cuda.synchronize()
+        arms.append(dict(losses=losses, lrs=lrs,
+                         counts=kernels.launch_counts(),
+                         params=[p.detach().clone()
+                                 for p in model.parameters()],
+                         state=[t.clone() for t in opt._state_tensors()]))
+        if static:
+            prog, = f.concrete_programs()
+            assert prog.captured and prog.reason is None
+            assert prog.memory_analysis().temp_size_in_bytes > 0
+    torch.use_deterministic_algorithms(False)
+    cap, eag = arms
+    for key in ("losses", "lrs", "params", "state"):
+        assert len(cap[key]) == len(eag[key])
+        for i, (a, b) in enumerate(zip(cap[key], eag[key])):
+            assert torch.equal(a, b), (key, i)
+    assert cap["counts"] == eag["counts"]
+    assert cap["counts"]["rms_norm_fwd"] > 0
+
+
+@pytest.mark.cuda
+def test_to_static_stages_the_lr_when_the_host_runs_ahead(cuda_device):
+    """The host queues 40 replays ahead of the card (a long matmul chain
+    a step) and synchronizes once: each replay read its own step's LR."""
+    from paddle_tpu_torch import jit as pt_jit
+    from paddle_tpu_torch import optimizer as pt_opt
+    w = torch.nn.Parameter(torch.randn(1024, 1024, device=cuda_device) / 32)
+    sched = pt_opt.lr.LambdaDecay(1.0, lambda e: 1.0 / (1 + e))
+    opt = pt_opt.SGD(learning_rate=sched, parameters=[w])
+    a = torch.randn(1024, 1024, device=cuda_device)
+
+    @pt_jit.to_static
+    def step(x):
+        y = x
+        for _ in range(24):
+            y = torch.tanh(y @ w)
+        y.sum().backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return opt._lr_tensor.clone()
+
+    torch.cuda.synchronize()
+    outs = [step(a) for _ in range(40)]
+    torch.cuda.synchronize()
+    want = [float(np.float32(1.0 / (1 + e))) for e in range(1, 41)]
+    assert [float(o) for o in outs] == want
+    assert sched.last_epoch == 40
+
+
+@pytest.mark.cuda
+def test_to_static_counts_replayed_launches(cuda_device):
+    """The wrappers' counters count a replayed launch as an issued one."""
+    from paddle_tpu_torch import jit as pt_jit
+    from paddle_tpu_torch.ops import kernels
+    x = torch.randn(64, 512, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.ones(512, device=cuda_device)
+
+    @pt_jit.to_static
+    def f(t):
+        return pt_rms.rms_norm(pt_rms.rms_norm(t, w, 1e-6), w, 1e-6)
+
+    kernels.reset_launch_counts()
+    outs = [f(x) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["rms_norm_fwd"] == 10
+    assert f.concrete_programs()[0].captured
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.cuda
+def test_to_static_host_sync_runs_eagerly(cuda_device):
+    """A step that reads a device value on the host cannot be captured:
+    the capture ends, the host state it advanced (a scheduler's epoch) is
+    put back, one warning names the error, the step runs eagerly from then
+    on and the process goes on."""
+    import warnings
+    from paddle_tpu_torch import jit as pt_jit
+    from paddle_tpu_torch import optimizer as pt_opt
+    x = torch.arange(6., device=cuda_device)
+    sched = pt_opt.lr.StepDecay(1.0, step_size=1, gamma=0.5)
+    opt = pt_opt.SGD(learning_rate=sched,
+                     parameters=[torch.nn.Parameter(x.clone())])
+
+    @pt_jit.to_static
+    def f(t):
+        sched.step()            # a host effect the failed capture undoes
+        y = t * opt._lr_tensor
+        return y * float(y.sum())
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        outs = [f(x) for _ in range(4)]
+    torch.cuda.synchronize()
+    assert sum("cannot be captured" in str(w.message) for w in rec) == 1
+    prog, = f.concrete_programs()
+    assert not prog.captured and prog.reason
+    assert sched.last_epoch == 4
+    for i, o in enumerate(outs):
+        lr = 0.5 ** (i + 1)
+        assert torch.equal(o, (x * lr) * float((x * lr).sum()))
+    assert float((x + 1).sum()) == 21.0
+    # and the caching allocator still returns what it frees
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    big = torch.empty(1 << 30, dtype=torch.uint8, device=cuda_device)
+    del big
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= before
