@@ -66,11 +66,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens, 32 new tokens each, 6 greedy and 2 sampled) on a
    Llama-3-8B-width model with seeded random weights, then
    ``LlamaForCausalLM.forward`` scoring the prompts. Kernel launch counts
-   are zeroed just before and read just after. Checks: finish reasons, no
-   page leak, ragged launches == steps x layers, a second run bitwise
-   equal (run under ``torch.profiler`` for a device-time breakdown),
-   greedy tokens >= 99% equal to the same engine with the plain attention
-   twin, one decoder layer through the kernels equal to its plain-twin
+   are zeroed just before and read just after. The compiled step runs
+   as a ``jit.to_static`` program per bucket signature (A.5): its first
+   call eager, its second captured into a CUDA graph, later calls
+   replayed; every compiled serving path below asserts each program
+   captured and none eager, and none warns that it runs eagerly. Checks:
+   finish reasons, no page leak, ragged launches == steps x layers; the
+   same engine serving the requests twice more (the second timed: the
+   warm, replayed step), another engine under ``torch.profiler`` cold,
+   again and warm (the busy share and kernels of the cold and the warm
+   run, each over its own window), and the eager arm
+   (``enable_to_static(False)``: the step op by op) timed and profiled,
+   every stream bitwise the first run's; greedy tokens >= 99% equal to
+   the same engine with the plain attention twin, one decoder layer through the kernels equal to its plain-twin
    run at the bf16 tier, and the kernel forward no further from an fp32
    reference forward than the plain-twin forward is;
 5. serve-int8, the serve phase once more with ``kv_quant="int8"`` (the
@@ -124,7 +132,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    incident closed with a finite MTTR; the share of greedy tokens equal to
    the one-process runs is reported, not asserted (concurrent batches
    round bf16 differently); (d) ``ensure`` respawns ``dc1``, which serves
-   one more request bit for bit its one-process run. Reports TTFT and
+   one more request bit for bit its one-process run. After each leg no
+   host's step program runs eagerly (``/introspect``), and the decode
+   hosts replay captured ones. Reports TTFT and
    end-to-end latency (p50, p99), goodput and the handoff's time split
    (export gather, stage or pack, transport, install) for each leg;
 8. serve-quant, the quantized memory plane: ``bench_serve_llama_quant``'s
@@ -144,8 +154,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    max_seq_len=160, block_size=64)``, 16 prompts of 64 tokens, 32 new
    tokens each, 2 of them sampled. Checks: finish reasons, no page leak,
    ragged, gmm2 and gmm launches == steps x layers, a second timed run
-   and a third, profiled, bitwise equal, greedy tokens >= 99% equal to
-   the plain-twin engine; then once more with ``moe_fused_wi=False``
+   and serve's warm, profiled and eager-arm runs bitwise equal, greedy
+   tokens >= 99% equal to the plain-twin engine; then once more with ``moe_fused_wi=False``
    (gmm2 launches 0, gmm == steps x layers x 3, greedy tokens >= 99%
    equal to the fused run's). Reports the host's CPU time over the wall
    and device kernels per step (the step is issued op by op);
@@ -154,13 +164,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    hidden 1024, ffn 2816, 8:8 heads of 128, d_state 16, SSM head dim 32,
    seeded random weights). Checks: equal-byte KV pools admit >= 2x as many
    1023-token prompts for the hybrid as for the attention-only Llama; then
-   8 greedy requests (32 new tokens) through the compiled and the eager
-   engine, each after a warm run: finish reasons, scan launches ==
+   8 greedy requests (32 new tokens) through the compiled engine, its
+   eager arm (``enable_to_static(False)``) and the eager engine, each
+   after two warm runs: finish reasons, scan launches ==
    admissions x SSM layers, ragged (compiled) or paged (eager) launches ==
    steps x attention layers, no page leak, every slot's state zero after
-   the drain, a profiled repeat bitwise equal, >= 99% of greedy tokens
-   equal to the same engine on the plain twins and compiled equal to
-   eager;
+   the drain, a profiled repeat bitwise equal (another engine warmed
+   inside the profiler's session), >= 99% of greedy tokens equal to the
+   same engine on the plain twins, the eager arm's streams and launches
+   the compiled engine's bit for bit, and compiled equal to eager;
 11. serve-plane, the serving memory plane (A.6, A.7) at its reference
    benches' on-TPU configurations, nothing cut (seeded random weights,
    fp32): (a) serve-prefix, ``bench_serve_llama_prefix``
@@ -2782,7 +2794,7 @@ def serve(torch, model, np, use_kernel=True, requests=make_requests,
           **engine_kw):
     """One engine run over the requests (the slice-1 set by default);
     returns outputs and a record of each step (wall seconds, prefill
-    tokens, emitted tokens)."""
+    tokens, emitted tokens, whether it captured a step program)."""
     from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
     engine_kw = {"max_seqs": 8, "max_seq_len": 2048, "block_size": 64,
                  **engine_kw}
@@ -2794,16 +2806,31 @@ def serve(torch, model, np, use_kernel=True, requests=make_requests,
 
     def timed_step():
         p0, d0 = eng.stats["prefill_tokens"], eng.stats["decode_tokens"]
+        c0 = eng.capture_stats()["captured"]
         t0 = time.perf_counter()
         inner()                      # ends in the step's host sync
         steps.append((time.perf_counter() - t0,
                       eng.stats["prefill_tokens"] - p0,
-                      eng.stats["decode_tokens"] - d0))
+                      eng.stats["decode_tokens"] - d0,
+                      eng.capture_stats()["captured"] > c0))
     eng.step = timed_step
+    eng.step_records = steps
     t0 = time.perf_counter()
     out = eng.generate(reqs, return_details=True)
     wall = time.perf_counter() - t0
     return eng, prompts, out, steps, wall
+
+
+def again(np, eng, requests=make_requests):
+    """The same requests once more through an engine ``serve`` built:
+    outputs, step records and wall seconds."""
+    from paddle_tpu_torch.inference import GenerationRequest
+    _, reqs = requests(GenerationRequest, np, np.random.RandomState(0),
+                       eng.cfg.vocab_size)
+    eng.step_records.clear()
+    t0 = time.perf_counter()
+    out = eng.generate(reqs, return_details=True)
+    return out, list(eng.step_records), time.perf_counter() - t0
 
 
 def phase_serve(torch, np, layers, card):
@@ -2851,18 +2878,14 @@ def phase_serve(torch, np, layers, card):
 
     perf = serve_perf(eng, out, steps, wall, card)
     perf["kv_bytes_per_block"] = eng.cache.bytes_per_block
+    step_programs("serve", eng)
     log("serve: " + json.dumps(perf))
-
-    # determinism: a second identical run, under the profiler, gives the
-    # same streams bitwise
-    holder = {}
-
-    def rerun():
-        holder["out"], holder["wall"] = serve(torch, model, np)[2::2]
-    rows, busy, pwall = device_profile(torch, rerun)
-    report_profile("serve", rows, busy, pwall, wall)
-    assert holder["out"] == out, "second run differs"
-    log("serve: second run bitwise equal (greedy and seeded)")
+    # determinism: every repeat, warm, under the profiler and with capture
+    # off, gives the same streams bitwise
+    perf["warm"], perf["eager_arm"], _, perf["busy_share"] = serve_arms(
+        torch, np, "serve", eng, lambda: serve(torch, model, np), out, wall,
+        card)
+    del eng
 
     # the same engine with the plain attention twin
     _, _, plain, _, _ = serve(torch, model, np, use_kernel=False)
@@ -2987,6 +3010,7 @@ def fleet_baseline(torch, model, specs):
         assert srv.run_until_idle(), "baseline run did not finish"
         assert h.finish_reason == "length", h.finish_reason
         out[spec[0]] = list(h.output_ids)
+    step_programs("serve-fleet baseline", srv.engine)
     srv.close()
     del srv
     torch.cuda.empty_cache()
@@ -3179,6 +3203,19 @@ def _check_hosts(sup, digest, route):
     return state
 
 
+def _hosts_captured(state, label):
+    """Every live host's step programs (``/introspect``): none runs
+    eagerly, and the decode hosts replay captured ones."""
+    progs = {n: s["step_programs"] for n, s in state.items()}
+    assert not any(p["eager"] for p in progs.values()), (label, progs)
+    assert sum(p["captured"] for n, p in progs.items()
+               if n.startswith("dc")) > 0, (label, progs)
+    log(f"serve-fleet {label}: step programs " + json.dumps(
+        {n: {k: p[k] for k in ("signatures", "captured", "capture_s")}
+         for n, p in progs.items()}))
+    return progs
+
+
 def _leak_free(state, names):
     for n in names:
         s = state[n]
@@ -3250,6 +3287,7 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
                 (launches, n)
             assert ho["pulls"] == n and ho["installs"] == n, ho
             _leak_free(s1, s1)
+            _hosts_captured(s1, "(a)")
             assert s1["pf0"]["ipc"]["released"] == n, s1["pf0"]["ipc"]
             counts["serve-fleet-a"] = launches
             perf["a"] = dict(_leg_perf(handles, wall, card),
@@ -3272,6 +3310,7 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
             assert ho["pulls"] == 0 and ho["installs"] == n \
                 and ho["unpacks"] == n, ho
             _leak_free(s1, s1)
+            _hosts_captured(s1, "(b)")
             counts["serve-fleet-serialized"] = launches
             perf["b"] = dict(_leg_perf(handles, wall, card),
                              **_split(ho, ho, tr, n))
@@ -3322,6 +3361,7 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
             assert router.counters["failovers"] >= 1, router.counters
             s1 = _fleet_state(sup)
             _leak_free(s1, s1)
+            _hosts_captured(dict(s1, dc1=pre_kill), "(c)")
             dec = dict(s1, dc1=pre_kill)
             launches, ho, tr = _delta(dec, s0, dec)
             assert launches["kv_pages_remote_copy"] == ho["pulls"] * segs, \
@@ -3381,6 +3421,7 @@ def phase_serve_fleet(torch, np, layers, card, log_dir):
             assert router.counters["handoffs_refused"] \
                 == rc0["handoffs_refused"], router.counters
             _leak_free(s1, s1)
+            _hosts_captured(s1, "(d)")
             counts["serve-fleet-d"] = launches
             perf["d"] = dict(request=landed, pulls=ho["pulls"])
             log(f"serve-fleet (d): dc1 respawned, request {landed} served on "
@@ -3515,8 +3556,8 @@ def phase_serve_ssm(torch, np, card):
     1024, ffn 2816, 8 layers "SA", 8:8 heads of 128, d_state 16, SSM head
     dim 32: d_inner 2048, 64 SSM heads, conv 4; fp32, seeded random
     weights), the equal-byte admission headline, then 8 greedy requests of
-    1023-token prompts and 32 new tokens through the compiled and the
-    eager engine, each after a warm run."""
+    1023-token prompts and 32 new tokens through the compiled engine, its
+    eager arm and the eager engine, each after two warm runs."""
     from paddle_tpu_torch.models import (HybridSSMForCausalLM,
                                          LlamaForCausalLM, llama_tiny_config,
                                          ssm_tiny_config)
@@ -3568,11 +3609,19 @@ def phase_serve_ssm(torch, np, card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- greedy requests through both modes, each after a warm run
+    # -- greedy requests through both modes, each after a warm run; the
+    # compiled engine also as its eager arm (enable_to_static(False))
+    from torch.profiler import record_function
+    from paddle_tpu_torch import jit
     counts, outs = {}, {}
-    for mode in ("compiled", "eager"):
+    for arm in ("compiled", "compiled eager arm", "eager"):
+        mode = arm.split()[0]
+        jit.enable_to_static(arm != "compiled eager arm")
         eng = _hybrid_engine(hy_model, hy_blocks, mode)
-        eng.generate(_ssm_requests(np, "warm"))
+        # two warm runs: a signature met once in the first (the first
+        # decode step's table width) is captured in the second
+        for _ in range(2):
+            eng.generate(_ssm_requests(np, "warm"))
         st0 = dict(eng.stats)
         # ---- the path: counts zeroed just before, read just after
         kernels.reset_launch_counts()
@@ -3580,8 +3629,8 @@ def phase_serve_ssm(torch, np, card):
         out = eng.generate(_ssm_requests(np, "run"), return_details=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        c = counts[mode] = kernels.launch_counts()
-        log(f"serve-ssm {mode}: path launches {c}")
+        c = counts[arm] = kernels.launch_counts()
+        log(f"serve-ssm {arm}: path launches {c}")
         steps = eng.stats["steps"] - st0["steps"]
         step_s = eng.stats["step_time_s"] - st0["step_time_s"]
         emitted = eng.stats["decode_tokens"] - st0["decode_tokens"]
@@ -3599,34 +3648,56 @@ def phase_serve_ssm(torch, np, card):
                      "ragged_paged_attention_quant"):
             assert c[name] == 0, (name, c)
         check_drained(eng)
-        perf[mode] = dict(
+        perf[arm] = dict(
             steps=steps, decode_ms_per_step=1e3 * step_s / steps,
             decode_tokens_per_s=(emitted - 8) / step_s,
             tokens_per_s_generate=emitted / wall, generate_s=wall)
-        log(f"serve-ssm {mode}: " + json.dumps(perf[mode]))
+        log(f"serve-ssm {arm}: " + json.dumps(perf[arm]))
 
         holder = {}
 
         def rerun():
-            holder["out"] = eng.generate(_ssm_requests(np, "run"),
-                                         return_details=True)
-        rows, busy, pwall = device_profile(torch, rerun)
-        perf[mode]["busy_share"] = report_profile(f"serve-ssm {mode}", rows,
-                                                  busy, pwall, wall)
-        assert holder["out"] == out, f"serve-ssm {mode}: profiled repeat"
+            # another engine, warmed inside the session: graphs replayed
+            # under the profiler are captured in the same session (see
+            # serve_arms)
+            e = _hybrid_engine(hy_model, hy_blocks, mode)
+            for _ in range(2):
+                e.generate(_ssm_requests(np, "warm"))
+            with record_function("run"):
+                holder["out"] = e.generate(_ssm_requests(np, "run"),
+                                           return_details=True)
+        rows, busy, pwall = device_profile(torch, rerun,
+                                           windows=("run",))["run"]
+        perf[arm]["busy_share"] = report_profile(f"serve-ssm {arm}", rows,
+                                                 busy, pwall, wall)
+        assert holder["out"] == out, f"serve-ssm {arm}: profiled repeat"
         check_drained(eng)
+        if arm == "compiled":
+            perf[arm]["step_programs"] = step_programs("serve-ssm", eng)
+        jit.enable_to_static(True)
         del eng
+        if arm == "compiled eager arm":
+            assert out == outs["compiled"], \
+                "serve-ssm: the eager arm's streams differ"
+            assert c == counts["compiled"], (c, counts["compiled"])
+            cap = perf["compiled"]
+            log(f"serve-ssm: captured {cap['decode_ms_per_step']:.2f} ms a "
+                f"decode step, busy {_num(cap['busy_share'])}; eager arm "
+                f"{perf[arm]['decode_ms_per_step']:.2f} ms, busy "
+                f"{_num(perf[arm]['busy_share'])}; streams and launches "
+                f"bitwise equal; {card}")
+            continue
         with plain_twins():
             twin = _hybrid_engine(hy_model, hy_blocks, mode,
                                   use_kernel=False).generate(
                 _ssm_requests(np, "run"), return_details=True)
-        perf[mode]["greedy_agreement_twins"] = greedy_agreement(
+        perf[arm]["greedy_agreement_twins"] = greedy_agreement(
             out, twin, out.keys())
-        log(f"serve-ssm {mode}: profiled repeat bitwise equal; greedy "
+        log(f"serve-ssm {arm}: profiled repeat bitwise equal; greedy "
             f"agreement with the plain-twin engine "
-            f"{perf[mode]['greedy_agreement_twins']:.4f}")
-        assert perf[mode]["greedy_agreement_twins"] >= 0.99, perf[mode]
-        outs[mode] = out
+            f"{perf[arm]['greedy_agreement_twins']:.4f}")
+        assert perf[arm]["greedy_agreement_twins"] >= 0.99, perf[arm]
+        outs[arm] = out
     agree = greedy_agreement(outs["compiled"], outs["eager"],
                              outs["compiled"].keys())
     perf["compiled_vs_eager"] = agree
@@ -3739,6 +3810,8 @@ def _plane_prefix(torch, np, model, kernels, card):
             [h.finish_reason for h in hs]
         ttft = [(h.first_token_ts - h.submit_ts) * 1e3 for h in hs]
         outs = [list(h.output_ids) for h in hs]
+        leg["step_programs"] = step_programs(f"serve-prefix {prefix_on}",
+                                             eng)
         srv.drain()
         eng.release_prefix_cache()
         _tiers_clean(eng.cache, "serve-prefix")
@@ -3793,6 +3866,7 @@ def _plane_spec(torch, np, model, kernels, card):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         leg = _leg_delta(kernels, before, eng, s0, layers, f"serve-spec {k}")
+        leg["step_programs"] = step_programs(f"serve-spec {k}", eng)
         assert eng.cache.free_blocks == eng.cache.num_blocks, \
             f"serve-spec {k}: rollback leaked pages"
         leg.update(
@@ -3886,6 +3960,7 @@ def _plane_tiered(torch, np, kernels, card):
         torch.cuda.synchronize()
         leg = _leg_delta(kernels, before, eng, s0, cfg.num_hidden_layers,
                          f"serve-tiered {tiered}")
+        leg["step_programs"] = step_programs(f"serve-tiered {tiered}", eng)
         leg.update(wall_s=time.perf_counter() - t0,
                    hit_rate=(eng.stats["prefix_hit_tokens"] - h0)
                    / max(1, eng.stats["prefix_lookup_tokens"] - l0))
@@ -4000,6 +4075,7 @@ def phase_serve_int8(torch, np, model, layers, card, bf16, compiled):
     perf = serve_perf(eng, out, steps, wall, card)
     perf["host_cpu_share"] = cpu / wall
     perf["kv_bytes_per_block"] = eng.cache.bytes_per_block
+    step_programs("serve-int8", eng)
     del eng
     _, _, twin, _, _ = serve(torch, model, np, use_kernel=False,
                              kv_quant="int8")
@@ -4058,7 +4134,10 @@ def forced_logits(torch, np, model, ref, num_blocks, **kw):
     requests: at every greedy step, its own choice and the logits row it
     chose from, given the reference's prefix, in ``ref``'s (request,
     position) order. Free-running streams cannot tell one near-tie flip
-    from many: a flip changes every later token of its stream."""
+    from many: a flip changes every later token of its stream. The step
+    runs op by op (``enable_to_static(False)``): the logits are read from
+    inside it, which a replayed graph does not run."""
+    from paddle_tpu_torch import jit
     from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
     from paddle_tpu_torch.inference import decode_step as ds
     eng = GenerationEngine(model, num_blocks=num_blocks, **QUANT_ENGINE, **kw)
@@ -4080,10 +4159,12 @@ def forced_logits(torch, np, model, ref, num_blocks, **kw):
         return emit(req, ref[req.request_id]["output_ids"][len(req.output_ids)])
     eng._plan_step, eng._emit_token = planned, forced
     ds.sample_tokens = sampled
+    jit.enable_to_static(False)
     try:
         eng.generate(make_quant_requests(GenerationRequest, np, None, None)[1])
     finally:
         ds.sample_tokens = sample
+        jit.enable_to_static(True)
     assert eng.cache.free_blocks == eng.cache.num_blocks, "page leak"
     choices = np.array([t for rid in ref for t, _ in rec[rid]])
     logits = torch.stack([lg for rid in ref for _, lg in rec[rid]]).numpy()
@@ -4228,6 +4309,7 @@ def phase_serve_quant(torch, np, card):
             assert counts[name] == 0, (name, counts)
     perf["int8"] = serve_perf(eng, out, steps, wall, card)
     perf["int8"]["host_cpu_share"] = cpu / wall
+    step_programs("serve-quant", eng)
     del eng
     # free-running agreement with the unquantized stream, reported: one
     # near-tie flip on random weights derails the rest of a stream
@@ -4260,6 +4342,7 @@ def phase_serve_quant(torch, np, card):
     assert weng.weight_quant and weng.cache.free_blocks == \
         weng.cache.num_blocks
     perf["int8_weight_int8"] = serve_perf(weng, wout, wsteps, wwall, card)
+    step_programs("serve-quant int8 + weight int8", weng)
     del weng
     _, _, wtwin, _, _ = _quant_serve(torch, model, np, q_blocks,
                                      kv_quant="int8", weight_quant=True,
@@ -4297,20 +4380,107 @@ def check_drained(eng):
 
 
 def serve_perf(eng, out, steps, wall, card):
-    """Steps, decode-only steps (their rows, tokens/s and ms), output
-    tokens/s of the whole ``generate``."""
-    decode = [(dt, n) for dt, pre, n in steps if pre == 0]
-    dec_tok = sum(n for _, n in decode)
-    dec_s = sum(dt for dt, _ in decode)
+    """Steps, decode-only steps (their rows, tokens/s and ms; the ms also
+    over the decode-only steps that captured no step program), output
+    tokens/s of the whole ``generate``, the step programs."""
+    decode = [(dt, n, cap) for dt, pre, n, cap in steps if pre == 0]
+    dec_tok = sum(n for _, n, _ in decode)
+    dec_s = sum(dt for dt, _, _ in decode)
+    plain = [dt for dt, _, cap in decode if not cap]
     total_tok = sum(len(d["output_ids"]) for d in out.values())
-    return dict(steps=eng.stats["steps"], decode_only_steps=len(decode),
+    return dict(steps=len(steps), decode_only_steps=len(decode),
                 decode_rows_per_step=dec_tok / len(decode) if decode
                 else None,
                 decode_tokens_per_s=dec_tok / dec_s if dec_s else None,
                 decode_ms_per_step=1e3 * dec_s / len(decode)
                 if decode else None,
+                decode_ms_per_step_no_capture=1e3 * sum(plain) / len(plain)
+                if plain else None,
                 generate_s=wall, output_tokens_per_s=total_tok / wall,
-                prefill_tokens=eng.stats["prefill_tokens"], card=card)
+                prefill_tokens=sum(pre for _, pre, _, _ in steps),
+                step_programs=eng.capture_stats(), card=card)
+
+
+def step_programs(label, eng):
+    """The compiled step's programs (one a bucket signature, A.5): the
+    signatures met, the programs, how many replay a CUDA graph, the
+    capture seconds and the bytes the captures added to the engine's one
+    graph pool. Asserts that the step was captured and that no program
+    runs eagerly."""
+    st = eng.capture_stats()
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in st["capture_parts"].items())
+    log(f"{label}: step programs: {st['signatures']} signatures, "
+        f"{st['programs']} programs, {st['captured']} captured in "
+        f"{st['capture_s']:.3f} s ({parts}), shared pool "
+        f"{st['pool_bytes']} B")
+    assert st["captured"] > 0 and not st["eager"], (label, st)
+    assert st["programs"] == st["signatures"], (label, st)
+    return st
+
+
+def _num(x, fmt=".3f"):
+    return "not measured" if x is None else format(x, fmt)
+
+
+def serve_arms(torch, np, label, eng, run, want, wall, card,
+               requests=make_requests):
+    """A compiled serving path captured and eager, every run's streams
+    ``want``'s bit for bit. The captured arm is ``eng``, which served the
+    requests once in ``wall`` seconds (meeting and capturing its step
+    programs): it serves them again, capturing the programs met once,
+    then again timed (warm). Then, under the profiler, ``run()`` (``serve``
+    bound to the path's model and requests) builds another engine and
+    serves them cold, again and warm: the busy share and kernels of the
+    cold and of the warm run, each over its own window of the session. The
+    graphs replayed under the profiler are captured in that session:
+    replaying, under a later session, graphs captured after an earlier
+    session had ended crashed the process (PyTorch 2.11's profiler on the
+    H100). The eager arm is ``run()`` under ``jit.enable_to_static(False)``,
+    the step op by op as before it was captured: timed, then again on its
+    engine under the profiler. Returns the warm arm's perf, the eager
+    arm's, and the cold run's kernel rows and busy share."""
+    from torch.profiler import record_function
+    from paddle_tpu_torch import jit
+    outs = [again(np, eng, requests)[0]]
+    out, steps, warm_wall = again(np, eng, requests)
+    cap = serve_perf(eng, out, steps, warm_wall, card)
+    outs.append(out)
+
+    def session():
+        with record_function("cold"):
+            e, _, out, _, _ = run()
+        outs.append(out)
+        outs.append(again(np, e, requests)[0])
+        with record_function("warm"):
+            outs.append(again(np, e, requests)[0])
+    prof = device_profile(torch, session, windows=("cold", "warm"))
+    cold_rows = prof["cold"][0]
+    cold_busy = report_profile(label, *prof["cold"], wall)
+    cap["busy_share"] = report_profile(f"{label} captured, warm",
+                                       *prof["warm"], warm_wall)
+    jit.enable_to_static(False)
+    try:
+        e, _, out, steps, ewall = run()
+        eag = serve_perf(e, out, steps, ewall, card)
+        outs.append(out)
+        rows, busy, pwall = device_profile(
+            torch, lambda: outs.append(again(np, e, requests)[0]))
+        eag["busy_share"] = report_profile(f"{label} eager arm", rows, busy,
+                                           pwall, ewall)
+    finally:
+        jit.enable_to_static(True)
+    assert eag["step_programs"]["programs"] == 0, eag
+    assert all(o == want for o in outs), \
+        f"{label}: a repeated or eager-arm run's streams differ"
+    log(f"{label}: every repeat (cold, warm, under the profiler, the eager "
+        f"arm) bitwise equal (greedy and seeded)")
+    log(f"{label}: captured (warm) {cap['decode_ms_per_step']:.2f} ms a "
+        f"decode step, {cap['output_tokens_per_s']:.1f} output tokens/s, "
+        f"busy {_num(cap['busy_share'])} (cold {_num(cold_busy)}); eager "
+        f"arm {eag['decode_ms_per_step']:.2f} ms, "
+        f"{eag['output_tokens_per_s']:.1f} tokens/s, busy "
+        f"{_num(eag['busy_share'])}; {card}")
+    return cap, eag, cold_rows, cold_busy
 
 
 def greedy_agreement(out, plain, ids):
@@ -4375,36 +4545,31 @@ def phase_serve_moe(torch, np, card):
                  "ragged_paged_attention_quant"):
         assert counts[name] == 0, (name, counts)
     perf = serve_perf(eng, out, steps, wall, card)
-    # the step is issued op by op from Python: the host's CPU time over
-    # the wall says how far the host, not the card, sets the step time
+    # the host's CPU time over the wall says how far the host, not the
+    # card, sets the step time
     perf["host_cpu_share"] = cpu / wall
+    step_programs("serve-moe", eng)
     log("serve-moe: " + json.dumps(perf))
 
-    # a second timed run of the same engine, then a third under the
-    # profiler: both must give the first run's streams bitwise
+    # a second timed run of another engine, then the arms (warm, under the
+    # profiler, capture off): all must give the first run's streams bitwise
     cpu0 = time.process_time()
     eng2, _, out2, steps2, wall2 = serve(torch, model, np, **kw)
-    again = serve_perf(eng2, out2, steps2, wall2, card)
+    second = serve_perf(eng2, out2, steps2, wall2, card)
     log(f"serve-moe: second timed run: decode "
-        f"{again['decode_ms_per_step']:.2f} ms per step, "
-        f"{again['output_tokens_per_s']:.1f} output tokens/s, host cpu "
+        f"{second['decode_ms_per_step']:.2f} ms per step, "
+        f"{second['output_tokens_per_s']:.1f} output tokens/s, host cpu "
         f"share {(time.process_time() - cpu0) / wall2:.3f}")
     assert out2 == out, "serve-moe: second run differs"
-    perf["decode_ms_per_step_second_run"] = again["decode_ms_per_step"]
+    perf["decode_ms_per_step_second_run"] = second["decode_ms_per_step"]
     del eng2
 
-    holder = {}
-
-    def rerun():
-        holder["out"], holder["wall"] = serve(torch, model, np, **kw)[2::2]
-    rows, busy, pwall = device_profile(torch, rerun)
-    perf["busy_share"] = report_profile("serve-moe", rows, busy, pwall, wall)
+    perf["warm"], perf["eager_arm"], rows, perf["busy_share"] = serve_arms(
+        torch, np, "serve-moe", eng, lambda: serve(torch, model, np, **kw),
+        out, wall, card, requests=make_moe_requests)
     launched = sum(n for _, n, _ in rows)
     log(f"serve-moe profile: {launched} device kernels in {n_steps} steps "
         f"({launched / n_steps:.0f} a step)")
-    assert holder["out"] == out, "serve-moe: profiled run differs"
-    log("serve-moe: second and third runs bitwise equal (greedy and "
-        "seeded)")
 
     _, _, plain, _, _ = serve(torch, model, np, use_kernel=False, **kw)
     agree = greedy_agreement(out, plain, range(14))
@@ -4430,6 +4595,7 @@ def phase_serve_moe(torch, np, card):
     assert ucounts["gmm_fwd"] == u_steps * layers * 3, (ucounts, u_steps)
     assert ucounts["ragged_paged_attention"] == u_steps * layers, ucounts
     perf["unfused"] = serve_perf(ueng, uout, usteps, uwall, card)
+    step_programs("serve-moe unfused", ueng)
     perf["unfused"]["greedy_agreement_fused"] = greedy_agreement(
         uout, out, range(14))
     log(f"serve-moe unfused: decode "
@@ -4519,27 +4685,11 @@ def check_forward(torch, model, prompts, scored):
             assert r_kt <= max(2e-2, 2 * r_t), msg
 
 
-def device_profile(torch, fn):
-    """``fn()`` under ``torch.profiler``: device time by kernel (largest
-    first) as ``(us, count, name)`` rows, their sum in seconds, and the
-    profiled wall time. The rows are summed from the profiler's raw
-    events, as ``key_averages()`` sums its device events (their
-    demangled names, durations and counts), without the host op tree
-    that ``key_averages()`` builds first: over a long run (a 32-layer
-    serve) that tree took ten times the run."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    cuda, by_name = torch.autograd.DeviceType.CUDA, {}
-    for e in prof.profiler.kineto_results.events():
-        # host ops repeat their kernels' device time
-        if (e.device_type() != cuda or e.is_async()
-                or e.start_thread_id() != e.end_thread_id()):
-            continue
+def _kernel_rows(torch, kernels):
+    """``(us, count, name)`` rows of device events by demangled name,
+    largest first."""
+    by_name = {}
+    for e in kernels:
         n, us = by_name.get(e.name(), (0, 0.0))
         by_name[e.name()] = (n + 1, us + (e.end_ns() - e.start_ns()) / 1e3)
     merged = {}
@@ -4547,9 +4697,50 @@ def device_profile(torch, fn):
         key = torch._C._demangle(name) if len(name) > 1 else name
         m, t = merged.get(key, (0, 0.0))
         merged[key] = (m + n, t + us)
-    rows = sorted(((us, n, key) for key, (n, us) in merged.items() if us > 0),
+    return sorted(((us, n, key) for key, (n, us) in merged.items() if us > 0),
                   reverse=True)
-    return rows, sum(r[0] for r in rows) / 1e6, wall
+
+
+def device_profile(torch, fn, windows=()):
+    """``fn()`` under ``torch.profiler``: device time by kernel (largest
+    first) as ``(us, count, name)`` rows, their sum in seconds, and the
+    profiled wall time. The rows are summed from the profiler's raw
+    events, as ``key_averages()`` sums its device events (their
+    demangled names, durations and counts), without the host op tree
+    that ``key_averages()`` builds first: over a long run (a 32-layer
+    serve) that tree took ten times the run. With ``windows``, names of
+    ``torch.profiler.record_function`` ranges that ``fn`` opens: a dict of
+    the same three figures for each, over the device events inside that
+    range, its wall the range's own."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    # host ops repeat their kernels' device time; a window's range also
+    # shows on the device's timeline, as one event of its whole length
+    kernels = [e for e in events
+               if e.device_type() == cuda and not e.is_async()
+               and e.start_thread_id() == e.end_thread_id()
+               and e.name() not in windows]
+    if not windows:
+        rows = _kernel_rows(torch, kernels)
+        return rows, sum(r[0] for r in rows) / 1e6, wall
+    out = {}
+    for e in events:
+        if e.device_type() != cuda and e.name() in windows:
+            a, b = e.start_ns(), e.end_ns()
+            rows = _kernel_rows(torch, [k for k in kernels
+                                        if a <= k.start_ns()
+                                        and k.end_ns() <= b])
+            out[e.name()] = (rows, sum(r[0] for r in rows) / 1e6,
+                             (b - a) / 1e9)
+    assert set(out) == set(windows), (windows, sorted(out))
+    return out
 
 
 def report_profile(label, rows, busy, wall, plain_wall, top=12):
@@ -4742,6 +4933,15 @@ def jit_warnings():
         got = []
         yield got
     got.extend(str(w.message) for w in caught if JIT_MSG in str(w.message))
+
+
+def no_eager_steps(label, fn):
+    """``fn()``, asserting that no ``to_static`` program warned that it
+    runs eagerly: every serving path captures its step (A.5)."""
+    with jit_warnings() as caught:
+        out = fn()
+    assert not caught, (label, caught)
+    return out
 
 
 #: what makes the host-staged training paths run eagerly
@@ -5800,6 +6000,7 @@ def _serve_moe_index(torch, np, card):
     assert all(d["finish_reason"] == "length" for d in out.values())
     perf = serve_perf(eng, out, steps, wall, card)
     perf["host_cpu_share"] = cpu / wall
+    step_programs("serve-moe-index", eng)
     perf["greedy_agreement_grouped"] = greedy_agreement(out, grouped,
                                                         range(14))
     perf["first_divergence_grouped"] = first_divergence(out, grouped,
@@ -7549,13 +7750,14 @@ def main() -> int:
         del timer
         log(f"kernel phases done at {time.perf_counter() - t_start:.1f} s")
 
-        counts, serve_stats, model, compiled = phase_serve(torch, np,
-                                                           args.layers, card)
+        counts, serve_stats, model, compiled = no_eager_steps(
+            "serve", lambda: phase_serve(torch, np, args.layers, card))
         counts = {"serve": counts}
         torch.cuda.empty_cache()
         log(f"serve done at {time.perf_counter() - t_start:.1f} s")
-        counts["serve-int8"] = phase_serve_int8(
-            torch, np, model, args.layers, card, serve_stats, compiled)[0]
+        counts["serve-int8"] = no_eager_steps("serve-int8", lambda: (
+            phase_serve_int8(torch, np, model, args.layers, card,
+                             serve_stats, compiled)))[0]
         log(f"serve-int8 done at {time.perf_counter() - t_start:.1f} s")
         counts["serve-eager"] = phase_serve_eager(
             torch, np, model, args.layers, card, compiled)[0]
@@ -7569,15 +7771,19 @@ def main() -> int:
         counts.update(fleet_counts)
         rows.append(fleet_row)
         log(f"serve-fleet done at {time.perf_counter() - t_start:.1f} s")
-        counts["serve-quant"] = phase_serve_quant(torch, np, card)[0]
+        counts["serve-quant"] = no_eager_steps(
+            "serve-quant", lambda: phase_serve_quant(torch, np, card))[0]
         log(f"serve-quant done at {time.perf_counter() - t_start:.1f} s")
         # serving before training, as in a serving process
-        moe = phase_serve_moe(torch, np, card)
+        moe = no_eager_steps("serve-moe",
+                             lambda: phase_serve_moe(torch, np, card))
         counts["serve-moe"], counts["serve-moe-unfused"] = moe[0], moe[2]
         log(f"serve-moe done at {time.perf_counter() - t_start:.1f} s")
-        counts["serve-ssm"] = phase_serve_ssm(torch, np, card)[0]
+        counts["serve-ssm"] = no_eager_steps(
+            "serve-ssm", lambda: phase_serve_ssm(torch, np, card))[0]
         log(f"serve-ssm done at {time.perf_counter() - t_start:.1f} s")
-        counts["serve-plane"] = phase_serve_plane(torch, np, card)[0]
+        counts["serve-plane"] = no_eager_steps(
+            "serve-plane", lambda: phase_serve_plane(torch, np, card))[0]
         log(f"serve-plane done at {time.perf_counter() - t_start:.1f} s")
         phase_jit(torch, np, card)
         log(f"jit done at {time.perf_counter() - t_start:.1f} s")

@@ -27,7 +27,8 @@ RemoteServingHost`, talks through nothing else):
 * ``GET  /handoff?request_id=`` the packed record (pops the outbox)
 * ``GET  /health``            the serving health block and identity
 * ``GET  /introspect``        KV-pool accounting, the parameter digest,
-  the kernel launch counts, the handoff counters and IPC buffers held
+  the kernel launch counts, the handoff counters and IPC buffers held,
+  the compiled step's programs (captured, or eager and why)
 * ``POST /drain`` / ``POST /shutdown``  graceful exits (code 0)
 * ``POST /ipc/hold`` / ``/ipc/release`` / ``/ipc/discard``  the device-to-
   device route's confirmations (a port-only addition, below)
@@ -199,6 +200,7 @@ class _HostState:
             "handoff": handoff,
             "ipc_held": 0 if self.ipc is None else self.ipc.held,
             "ipc": None if self.ipc is None else dict(self.ipc.counters),
+            "step_programs": eng.capture_stats(),
         }
 
 

@@ -5,8 +5,11 @@ One call runs the whole serving step over packed ragged tokens — decode
 tokens and prompt chunks mixed — : paged-cache writes, ragged paged
 attention, norms and MLP, logits, on-device sampling and the speculative
 acceptance column. The reference traces it into one donated-buffer XLA
-executable; PyTorch runs it eagerly, updating the KV cache in place, with
-one host sync per step (the engine reads the sampled tokens).
+executable a bucket signature; the engine runs it as a ``jit.to_static``
+program a signature, captured into a CUDA graph and replayed (op by op
+under ``jit.enable_to_static(False)``), updating the KV cache in place,
+with one host sync per step (the engine reads the sampled tokens). The
+step reads no device value on the host, so it captures whole.
 
 Dtype flow, as in the reference: ``_rms`` returns the normalized row in
 the input dtype TIMES the fp32 norm weight, so from a bf16 model's first

@@ -11,7 +11,15 @@ scheduling and finish bookkeeping. Two modes share it:
   power-of-two buckets (token count, row count, output count, table width)
   as in the reference, so a step's shapes depend only on its bucket. Per
   step the host uploads the packed int32 and float32 inputs in one copy
-  each and reads the sampled tokens back in one sync.
+  each and reads the sampled tokens back in one sync. The step runs as a
+  ``jit.to_static`` program per bucket signature, as the reference runs
+  one compiled executable per trace (``engine.py:313-327``): on CUDA a
+  signature's first call runs eagerly, its second captures the step into
+  a CUDA graph, and every later call copies the two packed inputs into the
+  program's static buffers and replays the graph. The weights, the pages,
+  the block table and the SSM state are read in place, never copied;
+  :meth:`~GenerationEngine.decode_signatures` counts the signatures met.
+  Under ``jit.enable_to_static(False)`` the step runs op by op.
 * ``mode="eager"``: the reference's parity oracle. Each prompt is
   prefilled whole at admission through the model's own layers (flash
   attention), then every step walks the layers in Python for one token per
@@ -77,12 +85,15 @@ warning; a hybrid model turns all three off with the reference's warnings.
 
 from __future__ import annotations
 
+import math
 import time
 import warnings
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from paddle_tpu_torch import flags
 from paddle_tpu_torch.framework.dtype import to_torch_dtype
@@ -91,6 +102,7 @@ from paddle_tpu_torch.incubate.nn.functional.fused_ops import rope_tables
 from paddle_tpu_torch.inference import decode_step as _ds
 from paddle_tpu_torch.inference.attention import paged_attention_decode
 from paddle_tpu_torch.inference.paged_cache import PagedKVCache
+from paddle_tpu_torch.jit import api as _jit
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
 from paddle_tpu_torch.ops.kernels import paged_attention as _paged
 from paddle_tpu_torch.quantization import kv as _kvq
@@ -113,6 +125,50 @@ def _warn_once(what: str, message: str) -> None:
 
 def _warn_fallback(what: str, reason: str) -> None:
     _warn_once(what, f"falling back to the eager path — {reason}")
+
+
+def _layouts(t_b: int, s_b: int, v_b: int):
+    """The compiled step's packed inputs at a bucket signature: ``(name,
+    shape)`` of each int32 field, then of each fp32 one, in packing
+    order."""
+    t, s = (t_b,), (s_b,)
+    ints = (("ids", t), ("positions", t), ("rows", t), ("wslots", t),
+            ("sslots", t), ("valids", t), ("row_slots", s),
+            ("out_idx", (s_b, v_b)), ("draft_next", (s_b, max(v_b - 1, 0))),
+            ("n_spec", s), ("seeds", s), ("counters", s), ("top_ks", s))
+    return ints, (("temps", s), ("top_ps", s))
+
+
+def _step_of(engine):
+    """The engine's ``to_static`` function: its step over the packed
+    inputs, with its state registered for the program's storage guard and
+    their identity as a host guard. It and the guards reach the engine
+    through a weak reference, so that its programs (their graphs and the
+    graph pool) go with the engine when it is dropped rather than at the
+    next collection of a reference cycle."""
+    ref = weakref.ref(engine)
+
+    def state():
+        return ref()._step_state()
+
+    def state_ids():
+        return ref()._state_ids()
+
+    def decode_step(width, t_b, s_b, v_b, ints, floats):
+        _jit.note_state(state)
+        _jit.host_guard(state_ids)
+        return ref()._graph_step(width, t_b, s_b, v_b, ints, floats)
+    return decode_step
+
+
+def _unpack(flat: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """Views of a packed buffer, one a field of ``layout``."""
+    out, off = {}, 0
+    for name, shape in layout:
+        n = math.prod(shape)
+        out[name] = flat[off:off + n].view(shape)
+        off += n
+    return out
 
 
 class GenerationRequest:
@@ -306,14 +362,29 @@ class GenerationEngine:
                       "spec_accepted": 0, "spec_rollbacks": 0,
                       # prefix cache, counted in tokens
                       "prefix_lookup_tokens": 0, "prefix_hit_tokens": 0}
+        # bucket signatures (width, tokens, rows, outputs) the step has met
+        self._signatures: set = set()
         if mode == "compiled":
             self._params = _ds.extract_params(
                 model, weight_quant=self.weight_quant)
+            self._param_leaves = [t for t in pytree.tree_leaves(self._params)
+                                  if isinstance(t, torch.Tensor)]
             self._dstep = _ds.make_step(cfg, block_size,
                                         use_kernel=use_kernel,
                                         moe=_ds.extract_moe_specs(model),
                                         ssm=self._ssm_specs,
                                         kv_quant=self.kv_quant)
+            # one to_static program per signature, all capturing into one
+            # graph pool. Sharing it is safe: this engine's replays never
+            # overlap (its steps run one after another, each under
+            # device_work, and a capture waits for every other device
+            # user), and a replay's one output is cloned, then read on the
+            # host, before the next replay can write a temporary over it.
+            # A pool per program would hold a step's peak temporaries (the
+            # LM head's fp32 cast alone is 2.1 GB at Llama-3-8B widths)
+            # for each of the tens of signatures a serving run meets
+            self._program = _jit.StaticFunction(
+                _step_of(self), name="decode_step", shared_pool=True)
 
     # -- request lifecycle ---------------------------------------------
     def _admissible(self, request: GenerationRequest) -> bool:
@@ -330,6 +401,10 @@ class GenerationEngine:
         request.error = msg
 
     def add_request(self, request: GenerationRequest) -> bool:
+        with _jit.device_work():
+            return self._add_request(request)
+
+    def _add_request(self, request: GenerationRequest) -> bool:
         slot = self.cache.allocate_slot()
         if slot is None:
             return False
@@ -397,7 +472,8 @@ class GenerationEngine:
         req = self._requests.get(request_id)
         if req is None:
             return False
-        self._finish(req, reason)
+        with _jit.device_work():
+            self._finish(req, reason)
         return True
 
     def reap_finished(self) -> List[GenerationRequest]:
@@ -448,13 +524,14 @@ class GenerationEngine:
         if cache.host_tier is None:
             return 0
         freed = 0
-        for slot in sorted(self._slot_req):
-            if max_blocks is not None and freed >= max_blocks:
-                break
-            req = self._slot_req[slot]
-            if not req.paused or slot in self._pending_restore:
-                continue
-            freed += cache.spill_slot(slot)
+        with _jit.device_work():
+            for slot in sorted(self._slot_req):
+                if max_blocks is not None and freed >= max_blocks:
+                    break
+                req = self._slot_req[slot]
+                if not req.paused or slot in self._pending_restore:
+                    continue
+                freed += cache.spill_slot(slot)
         return freed
 
     def release_prefix_cache(self) -> int:
@@ -469,14 +546,16 @@ class GenerationEngine:
         kv_handoff.export_handoff`); None for an unknown or mid-prefill
         request. The caller evicts with reason ``"handoff"`` after it."""
         from paddle_tpu_torch.inference import kv_handoff
-        return kv_handoff.export_handoff(self, request_id)
+        with _jit.device_work():
+            return kv_handoff.export_handoff(self, request_id)
 
     def import_request(self, record, request=None):
         """Handoff, receiving side: install a record as an already
         prefilled request (:func:`~paddle_tpu_torch.inference.kv_handoff.
         install_handoff`); None when no slot or blocks are free."""
         from paddle_tpu_torch.inference import kv_handoff
-        return kv_handoff.install_handoff(self, record, request=request)
+        with _jit.device_work():
+            return kv_handoff.install_handoff(self, record, request=request)
 
     def _emit_token(self, req: GenerationRequest, tok: int) -> bool:
         """Append a sampled token and settle eos/length; True when the
@@ -801,15 +880,46 @@ class GenerationEngine:
                 budget -= n
         return entries
 
-    def _upload(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        """One host-to-device copy for a dict of same-dtype arrays."""
+    def _upload(self, arrays: Dict[str, np.ndarray]) -> torch.Tensor:
+        """One host-to-device copy for a dict of same-dtype arrays, packed
+        in order (the step takes views, :func:`_unpack`)."""
         flat = np.concatenate([a.reshape(-1) for a in arrays.values()])
-        dev = torch.from_numpy(flat).to(self.device)
-        out, off = {}, 0
-        for name, a in arrays.items():
-            out[name] = dev[off:off + a.size].view(a.shape)
-            off += a.size
-        return out
+        return torch.from_numpy(flat).to(self.device)
+
+    def _step_state(self) -> List[torch.Tensor]:
+        """Every tensor the step reads or writes besides its packed
+        inputs: the weights, the pages (and scales), the block table and
+        the SSM state. They are read in place; a program guards their
+        storage, so ``load_jax_state``'s in-place copy keeps the programs
+        and a tensor replaced under the engine makes a new one."""
+        cache = self.cache
+        state = self._param_leaves + cache._planes() + [cache._tables_dev]
+        for st in self._sstate or ():
+            if st is not None:
+                state += [st["conv"], st["ssm"]]
+        return state
+
+    def _state_ids(self) -> Tuple[int, ...]:
+        """The host guard beside the storage guard: the identity of the
+        state past the weights (pages, table, SSM state), which a
+        replaced tensor changes where the old one's storage stays put."""
+        return tuple(map(id, self._step_state()[len(self._param_leaves):]))
+
+    def _graph_step(self, width, t_b, s_b, v_b, ints, floats):
+        """The decode step over the packed inputs of one bucket signature
+        (what the engine's ``to_static`` function runs): the tokens
+        ``[s_b, v_b]`` with the accepted-draft counts as one more
+        column."""
+        ilay, flay = _layouts(t_b, s_b, v_b)
+        a, f = _unpack(ints, ilay), _unpack(floats, flay)
+        cache = self.cache
+        tokens, accepted = self._dstep(
+            width, self._params, cache, self._sstate, a["ids"],
+            a["positions"], a["rows"], a["wslots"], a["sslots"],
+            cache.tables_device(), a["row_slots"], a["valids"], a["out_idx"],
+            a["draft_next"], a["n_spec"], a["seeds"], a["counters"],
+            f["temps"], a["top_ks"], f["top_ps"])
+        return torch.cat([tokens, accepted[:, None]], dim=1)
 
     def _step_compiled(self) -> None:
         cache = self.cache
@@ -843,25 +953,19 @@ class GenerationEngine:
         s_b = _ds.bucket(len(entries))
         w_b = min(_ds.bucket(max(len(cache._tables[e[0].slot])
                                  for e in entries)), cache._bps)
-        pad_t = t_b - len(ids)
-        ints = {
-            "ids": np.asarray(ids + [0] * pad_t, np.int32),
-            "positions": np.asarray(positions + [0] * pad_t, np.int32),
-            "rows": np.asarray(rows + [0] * pad_t, np.int32),
-            "wslots": np.asarray(wslots + [cache.sentinel] * pad_t, np.int32),
-            # pad tokens update the state's spare row past max_seqs
-            "sslots": np.asarray(sslots + [self.max_seqs] * pad_t, np.int32),
-            "valids": np.asarray(valids + [0] * pad_t, np.int32),
-            "row_slots": np.zeros((s_b,), np.int32),
-            "out_idx": np.zeros((s_b, v_b), np.int32),
-            "draft_next": np.zeros((s_b, max(v_b - 1, 0)), np.int32),
-            "n_spec": np.zeros((s_b,), np.int32),
-            "seeds": np.zeros((s_b,), np.int32),
-            "counters": np.zeros((s_b,), np.int32),
-            "top_ks": np.zeros((s_b,), np.int32),
-        }
-        floats = {"temps": np.zeros((s_b,), np.float32),
-                  "top_ps": np.ones((s_b,), np.float32)}
+        self._signatures.add((int(w_b), t_b, s_b, v_b))
+        ilay, flay = _layouts(t_b, s_b, v_b)
+        ints = {name: np.zeros(shape, np.int32) for name, shape in ilay}
+        floats = {name: np.zeros(shape, np.float32) for name, shape in flay}
+        n = len(ids)
+        for name, vals in (("ids", ids), ("positions", positions),
+                           ("rows", rows), ("wslots", wslots),
+                           ("sslots", sslots), ("valids", valids)):
+            ints[name][:n] = vals
+        ints["wslots"][n:] = cache.sentinel
+        # pad tokens update the state's spare row past max_seqs
+        ints["sslots"][n:] = self.max_seqs
+        floats["top_ps"][:] = 1.0
         for row, (req, start, chunk, n_out, n_spec) in enumerate(entries):
             ints["row_slots"][row] = req.slot
             ints["out_idx"][row] = out_rows[row]
@@ -876,18 +980,11 @@ class GenerationEngine:
             ints["top_ks"][row] = req.top_k
             floats["temps"][row] = req.temperature or 0.0
             floats["top_ps"][row] = req.top_p
-        a = self._upload(ints)
-        f = self._upload(floats)
-        tokens, accepted = self._dstep(
-            int(w_b), self._params, cache, self._sstate, a["ids"],
-            a["positions"], a["rows"], a["wslots"], a["sslots"],
-            cache.tables_device(),
-            a["row_slots"], a["valids"], a["out_idx"], a["draft_next"],
-            a["n_spec"], a["seeds"], a["counters"], f["temps"], a["top_ks"],
-            f["top_ps"])
+        a, f = self._upload(ints), self._upload(floats)
+        cache.tables_device()   # the queued table deltas land outside a graph
         # the step's one host sync: the tokens, with the accepted-draft
         # counts as one more column
-        back = torch.cat([tokens, accepted[:, None]], dim=1).cpu().numpy()
+        back = self._program(int(w_b), t_b, s_b, v_b, a, f).cpu().numpy()
         toks, acc = back[:, :-1], back[:, -1]
         self.stats["prefill_tokens"] += n_prefill
 
@@ -938,10 +1035,11 @@ class GenerationEngine:
             return          # idle or fully backpressured: no device call
         t0 = time.perf_counter()
         occupancy = len(self._slot_req) / max(1, self.max_seqs)
-        if self.mode == "compiled":
-            self._step_compiled()
-        else:
-            self._step_eager()
+        with _jit.device_work():
+            if self.mode == "compiled":
+                self._step_compiled()
+            else:
+                self._step_eager()
         self.stats["steps"] += 1
         self.stats["step_time_s"] += time.perf_counter() - t0
         self.stats["occupancy_sum"] += occupancy
@@ -978,3 +1076,32 @@ class GenerationEngine:
                                    "error": r.error}
                     for r in requests}
         return {r.request_id: r.output_ids for r in requests}
+
+    # -- introspection ---------------------------------------------------
+    def decode_signatures(self) -> int:
+        """Distinct bucket signatures (table width, token, row and output
+        buckets) the compiled step has met, one program each (the
+        reference's trace count, ``engine.py:1317-1322``); 0 in eager mode.
+        The port counts with or without observability, whose registry it
+        does not port (ROADMAP.md A.12)."""
+        return len(self._signatures)
+
+    def capture_stats(self) -> Dict[str, object]:
+        """The compiled step's programs: the signatures met, the programs
+        (a replaced state tensor makes a second one for its signature),
+        how many replay a CUDA graph, the reasons of any that run eagerly,
+        the capture seconds (and their parts: the synchronise and release
+        before a capture, the step run under capture, instantiation) and
+        the bytes the captures added to the shared graph pool (zero
+        captures on the CPU)."""
+        progs = (self._program.concrete_programs()
+                 if self.mode == "compiled" else [])
+        return {"signatures": len(self._signatures),
+                "programs": len(progs),
+                "captured": sum(p.captured for p in progs),
+                "eager": [p.reason for p in progs if p.reason is not None],
+                "capture_s": sum(p.capture_s for p in progs),
+                "capture_parts": {k: sum(p.capture_parts[k] for p in progs)
+                                  for k in ("begin", "record",
+                                            "instantiate")},
+                "pool_bytes": sum(p.pool_bytes for p in progs)}

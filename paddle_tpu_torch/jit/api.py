@@ -76,15 +76,24 @@ whether issued or replayed.
 On the CPU there are no graphs: the same cache, guards and host effects
 run, and each call runs the function eagerly (the second call records
 what a capture would; later calls run the recorded staging slots).
+
+Steps may run in several threads (a serving engine a thread): each thread
+records only what it runs, and a capture waits until no other thread is
+inside :func:`device_work` (a serving engine's step, admission and
+handoffs), which in turn waits while a capture runs. A ``StaticFunction``
+made with ``shared_pool=True`` (the serving engine's step) captures all its
+programs into one graph pool.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import itertools
 import logging
 import threading
+import time
 import warnings
 import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -97,7 +106,7 @@ from paddle_tpu_torch.framework.dtype import to_torch_dtype
 
 __all__ = ["to_static", "not_to_static", "enable_to_static", "ignore_module",
            "StaticFunction", "InputSpec", "uncapturable", "host_effect",
-           "host_guard", "staged_fill", "note_state"]
+           "host_guard", "staged_fill", "note_state", "device_work"]
 
 _log = logging.getLogger("paddle_tpu_torch.jit")
 
@@ -181,16 +190,28 @@ class _Recorder:
                 self.grads[id(p)] = (p, g, None if g is None else g._version)
 
 
-_active: List[_Recorder] = []
-_hook_handle = [None]
+# each thread's stack of recorders: steps run in several threads (one
+# serving engine a thread) record only what their own thread runs
+_tls = threading.local()
+_hook_lock = threading.Lock()
+_hook_handle = [None, 0]        # the global pre-hook, its recording threads
+
+
+def _stack() -> List[_Recorder]:
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    return stack
 
 
 def _current() -> Optional[_Recorder]:
-    """The recorder that hooks report to, or None (no step runs, or the
-    caller is inside a host effect, whose work is plain host work)."""
-    if not _active:
+    """The recorder that hooks report to, or None (no step runs in this
+    thread, or the caller is inside a host effect, whose work is plain
+    host work)."""
+    stack = _stack()
+    if not stack:
         return None
-    rec = _active[-1]
+    rec = stack[-1]
     return None if rec.depth else rec
 
 
@@ -208,19 +229,95 @@ class _recording:
         self.rec = rec
 
     def __enter__(self):
-        if not _active:
-            _hook_handle[0] = \
-                torch.nn.modules.module.register_module_forward_pre_hook(
-                    _pre_hook)
-        _active.append(self.rec)
+        stack = _stack()
+        if not stack:
+            with _hook_lock:
+                if not _hook_handle[1]:
+                    _hook_handle[0] = torch.nn.modules.module \
+                        .register_module_forward_pre_hook(_pre_hook)
+                _hook_handle[1] += 1
+        stack.append(self.rec)
         return self.rec
 
     def __exit__(self, *exc):
-        _active.pop()
-        if not _active and _hook_handle[0] is not None:
-            _hook_handle[0].remove()
-            _hook_handle[0] = None
+        stack = _stack()
+        stack.pop()
+        if not stack:
+            with _hook_lock:
+                _hook_handle[1] -= 1
+                if not _hook_handle[1]:
+                    _hook_handle[0].remove()
+                    _hook_handle[0] = None
         return False
+
+
+class _CaptureGate:
+    """A capture against other threads' device work. A capture in the
+    default (global) mode fails, or fails the other thread, when another
+    thread makes a synchronising CUDA call meanwhile, and the launch
+    counters would count the other thread's launches into the program's
+    replays. So device work that may run beside a capture in another
+    thread holds the gate shared (:func:`device_work`), any number of
+    threads at once, and a capture holds it alone: it waits until no other
+    thread is inside, and new shared holders wait while it waits or runs.
+    A thread that captures from inside its own shared hold steps out of it
+    for the capture (it issues nothing else meanwhile), so two such
+    threads cannot wait on each other."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared: Dict[int, int] = {}      # thread id -> depth
+        self._owner: Optional[int] = None      # the capturing thread
+        self._waiting = 0                      # captures waiting
+
+    @contextlib.contextmanager
+    def shared(self):
+        me = threading.get_ident()
+        with self._cond:
+            if not self._shared.get(me) and self._owner != me:
+                while self._owner is not None or self._waiting:
+                    self._cond.wait()
+            self._shared[me] = self._shared.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                depth = self._shared.pop(me) - 1
+                if depth:
+                    self._shared[me] = depth
+                self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        me = threading.get_ident()
+        with self._cond:
+            mine = self._shared.pop(me, 0)
+            self._waiting += 1
+            try:
+                while self._owner is not None or self._shared:
+                    self._cond.wait()
+            finally:
+                self._waiting -= 1
+            self._owner = me
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._owner = None
+                if mine:
+                    self._shared[me] = mine
+                self._cond.notify_all()
+
+
+_GATE = _CaptureGate()
+
+
+def device_work():
+    """A context for device work that a capture in another thread must not
+    overlap (a serving engine's step, admission and handoffs hold it):
+    entered at once unless a capture runs or waits; a capture waits until
+    every thread has left it."""
+    return _GATE.shared()
 
 
 # ------------------------------------------------------------------ hooks
@@ -409,6 +506,19 @@ class _MemoryAnalysis:
                 f"temp={self.temp_size_in_bytes})")
 
 
+class _SharedPool:
+    """One graph memory pool for every program of a ``StaticFunction``
+    made with ``shared_pool=True``, made at the first capture."""
+
+    def __init__(self):
+        self._handle = None
+
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
 class _Region(torch.autograd.Function):
     """A captured differentiable region: the forward replays the forward
     graph, the backward the backward graph."""
@@ -433,11 +543,12 @@ class _Program:
 
     _run_counter = itertools.count()
 
-    def __init__(self, fn: Callable, name: str):
+    def __init__(self, fn: Callable, name: str,
+                 pool: Optional[_SharedPool] = None):
         # the function and its name, not the StaticFunction: a program
         # that referred back to its owner would keep its graph alive until
         # the cycle collector ran
-        self.fn, self.name = fn, name
+        self.fn, self.name, self.pool = fn, name, pool
         self.calls = 0
         self.captured = False        # a CUDA graph holds the step
         self.reason: Optional[str] = None   # why the step runs eagerly
@@ -454,6 +565,12 @@ class _Program:
         self.effects: List = []
         self.launch_delta = ()
         self.memory: Optional[_MemoryAnalysis] = None
+        self.capture_s = 0.0         # host seconds of the capture
+        # and its parts: the synchronise and release before it, the step
+        # run under capture, the end of the capture (instantiation)
+        self.capture_parts = {"begin": 0.0, "record": 0.0,
+                              "instantiate": 0.0}
+        self.pool_bytes = 0          # reserved bytes the capture added
         self._run_seq = -1
 
     def __repr__(self):
@@ -640,9 +757,10 @@ class _Program:
                    None)
         if dev is None:
             return self._record_cpu(args, kwargs)
-        if not self.self_contained:
-            return self._capture_region(leaves, spec, dyn, dev)
-        return self._capture_step(leaves, spec, dyn, dev, args, kwargs)
+        with _GATE.exclusive():
+            if not self.self_contained:
+                return self._capture_region(leaves, spec, dyn, dev)
+            return self._capture_step(leaves, spec, dyn, dev, args, kwargs)
 
     # -- CPU: the same bookkeeping, eager runs --------------------------------
     def _record_cpu(self, args, kwargs):
@@ -683,10 +801,20 @@ class _Program:
         for p, g, _ in rec.grads.values():
             p.grad = g
 
+    def _pool_handle(self):
+        return None if self.pool is None else self.pool.handle()
+
     def _begin(self, dev):
+        t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
-        gc.collect()
-        torch.cuda.empty_cache()
+        if self.pool is None:
+            # a program of a shared pool (a serving engine's step, whose
+            # signatures arrive mid-run) skips these: they took ~0.2 s a
+            # capture in a large process, a stall each new signature would
+            # add to a serving step; its pool grows as it needs
+            gc.collect()
+            torch.cuda.empty_cache()
+        self.capture_parts["begin"] += time.perf_counter() - t0
         return torch.cuda.memory_reserved(dev)
 
     def _graph(self):
@@ -707,24 +835,41 @@ class _Program:
         side.wait_stream(torch.cuda.current_stream(dev))
         err, out = None, None
         mode = torch.cuda.get_sync_debug_mode()
-        with torch.cuda.stream(side):
-            graph.capture_begin(pool=pool)
-            # a host sync inside the capture raises before its CUDA call:
-            # the capture then ends cleanly. Issued, the sync would fail in
-            # CUDA, and after a capture that fails there the caching
-            # allocator returns no memory to the device for the rest of
-            # the process (PyTorch 2.11 on the H100)
-            _sync_debug_mode("error")
-            try:
-                out = body()
-            except BaseException as e:     # noqa: BLE001 - ends the capture
-                err = e
-            finally:
-                _sync_debug_mode(mode)
-            try:
-                graph.capture_end()
-            except Exception as e:         # noqa: BLE001 - an ended capture
-                err = err or e
+        # no collection while the graph is captured: a collected program's
+        # graph destroyed meanwhile fails the capture inside CUDA ("not
+        # permitted when stream is capturing"), and that capture's pool
+        # stays marked as recording, so that the next capture into the
+        # same pool cannot begin
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=pool)
+                # a host sync inside the capture raises before its CUDA
+                # call: the capture then ends cleanly. Issued, the sync
+                # would fail in CUDA, and after a capture that fails there
+                # the caching allocator returns no memory to the device for
+                # the rest of the process (PyTorch 2.11 on the H100)
+                _sync_debug_mode("error")
+                t0 = time.perf_counter()
+                try:
+                    out = body()
+                except BaseException as e:  # noqa: BLE001 - ends the capture
+                    err = e
+                finally:
+                    _sync_debug_mode(mode)
+                t1 = time.perf_counter()
+                try:
+                    graph.capture_end()
+                except Exception as e:      # noqa: BLE001 - an ended capture
+                    err = err or e
+                self.capture_parts["record"] += t1 - t0
+                self.capture_parts["instantiate"] += time.perf_counter() - t1
+        except Exception as e:              # noqa: BLE001 - not begun
+            err = err or e
+        finally:
+            if collecting:
+                gc.enable()
         torch.cuda.current_stream(dev).wait_stream(side)
         if err is not None and not isinstance(err, Exception):
             raise err                   # an interrupt: the capture is ended
@@ -755,6 +900,7 @@ class _Program:
         return ins
 
     def _capture_step(self, leaves, spec, dyn, dev, args, kwargs):
+        t0 = time.perf_counter()
         self.static_in = self._static_inputs(leaves, dyn)
         cap_leaves = list(leaves)
         for i, s in zip(dyn, self.static_in):
@@ -771,7 +917,7 @@ class _Program:
         def body():
             with _recording(rec):
                 return self.fn(*c_args, **c_kwargs)
-        out, err = self._run_captured(graph, dev, body)
+        out, err = self._run_captured(graph, dev, body, self._pool_handle())
         if err is not None:
             return self._failed(rec, err, dev, args, kwargs)
         after = _launch_counts()
@@ -787,13 +933,15 @@ class _Program:
         self.static_out = [t.detach() for t in self._split_out(out)]
         self.effects = rec.effects
         self.slots = self.slots[:rec.fill_index]
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
         self.memory = _MemoryAnalysis(
             sum(t.numel() * t.element_size() for t in self.static_in),
             sum(t.numel() * t.element_size() for t in self.static_out),
-            torch.cuda.memory_reserved(dev) - reserved0)
+            self.pool_bytes)
         self.captured = True
-        _log.info("to_static(%s): captured, %s", self.name,
-                  self.memory)
+        self.capture_s = time.perf_counter() - t0
+        _log.info("to_static(%s): captured in %.3f s, %s", self.name,
+                  self.capture_s, self.memory)
         # the first replay stages the values the capture computed
         with torch.no_grad():
             for slot, v in zip(self.slots, rec.fill_values):
@@ -851,6 +999,7 @@ class _Program:
         return aliases, undo
 
     def _capture_region(self, leaves, spec, dyn, dev):
+        t0 = time.perf_counter()
         self.static_in = self._static_inputs(leaves, dyn)
         cap_leaves = list(leaves)
         for i, s in zip(dyn, self.static_in):
@@ -912,13 +1061,15 @@ class _Program:
         self.slots = self.slots[:rec.fill_index]
         self.fill_values = rec.fill_values
         self.generation = 0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved0
         self.memory = _MemoryAnalysis(
             sum(t.numel() * t.element_size() for t in self.static_in),
             sum(t.numel() * t.element_size() for t in self.static_out),
-            torch.cuda.memory_reserved(dev) - reserved0)
+            self.pool_bytes)
         self.captured = True
-        _log.info("to_static(%s): captured a region, %s", self.name,
-                  self.memory)
+        self.capture_s = time.perf_counter() - t0
+        _log.info("to_static(%s): captured a region in %.3f s, %s",
+                  self.name, self.capture_s, self.memory)
         self._first_replay = True
         return self._call_region(leaves)
 
@@ -980,15 +1131,24 @@ class _Program:
 
 
 class StaticFunction:
-    """What ``to_static`` returns (the reference's ``StaticFunction``)."""
+    """What ``to_static`` returns (the reference's ``StaticFunction``).
+
+    ``shared_pool`` (the port's own; the serving engine's step sets it)
+    captures every self-contained program of the function into one graph
+    memory pool instead of one each. A graph's temporaries may then lie
+    where another program's outputs lie, which is safe only when no two
+    replays overlap and each replay's outputs are read (the program clones
+    them) before the next replay: true of one thread calling the
+    function."""
 
     def __init__(self, fn: Callable, input_spec=None, full_graph=True,
-                 name: Optional[str] = None):
+                 name: Optional[str] = None, shared_pool: bool = False):
         self._original_fn = fn
         self._fn = fn
         self._input_spec = input_spec
         self._name = name or getattr(fn, "__name__", "fn")
         self._cache: Dict[Any, List[_Program]] = {}
+        self._pool = _SharedPool() if shared_pool else None
         self._lock = threading.RLock()
         functools.update_wrapper(self, fn, assigned=("__name__", "__doc__",
                                                      "__qualname__"))
@@ -1001,7 +1161,10 @@ class StaticFunction:
         return self._original_fn
 
     def concrete_programs(self) -> List[_Program]:
-        return [p for progs in self._cache.values() for p in progs]
+        # snapshots: another thread (a host's /introspect) may read while
+        # the calling thread adds a program
+        return [p for progs in list(self._cache.values())
+                for p in list(progs)]
 
     def _last_run(self):
         return sorted(self.concrete_programs(), key=lambda p: p._run_seq,
@@ -1033,7 +1196,7 @@ class StaticFunction:
                 tuple(_flags._FLAGS.values()))
 
     def __call__(self, *args, **kwargs):
-        if not _jit_enabled[0] or _active:
+        if not _jit_enabled[0] or _stack():
             # disabled, or inside another step's run: inline
             return self._fn(*args, **kwargs)
         leaves, spec = pytree.tree_flatten((args, kwargs))
@@ -1042,7 +1205,7 @@ class StaticFunction:
             progs = self._cache.setdefault(key, [])
             prog = next((p for p in progs if p.guard_ok()), None)
             if prog is None:
-                prog = _Program(self._fn, self._name)
+                prog = _Program(self._fn, self._name, self._pool)
                 progs.append(prog)
                 _log.debug("to_static(%s): program %d", self._name,
                            sum(len(ps) for ps in self._cache.values()))
@@ -1056,7 +1219,8 @@ class StaticFunction:
             instance, "__dict__") else None
         if bound is None:
             bound = StaticFunction(self._original_fn.__get__(instance, owner),
-                                   self._input_spec, name=self._name)
+                                   self._input_spec, name=self._name,
+                                   shared_pool=self._pool is not None)
             # cache on the instance so its programs persist across calls
             try:
                 object.__setattr__(instance, attr, bound)
@@ -1067,7 +1231,8 @@ class StaticFunction:
     def __deepcopy__(self, memo):
         import copy
         return StaticFunction(copy.deepcopy(self._original_fn, memo),
-                              self._input_spec, name=self._name)
+                              self._input_spec, name=self._name,
+                              shared_pool=self._pool is not None)
 
 
 def to_static(function=None, input_spec=None, build_strategy=None,

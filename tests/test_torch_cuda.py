@@ -2739,3 +2739,272 @@ def test_to_static_host_sync_runs_eagerly(cuda_device):
     del big
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() <= before
+
+
+# ----------------------------------- the captured serving step (A.5)
+def _serve_model(case, dev):
+    """The tiny model of a captured-serving case, on the card, from a
+    seed, and its engine options."""
+    from paddle_tpu_torch.models import (HybridSSMForCausalLM, LlamaConfig,
+                                         LlamaForCausalLM, llama_tiny_config,
+                                         ssm_tiny_config)
+    if case == "hybrid":
+        cfg = ssm_tiny_config(hidden_size=256, num_attention_heads=4,
+                              num_key_value_heads=2, num_hidden_layers=4,
+                              layer_pattern="SA", ssm_head_dim=32)
+        return HybridSSMForCausalLM(cfg, device=dev, seed=3).eval(), {}
+    if case == "moe":
+        cfg = LlamaConfig(vocab_size=512, hidden_size=128,
+                          intermediate_size=128, num_hidden_layers=2,
+                          num_attention_heads=8, num_key_value_heads=8,
+                          max_position_embeddings=256, moe_num_experts=4,
+                          moe_capacity_factor=2.0, dtype="bfloat16")
+        return LlamaForCausalLM(cfg, device=dev, seed=5).eval(), {}
+    dtype = "bfloat16" if case == "dense_bf16" else "float32"
+    cfg = llama_tiny_config(num_hidden_layers=2, hidden_size=128,
+                            intermediate_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, vocab_size=512,
+                            dtype=dtype)
+    opts = {"int8": dict(kv_quant="int8"),
+            "weight_int8": dict(kv_quant="int8", weight_quant=True),
+            "spec_prefix_tiered": dict(spec_tokens=4, prefix_cache=True,
+                                       host_tier=True,
+                                       host_tier_bytes=1 << 24)}
+    return LlamaForCausalLM(cfg, device=dev, seed=7).eval(), \
+        opts.get(case, {})
+
+
+def _serve_drive(eng, vocab, tiered):
+    """Two waves of mixed greedy and seeded requests (prompts of 5..70
+    tokens, the second wave sharing the first's prompts), and with
+    ``tiered`` a request paused, parked in the host tier and resumed
+    mid-wave; returns every stream."""
+    from paddle_tpu_torch.inference import GenerationRequest
+    rs = np.random.RandomState(11)
+    prompts = [rs.randint(0, vocab, n).tolist() for n in (5, 40, 17, 70)]
+    got = {}
+    for wave in range(2):
+        for i, p in enumerate(prompts):
+            kw = dict(temperature=0.8, top_p=0.95, seed=100 + i) \
+                if i % 2 else {}
+            # request 1 outlives the pause: it is the one parked
+            assert eng.add_request(GenerationRequest(
+                (wave, i), p, max_new_tokens=40 if i == 1 else 14, **kw))
+        for k in range(200):
+            if not eng.num_active:
+                break
+            if tiered and k == 4:
+                victim = eng._requests[(wave, 1)]
+                victim.paused = True
+                assert eng.spill_paused() > 0
+            if tiered and k == 8:
+                victim.paused = False
+            eng.step()
+            got.update({r.request_id: (r.output_ids, r.finish_reason)
+                        for r in eng.reap_finished()})
+    assert len(got) == 2 * len(prompts)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense_bf16", "int8", "weight_int8", "moe",
+                                  "hybrid", "spec_prefix_tiered"])
+def test_captured_engine_is_bitwise_its_eager_arm(cuda_device, case):
+    """The compiled engine with its step captured by bucket signature
+    (each signature's first call eager, its second captured, then
+    replays) against the same engine with ``enable_to_static(False)``:
+    every stream, finish reason and launch count equal, every program
+    captured, no capture warning, every page back after the drain."""
+    import warnings
+    from paddle_tpu_torch import jit as pt_jit
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.ops import kernels
+    model, opts = _serve_model(case, cuda_device)
+    kw = dict(max_seqs=4, max_seq_len=256, block_size=16, mode="compiled",
+              **opts)
+    arms = {}
+    for static in (True, False):
+        pt_jit.enable_to_static(static)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                kernels.reset_launch_counts()
+                eng = GenerationEngine(model, **kw)
+                out = _serve_drive(eng, model.config.vocab_size,
+                                   case == "spec_prefix_tiered")
+                torch.cuda.synchronize()
+        finally:
+            pt_jit.enable_to_static(True)
+        eng.release_prefix_cache()
+        assert eng.cache.free_blocks == eng.cache.num_blocks
+        assert not [w for w in caught if "cannot be captured" in
+                    str(w.message)]
+        arms[static] = (out, kernels.launch_counts(), eng.capture_stats(),
+                        eng.decode_signatures())
+    (cap, cap_counts, stats, sigs), (eag, eag_counts, eag_stats, esigs) = \
+        arms[True], arms[False]
+    assert cap == eag
+    assert cap_counts == eag_counts
+    assert sigs == esigs and eag_stats["programs"] == 0
+    assert stats["captured"] >= 3 and not stats["eager"], stats
+    assert stats["programs"] == sigs
+    attn = ("ragged_paged_attention_quant" if "int8" in case
+            else "ragged_paged_attention")
+    assert cap_counts[attn] > 0
+
+
+@pytest.mark.cuda
+def test_captured_engine_shares_one_graph_pool(cuda_device):
+    """All programs of an engine capture into one pool: after four or
+    more captured signatures the pool is under twice one step's peak
+    temporaries (a bf16 model widens its 32000 x 1024 LM head to fp32 in
+    every step, 131 MB, so a pool per program would hold that once a
+    signature), and it goes back to the device when the engine is
+    dropped."""
+    import gc
+    from paddle_tpu_torch import jit as pt_jit
+    from paddle_tpu_torch.inference import GenerationEngine
+    from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(vocab_size=32000, hidden_size=1024,
+                      intermediate_size=2048, num_hidden_layers=2,
+                      num_attention_heads=8, num_key_value_heads=4,
+                      max_position_embeddings=512, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, device=cuda_device, seed=1).eval()
+    kw = dict(max_seqs=4, max_seq_len=512, block_size=16, mode="compiled")
+    # one step's peak: the eager arm's largest step over the engine's
+    # own memory
+    pt_jit.enable_to_static(False)
+    try:
+        eng = GenerationEngine(model, **kw)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _serve_drive(eng, cfg.vocab_size, False)
+        step_peak = torch.cuda.max_memory_allocated() - base
+    finally:
+        pt_jit.enable_to_static(True)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    eng = GenerationEngine(model, **kw)
+    _serve_drive(eng, cfg.vocab_size, False)
+    stats = eng.capture_stats()
+    assert stats["captured"] >= 4, stats
+    assert step_peak > 131e6, step_peak
+    assert 0 < stats["pool_bytes"] < 2 * step_peak, (stats, step_peak)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_reserved()
+    assert after <= before + (32 << 20), (before, after, stats)
+
+
+@pytest.mark.cuda
+def test_captured_server_steps_beside_a_handoff_install(cuda_device):
+    """A server's engine captures and replays its step in one thread while
+    another thread installs handoff records into a second engine on the
+    same card, again and again: no capture fails, every program is
+    captured, and the served streams are those of the server alone."""
+    import threading
+    import warnings
+    from paddle_tpu_torch.inference import GenerationEngine, GenerationRequest
+    from paddle_tpu_torch.inference.server import GenerationServer
+    model, _ = _serve_model("dense_fp32", cuda_device)
+    kw = dict(max_seqs=4, max_seq_len=256, block_size=16, mode="compiled")
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, 512, n).tolist() for n in (9, 33, 21, 60)]
+
+    def serve_all():
+        srv = GenerationServer(GenerationEngine(model, **kw))
+        handles = [srv.submit(GenerationRequest(i, p, max_new_tokens=24))
+                   for i, p in enumerate(prompts)]
+        assert srv.run_until_idle()
+        return srv.engine, [h.output_ids for h in handles]
+
+    _, alone = serve_all()
+    src = GenerationEngine(model, **kw)
+    assert src.add_request(GenerationRequest("h", prompts[1],
+                                             max_new_tokens=2))
+    while not src._requests["h"].output_ids:
+        src.step()
+    record = src.export_request("h")
+    dst = GenerationEngine(model, **kw)
+    stop, installs, errors = threading.Event(), [0], []
+
+    def install_loop():
+        try:
+            while not stop.is_set():
+                req = dst.import_request(dict(record))
+                assert req is not None
+                dst.evict(req.request_id, "done")
+                dst.reap_finished()
+                installs[0] += 1
+        except Exception as e:      # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t = threading.Thread(target=install_loop)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t.start()
+        try:
+            eng, beside = serve_all()
+        finally:
+            stop.set()
+            t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert installs[0] > 0
+    assert not [w for w in caught if "cannot be captured" in str(w.message)]
+    stats = eng.capture_stats()
+    assert stats["captured"] >= 2 and not stats["eager"], stats
+    assert beside == alone
+    assert dst.cache.free_blocks == dst.cache.num_blocks
+
+
+@pytest.mark.cuda
+def test_no_collection_runs_inside_a_capture(cuda_device):
+    """Engines dropped into reference cycles hold graphs that only the
+    collector frees; another engine then serves, capturing its step, with
+    a full collection every 700 allocations. No collection may run while a
+    graph is being captured (one that frees a graph fails the capture
+    inside CUDA and leaves the pool unable to begin the next), no capture
+    fails, and the streams are the eager arm's."""
+    import gc
+    import warnings
+    from paddle_tpu_torch import jit as pt_jit
+    from paddle_tpu_torch.inference import GenerationEngine
+    model, _ = _serve_model("dense_fp32", cuda_device)
+    kw = dict(max_seqs=4, max_seq_len=256, block_size=16, mode="compiled")
+    pt_jit.enable_to_static(False)
+    try:
+        want = _serve_drive(GenerationEngine(model, **kw), 512, False)
+    finally:
+        pt_jit.enable_to_static(True)
+    for _ in range(2):
+        dead = GenerationEngine(model, **kw)
+        _serve_drive(dead, 512, False)
+        dead.cycle = dead           # freed by the collector alone
+    del dead
+    inside = []
+
+    def watch(phase, info):
+        if phase == "start" and torch.cuda.is_current_stream_capturing():
+            inside.append(info["generation"])
+    old = gc.get_threshold()
+    gc.callbacks.append(watch)
+    gc.set_threshold(700, 1, 1)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            eng = GenerationEngine(model, **kw)
+            got = _serve_drive(eng, 512, False)
+    finally:
+        gc.set_threshold(*old)
+        gc.callbacks.remove(watch)
+    torch.cuda.synchronize()
+    assert not inside, inside
+    assert not [w for w in caught if "cannot be captured" in str(w.message)]
+    stats = eng.capture_stats()
+    assert stats["captured"] >= 3 and not stats["eager"], stats
+    assert got == want
